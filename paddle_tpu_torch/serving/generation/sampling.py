@@ -1,0 +1,52 @@
+"""Host-side token selection over a batch of next-token logits (a copy of
+``paddle_tpu/serving/generation/sampling.py``: the same numpy maths, so the
+same logits and uniforms select the same tokens in both packages).
+
+One vectorized numpy pass: softmax and inverse-CDF selection run across the
+whole batch at once, and rows can mix greedy (temperature 0) with sampled
+selection in the same call.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+
+__all__ = ["sample_next_tokens"]
+
+
+def sample_next_tokens(logits: np.ndarray,
+                       temperature: Union[float, Sequence[float]],
+                       rng: Optional[np.random.RandomState] = None,
+                       uniforms: Optional[np.ndarray] = None) -> np.ndarray:
+    """Select one token id per row of ``logits`` ``[B, vocab]``.
+
+    ``temperature`` is a scalar or per-row vector; rows at 0 take the
+    argmax, rows above 0 sample from ``softmax(logits / t)`` by inverse
+    CDF. Randomness comes from ``uniforms`` ``[B]`` in [0, 1) when given
+    (the engine draws one uniform per row from each request's own
+    RandomState so interleaved batches stay per-request deterministic),
+    else from ``rng``. Returns ``[B]`` int64.
+    """
+    logits = np.asarray(logits, dtype=np.float64)
+    b = logits.shape[0]
+    temps = np.broadcast_to(np.asarray(temperature, np.float64),
+                            (b,)).copy()
+    out = logits.argmax(-1).astype(np.int64)
+    sampled = temps > 0.0
+    if not sampled.any():
+        return out
+    if uniforms is None:
+        if rng is None:
+            rng = np.random.RandomState(0)
+        uniforms = rng.random_sample(b)
+    z = logits[sampled] / temps[sampled, None]
+    z -= z.max(-1, keepdims=True)
+    p = np.exp(z)
+    cdf = np.cumsum(p, -1)
+    u = np.asarray(uniforms, np.float64)[sampled] * cdf[:, -1]
+    # first index whose cumulative mass exceeds u (strict: u==0 picks the
+    # first token with nonzero mass)
+    out[sampled] = np.minimum((cdf > u[:, None]).argmax(-1),
+                              logits.shape[-1] - 1).astype(np.int64)
+    return out
