@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--phases card,build,kernels,model,engine]
+    python3 chip_smoke.py [--seed N]
+        [--phases card,build,kernels,model,engine,train]
 
 Phases, each failing loudly (exit code 1, no result line):
 
 1. card     — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    — builds the hand-written kernels from ``paddle_tpu_torch/csrc``.
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the serving shapes, with its median device time (CUDA events
+              the serving and training shapes (the backward kernels also
+              launched twice and compared bit for bit), with its median
+              device time (CUDA events
               around calls queued behind a device-side sleep), its host
               launch overhead, the
               plain version's time, the least time the card could take
@@ -23,7 +26,16 @@ Phases, each failing loudly (exit code 1, no result line):
               path is held; a profile of decode steps shows where the
               step's time goes.
 5. engine   — GenerationServer over the same model serving 16 requests;
-              every kernel's launch count is read around this run.
+              the serving kernels' launch counts are read around this run.
+6. train    — GPT-3 1.3B training through TrainStep (AdamW with bf16
+              moments, AMP O2, b=2, s=2048): the full model, 2 warm-up
+              steps and a timed run_steps(10) around which the forward and
+              backward kernels' launch counts are read; tokens/s, MFU, peak
+              memory and a profile of one step with the device's busy
+              share; then a parity run at full width and 4 layers (float32
+              kernels against plain versions on gradients, losses and
+              parameters; bf16 O2 against the plain path's rounding
+              floor).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -48,7 +60,7 @@ OUT_DIR = REPO / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
-ALL_PHASES = ("card", "build", "kernels", "model", "engine")
+ALL_PHASES = ("card", "build", "kernels", "model", "engine", "train")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -259,6 +271,139 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False):
     return row
 
 
+def grad_err(got, want) -> float:
+    """``row_err`` for gradients: max over rows of max|got - want| over the
+    row's rms, each row's rms floored at the rms of the whole tensor. A row
+    of ds sums to zero (sum_k p (dp - delta) = 0), so a query that sees one
+    key has a dq row of pure rounding noise; the floor measures such rows
+    against the size of the gradient instead of against their own noise."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1).sqrt().clamp(min=float(w.pow(2).mean().sqrt()))
+    if not float(rms.max()):
+        return max_abs_err(g, w)
+    return float(((g - w).abs().amax(-1) / rms).max())
+
+
+def kernel_device_ms(fn, names, iters: int = 10) -> dict:
+    """Device time per call of ``fn`` of the kernels whose names contain
+    each of ``names`` (torch.profiler over ``iters`` calls after a
+    warm-up): the backward wrapper launches two kernels and a reduction,
+    so events around the call cannot tell the kernels apart."""
+    fn()
+    rows, _ = _profile_rows(fn, iters)
+    out = {n: sum(ms for key, ms, _ in rows if n in key) for n in names}
+    require(all(v > 0 for v in out.values()),
+            f"profiler saw no device time for {names}: {out}")
+    return out
+
+
+def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False):
+    """The backward kernels against ``mha_bwd_reference`` (p and ds rounded
+    to the input type, as the kernels and the TPU reference round them) on
+    the forward kernel's out and lse, q/k/v as views of one fused
+    [B, S, H, 3, D] tensor. Returns the row; the limits are checked by
+    :func:`check_bwd`."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, s, h, 3, d, device="cuda", generator=g).to(dtype)
+    q, k, v = qkv.unbind(3)
+    do = torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype)
+    ct = (0.1 * torch.randn(b * h, s, device="cuda", generator=g)
+          if lse_ct else None)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = ca.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    got = cab.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                  scale=scale, lse_ct=ct)
+    torch.cuda.synchronize()
+    want = cab.mha_bwd_reference(q, k, v, out, lse, do, causal=causal,
+                                 scale=scale, lse_ct=ct)
+    name = (f"flash_bwd B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
+            f"{'causal' if causal else 'full'}{' lse_ct' if lse_ct else ''}")
+    row = {"case": name, "dtype": str(dtype)}
+    for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+        require(bool(torch.isfinite(x.float()).all()),
+                f"{name}: non-finite {gname}")
+        row[f"{gname}_max_abs_err"] = max_abs_err(x, y)
+        row[f"{gname}_grad_err"] = grad_err(x, y)
+        row[f"{gname}_max_abs"] = float(y.float().abs().max())
+    again = cab.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                    scale=scale, lse_ct=ct)
+    row["repeatable"] = all(bool(torch.equal(x, y))
+                            for x, y in zip(got, again))
+    elt = torch.empty((), dtype=dtype).element_size()
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ins = 4 * b * s * h * d * elt + 2 * b * h * s * 4
+    for kname, n_prod, n_out in (("flash_bwd_dq", 3, 1),
+                                 ("flash_bwd_dkv", 4, 2)):
+        bms, by = bound_ms(ins + n_out * b * s * h * d * elt,
+                           2.0 * d * b * h * pairs * n_prod, dtype)
+        row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = bms, by
+
+    def bwd():
+        cab.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                scale=scale, lse_ct=ct)
+    ms = kernel_device_ms(bwd, ("dq_", "dkv_"))
+    row["flash_bwd_dq_ms"], row["flash_bwd_dkv_ms"] = ms["dq_"], ms["dkv_"]
+    row["bwd_ms"] = device_ms(bwd)
+    row["host_us"] = host_us(bwd)
+    row["plain_ms"] = device_ms(lambda: cab.mha_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, scale=scale, lse_ct=ct),
+        iters=5)
+
+    def port_fwd_bwd():
+        o, l_ = ca.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        cab.flash_attention_bwd(q, k, v, o, l_, do, causal=causal,
+                                scale=scale)
+    row["port_fwd_bwd_ms"] = device_ms(port_fwd_bwd)
+    # the library's yardstick: fwd+bwd of scaled_dot_product_attention,
+    # and its backward alone
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           scale=scale)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+    row["library_ms"] = device_ms(sdpa_fwd_bwd)
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           scale=scale)
+    row["library_bwd_ms"] = device_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), dot, retain_graph=True))
+    log("  " + json.dumps(row))
+    return row
+
+
+# backward kernels against mha_bwd_reference, set from the first readings
+# (NVIDIA H100 80GB HBM3, 700 W) with a margin of about 1.6x: bf16 grad_err
+# (see there) read at most 0.0217 over dq, dk and dv (the output rounding
+# and the bf16 rounding of p and ds falling on the other side of a tie);
+# float32 max |kernel - plain| read at most 9.5e-7 against gradients of up
+# to 5.4, held at the forward cases' 2e-5 scaled by the gradient's size
+BWD_BF16_GRAD_LIMIT = 0.035
+BWD_F32_TOL = 2e-5
+
+
+def check_bwd(row) -> None:
+    import torch
+    name = row["case"]
+    require(row["repeatable"], f"{name}: two launches differ")
+    for gname in ("dq", "dk", "dv"):
+        if row["dtype"] == str(torch.bfloat16):
+            err = row[f"{gname}_grad_err"]
+            require(err <= BWD_BF16_GRAD_LIMIT,
+                    f"{name}: {gname} grad_err {err:.4f} beyond "
+                    f"{BWD_BF16_GRAD_LIMIT}")
+        else:
+            err = row[f"{gname}_max_abs_err"]
+            lim = BWD_F32_TOL * (1.0 + row[f"{gname}_max_abs"])
+            require(err <= lim, f"{name}: {gname} max abs err {err:.3e} "
+                                f"beyond {lim:.3e}")
+
+
 def _paged_inputs(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed):
     """Pools filled with unit-normal values (the trash page too), a
     shuffled page table with trash-page tails past each row's context,
@@ -381,10 +526,27 @@ def phase_kernels(state):
     state["paged_main"] = next(
         r for r in prow if r["case"].startswith("paged_attention decode B=8")
         and "bfloat16" in r["case"])
+
+    log(f"kernels: flash_bwd_dq, flash_bwd_dkv vs mha_bwd_reference (bf16 "
+        f"grad_err <= {BWD_BF16_GRAD_LIMIT}; f32 max abs err <= "
+        f"{BWD_F32_TOL} x (1 + max |plain|); two launches bit for bit)")
+    brow = [_bwd_case(2, 2048, 16, 128, torch.bfloat16, True, seed + 6),
+            _bwd_case(2, 2048, 16, 128, torch.float32, True, seed + 7),
+            _bwd_case(8, 1000, 16, 128, torch.bfloat16, True, seed + 8),
+            _bwd_case(2, 40, 16, 128, torch.bfloat16, True, seed + 9),
+            _bwd_case(2, 40, 4, 64, torch.float32, True, seed + 9),
+            _bwd_case(2, 300, 16, 128, torch.bfloat16, False, seed + 10),
+            _bwd_case(2, 300, 8, 64, torch.float32, False, seed + 10),
+            _bwd_case(2, 256, 16, 128, torch.bfloat16, True, seed + 11,
+                      lse_ct=True)]
+    for row in brow:
+        check_bwd(row)
+    state["bwd_rows"] = brow
+    state["bwd_main"] = brow[0]      # the training shape, bf16
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "kernels.json").write_text(json.dumps(
         {"card": state.get("smi"), "flash_fwd": rows,
-         "paged_attention": prow}, indent=1))
+         "paged_attention": prow, "flash_bwd": brow}, indent=1))
 
 
 PAGE_SIZE = 16
@@ -504,34 +666,33 @@ def phase_model(state):
                             "argmax_agreement": float(np.mean(agree))}
 
 
-def _profile_decode(model, ids, lens, tables, feed):
-    """Device time of one kernel-path decode step by kernel name
-    (torch.profiler over 4 steps after a prefill), beside its wall time."""
-    import numpy as np
+# kernel-name groups of a step's device time, first match wins
+PROFILE_GROUPS = (
+    ("port kernels", ("flash_fwd", "dq_bf16", "dkv_bf16", "dq_f32",
+                      "dkv_f32", "paged_attention")),
+    ("matmuls", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("copies and casts", ("copy",)),
+    ("norms", ("layer_norm", "LayerNorm")),
+    ("softmax and loss", ("softmax", "nll_loss", "log_softmax")),
+)
+
+
+def _profile_rows(fn, steps: int):
+    """torch.profiler over ``steps`` calls of ``fn``: ``[(kernel name,
+    device ms per call, launches per call)]``, costliest first, and the
+    wall ms per call."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.serving.generation import CachedDecoder
-    b = ids.shape[0]
-    pps = tables.shape[1]
-    dec = CachedDecoder(model, max_batch=b, page_size=PAGE_SIZE,
-                        pages_per_seq=pps, device="cuda")
-    k, v = model.init_kv_pools(1 + b * pps, PAGE_SIZE)
-    _, k, v = dec.prefill(ids, lens, tables, k, v)
-    ctx = lens.copy()
-    steps = 4
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for step in range(steps):
-            logits, k, v = dec.decode(feed[step], ctx, np.ones(b, bool),
-                                      ctx + 1, tables, k, v)
-            ctx = ctx + 1
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    del k, v
-    torch.cuda.empty_cache()
-    from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
         # device-side events only: an aten op's own entry repeats the
@@ -544,12 +705,56 @@ def _profile_decode(model, ids, lens, tables, feed):
         if dev_us > 0:
             rows.append((ev.key, dev_us / steps / 1e3, ev.count // steps))
     rows.sort(key=lambda r: -r[1])
+    return rows, wall_ms
+
+
+def device_profile(fn, steps: int) -> dict:
+    """torch.profiler over ``steps`` calls of ``fn`` (each ending in a
+    device sync): wall ms per call, device busy ms per call (the sum of the
+    kernels' device time: one stream, so they do not overlap), its share of
+    the wall time, device ms by kernel group, kernels per call and the
+    costliest kernels."""
+    rows, wall_ms = _profile_rows(fn, steps)
     busy = sum(r[1] for r in rows)
-    out = {"wall_ms_per_step": wall_ms,
-           "device_busy_ms_per_step": busy if rows else None,
-           "kernels_per_step": sum(r[2] for r in rows),
-           "top": [{"name": n[:80], "ms": ms, "calls": c}
-                   for n, ms, c in rows[:8]]}
+    groups = {}
+    for name, ms, _ in rows:
+        group = next((g for g, keys in PROFILE_GROUPS if any(
+            k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    return {"wall_ms_per_step": wall_ms,
+            "device_ms_by_group": groups,
+            "device_busy_ms_per_step": busy if rows else None,
+            "device_busy_share": busy / wall_ms if rows else None,
+            "kernels_per_step": sum(r[2] for r in rows),
+            "top": [{"name": n[:80], "ms": ms, "calls": c}
+                    for n, ms, c in rows[:10]]}
+
+
+def _profile_decode(model, ids, lens, tables, feed):
+    """Device time of one kernel-path decode step by kernel name
+    (torch.profiler over 4 steps after a prefill), beside its wall time."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving.generation import CachedDecoder
+    b = ids.shape[0]
+    pps = tables.shape[1]
+    dec = CachedDecoder(model, max_batch=b, page_size=PAGE_SIZE,
+                        pages_per_seq=pps, device="cuda")
+    k, v = model.init_kv_pools(1 + b * pps, PAGE_SIZE)
+    _, k, v = dec.prefill(ids, lens, tables, k, v)
+    run = {"ctx": lens.copy(), "step": 0, "k": k, "v": v}
+
+    def one():
+        i = run["step"]
+        _, run["k"], run["v"] = dec.decode(feed[i], run["ctx"],
+                                           np.ones(b, bool), run["ctx"] + 1,
+                                           tables, run["k"], run["v"])
+        run["ctx"] = run["ctx"] + 1
+        run["step"] = i + 1
+
+    out = device_profile(one, 4)
+    del k, v, run
+    torch.cuda.empty_cache()
     log("model: decode step profile " + json.dumps(out))
     return out
 
@@ -612,19 +817,259 @@ def phase_engine(state):
     log("engine: " + json.dumps(eng))
 
 
-def kernels_line(state) -> dict:
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS = 10          # the timed run_steps window, after 2 warm-up steps
+PARITY_LAYERS = 4
+# The 4-layer float32 parity, kernels against plain versions, from float32
+# summation noise: losses within 1e-5 relative and each step's gradients
+# within 1e-4 of each parameter's largest (set before the first run; read
+# 0 and 2.05e-5, NVIDIA H100 80GB HBM3, 700 W). Parameters after two AdamW
+# steps within 1e-6 (a few ulps of the layer norms' 1.0; read 5.3e-7) at
+# every element whose gradient is farther from zero than that gradient
+# tolerance. The others (2.6% of the elements here; among them the qkv
+# bias's key slots, whose exact gradient is zero) can carry gradients of
+# ~1e-9, rounding noise below Adam's eps of 1e-8, which Adam turns into
+# updates of up to lr in no agreed direction: there the two paths may
+# differ by 2 lr a step, Adam's own bound (read up to 4.1e-5).
+TRAIN_F32_LOSS_RTOL = 1e-5
+TRAIN_F32_GRAD_RTOL = 1e-4
+TRAIN_F32_PARAM_ATOL = 1e-6
+TRAIN_LR = 1e-4
+# MFU's formula (bench.py:428-433): 6 N flops a token for the matmuls
+# forward and backward, plus 12 L H S for attention
+PEAK_BF16 = 989e12
+
+
+def _parity_run(cfg, base, ids, use_kernels, amp_level, steps=2):
+    """``steps`` TrainStep steps of a fresh model from ``base``'s weights,
+    through the kernels or their plain versions. Returns the losses, the
+    parameters after the steps and each step's gradients (recorded by
+    post-accumulate hooks as TrainStep's backward finishes each one)."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.models.gpt import GPTAttention
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    model.load_state_dict(base)
+    for mod in model.modules():
+        if isinstance(mod, GPTAttention):
+            mod.use_kernels = use_kernels
+    grads = [{} for _ in range(steps)]
+    done = []
+    for n, p in model.named_parameters():
+        p.register_post_accumulate_grad_hook(
+            lambda t, n=n: grads[len(done)].__setitem__(
+                n, t.grad.detach().clone()))
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    step = TrainStep(model, lambda out, y: crit(out, y), opt,
+                     amp_level=amp_level)
+    losses = []
+    for _ in range(steps):
+        losses.append(float(step(ids, ids)))
+        done.append(1)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return losses, params, grads
+
+
+def _train_parity(state, ids):
+    """gpt3_1p3b at full width and PARITY_LAYERS layers: float32, kernels
+    against plain versions (losses, gradients, parameters); bf16 O2, the
+    kernel path's distance from the float32 plain run against the plain O2
+    path's own."""
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    cfg = gpt3_1p3b(num_layers=PARITY_LAYERS)
+    base = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                          seed=state["seed"]).state_dict()
+    runs = {"kernels_f32": _parity_run(cfg, base, ids, True, None),
+            "plain_f32": _parity_run(cfg, base, ids, False, None)}
+    (kl, kp, kg), (pl, pp, pg) = runs["kernels_f32"], runs["plain_f32"]
+    names = list(pp)
+    grad_rel, noise = 0.0, {}
+    for i, (gk, gp) in enumerate(zip(kg, pg)):
+        for n in names:
+            require(n in gk and n in gp,
+                    f"train parity: {n} got no gradient at step {i + 1}")
+            big = float(gp[n].abs().max())
+            grad_rel = max(grad_rel, max_abs_err(gk[n], gp[n]) / max(
+                big, 1e-30))
+            small = gp[n].abs() <= TRAIN_F32_GRAD_RTOL * big
+            noise[n] = small if i == 0 else noise[n] | small
+    for i in range(PARITY_LAYERS):
+        for n in (f"gpt.layers.{i}.attn.qkv_proj.weight",
+                  f"gpt.layers.{i}.ln_1.weight"):
+            require(float(kg[0][n].abs().max()) > 0,
+                    f"train parity: {n}'s gradient is zero")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
+    param_err, noise_err, n_noise = 0.0, 0.0, 0
+    for n in names:
+        d = (kp[n] - pp[n]).abs()
+        param_err = max(param_err, float(d[~noise[n]].max()))
+        if bool(noise[n].any()):
+            noise_err = max(noise_err, float(d[noise[n]].max()))
+            n_noise += int(noise[n].sum())
+    del runs
+
+    def l2(a, b):
+        return float(torch.sqrt(sum(((a[n] - b[n]).double() ** 2).sum()
+                                    for n in names)))
+    ko = _parity_run(cfg, base, ids, True, "O2")
+    po = _parity_run(cfg, base, ids, False, "O2")
+    o2 = {"losses_kernel": ko[0], "losses_plain": po[0],
+          "loss_kernel": max(abs(a - b) for a, b in zip(ko[0], pl)),
+          "loss_plain": max(abs(a - b) for a, b in zip(po[0], pl)),
+          "params_l2_kernel": l2(ko[1], pp), "params_l2_plain": l2(po[1], pp)}
+    out = {"layers": PARITY_LAYERS, "f32_losses": {"kernels": kl,
+                                                   "plain": pl},
+           "f32_loss_rel": loss_rel, "f32_grad_rel_max": grad_rel,
+           "f32_param_max_abs_err": param_err,
+           "f32_noise_elements": n_noise,
+           "f32_noise_max_abs_err": noise_err, "o2": o2}
+    log("train: parity " + json.dumps(out))
+    require(loss_rel <= TRAIN_F32_LOSS_RTOL,
+            f"train parity: float32 losses differ by {loss_rel:.2e}")
+    require(grad_rel <= TRAIN_F32_GRAD_RTOL,
+            f"train parity: float32 gradients differ by {grad_rel:.2e} of "
+            f"their largest")
+    require(param_err <= TRAIN_F32_PARAM_ATOL,
+            f"train parity: float32 parameters differ by {param_err:.2e}")
+    require(noise_err <= 2 * 2 * TRAIN_LR * (1 + 1e-3),
+            f"train parity: noise-level elements differ by {noise_err:.2e}")
+    for what in ("loss", "params_l2"):
+        k, p = o2[f"{what}_kernel"], o2[f"{what}_plain"]
+        require(k <= BF16_FLOOR_FACTOR * p,
+                f"train parity: O2 {what} {k:.3e} from float32, beyond "
+                f"{BF16_FLOOR_FACTOR} x the plain path's {p:.3e}")
+    return out
+
+
+def phase_train(state):
+    """gpt3_1p3b, full width and depth, seed 0: TrainStep with AdamW (bf16
+    moments) at AMP O2, b=2, s=2048, 2 warm-up steps and a timed
+    run_steps(10) on the same batch; the kernels' launch counts are read
+    around that window. After it, the 4-layer parity."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt3_1p3b)
     from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    from paddle_tpu_torch.optimizer import AdamW
+    state.pop("model", None)           # the serving model, if any
+    torch.cuda.empty_cache()
+    cfg = gpt3_1p3b()
+    rng = np.random.RandomState(state["seed"])
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           seed=state["seed"])
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    step = TrainStep(model, lambda out, y: crit(out, y), opt,
+                     amp_level="O2")
+    t0 = time.perf_counter()
+    losses = [float(step(ids, ids)) for _ in range(2)]
+    warm_s = time.perf_counter() - t0
+    ca.launches = ca.plain_calls = 0
+    for name in cab.KERNELS:
+        cab.launches[name] = cab.plain_calls[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = step.run_steps(TRAIN_STEPS, ids, ids)
+    wall = time.perf_counter() - t0
+    counts = {"flash_fwd": (ca.launches, ca.plain_calls),
+              **{n: (cab.launches[n], cab.plain_calls[n])
+                 for n in cab.KERNELS}}
+    losses.append(float(last))
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses),
+            f"train: non-finite loss {losses}")
+    require(losses[-1] < losses[0],
+            f"train: the loss did not fall: {losses}")
+    for name, (launched, plain) in counts.items():
+        require(launched == cfg.num_layers * TRAIN_STEPS,
+                f"train: {name} launched {launched} times in "
+                f"{TRAIN_STEPS} steps, not {cfg.num_layers} a step")
+        require(plain == 0, f"train: {name}'s plain version ran {plain} "
+                            f"times on the main path")
+    tokens = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS
+    n_params = model.num_params()
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * \
+        cfg.hidden_size * TRAIN_SEQ
+    tok_s = tokens / wall
+    prof = device_profile(lambda: (step(ids, ids), torch.cuda.synchronize()),
+                          1)
+    out = {"config": "gpt3_1p3b", "params": n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "amp": "O2", "moment_dtype": "bfloat16",
+           "losses": {"step1": losses[0], "step2": losses[1],
+                      f"step{2 + TRAIN_STEPS}": losses[2]},
+           "warmup_s": warm_s, "step_ms": wall / TRAIN_STEPS * 1e3,
+           "tokens_per_s": tok_s,
+           "mfu": tok_s * flops_per_token / PEAK_BF16,
+           "peak_memory_gb": peak / 1e9,
+           "launches": {k: v[0] for k, v in counts.items()},
+           "plain_calls": {k: v[1] for k, v in counts.items()},
+           # the profiler slows the host: its wall time per step exceeds
+           # the timed window's, so busy time is also read against that
+           "device_busy_share_of_step": prof["device_busy_ms_per_step"] /
+           (wall / TRAIN_STEPS * 1e3),
+           "step_profile": prof}
+    log("train: " + json.dumps({k: v for k, v in out.items()
+                                if k != "step_profile"}))
+    log("train: step profile " + json.dumps(prof))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    out["parity"] = _train_parity(state, ids)
+    state["train"] = out
+
+
+def kernels_line(state) -> dict:
+    """One row per kernel. Launches are the main paths' own counts: the
+    forward's over the engine's run and the training window together, the
+    paged kernel's over the engine's run, the backward kernels' over the
+    training window."""
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    eng, train = state["engine"]["launches"], state["train"]["launches"]
     out = []
-    for name, mod, row in (("flash_fwd", ca, state["flash_main"]),
-                           ("paged_attention", cpa, state["paged_main"])):
+    for name, mod, row, launches in (
+            ("flash_fwd", ca, state["flash_main"],
+             eng["flash_fwd"] + train["flash_fwd"]),
+            ("paged_attention", cpa, state["paged_main"],
+             eng["paged_attention"])):
         out.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                    "replaces": mod.REPLACES,
-                    "launches": state["engine"]["launches"][name],
+                    "replaces": mod.REPLACES, "launches": launches,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
+                    "shape": row["case"]})
+    row = state["bwd_main"]
+    for name, grads in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
+        out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
+                    "replaces": cab.REPLACES[name], "launches": train[name],
+                    "max_abs_err": max(row[f"{g}_max_abs_err"]
+                                       for g in grads),
+                    "ms": row[f"{name}_ms"],
+                    # one plain call computes dq, dk and dv together
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row[f"{name}_bound_ms"],
+                    "bound_by": row[f"{name}_bound_by"],
+                    # fwd+bwd of scaled_dot_product_attention, beside the
+                    # port's fwd+dq+dkv
+                    "library_ms": row["library_ms"],
+                    "port_fwd_bwd_ms": row["port_fwd_bwd_ms"],
                     "shape": row["case"]})
     return {"kernels": out}
 
@@ -664,7 +1109,7 @@ def main(argv=None) -> int:
     state = {"seed": args.seed}
     fns = {"card": phase_card, "build": phase_build,
            "kernels": phase_kernels, "model": phase_model,
-           "engine": phase_engine}
+           "engine": phase_engine, "train": phase_train}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -681,9 +1126,10 @@ def main(argv=None) -> int:
     state["total_s"] = time.perf_counter() - t_start
     log(f"total {state['total_s']:.1f} s")
     summary = {k: state[k] for k in ("smi", "build_s", "model_check",
-                                     "decode_profile", "engine", "total_s")
+                                     "decode_profile", "engine", "train",
+                                     "total_s")
                if k in state}
-    if "flash_main" in state and "engine" in state:
+    if all(k in state for k in ("flash_main", "engine", "train")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

@@ -240,40 +240,9 @@ constexpr size_t mma_smem_bytes() {
          (size_t)(2 * kMmaBQ * (D + 8) + D * kVtPitch);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + 64) of a [S, D] slice with row stride ss (elements) into a
-// [64][D + 8] tile, zeros past S; 16-byte loads
-template <int D>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ g,
-                                          int64_t ss, int r0, int S,
-                                          __nv_bfloat16* tile, int tid) {
-  constexpr int kVecs = D / 8;
-  for (int i = tid; i < kMmaBK * kVecs; i += kMmaThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S)
-      v = *reinterpret_cast<const uint4*>(g + (r0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(tile + r * (D + 8) + c) = v;
-  }
-}
+using pt::ld32;
+using pt::mma_bf16;
+using pt::pack_bf16;
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_kernel(
@@ -305,7 +274,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_kernel(
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
 
-  load_tile<D>(qb, q_ss, q0, Sq, Qs, tid);
+  pt::load_rows<D, kMmaBQ, kMmaThreads>(qb, q_ss, q0, Sq, Qs, tid);
   __syncthreads();
   // this warp's q fragments: rows wr + g and wr + g + 8
   const int wr = warp * 16;
@@ -334,16 +303,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_kernel(
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kMmaBK;
     __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<D>(kb, k_ss, k0, Sk, Ks, tid);
-    for (int i = tid; i < kMmaBK * (D / 8); i += kMmaThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (k0 + r < Sk)
-        raw = *reinterpret_cast<const uint4*>(vb + (k0 + r) * v_ss + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c + j) * kVtPitch + r] = e[j];
-    }
+    pt::load_rows<D, kMmaBK, kMmaThreads>(kb, k_ss, k0, Sk, Ks, tid);
+    pt::load_rows_t<D, kMmaBK, kMmaThreads>(vb, v_ss, k0, Sk, Vt, kVtPitch,
+                                            tid);
     __syncthreads();
 
     // S = q k^T for this warp's 16 rows and the tile's 64 keys

@@ -18,6 +18,13 @@ Precision: everything runs in the model's dtype, as the reference: the
 residual stream, the layer norms (which normalise in float32 and round their
 output back) and the logits.
 
+Training goes through ``jit/train_step.py``: the uncached forward's
+attention is differentiable (``ops/flash_attention.FlashAttention``, whose
+backward is the two backward kernels), ``GPTPretrainingCriterion`` is the
+loss, and the port's AMP (``amp/auto_cast.py``) casts the float32 master
+weights op by op as the reference does. ``dropout > 0`` in training raises
+``NotImplementedError`` (ROADMAP).
+
 Only the per-layer module stack is ported; ``stacked=True`` (the
 layer-stacked scan decoder) raises ``NotImplementedError`` (ROADMAP).
 """
@@ -32,14 +39,15 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..framework.device import resolve_device
+from ..nn.functional.loss import cross_entropy
 from ..ops.flash_attention import attention_bshd
 from ..ops.paged_attention import (flat_slots, kv_pool_bytes,
                                   paged_attention_update)
 
 __all__ = ["GPTConfig", "GPTKVCache", "GPTEmbeddings", "GPTAttention",
            "GPTMLP", "GPTDecoderLayer", "GPTModel", "GPTForCausalLM",
-           "gpt_tiny", "gpt2_small", "gpt2_medium", "gpt2_large",
-           "gpt3_1p3b"]
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt2_small", "gpt2_medium",
+           "gpt2_large", "gpt3_1p3b"]
 
 
 @dataclass
@@ -172,8 +180,14 @@ class GPTEmbeddings(nn.Module):
 
 
 class GPTAttention(nn.Module):
+    """Fused-qkv attention. ``use_kernels`` (an attribute, True by default)
+    picks the hand-written kernels or their plain versions for the uncached
+    forward and its gradient, as ``GPTKVCache.use_kernels`` does for the
+    cached paths."""
+
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
+        self.use_kernels = True
         self.num_heads = config.num_heads
         self.head_dim = config.hidden_size // config.num_heads
         self.hidden_size = config.hidden_size
@@ -188,7 +202,7 @@ class GPTAttention(nn.Module):
         # head-major (nh, 3, hd) layout, as the reference: q/k/v are
         # strided views that the kernels read without a copy
         qkv = self.qkv_proj(x).view(b, s, self.num_heads, 3, self.head_dim)
-        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+        q, k, v = qkv.unbind(3)    # one stacked gradient, not three
         if kv_cache is not None:
             out, k_pool, v_pool = paged_attention_update(
                 q, k, v, kv_cache.k, kv_cache.v, kv_cache.block_tables,
@@ -198,7 +212,8 @@ class GPTAttention(nn.Module):
             out = out.reshape(b, s, self.hidden_size)
             return self.dropout(self.out_proj(out)), k_pool, v_pool
         out = attention_bshd(q, k, v, causal=True,
-                             scale=1.0 / math.sqrt(self.head_dim))
+                             scale=1.0 / math.sqrt(self.head_dim),
+                             use_kernels=self.use_kernels)
         return self.dropout(self.out_proj(out.reshape(b, s,
                                                       self.hidden_size)))
 
@@ -262,6 +277,12 @@ class GPTModel(nn.Module):
         Cached: ``(h, (k_pools, v_pools))`` — the pools are the cache's own
         tensors, updated in place."""
         if cache is None:
+            if self.training and self.config.dropout > 0 and \
+                    torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "dropout > 0 in training is not ported yet (ROADMAP "
+                    "queue 1 item 7: dropout with the port's own random "
+                    "stream, attention probabilities included)")
             h = self.embeddings(input_ids)
             for layer in self.layers:
                 h = layer(h)
@@ -364,3 +385,21 @@ class GPTForCausalLM(nn.Module):
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Causal-LM loss (reference ``gpt.py:762-777``): logits ``[B, S, V]``
+    against labels ``[B, S]`` shifted by one (position i predicts label
+    i + 1), cross entropy with ``ignore_index``, the mean taken over the
+    labels that are not ignored."""
+
+    def __init__(self, ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        lg = logits[:, :-1, :]
+        lb = labels[:, 1:]
+        b, s, v = lg.shape
+        return cross_entropy(lg.reshape(b * s, v), lb.reshape(b * s),
+                             ignore_index=self.ignore_index)

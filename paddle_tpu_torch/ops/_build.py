@@ -30,7 +30,7 @@ __all__ = ["load_library", "build_seconds", "build_log", "check",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_fwd.cu", "paged_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu")
 HEADERS = ("common.cuh",)
 # -Xptxas=-v: registers, shared memory and spills per kernel, kept in
 # build_log() for whoever needs to read them
@@ -48,6 +48,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+_I64P = ctypes.POINTER(ctypes.c_int64)
+# q, k, v, dO, lse, delta, outputs (dq; or dk, dv), B, H, Sq, Sk, D,
+# strides (b, s, h) of q, k, v, dO as an int64[12], scale, causal, dtype,
+# stream
+_BWD_TAIL = [_I, _I, _I, _I, _I, _I64P, _F, _I, _I, _P]
 _SIGNATURES = {
     # q, k, v, out, lse, B, H, Sq, Sk, D, q strides (b, s, h), k strides,
     # v strides, scale, causal, dtype, stream
@@ -57,6 +62,8 @@ _SIGNATURES = {
     # q, k_pool, v_pool, out, tables, ctx, valid, positions, B, S, H, D,
     # num_pages, page_size, P, q strides (b, s, h), scale, kind, dtype,
     # stream
+    "pt_flash_bwd_dq": [_P] * 7 + _BWD_TAIL,
+    "pt_flash_bwd_dkv": [_P] * 8 + _BWD_TAIL,
     "pt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I64, _I64, _I64, _F, _I, _I, _P],
 }
