@@ -2,14 +2,15 @@
 """Drive the PyTorch/H100 port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
-        [--phases card,build,kernels,model,engine,train]
+        [--phases card,build,kernels,model,engine,serving,train]
 
 Phases, each failing loudly (exit code 1, no result line):
 
 1. card     — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    — builds the hand-written kernels from ``paddle_tpu_torch/csrc``.
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the serving and training shapes (the backward kernels also
+              the serving and training shapes (the paged kernel over bf16,
+              float32 and int8 pools; the backward kernels also
               launched twice and compared bit for bit), with its median
               device time (CUDA events
               around calls queued behind a device-side sleep), its host
@@ -23,11 +24,19 @@ Phases, each failing loudly (exit code 1, no result line):
               kernels and once through their plain versions; the same
               weights in float32 hold the two paths together tightly and
               give the bf16 rounding floor, against which the bf16 kernel
-              path is held; a profile of decode steps shows where the
-              step's time goes.
+              path is held; then the same over int8 pools, with a chunked
+              suffix and a verify window in the sequence; a profile of
+              decode steps shows where the step's time goes.
 5. engine   — GenerationServer over the same model serving 16 requests;
               the serving kernels' launch counts are read around this run.
-6. train    — GPT-3 1.3B training through TrainStep (AdamW with bf16
+6. serving  — the reference's default engine on the same model: prefix
+              cache on, int8 KV pools, self-speculation (the model drafts
+              for itself, spec_k=4); 16 requests sharing a 1024-token
+              system prompt in two waves, so the second wave's admissions
+              hit the first's pages; launch counts by kind and pool type
+              read around this run, and a profile of one speculative
+              iteration (k draft decode steps and the verify window).
+7. train    — GPT-3 1.3B training through TrainStep (AdamW with bf16
               moments, AMP O2, b=2, s=2048): the full model, 2 warm-up
               steps and a timed run_steps(10) around which the forward and
               backward kernels' launch counts are read; tokens/s, MFU, peak
@@ -60,7 +69,8 @@ OUT_DIR = REPO / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
-ALL_PHASES = ("card", "build", "kernels", "model", "engine", "train")
+ALL_PHASES = ("card", "build", "kernels", "model", "engine", "serving",
+              "train")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -78,6 +88,20 @@ BF16_ROW_LIMIT = {"flash_fwd": 0.05, "paged_attention": 0.03}
 # against the bf16 plain path's own (its rounding floor)
 F32_MODEL_LIMIT = 1e-4
 BF16_FLOOR_FACTOR = 1.5
+# Over int8 pools the float32 paths, run apart, differ by more: each path
+# quantizes the K/V it computed, and a float32 difference of ~1e-7 that
+# straddles a rounding boundary of the int8 grid moves that element by a
+# whole step (1/127 of its row's absmax), in every later step that reads
+# it. Read (NVIDIA H100 80GB HBM3, 700 W): 1.35e-5 at the prefill, then
+# 1.5e-4 to 2.7e-4, growing with the steps; this sanity limit is about 3.7x
+# that. F32_MODEL_LIMIT holds the same steps run in lockstep, both paths
+# reading the same int8 pools (_lockstep_f32: copying the kernel path's
+# pools to the plain path before each step still read 1.8e-4 at the
+# 40-token chunked step, whose tokens attend to their own fresh, separately
+# quantized K/V), and every paged call inside the kernel runs is also
+# computed by the plain version on the same q and pools (INNER_*).
+F32_INT8_MODEL_LIMIT = 1e-3
+INNER_F32_TOL = 2e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -404,16 +428,24 @@ def check_bwd(row) -> None:
                                 f"beyond {lim:.3e}")
 
 
-def _paged_inputs(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed):
-    """Pools filled with unit-normal values (the trash page too), a
+def _paged_inputs(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
+                  kv="model"):
+    """Pools filled with unit-normal values (the trash page too; ``kv=
+    "int8"``: those values quantized into (values, scales) pools), a
     shuffled page table with trash-page tails past each row's context,
     ragged contexts and one dead row."""
     import torch
+    from paddle_tpu_torch.ops.paged_attention import quantize_kv_rows
     g = torch.Generator(device="cuda").manual_seed(seed)
     num_pages = 1 + b * pages_per_seq
     shape = (num_pages, page_size, h, d)
     k_pool = torch.randn(shape, device="cuda", generator=g).to(dtype)
     v_pool = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    if kv == "int8":
+        k_pool, v_pool = (
+            tuple(t.reshape(num_pages, page_size, *t.shape[1:]).contiguous()
+                  for t in quantize_kv_rows(p.reshape(-1, h, d)))
+            for p in (k_pool, v_pool))
     q = torch.randn(b, s, h, 3, d, device="cuda", generator=g).to(dtype)[
         :, :, :, 0]
     cap = pages_per_seq * page_size
@@ -443,11 +475,11 @@ def _paged_inputs(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed):
 
 
 def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
-                report=False):
+                report=False, kv="model"):
     import torch
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     q, kp, vp, tables, ctx, valid, positions = _paged_inputs(
-        b, s, h, d, page_size, pages_per_seq, dtype, kind, seed)
+        b, s, h, d, page_size, pages_per_seq, dtype, kind, seed, kv=kv)
     scale = 1.0 / math.sqrt(d)
     kw = dict(page_size=page_size, kind=kind, scale=scale)
     out = cpa.paged_attention(q, kp, vp, tables, ctx, valid, positions, **kw)
@@ -455,7 +487,8 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
     ref = cpa.paged_attention_reference(q, kp, vp, tables, ctx, valid,
                                         positions, **kw)
     name = (f"paged_attention {kind} B={b} S={s} H={h} D={d} "
-            f"page={page_size} {str(dtype)[6:]}")
+            f"page={page_size} {str(dtype)[6:]}"
+            + (" int8 pools" if kv == "int8" else ""))
     err, rel = check_close(name, out, ref, dtype,
                            BF16_ROW_LIMIT["paged_attention"])
     # the live context this call needs: per row of the batch, the longest
@@ -469,7 +502,10 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
     n_live = n_live.clamp(min=0)
     elt = torch.empty((), dtype=dtype).element_size()
     kv_tokens = int(n_live.max(dim=1).values.sum())
-    nbytes = (2 * b * s * h * d * elt + 2 * kv_tokens * h * d * elt
+    # a K or V row of one head: D values in q's type, or D int8 values and
+    # their f32 scale
+    row_bytes = d + 4 if kv == "int8" else d * elt
+    nbytes = (2 * b * s * h * d * elt + 2 * kv_tokens * h * row_bytes
               + tables.numel() * 4 + ctx.numel() * 4 + 8 * b * s)
     flops = 4.0 * d * h * float(n_live.sum())
     bms, by = bound_ms(nbytes, flops, dtype)
@@ -522,10 +558,24 @@ def phase_kernels(state):
                             "chunked", seed + 4))
     prow.append(_paged_case(5, 1, 4, 64, 4, 40, torch.bfloat16,
                             "decode", seed + 5))
+    log("kernels: paged_attention over int8 pools vs the plain version "
+        "(dequantized to float32; same tolerances)")
+    for dtype in (torch.bfloat16, torch.float32):
+        prow.append(_paged_case(8, 1, 16, 128, 16, 128, dtype, "decode",
+                                seed + 13, report=True, kv="int8"))
+        for s in (5, 300):
+            prow.append(_paged_case(8, s, 16, 128, 16, 128, dtype,
+                                    "chunked", seed + 13 + s, report=True,
+                                    kv="int8"))
+        prow.append(_paged_case(5, 5, 4, 64, 16, 20, dtype, "chunked",
+                                seed + 14, kv="int8"))
     state["paged_rows"] = prow
     state["paged_main"] = next(
         r for r in prow if r["case"].startswith("paged_attention decode B=8")
-        and "bfloat16" in r["case"])
+        and r["case"].endswith("bfloat16"))
+    state["paged_int8_main"] = next(
+        r for r in prow if r["case"].startswith("paged_attention decode B=8")
+        and r["case"].endswith("bfloat16 int8 pools"))
 
     log(f"kernels: flash_bwd_dq, flash_bwd_dkv vs mha_bwd_reference (bf16 "
         f"grad_err <= {BWD_BF16_GRAD_LIMIT}; f32 max abs err <= "
@@ -568,13 +618,208 @@ def _model(state):
     return state["model"]
 
 
-def phase_model(state):
-    """One cached prefill (8 rows, prompts of 64-1536 tokens in the 2048
-    window) and 8 teacher-forced decode steps, through the kernels and
-    through their plain versions; logits compared."""
+CHUNK_LEN = 40          # the model phase's chunked suffix
+SPEC_K = 4              # the serving phase's proposals a step
+
+
+def _model_step(dec, what, tok, ctx, tables, k, v, extra):
+    """One step of a comparison's plan after ``ctx`` cached tokens a row:
+    ``decode`` of ``tok``, ``chunked`` (a CHUNK_LEN-token suffix from
+    ``extra``) or ``verify`` (a SPEC_K + 1 window: ``tok``, then
+    ``extra``'s). Returns (logits, k, v, the new ctx)."""
+    import numpy as np
+    b = len(ctx)
+    if what == "decode":
+        logits, k, v = dec.decode(tok, ctx, np.ones(b, bool), ctx + 1, tables,
+                                  k, v)
+        return logits, k, v, ctx + 1
+    if what == "chunked":
+        seg = np.full(b, CHUNK_LEN, np.int32)
+        logits, k, v = dec.prefill_chunked(extra["chunk"], ctx, seg, tables,
+                                           k, v)
+        return logits, k, v, ctx + CHUNK_LEN
+    window = np.concatenate([tok[:, None], extra["verify"]], 1)
+    seg = np.full(b, SPEC_K + 1, np.int32)
+    logits, k, v = dec.verify(window, ctx, seg, tables, k, v)
+    return logits, k, v, ctx + SPEC_K + 1
+
+
+def _lockstep_f32(m32, ids, lens, tables, plan, extra, feed):
+    """The float32 model over int8 pools, its kernel and plain paths in
+    lockstep over ONE set of pools: at each step the kernel path runs first
+    and writes the step's K/V, then the plain path runs with its pool
+    writes switched off, so every attention of both paths reads the same
+    int8 values. Returns max |kernel - plain| / std(plain) of the logits
+    per step (the prefill first)."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving.generation import CachedDecoder
+    b, pps = tables.shape
+    kern, plain = (CachedDecoder(m32, max_batch=b, page_size=PAGE_SIZE,
+                                 pages_per_seq=pps, use_kernels=use_kernels,
+                                 kv_dtype="int8", device="cuda")
+                   for use_kernels in (True, False))
+    k, v = m32.init_kv_pools(1 + b * pps, PAGE_SIZE, "int8")
+    write_pool = pa.write_pool
+
+    def reading(fn, *args):
+        pa.write_pool = lambda pool, slots, kv: pool
+        try:
+            return fn(*args)
+        finally:
+            pa.write_pool = write_pool
+
+    outs = [[kern.prefill(ids, lens, tables, k, v)[0].float()],
+            [reading(plain.prefill, ids, lens, tables, k, v)[0].float()]]
+    ctx = lens.copy()
+    for step, what in enumerate(plan):
+        outs[0].append(_model_step(kern, what, feed[step], ctx, tables, k, v,
+                                   extra)[0].float())
+        logits, _, _, ctx = reading(_model_step, plain, what, feed[step],
+                                    ctx, tables, k, v, extra)
+        outs[1].append(logits.float())
+    dist = [max_abs_err(a, p) / float(p.std()) for a, p in zip(*outs)]
+    del k, v, outs
+    torch.cuda.empty_cache()
+    return dist
+
+
+def _model_runs(model, m32, ids, lens, tables, kv, plan, extra):
+    """The four runs of one comparison (bf16 kernels, bf16 plain, float32
+    plain, float32 kernels), each a cached prefill and then ``plan``'s
+    steps: ``decode`` (teacher-forced by the bf16 kernel run's argmax),
+    ``chunked`` (a CHUNK_LEN-token suffix from ``extra``) or ``verify`` (a
+    SPEC_K + 1 window: the forced token, then ``extra``'s). Pools in the
+    model's dtype (``kv=""``) or int8. In the kernel runs every paged
+    attention call is also computed by the plain version on the same
+    inputs. Returns {label: [logits per step]}, the forced tokens and the
+    in-model comparison by q's dtype (the step times then include the plain
+    calls)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.serving.generation import CachedDecoder
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    b, pps = tables.shape
+    runs, feed, inner = {}, [], {}
+    kernel = cpa.paged_attention
+
+    def held(q, kp, vp, *args, **kw):
+        """The paged kernel, and its plain version on the same inputs."""
+        out = kernel(q, kp, vp, *args, **kw)
+        ref = cpa.paged_attention_reference(q, kp, vp, *args, **kw)
+        rec = inner.setdefault(str(q.dtype)[6:], {"calls": 0, "max_abs_err":
+                                                  0.0, "row_err": 0.0,
+                                                  "allclose": True})
+        rec["calls"] += 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err(out, ref))
+        rec["row_err"] = max(rec["row_err"], row_err(out, ref))
+        rec["allclose"] &= bool(torch.allclose(
+            out.float(), ref.float(), atol=INNER_F32_TOL, rtol=INNER_F32_TOL))
+        return out
+
+    try:
+        for label, mdl, use_kernels in (("kernels", model, True),
+                                        ("plain", model, False),
+                                        ("plain_f32", m32, False),
+                                        ("kernels_f32", m32, True)):
+            cpa.paged_attention = held if use_kernels else kernel
+            dec = CachedDecoder(mdl, max_batch=b, page_size=PAGE_SIZE,
+                                pages_per_seq=pps, use_kernels=use_kernels,
+                                kv_dtype=kv, device="cuda")
+            k, v = mdl.init_kv_pools(1 + b * pps, PAGE_SIZE, kv or None)
+            outs = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, k, v = dec.prefill(ids, lens, tables, k, v)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            outs.append(last.float())
+            ctx = lens.copy()
+            t0 = time.perf_counter()
+            for step, what in enumerate(plan):
+                if label == "kernels":
+                    prev = outs[-1] if outs[-1].dim() == 2 else outs[-1][:, -1]
+                    feed.append(prev.argmax(-1).cpu().numpy())
+                logits, k, v, ctx = _model_step(dec, what, feed[step], ctx,
+                                                tables, k, v, extra)
+                outs.append(logits.float())
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / len(plan)
+            runs[label] = outs
+            log(f"model: {kv or 'bf16/f32'} pools, {label:11s} prefill "
+                f"{prefill_ms:.1f} ms, step {step_ms:.2f} ms "
+                f"({'/'.join(plan)})")
+            del k, v
+            torch.cuda.empty_cache()
+    finally:
+        cpa.paged_attention = kernel
+    return runs, feed, inner
+
+
+def _model_check(runs, inner, vocab, what, f32_limit):
+    """The kernel-vs-plain limits over one comparison's runs."""
+    import numpy as np
+    import torch
+
+    def dist(a, ref):
+        return max_abs_err(a, ref) / float(ref.float().std())
+
+    for label, outs in runs.items():
+        for i, a in enumerate(outs):
+            require(bool(torch.isfinite(a).all()) and a.shape[-1] == vocab,
+                    f"model: {what} {label} step {i} logits bad")
+    ratios = [dist(a, p) for a, p in zip(runs["kernels"], runs["plain"])]
+    k_f32 = [dist(a, r) for a, r in zip(runs["kernels"], runs["plain_f32"])]
+    floors = [dist(p, r) for p, r in zip(runs["plain"], runs["plain_f32"])]
+    f32 = [dist(a, p) for a, p in zip(runs["kernels_f32"], runs["plain_f32"])]
+    agree = [float((a.argmax(-1) == p.argmax(-1)).float().mean())
+             for a, p in zip(runs["kernels"], runs["plain"])]
+    log(f"model: {what}: float32, max |kernel - plain| / std per step "
+        + " ".join(f"{x:.2e}" for x in f32) + f" (limit {f32_limit})")
+    log(f"model: {what}: bf16, max |kernel - plain f32| / std per step "
+        + " ".join(f"{x:.4f}" for x in k_f32))
+    log(f"model: {what}: bf16 floor, max |plain - plain f32| / std per step "
+        + " ".join(f"{x:.4f}" for x in floors)
+        + f" (kernel path limit {BF16_FLOOR_FACTOR} x its max)")
+    log(f"model: {what}: bf16, max |kernel - plain| / std per step "
+        + " ".join(f"{x:.4f}" for x in ratios))
+    log(f"model: {what}: argmax agreement kernel/plain {np.mean(agree):.4f} "
+        f"(min {min(agree):.3f})")
+    log(f"model: {what}: paged kernel vs plain inside the kernel runs "
+        + json.dumps(inner))
+    require(inner.get("float32", {}).get("allclose", False),
+            f"model: {what}: float32 paged calls differ from the plain "
+            f"version beyond atol/rtol {INNER_F32_TOL}: {inner}")
+    require(inner.get("bfloat16", {}).get("row_err", 1.0)
+            <= BF16_ROW_LIMIT["paged_attention"],
+            f"model: {what}: bf16 paged calls beyond row_err "
+            f"{BF16_ROW_LIMIT['paged_attention']}: {inner}")
+    require(max(f32) <= f32_limit,
+            f"model: {what}: float32 kernel path differs from the plain path "
+            f"by {max(f32):.2e} x std (limit {f32_limit})")
+    bf16_limit = BF16_FLOOR_FACTOR * max(floors)
+    require(max(k_f32) <= bf16_limit,
+            f"model: {what}: bf16 kernel path is {max(k_f32):.4f} x std from "
+            f"float32, beyond {BF16_FLOOR_FACTOR} x the plain path's "
+            f"{max(floors):.4f}")
+    return {"f32_max_err_over_std": max(f32),
+            "bf16_kernel_vs_f32_over_std": max(k_f32),
+            "bf16_floor_over_std": max(floors),
+            "bf16_kernel_vs_plain_over_std": max(ratios),
+            "per_step_kernel_vs_plain": ratios,
+            "per_step_f32": f32,
+            "argmax_agreement": float(np.mean(agree)),
+            "paged_calls_vs_plain": inner}
+
+
+def phase_model(state):
+    """One cached prefill (8 rows, prompts of 64-1536 tokens in the 2048
+    window) and 8 teacher-forced decode steps, through the kernels and
+    through their plain versions; logits compared. Then the same over int8
+    pools, with a chunked suffix and a verify window among the steps."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM
     model = _model(state)
     cfg = model.config
     rng = np.random.RandomState(state["seed"])
@@ -585,85 +830,38 @@ def phase_model(state):
     for i, n in enumerate(lens):
         ids[i, :n] = rng.randint(0, cfg.vocab_size, n)
     tables = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+    extra = {"chunk": rng.randint(0, cfg.vocab_size, (b, CHUNK_LEN)),
+             "verify": rng.randint(0, cfg.vocab_size, (b, SPEC_K))}
     # the same weights in float32, through the plain versions: the
     # reference that measures the bf16 rounding floor itself
-    from paddle_tpu_torch.models import GPTForCausalLM
     m32 = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
     m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
     m32.eval()
-    runs = {}
-    feed = []
-    for label, mdl, use_kernels in (("kernels", model, True),
-                                    ("plain", model, False),
-                                    ("plain_f32", m32, False),
-                                    ("kernels_f32", m32, True)):
-        dec = CachedDecoder(mdl, max_batch=b, page_size=PAGE_SIZE,
-                            pages_per_seq=pps, use_kernels=use_kernels,
-                            device="cuda")
-        k, v = mdl.init_kv_pools(1 + b * pps, PAGE_SIZE)
-        outs = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        last, k, v = dec.prefill(ids, lens, tables, k, v)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        outs.append(last.float())
-        ctx = lens.copy()
-        t0 = time.perf_counter()
-        for step in range(8):
-            if label == "kernels":
-                feed.append(outs[-1].argmax(-1).cpu().numpy())
-            logits, k, v = dec.decode(feed[step], ctx, np.ones(b, bool),
-                                      ctx + 1, tables, k, v)
-            outs.append(logits.float())
-            ctx = ctx + 1
-        torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) * 1e3 / 8
-        runs[label] = outs
-        log(f"model: {label:9s} prefill {prefill_ms:.1f} ms, decode step "
-            f"{decode_ms:.2f} ms")
-        del k, v
-        torch.cuda.empty_cache()
+    runs, feed, inner = _model_runs(model, m32, ids, lens, tables, "",
+                                    ["decode"] * 8, extra)
+    check = _model_check(runs, inner, cfg.vocab_size, "bf16/f32 pools",
+                         F32_MODEL_LIMIT)
+    del runs
+    plan8 = ["decode"] * 4 + ["chunked", "verify"] + ["decode"] * 2
+    runs8, feed8, inner8 = _model_runs(model, m32, ids, lens, tables, "int8",
+                                       plan8, extra)
+    check["int8"] = dict(_model_check(runs8, inner8, cfg.vocab_size,
+                                      "int8 pools", F32_INT8_MODEL_LIMIT),
+                         plan=plan8)
+    del runs8
+    lock = _lockstep_f32(m32, ids, lens, tables, plan8, extra, feed8)
+    log("model: int8 pools: float32 in lockstep (the plain path reads the "
+        "pools the kernel path wrote), max |kernel - plain| / std per step "
+        + " ".join(f"{x:.2e}" for x in lock) + f" (limit {F32_MODEL_LIMIT})")
+    require(max(lock) <= F32_MODEL_LIMIT,
+            f"model: int8 pools: float32 kernel path in lockstep differs from "
+            f"the plain path by {max(lock):.2e} x std")
+    check["int8"]["f32_lockstep_max_err_over_std"] = max(lock)
+    check["int8"]["per_step_f32_lockstep"] = lock
     del m32
     torch.cuda.empty_cache()
     state["decode_profile"] = _profile_decode(model, ids, lens, tables, feed)
-    def dist(a, ref):
-        return max_abs_err(a, ref) / float(ref.float().std())
-
-    for label, outs in runs.items():
-        for i, a in enumerate(outs):
-            require(bool(torch.isfinite(a).all()) and a.shape == (
-                b, cfg.vocab_size), f"model: {label} step {i} logits bad")
-    ratios = [dist(a, p) for a, p in zip(runs["kernels"], runs["plain"])]
-    k_f32 = [dist(a, r) for a, r in zip(runs["kernels"], runs["plain_f32"])]
-    floors = [dist(p, r) for p, r in zip(runs["plain"], runs["plain_f32"])]
-    f32 = [dist(a, p) for a, p in zip(runs["kernels_f32"], runs["plain_f32"])]
-    agree = [float((a.argmax(-1) == p.argmax(-1)).float().mean())
-             for a, p in zip(runs["kernels"], runs["plain"])]
-    log("model: float32, max |kernel - plain| / std per step "
-        + " ".join(f"{x:.2e}" for x in f32) + f" (limit {F32_MODEL_LIMIT})")
-    log("model: bf16, max |kernel - plain f32| / std per step "
-        + " ".join(f"{x:.4f}" for x in k_f32))
-    log("model: bf16 floor, max |plain - plain f32| / std per step "
-        + " ".join(f"{x:.4f}" for x in floors)
-        + f" (kernel path limit {BF16_FLOOR_FACTOR} x its max)")
-    log("model: bf16, max |kernel - plain| / std per step "
-        + " ".join(f"{x:.4f}" for x in ratios))
-    log(f"model: argmax agreement kernel/plain {np.mean(agree):.4f} "
-        f"(min {min(agree):.3f})")
-    require(max(f32) <= F32_MODEL_LIMIT,
-            f"model: float32 kernel path differs from the plain path by "
-            f"{max(f32):.2e} x std")
-    bf16_limit = BF16_FLOOR_FACTOR * max(floors)
-    require(max(k_f32) <= bf16_limit,
-            f"model: bf16 kernel path is {max(k_f32):.4f} x std from float32, "
-            f"beyond {BF16_FLOOR_FACTOR} x the plain path's {max(floors):.4f}")
-    state["model_check"] = {"f32_max_err_over_std": max(f32),
-                            "bf16_kernel_vs_f32_over_std": max(k_f32),
-                            "bf16_floor_over_std": max(floors),
-                            "bf16_kernel_vs_plain_over_std": max(ratios),
-                            "per_step_kernel_vs_plain": ratios,
-                            "argmax_agreement": float(np.mean(agree))}
+    state["model_check"] = check
 
 
 # kernel-name groups of a step's device time, first match wins
@@ -759,19 +957,77 @@ def _profile_decode(model, ids, lens, tables, feed):
     return out
 
 
+def _profile_spec(model, prompts):
+    """Device time of one speculative iteration over int8 pools by kernel
+    name (torch.profiler over 2 iterations after a prefill): SPEC_K draft
+    decode steps and the [8, SPEC_K + 1] verify window, as the serving
+    engine runs them with the model as its own draft."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving.generation import CachedDecoder
+    b = len(prompts)
+    pps = model.config.max_seq_len // PAGE_SIZE
+    tables = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+    lens = np.array([len(p) for p in prompts], np.int32)
+    ids = np.zeros((b, int(lens.max())), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    kw = dict(max_batch=b, page_size=PAGE_SIZE, pages_per_seq=pps,
+              kv_dtype="int8", device="cuda")
+    target, draft = CachedDecoder(model, **kw), CachedDecoder(model, **kw)
+    tk, tv = model.init_kv_pools(1 + b * pps, PAGE_SIZE, "int8")
+    dk, dv = model.init_kv_pools(1 + b * pps, PAGE_SIZE, "int8")
+    last, tk, tv = target.prefill(ids, lens, tables, tk, tv)
+    draft.prefill(ids, lens, tables, dk, dv)
+    live = np.ones(b, bool)
+    run = {"ctx": lens.copy(), "tok": last.argmax(-1).cpu().numpy()}
+
+    def one():
+        # pools are updated in place, so the calls' returned pools are the
+        # same tensors
+        ctx, feed, window = run["ctx"], run["tok"], [run["tok"]]
+        for j in range(SPEC_K):
+            logits, _, _ = draft.decode(feed, ctx + j, live, ctx + j + 1,
+                                        tables, dk, dv)
+            feed = logits.argmax(-1).cpu().numpy()
+            window.append(feed)
+        vl, _, _ = target.verify(np.stack(window, 1), ctx,
+                                 np.full(b, SPEC_K + 1, np.int32), tables,
+                                 tk, tv)
+        run["tok"] = vl[:, -1].argmax(-1).cpu().numpy()
+        # the draft catches up on the last proposal's position
+        draft.decode(window[-1], ctx + SPEC_K, live, ctx + SPEC_K + 1,
+                     tables, dk, dv)
+        run["ctx"] = ctx + SPEC_K + 1
+
+    out = device_profile(one, 2)
+    del tk, tv, dk, dv, run
+    torch.cuda.empty_cache()
+    log("serving: speculative iteration profile " + json.dumps(out))
+    return out
+
+
+ENGINE_PREAMBLE = 256   # the engine phase's shared opening, tokens
+
+
 def phase_engine(state):
-    """GenerationServer at full width: 16 requests (prompts of 64-1536
-    tokens, 64 new tokens, half greedy, half at temperature 0.8); the
+    """GenerationServer at full width, as built by default (bf16 pools, the
+    prefix cache on): 16 requests (prompts of 320-1536 tokens that open
+    with one 256-token preamble, 64 new tokens, half greedy, half at
+    temperature 0.8); admissions after the first prefill hit the
+    preamble's published pages and take the chunked suffix prefill. The
     kernels' launch counts are read around this run."""
     import numpy as np
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     from paddle_tpu_torch.serving.generation import GenerationServer
     model = _model(state)
+    cfg = model.config
     rng = np.random.RandomState(state["seed"] + 1)
     n_req, new = 16, 64
-    lens = rng.randint(64, 1537, n_req)
-    prompts = [rng.randint(0, model.config.vocab_size, n) for n in lens]
+    preamble = rng.randint(0, cfg.vocab_size, ENGINE_PREAMBLE)
+    prompts = [np.concatenate([preamble, rng.randint(0, cfg.vocab_size, n)])
+               for n in rng.randint(64, 1537 - ENGINE_PREAMBLE, n_req)]
     srv = GenerationServer(model, max_batch=MAX_BATCH, page_size=PAGE_SIZE,
                            device="cuda", name="smoke", start=False)
     log(f"engine: {srv.kv.num_pages} pages of {PAGE_SIZE} slots, "
@@ -779,6 +1035,7 @@ def phase_engine(state):
     for mod in (ca, cpa):
         mod.launches = 0
         mod.plain_calls = 0
+    cpa.launches_by = {}
     t0 = time.perf_counter()
     with srv:
         srv.start()
@@ -788,14 +1045,16 @@ def phase_engine(state):
                 for i, p in enumerate(prompts)]
         outs = [f.result(timeout=900) for f in futs]
     wall = time.perf_counter() - t0
+    launches_by = dict(cpa.launches_by)
     counts = {"flash_fwd": (ca.launches, ca.plain_calls),
               "paged_attention": (cpa.launches, cpa.plain_calls)}
     snap = srv.metrics_snapshot()
+    calls = dict(srv.decoder.calls)
     for i, (f, toks) in enumerate(zip(futs, outs)):
         require(f.finish_reason == "length" and len(toks) == new,
                 f"engine: request {i} ended {f.finish_reason} after "
                 f"{len(toks)} tokens")
-        require(all(0 <= t < model.config.vocab_size for t in toks),
+        require(all(0 <= t < cfg.vocab_size for t in toks),
                 f"engine: request {i} emitted an out-of-vocab token")
     require(snap["kv_leak_check"]["ok"],
             f"engine: leak check {snap['kv_leak_check']}")
@@ -803,6 +1062,16 @@ def phase_engine(state):
         require(launched > 0, f"engine: {name} was never launched")
         require(plain == 0, f"engine: {name}'s plain version ran {plain} "
                             f"times on the main path")
+    # both routes of the paged kernel ran over bf16 pools, the chunked one
+    # for every prefix hit's suffix prefill, each call through all layers
+    require(snap["prefix"]["hits"] > 0 and calls["chunked"] > 0,
+            f"engine: no prefix hit ({snap['prefix']}, calls {calls})")
+    want = {("decode", "bfloat16"): cfg.num_layers * calls["decode"],
+            ("chunked", "bfloat16"): cfg.num_layers * calls["chunked"]}
+    require(launches_by == want
+            and counts["flash_fwd"][0] == cfg.num_layers * calls["prefill"],
+            f"engine: launches {launches_by}, flash {counts['flash_fwd']} "
+            f"against the decoder's calls {calls}")
     dec = snap["step_ms"]["decode"]
     decode_tokens = snap["tokens_total"] - n_req   # the rest come from prefill
     eng = {"requests": n_req, "tokens": snap["tokens_total"], "wall_s": wall,
@@ -811,10 +1080,185 @@ def phase_engine(state):
            "ttft_ms_p50": snap["ttft_ms"]["p50"],
            "decode_step_ms": dec, "prefill_step_ms": snap["step_ms"]["prefill"],
            "occupancy_mean": snap["batch_occupancy"]["mean"],
+           "kv_pages": srv.kv.num_pages, "pool_bytes": srv.kv.pool_bytes(),
+           "prefix": snap["prefix"], "decoder_calls": calls,
            "launches": {k: v[0] for k, v in counts.items()},
+           "paged_launches_by": {"/".join(k): n
+                                 for k, n in launches_by.items()},
            "plain_calls": {k: v[1] for k, v in counts.items()}}
     state["engine"] = eng
     log("engine: " + json.dumps(eng))
+
+
+SYSTEM_PROMPT = 1024    # the serving phase's shared prompt, tokens
+GREEDY_ACCEPT_MIN = 0.9
+
+
+def _set_kv_dtype(value):
+    from paddle_tpu_torch.framework.flags import flag_value, set_flags
+    old = flag_value("FLAGS_decode_kv_dtype")
+    set_flags({"FLAGS_decode_kv_dtype": value})
+    return old
+
+
+def _greedy_acceptance(model, prompts, kv_dtype, name):
+    """Greedy self-speculation over ``prompts`` (one wave, 64 new tokens
+    each) with pools of ``kv_dtype`` ('' = the model's dtype): the
+    acceptance rate and its counts. Read after the serving run's launch
+    counts, to tell the rejections' causes apart: bf16 rounding between
+    the decode and verify forwards against int8 quantization of the
+    draft's and the target's separately written K/V."""
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    old = _set_kv_dtype(kv_dtype)
+    try:
+        srv = GenerationServer(model, max_batch=MAX_BATCH,
+                               page_size=PAGE_SIZE, draft_model=model,
+                               spec_k=SPEC_K, device="cuda", name=name,
+                               start=False)
+    finally:
+        _set_kv_dtype(old)
+    with srv:
+        srv.start()
+        futs = [srv.submit_generate(p, max_new_tokens=64, temperature=0.0)
+                for p in prompts]
+        outs = [f.result(timeout=900) for f in futs]
+    require(all(len(t) == 64 for t in outs)
+            and srv.metrics_snapshot()["kv_leak_check"]["ok"],
+            f"serving: acceptance probe {name} did not finish cleanly")
+    spec = srv.metrics_snapshot()["spec"]
+    return {k: spec[k] for k in ("greedy_acceptance_rate", "proposed",
+                                 "accepted") if k in spec}
+
+
+def phase_serving(state):
+    """The reference's default engine with speculation over int8 pools:
+    GenerationServer(model, max_batch=8, page_size=16, draft_model=model,
+    spec_k=4) with FLAGS_decode_kv_dtype=int8 and the prefix cache on (its
+    default). 16 requests: a shared 1024-token system prompt and a suffix
+    of 32-512 tokens each, 64 new tokens, half greedy, half at temperature
+    0.8, in two waves of 8, so the second wave's admissions hit the pages
+    the first published. Launch counts by kind and pool type are read
+    around the run."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    model = _model(state)
+    cfg = model.config
+    rng = np.random.RandomState(state["seed"] + 2)
+    n_req, new = 16, 64
+    system = rng.randint(0, cfg.vocab_size, SYSTEM_PROMPT)
+    prompts = [np.concatenate([system, rng.randint(0, cfg.vocab_size, n)])
+               for n in rng.randint(32, 513, n_req)]
+    old = _set_kv_dtype("int8")
+    try:
+        srv = GenerationServer(model, max_batch=MAX_BATCH,
+                               page_size=PAGE_SIZE, draft_model=model,
+                               spec_k=SPEC_K, device="cuda",
+                               name="smoke-serving", start=False)
+    finally:
+        _set_kv_dtype(old)
+    require(srv.prefix is not None and srv.kv.kv_dtype == "int8"
+            and srv.spec_k == SPEC_K, "serving: engine not configured")
+    log(f"serving: {srv.kv.num_pages} pages of {PAGE_SIZE} slots, "
+        f"{srv.kv.pool_bytes() / 1e9:.3f} GB of int8 K/V pools (the draft's "
+        f"as many again)")
+    for mod in (ca, cpa):
+        mod.launches = 0
+        mod.plain_calls = 0
+    cpa.launches_by = {}
+    futs = []
+    t0 = time.perf_counter()
+    with srv:
+        srv.start()
+        for wave in (range(0, 8), range(8, 16)):
+            futs += [srv.submit_generate(prompts[i], max_new_tokens=new,
+                                         temperature=0.0 if i % 2 == 0
+                                         else 0.8, seed=state["seed"] + i)
+                     for i in wave]
+            outs = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    launches_by = dict(cpa.launches_by)
+    counts = {"flash_fwd": (ca.launches, ca.plain_calls),
+              "paged_attention": (cpa.launches, cpa.plain_calls)}
+    snap = srv.metrics_snapshot()
+    calls = {"target": dict(srv.decoder.calls),
+             "draft": dict(srv.draft.calls)}
+    for i, (f, toks) in enumerate(zip(futs, outs)):
+        require(f.finish_reason == "length" and len(toks) == new,
+                f"serving: request {i} ended {f.finish_reason} after "
+                f"{len(toks)} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in toks),
+                f"serving: request {i} emitted an out-of-vocab token")
+    require(snap["kv_leak_check"]["ok"],
+            f"serving: leak check {snap['kv_leak_check']}")
+    require(snap["prefix"]["hits"] >= 8,
+            f"serving: {snap['prefix']['hits']} prefix hits, not >= 8")
+    for name, (launched, plain) in counts.items():
+        require(launched > 0, f"serving: {name} was never launched")
+        require(plain == 0, f"serving: {name}'s plain version ran {plain} "
+                            f"times on the main path")
+    # every route of the paged kernel ran over int8 pools, and the counts
+    # are the layers times the decoders' calls of each kind
+    layers = cfg.num_layers
+    require(set(launches_by) == {("decode", "int8"), ("chunked", "int8")},
+            f"serving: paged launches by kind and pool {launches_by}")
+    require(calls["target"]["chunked"] > 0 and calls["target"]["verify"] > 0
+            and calls["draft"]["decode"] > 0,
+            f"serving: a route was not taken: {calls}")
+    want_chunked = layers * (calls["target"]["chunked"]
+                             + calls["target"]["verify"]
+                             + calls["draft"]["chunked"])
+    want_decode = layers * (calls["target"]["decode"]
+                            + calls["draft"]["decode"])
+    want_flash = layers * (calls["target"]["prefill"]
+                           + calls["draft"]["prefill"])
+    require(launches_by[("chunked", "int8")] == want_chunked
+            and launches_by[("decode", "int8")] == want_decode
+            and counts["flash_fwd"][0] == want_flash,
+            f"serving: launches {launches_by}, flash {counts['flash_fwd']} "
+            f"against the decoders' calls {calls}")
+    greedy = snap["spec"]["greedy_acceptance_rate"]
+    require(greedy >= GREEDY_ACCEPT_MIN,
+            f"serving: greedy spec acceptance {greedy:.4f} below "
+            f"{GREEDY_ACCEPT_MIN}")
+    dec = snap["step_ms"]["decode"]
+    decode_tokens = snap["tokens_total"] - n_req   # the rest from prefill
+    out = {"requests": n_req, "tokens": snap["tokens_total"], "wall_s": wall,
+           "decode_tok_s": decode_tokens / (dec["mean"] * dec["count"] / 1e3),
+           "tok_s_wall": snap["tokens_total"] / wall,
+           "ttft_ms_p50": snap["ttft_ms"]["p50"],
+           "spec_iteration_ms": dec,
+           "prefill_step_ms": snap["step_ms"]["prefill"],
+           "occupancy_mean": snap["batch_occupancy"]["mean"],
+           "spec": snap["spec"], "prefix": snap["prefix"],
+           "kv_pages": srv.kv.num_pages, "pool_bytes": srv.kv.pool_bytes(),
+           "pool_bytes_bf16_engine": state.get("engine", {}).get(
+               "pool_bytes"),
+           "kv_pages_bf16_engine": state.get("engine", {}).get("kv_pages"),
+           "decoder_calls": calls,
+           "launches": {k: v[0] for k, v in counts.items()},
+           "paged_launches_by": {"/".join(k): n
+                                 for k, n in launches_by.items()},
+           "plain_calls": {k: v[1] for k, v in counts.items()}}
+    del srv
+    # the greedy prompts again, greedy only, in a 2 x 2 of model and pool
+    # types; the float32 model has the same weights
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM
+    m32 = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    m32.eval()
+    out["greedy_acceptance_by_model_and_pools"] = {
+        f"{mname}/{kv or mname}": _greedy_acceptance(
+            mdl, prompts[0::2], kv, f"accept-{mname}-{kv or mname}")
+        for mname, mdl in (("bfloat16", model), ("float32", m32))
+        for kv in ("", "int8")}
+    del m32
+    torch.cuda.empty_cache()
+    state["serving"] = out
+    log("serving: " + json.dumps(out))
+    state["spec_profile"] = _profile_spec(model, prompts[:MAX_BATCH])
 
 
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
@@ -1034,26 +1478,34 @@ def phase_train(state):
 
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
-    forward's over the engine's run and the training window together, the
-    paged kernel's over the engine's run, the backward kernels' over the
-    training window."""
+    forward's over the engine's run, the serving run and the training
+    window together; the paged kernel's over the engine's run (bf16 pools)
+    and, as its own entry, its int8 variant's over the serving run; the
+    backward kernels' over the training window."""
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     eng, train = state["engine"]["launches"], state["train"]["launches"]
+    serving = state["serving"]
     out = []
-    for name, mod, row, launches in (
+    for name, mod, row, launches, by in (
             ("flash_fwd", ca, state["flash_main"],
-             eng["flash_fwd"] + train["flash_fwd"]),
+             eng["flash_fwd"] + serving["launches"]["flash_fwd"]
+             + train["flash_fwd"], None),
             ("paged_attention", cpa, state["paged_main"],
-             eng["paged_attention"])):
-        out.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                    "replaces": mod.REPLACES, "launches": launches,
-                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                    "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"],
-                    "shape": row["case"]})
+             eng["paged_attention"], state["engine"]["paged_launches_by"]),
+            ("paged_attention_int8", cpa, state["paged_int8_main"],
+             serving["launches"]["paged_attention"],
+             serving["paged_launches_by"])):
+        entry = {"name": name, "route": "cuda", "source": mod.SOURCE,
+                 "replaces": mod.REPLACES, "launches": launches,
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"], "shape": row["case"]}
+        if by is not None:
+            entry["launches_by_kind"] = by
+        out.append(entry)
     row = state["bwd_main"]
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
@@ -1109,7 +1561,8 @@ def main(argv=None) -> int:
     state = {"seed": args.seed}
     fns = {"card": phase_card, "build": phase_build,
            "kernels": phase_kernels, "model": phase_model,
-           "engine": phase_engine, "train": phase_train}
+           "engine": phase_engine, "serving": phase_serving,
+           "train": phase_train}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -1126,10 +1579,10 @@ def main(argv=None) -> int:
     state["total_s"] = time.perf_counter() - t_start
     log(f"total {state['total_s']:.1f} s")
     summary = {k: state[k] for k in ("smi", "build_s", "model_check",
-                                     "decode_profile", "engine", "train",
-                                     "total_s")
+                                     "decode_profile", "engine", "serving",
+                                     "spec_profile", "train", "total_s")
                if k in state}
-    if all(k in state for k in ("flash_main", "engine", "train")):
+    if all(k in state for k in ("flash_main", "engine", "serving", "train")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

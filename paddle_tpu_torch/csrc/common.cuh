@@ -1,8 +1,9 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel takes its element type as a template parameter (float or
-// __nv_bfloat16) and does all of its arithmetic in float: values are widened
-// on load and narrowed once, on the final store.
+// __nv_bfloat16; the paged kernel's pools also int8) and does all of its
+// arithmetic in float: values are widened on load and narrowed once, on the
+// final store.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,7 +48,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // dtype codes shared with the Python wrappers (ops/_build.py)
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 // ------------------------------------------------ bf16 tensor-core helpers
 // mma.sync.m16n8k16 with bf16 inputs and float accumulation. With g = lane/4

@@ -1,6 +1,7 @@
 // Paged attention for Hopper (sm_90a): the port of the TPU kernel
 // paddle_tpu/ops/pallas_paged_attention.py::paged_attention (kernel body
-// _paged_kernel), kinds "decode" and "chunked" over float or bf16 pools.
+// _paged_kernel), kinds "decode" and "chunked" over float, bf16 or int8
+// pools.
 //
 // What it computes: for each (row b, window position s, head h) the softmax
 // attention of q[b, s, h] over the K/V slots of sequence b, read through its
@@ -12,22 +13,34 @@
 // so each row has n_live slots, and a row with n_live == 0 (a dead decode lane
 // or an invalid window position) writes zeros.
 //
+// Quantized pools (the reference's quantized branch, :95-101, :139-144): K and
+// V are int8 [num_pages, page_size, H, D] with one f32 scale per (slot, head)
+// in [num_pages, page_size, H]. Each row is dequantized in its load (int8 times
+// its scale, in float), so q . k, the online softmax and p . v all run in
+// float as the reference's f32 tiles do; p stays float (the reference's
+// p.astype(v_t.dtype) is float32 there). The output is in q's type.
+//
 // What bounds it on the H100: decode reads every live K/V slot once and does
 // 4*D flops per slot and head, far below the card's 295 flops/byte balance,
-// so it is bound by the bytes of the context (3.35 TB/s). What the design
+// so it is bound by the bytes of the context (3.35 TB/s): D*2 bytes a row in
+// bf16, D + 4 in int8. What the design
 // does about it: one block per (row, head, query tile) walks only the tokens
 // up to n_live (nothing past the context is loaded, and the gathered context
 // never exists in device memory). Its warps (sixteen for a decode row,
 // eight for a chunked window's eight rows) split the context into 32-token
 // tiles and each keeps its own online softmax, merged once at the end. A lane
 // owns D/32 consecutive columns: every K or V row is one coalesced vector
-// load per lane (8 bytes for bf16 at D=128), straight from the pool into
-// registers (for a decode row in bursts of eight rows, so that one HBM
-// latency covers eight tokens), and q . k is a warp-shuffle sum. Each block loads its own
+// load per lane (8 bytes for bf16 at D=128, 4 for int8), straight from the
+// pool into registers (for a decode row in bursts of eight rows, so that one
+// HBM latency covers eight tokens), and q . k is a warp-shuffle sum. Lane i
+// also loads the scale of its tile's token i once, and the burst takes it by
+// shuffle. Each block loads its own
 // page ids from the table, which replaces the TPU's scalar prefetch and the
 // pages_per_tile-fold pool passing (BlockSpec workarounds). Splitting one
 // sequence over several blocks (when a batch has fewer (row, head) pairs than
 // the card has SMs, or ragged lengths leave SMs idle) is the next step.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -66,13 +79,39 @@ __device__ __forceinline__ void load_vec<__nv_bfloat16, 2>(
   const float2 fa = __bfloat1622float2(a);
   out[0] = fa.x; out[1] = fa.y;
 }
+template <>
+__device__ __forceinline__ void load_vec<int8_t, 4>(
+    const int8_t* __restrict__ p, float* out) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void load_vec<int8_t, 2>(
+    const int8_t* __restrict__ p, float* out) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  out[0] = v.x; out[1] = v.y;
+}
+
+// one K or V row of VEC columns: widened to float and, for an int8 pool,
+// dequantized with the row's scale
+template <typename TKV, int VEC>
+__device__ __forceinline__ void load_row(const TKV* __restrict__ p, float sc,
+                                         float* out) {
+  load_vec<TKV, VEC>(p, out);
+  if constexpr (std::is_same<TKV, int8_t>::value) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) out[j] *= sc;
+  }
+}
 
 // BQ query rows per block, NW warps, K/V rows loaded BURST at a time before
-// they are used
-template <typename T, int D, int BQ, int NW, int BURST>
+// they are used; T is q's and out's type, TKV the pools' (T, or int8_t with
+// k_scales/v_scales)
+template <typename T, typename TKV, int D, int BQ, int NW, int BURST>
 __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, T* __restrict__ out,
+    const T* __restrict__ q, const TKV* __restrict__ k_pool,
+    const TKV* __restrict__ v_pool, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, T* __restrict__ out,
     const int* __restrict__ tables, const int* __restrict__ ctx_len,
     const unsigned char* __restrict__ valid, const int* __restrict__ positions, int S,
     int H, int num_pages, int page_size, int P, int64_t q_sb, int64_t q_ss,
@@ -137,8 +176,9 @@ __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
 
   const int64_t slot_stride = (int64_t)H * D;
   const int* table = tables + (int64_t)b * P;
-  const T* k_base = k_pool + h * D + col;
-  const T* v_base = v_pool + h * D + col;
+  const TKV* k_base = k_pool + h * D + col;
+  const TKV* v_base = v_pool + h * D + col;
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
 
   for (int t0 = warp * kTile; t0 < kv_end; t0 += NW * kTile) {
     // lane i resolves the pool slot of token t0 + i through the table
@@ -150,6 +190,12 @@ __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
       page = min(max(page, 0), num_pages - 1);
       slot = (int64_t)page * page_size + t % page_size;
     }
+    // lane i's token's scales (quantized pools only; 1 otherwise)
+    float k_sc = 1.f, v_sc = 1.f;
+    if (kQuant && lane < n_tile) {
+      k_sc = k_scales[slot * H + h];
+      v_sc = v_scales[slot * H + h];
+    }
     // scores: lane i keeps the score of token t0 + i for every row
     float sc[BQ];
 #pragma unroll
@@ -159,8 +205,10 @@ __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
 #pragma unroll
       for (int u = 0; u < BURST; ++u) {
         const int64_t si = __shfl_sync(pt::kFullMask, slot, i0 + u);
+        const float su =
+            kQuant ? __shfl_sync(pt::kFullMask, k_sc, i0 + u) : 1.f;
         if (i0 + u < n_tile) {
-          load_vec<T, VEC>(k_base + si * slot_stride, kv[u]);
+          load_row<TKV, VEC>(k_base + si * slot_stride, su, kv[u]);
         } else {
 #pragma unroll
           for (int j = 0; j < VEC; ++j) kv[u][j] = 0.f;
@@ -200,8 +248,10 @@ __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
 #pragma unroll
       for (int u = 0; u < BURST; ++u) {
         const int64_t si = __shfl_sync(pt::kFullMask, slot, i0 + u);
+        const float su =
+            kQuant ? __shfl_sync(pt::kFullMask, v_sc, i0 + u) : 1.f;
         if (i0 + u < n_tile) {
-          load_vec<T, VEC>(v_base + si * slot_stride, vv[u]);
+          load_row<TKV, VEC>(v_base + si * slot_stride, su, vv[u]);
         } else {
 #pragma unroll
           for (int j = 0; j < VEC; ++j) vv[u][j] = 0.f;
@@ -254,25 +304,28 @@ __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
   }
 }
 
-template <typename T, int D, int BQ, int NW, int BURST>
+template <typename T, typename TKV, int D, int BQ, int NW, int BURST>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   void* out, const int* tables, const int* ctx_len,
-                   const unsigned char* valid, const int* positions, int B, int S,
-                   int H, int num_pages, int page_size, int P, int64_t q_sb,
-                   int64_t q_ss, int64_t q_sh, float scale, int chunked,
-                   cudaStream_t stream) {
+                   const float* k_scales, const float* v_scales, void* out,
+                   const int* tables, const int* ctx_len,
+                   const unsigned char* valid, const int* positions, int B,
+                   int S, int H, int num_pages, int page_size, int P,
+                   int64_t q_sb, int64_t q_ss, int64_t q_sh, float scale,
+                   int chunked, cudaStream_t stream) {
   dim3 grid(B * H, (S + BQ - 1) / BQ);
-  paged_attention_kernel<T, D, BQ, NW, BURST><<<grid, NW * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<T*>(out), tables, ctx_len,
-      valid, positions, S, H, num_pages, page_size, P, q_sb, q_ss, q_sh,
-      scale, chunked);
+  paged_attention_kernel<T, TKV, D, BQ, NW, BURST>
+      <<<grid, NW * 32, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const TKV*>(k_pool),
+          static_cast<const TKV*>(v_pool), k_scales, v_scales,
+          static_cast<T*>(out), tables, ctx_len, valid, positions, S, H,
+          num_pages, page_size, P, q_sb, q_ss, q_sh, scale, chunked);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename TKV, int D>
 cudaError_t launch_rows(const void* q, const void* k_pool,
-                        const void* v_pool, void* out, const int* tables,
+                        const void* v_pool, const float* k_scales,
+                        const float* v_scales, void* out, const int* tables,
                         const int* ctx_len, const unsigned char* valid,
                         const int* positions, int B, int S, int H,
                         int num_pages, int page_size, int P, int64_t q_sb,
@@ -281,44 +334,71 @@ cudaError_t launch_rows(const void* q, const void* k_pool,
   // a decode step has one query row per block and sixteen warps splitting
   // its context, loading eight rows at a time; a chunked window eight rows
   // and eight warps, whose eight dot products per row already overlap loads
-  if (S == 1)
-    return launch<T, D, 1, 16, 8>(q, k_pool, v_pool, out, tables, ctx_len, valid,
-                           positions, B, S, H, num_pages, page_size, P, q_sb,
-                           q_ss, q_sh, scale, chunked, stream);
-  return launch<T, D, 8, 8, 1>(q, k_pool, v_pool, out, tables, ctx_len, valid,
-                         positions, B, S, H, num_pages, page_size, P, q_sb,
-                         q_ss, q_sh, scale, chunked, stream);
+#define PT_LAUNCH_ARGS                                                       \
+  q, k_pool, v_pool, k_scales, v_scales, out, tables, ctx_len, valid,       \
+      positions, B, S, H, num_pages, page_size, P, q_sb, q_ss, q_sh, scale, \
+      chunked, stream
+  if (S == 1) return launch<T, TKV, D, 1, 16, 8>(PT_LAUNCH_ARGS);
+  return launch<T, TKV, D, 8, 8, 1>(PT_LAUNCH_ARGS);
+#undef PT_LAUNCH_ARGS
+}
+
+template <typename T, int D>
+cudaError_t launch_kv(const void* q, const void* k_pool, const void* v_pool,
+                      const float* k_scales, const float* v_scales, void* out,
+                      const int* tables, const int* ctx_len,
+                      const unsigned char* valid, const int* positions, int B,
+                      int S, int H, int num_pages, int page_size, int P,
+                      int64_t q_sb, int64_t q_ss, int64_t q_sh, float scale,
+                      int chunked, int kv_dtype, cudaStream_t stream) {
+#define PT_ROWS_ARGS                                                         \
+  q, k_pool, v_pool, k_scales, v_scales, out, tables, ctx_len, valid,       \
+      positions, B, S, H, num_pages, page_size, P, q_sb, q_ss, q_sh, scale, \
+      chunked, stream
+  if (kv_dtype == pt::kInt8) {
+    if (k_scales == nullptr || v_scales == nullptr)
+      return cudaErrorInvalidValue;
+    return launch_rows<T, int8_t, D>(PT_ROWS_ARGS);
+  }
+  return launch_rows<T, T, D>(PT_ROWS_ARGS);
+#undef PT_ROWS_ARGS
 }
 
 }  // namespace
 
 // C entry point bound with ctypes (ops/_build.py). kind: 0 = decode,
 // 1 = chunked (valid, one byte per position, and positions are read only
-// for chunked). Returns
-// cudaGetLastError() after the launch; a shape it does not take returns
-// cudaErrorInvalidValue without launching.
+// for chunked). dtype is q's and out's type; kv_dtype the pools' (dtype
+// itself, or pt::kInt8 with the f32 scale pools k_scales/v_scales, which are
+// null otherwise). Returns cudaGetLastError() after the launch; a shape or
+// type it does not take returns cudaErrorInvalidValue without launching.
 extern "C" int pt_paged_attention(const void* q, const void* k_pool,
-                                  const void* v_pool, void* out,
+                                  const void* v_pool, const float* k_scales,
+                                  const float* v_scales, void* out,
                                   const int* tables, const int* ctx_len,
-                                  const unsigned char* valid, const int* positions,
-                                  int B, int S, int H, int D, int num_pages,
-                                  int page_size, int P, int64_t q_sb,
-                                  int64_t q_ss, int64_t q_sh, float scale,
-                                  int kind, int dtype, void* stream) {
+                                  const unsigned char* valid,
+                                  const int* positions, int B, int S, int H,
+                                  int D, int num_pages, int page_size, int P,
+                                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                  float scale, int kind, int dtype,
+                                  int kv_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (page_size < 1 || page_size > 64 || num_pages < 1 || P < 1)
     return (int)cudaErrorInvalidValue;
+  if (kv_dtype != dtype && kv_dtype != pt::kInt8)
+    return (int)cudaErrorInvalidValue;
 #define PT_PAGED_ARGS                                                   \
-  q, k_pool, v_pool, out, tables, ctx_len, valid, positions, B, S, H,   \
-      num_pages, page_size, P, q_sb, q_ss, q_sh, scale, kind, st
+  q, k_pool, v_pool, k_scales, v_scales, out, tables, ctx_len, valid,   \
+      positions, B, S, H, num_pages, page_size, P, q_sb, q_ss, q_sh,    \
+      scale, kind, kv_dtype, st
   if (dtype == pt::kFloat32 && D == 64)
-    return launch_rows<float, 64>(PT_PAGED_ARGS);
+    return launch_kv<float, 64>(PT_PAGED_ARGS);
   if (dtype == pt::kFloat32 && D == 128)
-    return launch_rows<float, 128>(PT_PAGED_ARGS);
+    return launch_kv<float, 128>(PT_PAGED_ARGS);
   if (dtype == pt::kBFloat16 && D == 64)
-    return launch_rows<__nv_bfloat16, 64>(PT_PAGED_ARGS);
+    return launch_kv<__nv_bfloat16, 64>(PT_PAGED_ARGS);
   if (dtype == pt::kBFloat16 && D == 128)
-    return launch_rows<__nv_bfloat16, 128>(PT_PAGED_ARGS);
+    return launch_kv<__nv_bfloat16, 128>(PT_PAGED_ARGS);
 #undef PT_PAGED_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -76,8 +76,7 @@ def set_flags(flags: Dict[str, Any]) -> None:
 
 
 # Decode serving knobs (serving/generation/engine.py), with the reference's
-# names and defaults. The reference's FLAGS_decode_prefix_cache and
-# FLAGS_decode_spec_k wait for the prefix cache and speculative decoding.
+# names and defaults.
 define_flag("FLAGS_decode_max_batch", 8,
             "in-flight decode batch width: one [max_batch, 1] decode step "
             "per iteration with dead lanes slot-masked")
@@ -94,6 +93,26 @@ define_flag("FLAGS_decode_default_timeout_ms", 0.0,
             "scheduling deadline applied when submit_generate passes none "
             "(0 = no deadline); an expired request is dropped before "
             "prefill, never mid-stream")
+define_flag("FLAGS_decode_prefix_cache", True,
+            "shared-prefix KV reuse: keep finished sequences' FULL "
+            "pages in a radix index keyed by token content, so a "
+            "request whose prompt matches a cached prefix maps those "
+            "pages into its block table (refcounted, copy-on-write at "
+            "the divergence page) and prefills only its unique suffix; "
+            "unreferenced cached pages are LRU-evicted under pool "
+            "pressure")
+define_flag("FLAGS_decode_spec_k", 0,
+            "speculative decoding: tokens proposed per step by the "
+            "draft model (GenerationServer(draft_model=...)); the "
+            "target model verifies all k in one fixed-shape "
+            "[max_batch, k+1] step with accept-and-resample, so "
+            "output distribution matches non-speculative sampling "
+            "(0 = off; ignored without a draft model)")
 define_flag("FLAGS_decode_kv_dtype", "",
-            "KV pool storage dtype: '' = model dtype, 'float32' or "
-            "'bfloat16' ('int8' is not ported yet)")
+            "KV pool storage dtype for serving: '' = model dtype, "
+            "'float32', 'bfloat16', or 'int8' (symmetric absmax "
+            "quantization with per-slot-per-head f32 scales stored "
+            "alongside the pools; quantize-on-write, dequantize-on-read "
+            "in the paged kernel's row loads and in the plain gather). "
+            "Auto pool sizing (FLAGS_decode_kv_pages=0) grants sub-f32 "
+            "dtypes 2x pages. Read once at server construction")

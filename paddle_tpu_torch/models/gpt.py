@@ -111,8 +111,8 @@ class GPTKVCache:
     """Paged KV-cache view threaded through ``GPTModel.forward``.
 
     - ``k``/``v``: per-layer pools, lists of ``[num_pages, page_size,
-      heads, head_dim]`` tensors (page 0 is the trash page); updated in
-      place by the forward.
+      heads, head_dim]`` tensors, or of int8 ``(values, scales)`` tuples
+      (page 0 is the trash page); updated in place by the forward.
     - ``block_tables``: [B, P] int32 logical-page → pool-page map.
     - ``ctx_len``: [B] visible context INCLUDING the positions written by
       this forward.
@@ -357,16 +357,22 @@ class GPTForCausalLM(nn.Module):
     def init_kv_pools(self, num_pages: int, page_size: int, dtype=None):
         """Zeroed per-layer K/V pools ``[num_pages, page_size, heads,
         head_dim]`` on the model's device, in ``dtype`` (default: the
-        model's). Page 0 is the trash page and is never allocated."""
-        if isinstance(dtype, str):
-            if dtype == "int8":
-                raise NotImplementedError(
-                    "int8 KV pools are not ported yet (ROADMAP queue 2: the "
-                    "int8 variant of the paged-attention kernel)")
-            dtype = getattr(torch, dtype)
+        model's). ``dtype`` may also be the string ``"int8"``: each pool is
+        then the ``(int8 values, f32 per-slot-per-head scales [num_pages,
+        page_size, heads])`` tuple (ops/paged_attention). Page 0 is the
+        trash page and is never allocated."""
         cfg = self.config
         shape = (int(num_pages), int(page_size), cfg.num_heads,
                  cfg.hidden_size // cfg.num_heads)
+        if isinstance(dtype, str):
+            if dtype == "int8":
+                mk = [(torch.zeros(shape, dtype=torch.int8,
+                                   device=self.device),
+                       torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=self.device))
+                      for _ in range(2 * cfg.num_layers)]
+                return mk[:cfg.num_layers], mk[cfg.num_layers:]
+            dtype = getattr(torch, dtype)
         dt = dtype or self.dtype
         mk = [torch.zeros(shape, dtype=dt, device=self.device)
               for _ in range(2 * cfg.num_layers)]

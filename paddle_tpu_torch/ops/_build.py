@@ -36,8 +36,9 @@ HEADERS = ("common.cuh",)
 # build_log() for whoever needs to read them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# element type codes shared with csrc/common.cuh (pt::DType)
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+# element type codes shared with csrc/common.cuh (pt::DType); int8 is a
+# pool type of the paged kernel only
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.int8": 2}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -59,13 +60,13 @@ _SIGNATURES = {
     "pt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                      _F, _I, _I, _P],
-    # q, k_pool, v_pool, out, tables, ctx, valid, positions, B, S, H, D,
-    # num_pages, page_size, P, q strides (b, s, h), scale, kind, dtype,
-    # stream
     "pt_flash_bwd_dq": [_P] * 7 + _BWD_TAIL,
     "pt_flash_bwd_dkv": [_P] * 8 + _BWD_TAIL,
-    "pt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _I64, _I64, _I64, _F, _I, _I, _P],
+    # q, k_pool, v_pool, k_scales, v_scales, out, tables, ctx, valid,
+    # positions, B, S, H, D, num_pages, page_size, P, q strides (b, s, h),
+    # scale, kind, dtype, kv_dtype, stream
+    "pt_paged_attention": [_P] * 10 + [_I] * 7 + [_I64] * 3
+                          + [_F, _I, _I, _I, _P],
 }
 
 

@@ -11,10 +11,14 @@ slot inside it, so the write shapes stay fixed.
 One difference from the reference: JAX donates the pools and gets new ones
 back; here ``write_pool`` updates the pool **in place** (``index_copy_`` on
 the flattened ``[num_pages * page_size, H, D]`` view), and
-``paged_attention_update`` returns the same pool tensors it was given.
+``paged_attention_update`` returns the same pool objects it was given.
 
-Quantized (int8) pools are not ported yet (ROADMAP queue 2, the int8
-variant of the paged kernel): a tuple pool raises ``NotImplementedError``.
+Quantized pools (``FLAGS_decode_kv_dtype=int8``), as the reference: a pool
+is the 2-tuple ``(values int8 [num_pages, page_size, H, D], scales f32
+[num_pages, page_size, H])``, symmetric absmax quantization over head_dim
+with one scale per written (slot, head). ``write_pool`` quantizes on write;
+``gather_pool`` dequantizes on read (the plain path), and the paged kernel
+dequantizes inside its row loads (``csrc/paged_attention.cu``).
 """
 from __future__ import annotations
 
@@ -23,38 +27,61 @@ import math
 import torch
 
 __all__ = ["flat_slots", "write_pool", "gather_pool",
-           "paged_attention_update", "kv_pool_bytes", "resolve_kv_dtype",
-           "KINDS", "KV_DTYPES"]
+           "paged_attention_update", "is_quantized_pool",
+           "quantize_kv_rows", "dequantize_kv", "kv_pool_bytes",
+           "resolve_kv_dtype", "KINDS", "KV_DTYPES"]
 
 KINDS = ("prefill", "decode", "chunked")
 KV_DTYPES = ("", "float32", "bfloat16", "int8")
-_INT8_TODO = ("int8 KV pools are not ported yet (ROADMAP queue 2: the int8 "
-              "variant of the paged-attention kernel, FLAGS_decode_kv_dtype)")
 
 
 def resolve_kv_dtype(name):
-    """Map a FLAGS_decode_kv_dtype value to a pool dtype: '' → None (the
-    model's dtype), else the torch dtype."""
+    """Map a FLAGS_decode_kv_dtype value to an ``init_kv_pools`` dtype:
+    '' → None (the model's dtype), 'int8' → the string marker (tuple
+    pools), else the torch dtype."""
     name = (name or "").strip()
     if name not in KV_DTYPES:
         raise ValueError(f"kv dtype must be one of {KV_DTYPES[1:]} (or '' "
                          f"for the model dtype), got {name!r}")
+    if not name:
+        return None
     if name == "int8":
-        raise NotImplementedError(_INT8_TODO)
-    return getattr(torch, name) if name else None
+        return "int8"
+    return getattr(torch, name)
 
 
-def _check_pool(pool):
-    if isinstance(pool, (tuple, list)):
-        raise NotImplementedError(_INT8_TODO)
+def is_quantized_pool(pool) -> bool:
+    """True for the (int8 values, f32 scales) tuple representation."""
+    return isinstance(pool, (tuple, list)) and len(pool) == 2
+
+
+def quantize_kv_rows(kv):
+    """Symmetric absmax int8 quantization over head_dim, bit for bit the
+    reference's: kv [N, H, D] float → (values int8 [N, H, D], scales f32
+    [N, H]). ``torch.round`` rounds half to even, as ``jnp.round`` does.
+    All-zero rows get scale 0 and dequantize back to exact zeros."""
+    kv32 = kv.float()
+    scale = kv32.abs().amax(-1) / 127.0
+    safe = scale.clamp(min=1e-12)[..., None]
+    q = torch.round(kv32 / safe).clamp(-127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(values, scales, dtype=torch.float32):
+    """Inverse of ``quantize_kv_rows``: values [..., H, D] int8 with scales
+    [..., H] → ``dtype``."""
+    return (values.float() * scales.float()[..., None]).to(dtype)
 
 
 def kv_pool_bytes(num_pages, page_size, num_heads, head_dim,
                   kv_dtype) -> int:
-    """Bytes of ONE pool (K or V) per layer for a storage dtype
-    ('' / None = float32, as in the reference)."""
+    """Bytes of ONE pool (K or V) per layer for a storage dtype ('' / None
+    = float32, as in the reference), the f32 scales included for int8."""
+    slots = int(num_pages) * int(page_size)
+    if (kv_dtype or "") == "int8":
+        return slots * num_heads * (head_dim + 4)
     dt = getattr(torch, kv_dtype) if kv_dtype else torch.float32
-    return (int(num_pages) * int(page_size) * num_heads * head_dim
+    return (slots * num_heads * head_dim
             * torch.empty((), dtype=dt).element_size())
 
 
@@ -76,33 +103,52 @@ def flat_slots(block_tables, positions, valid, page_size: int):
     return torch.where(valid, slots, offset)      # trash page = page 0
 
 
+def _scatter_flat(arr, slots, rows):
+    num_pages, page_size = arr.shape[0], arr.shape[1]
+    flat = arr.view(num_pages * page_size, *arr.shape[2:])
+    flat.index_copy_(0, slots, rows.to(arr.dtype))
+
+
 def write_pool(pool, slots, kv):
     """Write ``kv`` rows into the pool at flat ``slots``, in place.
 
-    pool: [num_pages, page_size, H, D]; slots: [N] int flat slot ids; kv:
-    [N, H, D]. Duplicate trash-slot writes land in an unspecified order —
-    the trash page holds garbage by contract. Returns ``pool``.
+    pool: [num_pages, page_size, H, D], or the quantized (values, scales)
+    tuple (quantize on write); slots: [N] int flat slot ids; kv: [N, H, D].
+    Duplicate trash-slot writes land in an unspecified order — the trash
+    page holds garbage by contract. Returns ``pool``.
     """
-    _check_pool(pool)
-    num_pages, page_size = pool.shape[0], pool.shape[1]
-    flat = pool.view(num_pages * page_size, *pool.shape[2:])
-    flat.index_copy_(0, slots.long(), kv.to(pool.dtype))
+    slots = slots.long()
+    if is_quantized_pool(pool):
+        qrows, srows = quantize_kv_rows(kv)
+        _scatter_flat(pool[0], slots, qrows)
+        _scatter_flat(pool[1], slots, srows)
+    else:
+        _scatter_flat(pool, slots, kv)
     return pool
 
 
-def gather_pool(pool, block_tables):
-    """Every slot a block table can address, in logical order.
-
-    pool: [num_pages, page_size, H, D]; block_tables: [B, P] int. Returns
-    [B, P * page_size, H, D] where row ``t`` holds logical position ``t``.
-    """
-    _check_pool(pool)
-    num_pages, page_size = pool.shape[0], pool.shape[1]
-    flat = pool.view(num_pages * page_size, *pool.shape[2:])
+def _gather_flat(arr, block_tables):
+    num_pages, page_size = arr.shape[0], arr.shape[1]
+    flat = arr.view(num_pages * page_size, *arr.shape[2:])
     tables = block_tables.long()
     slots = (tables[:, :, None] * page_size
              + torch.arange(page_size, device=tables.device)[None, None])
     return flat[slots.reshape(tables.shape[0], -1)]
+
+
+def gather_pool(pool, block_tables, out_dtype=None):
+    """Every slot a block table can address, in logical order.
+
+    pool: [num_pages, page_size, H, D], or the quantized tuple (dequantized
+    here to ``out_dtype``, float32 by default); block_tables: [B, P] int.
+    Returns [B, P * page_size, H, D] where row ``t`` holds logical position
+    ``t``.
+    """
+    if is_quantized_pool(pool):
+        return dequantize_kv(_gather_flat(pool[0], block_tables),
+                             _gather_flat(pool[1], block_tables),
+                             out_dtype or torch.float32)
+    return _gather_flat(pool, block_tables)
 
 
 def _decode_attention(q, ks, vs, ctx_len, scale):
@@ -143,9 +189,10 @@ def paged_attention_update(q, k, v, k_pool, v_pool, block_tables, ctx_len,
     """One layer's cache-aware attention: write this call's K/V into the
     paged pools (in place), then attend.
 
-    q/k/v: [B, S, H, D] (any strides); pools: [num_pages, page_size, H, D];
-    block_tables: [B, P]; ctx_len: [B] visible length including the
-    positions written here; valid: [B, S]; positions: [B, S].
+    q/k/v: [B, S, H, D] (any strides); pools: [num_pages, page_size, H, D]
+    or quantized (values, scales) tuples; block_tables: [B, P]; ctx_len:
+    [B] visible length including the positions written here; valid: [B,
+    S]; positions: [B, S].
 
     - ``prefill``: K/V of the window are right here, so attention is
       ordinary causal attention over the window (the flash kernel); the pool

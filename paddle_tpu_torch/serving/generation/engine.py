@@ -12,22 +12,31 @@ Flow per worker iteration:
 1. **admit**: pop FIFO requests while a batch slot AND their full page
    reservation are available; drop expired ones (``DeadlineExceededError``:
    a scheduling deadline gates admission, never an in-flight stream).
-2. **prefill**: admitted prompts run one forward per (pow2 rows, sequence
-   bucket) group, writing the prompt K/V into their pages; the first token
-   is sampled from the last position.
+   Admission consults the shared-prefix radix index (prefix_cache.py)
+   first: matched full pages are mapped into the block table (refcounted
+   sharing), shrinking the reservation AND the prefill window; under pool
+   pressure cache-only pages are LRU-evicted and the reservation retried.
+2. **prefill**: cold prompts run one forward per (pow2 rows, sequence
+   bucket) group, writing the prompt K/V into their pages; prefix hits run
+   the CHUNKED suffix prefill instead (attention reaches the cached prefix
+   through the block tables). The first token is sampled from the last
+   position, and every prompt's full pages are published to the index.
 3. **decode**: one fixed-shape step for every live lane; sampling on the
    host (vectorized, per-request RNG); tokens stream out through each
-   request's ``StreamingFuture``.
+   request's ``StreamingFuture``. With a draft model, each iteration is
+   instead draft-propose-k plus ONE ``[max_batch, k+1]`` verify step with
+   accept-and-resample (speculative decoding; the output distribution is
+   unchanged).
 4. **evict**: eos / length / cancelled / hard-deadline sequences release
-   their pages at once.
+   their pages at once; completed sequences' full pages stay behind in the
+   prefix index (refcount 1) until pool pressure LRU-evicts them.
 
 Backpressure: a bounded queue raising ``QueueFullError``,
 ``ServerClosedError`` after shutdown, and a fault barrier that fails only
 the affected requests, never the worker.
 
-Not in this slice (ROADMAP): the prefix cache (``prefix_cache=True``
-raises), speculative decoding (``draft_model`` raises), the multi-tenant
-scheduler, tensor-parallel meshes, telemetry, tracing and warmup manifests.
+Not in this slice (ROADMAP): the multi-tenant scheduler, tensor-parallel
+meshes, telemetry, tracing, warmup manifests and the compile cache.
 ``metrics_snapshot()`` returns a plain dict.
 """
 from __future__ import annotations
@@ -40,15 +49,17 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ...framework.device import resolve_device
+from ...framework.device import resolve_device, same_device
 from ...framework.flags import flag_value
 from ...ops.paged_attention import kv_pool_bytes, resolve_kv_dtype
 from ..bucketing import ShapeBucketPolicy
 from ..request import (DeadlineExceededError, QueueFullError,
                        ServerClosedError)
 from .kv_cache import PagedKVCache
-from .model_fns import CachedDecoder
+from .model_fns import CachedDecoder, supports_cached_decode
+from .prefix_cache import PrefixCache
 from .sampling import sample_next_tokens
+from .spec_decode import _sample, accept_tokens, softmax
 
 __all__ = ["GenerationServer", "StreamingFuture", "DecodeMetrics"]
 
@@ -188,18 +199,25 @@ class _ActiveSeq:
     """One live lane of the in-flight decode batch."""
 
     __slots__ = ("req", "slot", "pages", "ctx", "max_total", "last_token",
-                 "n_generated", "last_emit_t")
+                 "n_generated", "last_emit_t", "prefix_len", "history",
+                 "draft_ctx", "published")
 
     def __init__(self, req: _Request, slot: int, pages: List[int],
-                 max_total: int):
+                 max_total: int, prefix_len: int = 0):
         self.req = req
         self.slot = slot
-        self.pages = pages
+        self.pages = pages              # prefix pages first, private after
         self.ctx = len(req.prompt)      # tokens whose K/V is cached
         self.max_total = max_total      # prompt + generation budget
         self.last_token = -1
         self.n_generated = 0
         self.last_emit_t = 0.0
+        self.prefix_len = int(prefix_len)   # cached tokens reused
+        # full token history (prompt + emitted): the draft's catch-up and
+        # publish-on-completion both key pages by content
+        self.history: List[int] = [int(t) for t in req.prompt]
+        self.draft_ctx = len(req.prompt)    # tokens cached in the draft pools
+        self.published = False              # prompt pages in the index
 
 
 _EVENTS = ("submitted", "completed", "rejected", "timed_out", "cancelled",
@@ -234,6 +252,12 @@ class DecodeMetrics:
         self._pages_used = 0
         self._evicted = 0
         self._pool_bytes = 0
+        self._pool_dtype = "model"
+        self._pfx_hits = 0
+        self._pfx_reused = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_greedy = [0, 0]      # greedy lanes: proposed, accepted
 
     def count(self, event: str, n: int = 1):
         with self._lock:
@@ -268,9 +292,24 @@ class DecodeMetrics:
         with self._lock:
             self._evicted += int(n_pages)
 
-    def set_kv_pool_bytes(self, nbytes: int):
+    def set_kv_pool_bytes(self, nbytes: int, dtype: str = ""):
         with self._lock:
             self._pool_bytes = int(nbytes)
+            self._pool_dtype = dtype or "model"
+
+    def observe_prefix_hit(self, tokens_reused: int):
+        with self._lock:
+            self._pfx_hits += 1
+            self._pfx_reused += int(tokens_reused)
+
+    def observe_spec(self, proposed: int, accepted: int,
+                     greedy: bool = False):
+        with self._lock:
+            self._spec_proposed += int(proposed)
+            self._spec_accepted += int(accepted)
+            if greedy:
+                self._spec_greedy[0] += int(proposed)
+                self._spec_greedy[1] += int(accepted)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -290,7 +329,19 @@ class DecodeMetrics:
                              "used": self._pages_used,
                              "free": self._page_capacity - self._pages_used,
                              "evicted_total": self._evicted,
-                             "pool_bytes": self._pool_bytes},
+                             "pool_bytes": self._pool_bytes,
+                             "pool_dtype": self._pool_dtype},
+                "prefix": {"hits": self._pfx_hits,
+                           "tokens_reused": self._pfx_reused},
+                "spec": {"proposed": self._spec_proposed,
+                         "accepted": self._spec_accepted,
+                         "acceptance_rate": (self._spec_accepted
+                                             / max(1, self._spec_proposed)),
+                         # greedy lanes alone: with the target as its own
+                         # draft, only rounding can reject there
+                         "greedy_acceptance_rate": (
+                             self._spec_greedy[1]
+                             / max(1, self._spec_greedy[0]))},
             }
 
 
@@ -300,9 +351,13 @@ class GenerationServer:
 
     ``submit_generate(prompt, ...) -> StreamingFuture`` with bounded-queue
     backpressure and scheduling deadlines; knobs default to the
-    ``FLAGS_decode_*`` flags (framework/flags.py). ``device`` (default: the
-    CUDA device; ``"cpu"`` must be asked for) must be the model's. The
-    model is put in eval mode.
+    ``FLAGS_decode_*`` flags (framework/flags.py): the prefix cache is on
+    unless ``prefix_cache=False`` or the flag says otherwise, and a
+    ``draft_model`` turns on speculative decoding with ``spec_k`` (default
+    ``FLAGS_decode_spec_k``) proposals a step. ``device`` (default: the
+    CUDA device; ``"cpu"`` must be asked for) must be the model's and the
+    draft's. The models are put in eval mode; their parameters are read
+    live at each step.
     """
 
     def __init__(self, model, *, max_batch: Optional[int] = None,
@@ -315,18 +370,11 @@ class GenerationServer:
                  eos_token_id: Optional[int] = None,
                  pad_token_id: int = 0,
                  name: str = "generate",
-                 prefix_cache: bool = False,
+                 prefix_cache: Optional[bool] = None,
                  draft_model=None,
+                 spec_k: Optional[int] = None,
                  device=None,
                  start: bool = True):
-        if prefix_cache:
-            raise NotImplementedError(
-                "the shared-prefix KV cache is not ported yet (ROADMAP "
-                "queue 1: prefix cache, speculative decoding and verify)")
-        if draft_model is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP queue 1: "
-                "prefix cache, speculative decoding and verify)")
         self.device = resolve_device(device)
         model.eval()
         self.model = model
@@ -343,11 +391,11 @@ class GenerationServer:
         self.kv_dtype = str(flag_value("FLAGS_decode_kv_dtype") or "")
         pool_dtype = resolve_kv_dtype(self.kv_dtype)
         nh, hd = spec["num_heads"], spec["head_dim"]
-        model_dtype = str(model.dtype).replace("torch.", "")
         f32_tok = kv_pool_bytes(1, 1, nh, hd, None)
-        cur_tok = kv_pool_bytes(1, 1, nh, hd, self.kv_dtype or model_dtype)
-        # sub-f32 pools grant 2x pages for the same budget, as the
-        # reference's auto sizing
+        cur_tok = kv_pool_bytes(1, 1, nh, hd, self.kv_dtype or None)
+        # as the reference's auto sizing: the pool is priced in its storage
+        # flag ('' = float32, whatever the model's dtype), and int8 or bf16
+        # pools get 2x pages for the same budget
         self.kv_capacity_factor = max(1, min(2, f32_tok // max(cur_tok, 1)))
         if num_pages is None:
             num_pages = int(flag_value("FLAGS_decode_kv_pages"))
@@ -372,11 +420,48 @@ class GenerationServer:
         self.decoder = CachedDecoder(
             model, max_batch=self.max_batch, page_size=self.page_size,
             pages_per_seq=self.pages_per_seq,
-            max_positions=self.max_seq_len, device=self.device)
+            max_positions=self.max_seq_len, kv_dtype=self.kv_dtype,
+            device=self.device)
         self.kv = PagedKVCache(model, num_pages=int(num_pages),
                                page_size=self.page_size, dtype=pool_dtype)
+        # ---- shared-prefix KV reuse (radix index over full pages)
+        if prefix_cache is None:
+            prefix_cache = bool(flag_value("FLAGS_decode_prefix_cache"))
+        self.prefix = PrefixCache(self.kv) if prefix_cache else None
+        # ---- speculative decoding (the draft proposes, the target verifies)
+        self.spec_k = int(spec_k if spec_k is not None
+                          else flag_value("FLAGS_decode_spec_k"))
+        if draft_model is None:
+            self.spec_k = 0
+        self.draft: Optional[CachedDecoder] = None
+        self._draft_k = self._draft_v = None
+        if self.spec_k:
+            if not supports_cached_decode(draft_model):
+                raise TypeError("draft_model must support KV-cached decode "
+                                "(forward(cache=) + init_kv_pools)")
+            if not same_device(draft_model.device, self.device):
+                raise ValueError(f"the draft model is on "
+                                 f"{draft_model.device}, the engine on "
+                                 f"{self.device}")
+            dspec = draft_model.kv_cache_spec()
+            if dspec["max_seq_len"] < self.max_seq_len:
+                raise ValueError(
+                    f"draft model max_seq_len={dspec['max_seq_len']} is "
+                    f"shorter than the engine's "
+                    f"max_seq_len={self.max_seq_len}")
+            draft_model.eval()
+            # the draft shares the target's block tables 1:1 (its own
+            # pools, the same page geometry), so prefix-cache hits reuse
+            # draft K/V for free and rollback is the same truncation
+            self.draft = CachedDecoder(
+                draft_model, max_batch=self.max_batch,
+                page_size=self.page_size, pages_per_seq=self.pages_per_seq,
+                max_positions=self.max_seq_len, kv_dtype=self.kv_dtype,
+                device=self.device)
+            self._draft_k, self._draft_v = draft_model.init_kv_pools(
+                self.kv.num_pages, self.page_size, pool_dtype)
         self.metrics = DecodeMetrics(name, self.kv.capacity)
-        self.metrics.set_kv_pool_bytes(self.kv.pool_bytes())
+        self.metrics.set_kv_pool_bytes(self.kv.pool_bytes(), self.kv_dtype)
         # ONE Condition is both the engine lock and the wakeup channel
         self._lock = threading.Condition()
         self._queue: "deque[_Request]" = deque()
@@ -390,6 +475,25 @@ class GenerationServer:
         self._steps = 0
         if start:
             self.start()
+
+    def refresh_params(self):
+        """After the model's weights changed: the decoders read live
+        parameters, so only the prefix index must go (its pages hold K/V
+        computed with the old weights; serving them would be silent
+        staleness). In-flight sequences keep streaming."""
+        self.clear_prefix_cache()
+
+    def clear_prefix_cache(self) -> int:
+        """Drop every cached prefix page back to the free list (pages shared
+        with in-flight sequences stay until those finish). Returns the
+        number of pages freed."""
+        if self.prefix is None:
+            return 0
+        with self._lock:
+            n = self.prefix.clear()
+            if n:
+                self.metrics.set_kv_pages(self.kv.used_pages)
+            return n
 
     # ------------------------------------------------------ observability
     @property
@@ -410,6 +514,9 @@ class GenerationServer:
     def metrics_snapshot(self) -> dict:
         snap = self.metrics.snapshot()
         with self._lock:
+            if self.prefix is not None:
+                snap["prefix"].update(self.prefix.stats())
+            snap["spec"]["k"] = self.spec_k
             snap["decode_steps"] = self._steps
             snap["kv_leak_check"] = self.kv.leak_check()
         return snap
@@ -524,7 +631,10 @@ class GenerationServer:
                                 return
                             self._lock.wait(0.05)
                             continue
-                    self._decode_iteration(active)
+                    if self.draft is not None:
+                        self._spec_iteration(active)
+                    else:
+                        self._decode_iteration(active)
         finally:
             with self._lock:
                 self._loop_running = False
@@ -575,18 +685,40 @@ class GenerationServer:
                 req = self._queue[0]
                 max_total = min(len(req.prompt) + req.max_new,
                                 self.max_seq_len)
-                pages = self.kv.alloc(self.kv.pages_for(max_total))
+                # the prefix index FIRST: matched full pages are shared
+                # (retained); only the rest of the reservation comes from
+                # the free list
+                matched, shared = (0, [])
+                if self.prefix is not None:
+                    matched, shared = self.prefix.match(req.prompt)
+                need = self.kv.pages_for(max_total) - len(shared)
+                pages = self.kv.alloc(need)
+                if pages is None and self.prefix is not None:
+                    # pool pressure: reclaim LRU cache-only pages, then
+                    # retry once
+                    if self.prefix.evict(need - self.kv.free_pages):
+                        pages = self.kv.alloc(need)
                 if pages is None:
                     break       # head-of-line until pages free up
                 # between taking the reservation and publishing it into
                 # self._slots no failure may keep the references
                 try:
-                    self._queue.popleft()
-                    slot = free_slots.pop(0)
-                    seq = _ActiveSeq(req, slot, pages, max_total)
-                    self._slots[slot] = seq
+                    self.kv.retain(shared)
                 except BaseException:
                     self.kv.release(pages)
+                    raise
+                try:
+                    if self.prefix is not None:
+                        self.prefix.note_admission(matched)
+                        if matched:
+                            self.metrics.observe_prefix_hit(matched)
+                    self._queue.popleft()
+                    slot = free_slots.pop(0)
+                    seq = _ActiveSeq(req, slot, shared + pages, max_total,
+                                     prefix_len=matched)
+                    self._slots[slot] = seq
+                except BaseException:
+                    self.kv.release(shared + pages)
                     raise
                 self._tables[slot, :] = 0
                 self._tables[slot, :len(seq.pages)] = seq.pages
@@ -595,14 +727,20 @@ class GenerationServer:
                 self.metrics.set_kv_pages(self.kv.used_pages)
         if not admitted:
             return
-        # prefill OUTSIDE the lock, grouped by prompt sequence bucket
-        groups: Dict[int, List[_ActiveSeq]] = {}
+        # prefill OUTSIDE the lock: cold prompts grouped by prompt bucket
+        # (causal attention over the window), prefix hits by SUFFIX bucket
+        # (chunked attention over the cached prefix)
+        cold: Dict[int, List[_ActiveSeq]] = {}
+        hot: Dict[int, List[_ActiveSeq]] = {}
         for seq in admitted:
-            bucket = min(self.policy.bucket_seq(len(seq.req.prompt)),
-                         self.max_seq_len)
-            groups.setdefault(bucket, []).append(seq)
-        for bucket, seqs in groups.items():
+            n_suffix = len(seq.req.prompt) - seq.prefix_len
+            bucket = min(self.policy.bucket_seq(n_suffix), self.max_seq_len)
+            (hot if seq.prefix_len else cold).setdefault(
+                bucket, []).append(seq)
+        for bucket, seqs in cold.items():
             self._prefill_group(seqs, bucket)
+        for bucket, seqs in hot.items():
+            self._prefill_chunked_group(seqs, bucket)
 
     def _fail_group(self, seqs: List[_ActiveSeq], exc: BaseException):
         with self._lock:
@@ -627,11 +765,60 @@ class GenerationServer:
                                                 self.kv.v)
             logits = last.float().cpu().numpy()
             self.kv.k, self.kv.v = k2, v2
+            if self.draft is not None:
+                _, self._draft_k, self._draft_v = self.draft.prefill(
+                    ids, lens, tables, self._draft_k, self._draft_v)
         except Exception as e:  # noqa: BLE001 - fault barrier: fail only
             self._fail_group(seqs, e)   # THIS group; the worker survives
             return
         self.metrics.observe_step("prefill", (time.perf_counter() - t0) * 1e3)
+        self._publish_prompts(seqs)
         self._sample_and_emit(seqs, logits[:rows])
+
+    def _prefill_chunked_group(self, seqs: List[_ActiveSeq], seq_bucket: int):
+        """Suffix prefill for prefix-cache hits: the window holds only each
+        prompt's unmatched tail; attention reaches the shared prefix pages
+        through the block tables (kind "chunked")."""
+        rows = len(seqs)
+        padded = min(self.policy.bucket_batch(rows), self.max_batch)
+        ids = np.full((padded, seq_bucket), self.pad_token_id, np.int64)
+        start = np.zeros(padded, np.int32)
+        seg = np.zeros(padded, np.int32)
+        tables = np.zeros((padded, self.pages_per_seq), np.int32)
+        for i, seq in enumerate(seqs):
+            suffix = seq.req.prompt[seq.prefix_len:]
+            ids[i, :len(suffix)] = suffix
+            start[i] = seq.prefix_len
+            seg[i] = len(suffix)
+            tables[i] = self._tables[seq.slot]
+        t0 = time.perf_counter()
+        try:
+            last, k2, v2 = self.decoder.prefill_chunked(
+                ids, start, seg, tables, self.kv.k, self.kv.v)
+            logits = last.float().cpu().numpy()
+            self.kv.k, self.kv.v = k2, v2
+            if self.draft is not None:
+                _, self._draft_k, self._draft_v = self.draft.prefill_chunked(
+                    ids, start, seg, tables, self._draft_k, self._draft_v)
+        except Exception as e:  # noqa: BLE001 - fault barrier, as above
+            self._fail_group(seqs, e)
+            return
+        self.metrics.observe_step("prefill", (time.perf_counter() - t0) * 1e3)
+        self._publish_prompts(seqs)
+        self._sample_and_emit(seqs, logits[:rows])
+
+    def _publish_prompts(self, seqs: List[_ActiveSeq]):
+        """Index each prefilled prompt's FULL pages so later admissions can
+        share them. Runs after the prefill that wrote the pages (and the
+        draft's, under speculation) was enqueued: later reads of those pages
+        are ordered after the writes on the device's stream."""
+        if self.prefix is None:
+            return
+        with self._lock:
+            for seq in seqs:
+                self.prefix.publish(seq.req.prompt, seq.pages,
+                                    n_tokens=len(seq.req.prompt))
+                seq.published = True
 
     # ---- one decode iteration ----
     def _decode_iteration(self, active: List[_ActiveSeq]):
@@ -662,31 +849,149 @@ class GenerationServer:
             seq.ctx += 1
         self._sample_and_emit(active, logits[[s.slot for s in active]])
 
+    # ---- one speculative iteration: the draft proposes, the target verifies
+    def _spec_iteration(self, active: List[_ActiveSeq]):
+        """Draft-then-verify (Leviathan et al.): the draft proposes
+        ``spec_k`` tokens per lane through its own paged pools (the same
+        block tables), then the target scores the whole ``[last_accepted,
+        d_1..d_k]`` window in ONE ``[max_batch, k + 1]`` verify step.
+        Accept-and-resample on the host keeps the output distribution that
+        of plain sampling; rejected tokens' K/V writes sit on the lane's
+        reserved pages and are rolled back by truncating ``ctx`` /
+        ``draft_ctx``."""
+        b, k = self.max_batch, self.spec_k
+        t0 = time.perf_counter()
+        try:
+            draft_toks, draft_probs = self._draft_propose(active, k)
+            ids = np.zeros((b, k + 1), np.int64)
+            start = np.zeros(b, np.int32)
+            seg = np.zeros(b, np.int32)
+            for s in active:
+                ids[s.slot, 0] = s.last_token
+                ids[s.slot, 1:] = draft_toks[s.slot]
+                start[s.slot] = s.ctx
+                seg[s.slot] = k + 1
+            vlogits, k2, v2 = self.decoder.verify(
+                ids, start, seg, self._tables, self.kv.k, self.kv.v)
+            vlogits = vlogits.float().cpu().numpy()
+        except Exception as e:  # noqa: BLE001 - fault barrier: a model
+            self._fail_group(active, e)  # error fails the in-flight
+            return                       # sequences, not the engine
+        self.kv.k, self.kv.v = k2, v2
+        self._steps += 1
+        self.metrics.observe_step("decode", (time.perf_counter() - t0) * 1e3)
+        self.metrics.observe_occupancy(len(active))
+        toks_lists: List[List[int]] = []
+        for s in active:
+            remaining = min(s.req.max_new - s.n_generated,
+                            s.max_total - s.ctx)
+            emitted, acc = accept_tokens(
+                vlogits[s.slot], draft_toks[s.slot],
+                draft_probs.get(s.slot), s.req.temperature, s.req.rng,
+                max_emit=remaining, eos_token_id=self.eos_token_id)
+            self.metrics.observe_spec(k, acc, s.req.temperature <= 0.0)
+            s.ctx += len(emitted)
+            # rollback by truncation: positions past the accepted stream
+            # hold rejected K/V in both pools; the shrunken ctx masks them
+            # and the next write overwrites them in place
+            s.draft_ctx = min(s.draft_ctx, s.ctx)
+            toks_lists.append(emitted)
+        self._emit_batch(active, toks_lists)
+
+    def _draft_propose(self, active: List[_ActiveSeq], k: int):
+        """Run the draft ``k`` single-token steps (the same ``[max_batch,
+        1]`` shape each time), sampling each lane's proposal from the draft
+        distribution with the request's own RNG. Lanes whose draft pools lag
+        the target context (one position, after a fully accepted round)
+        first catch up with masked feed steps. Returns ``(draft_toks [B, k]
+        int64, {slot: draft_probs [k, vocab]} for sampled lanes)``."""
+        b = self.max_batch
+        while True:
+            lag = [s for s in active if s.draft_ctx < s.ctx]
+            if not lag:
+                break
+            tokens = np.zeros(b, np.int64)
+            positions = np.zeros(b, np.int32)
+            mask = np.zeros(b, bool)
+            ctx_after = np.zeros(b, np.int32)
+            for s in lag:
+                tokens[s.slot] = s.history[s.draft_ctx]
+                positions[s.slot] = s.draft_ctx
+                mask[s.slot] = True
+                ctx_after[s.slot] = s.draft_ctx + 1
+            _, self._draft_k, self._draft_v = self.draft.decode(
+                tokens, positions, mask, ctx_after, self._tables,
+                self._draft_k, self._draft_v)
+            for s in lag:
+                s.draft_ctx += 1
+        draft_toks = np.zeros((b, k), np.int64)
+        draft_probs: Dict[int, np.ndarray] = {}
+        feed = np.zeros(b, np.int64)
+        for s in active:
+            feed[s.slot] = s.last_token
+        for j in range(k):
+            positions = np.zeros(b, np.int32)
+            mask = np.zeros(b, bool)
+            ctx_after = np.zeros(b, np.int32)
+            for s in active:
+                positions[s.slot] = s.draft_ctx
+                mask[s.slot] = True
+                ctx_after[s.slot] = s.draft_ctx + 1
+            logits, self._draft_k, self._draft_v = self.draft.decode(
+                feed, positions, mask, ctx_after, self._tables,
+                self._draft_k, self._draft_v)
+            logits = logits.float().cpu().numpy()
+            for s in active:
+                row = logits[s.slot]
+                if s.req.temperature > 0.0:
+                    p = softmax(row, s.req.temperature)
+                    probs = draft_probs.setdefault(
+                        s.slot, np.zeros((k, row.shape[-1])))
+                    probs[j] = p
+                    tok = _sample(p, s.req.rng.random_sample())
+                else:
+                    tok = int(row.argmax())
+                draft_toks[s.slot, j] = tok
+                feed[s.slot] = tok
+                s.draft_ctx += 1
+        return draft_toks, draft_probs
+
     # ---- shared harvest: sample, stream, evict ----
     def _sample_and_emit(self, seqs: List[_ActiveSeq], logits: np.ndarray):
         temps = np.array([s.req.temperature for s in seqs], np.float64)
         uniforms = np.array([s.req.rng.random_sample() for s in seqs])
         toks = sample_next_tokens(logits, temps, uniforms=uniforms)
+        self._emit_batch(seqs, [[int(t)] for t in toks])
+
+    def _emit_batch(self, seqs: List[_ActiveSeq],
+                    toks_lists: List[List[int]]):
+        """Stream each sequence's new tokens (one from a prefill or decode
+        step, up to spec_k + 1 from a verify step), then run the finish
+        checks. Callers updated ``seq.ctx`` first."""
         now = time.monotonic()
         inter = []
-        self.metrics.observe_tokens(len(seqs))
+        self.metrics.observe_tokens(sum(len(t) for t in toks_lists))
         with self._lock:
-            for seq, tok in zip(seqs, toks):
-                tok = int(tok)
-                seq.last_token = tok
-                seq.n_generated += 1
-                if seq.n_generated == 1:
-                    self.metrics.observe_ttft(
-                        (now - seq.req.submit_t) * 1e3)
-                else:
-                    inter.append((now - seq.last_emit_t) * 1e3)
-                seq.last_emit_t = now
-                seq.req.future._emit(tok)
+            for seq, toks in zip(seqs, toks_lists):
+                for tok in toks:
+                    tok = int(tok)
+                    seq.last_token = tok
+                    seq.history.append(tok)
+                    seq.n_generated += 1
+                    if seq.n_generated == 1:
+                        self.metrics.observe_ttft(
+                            (now - seq.req.submit_t) * 1e3)
+                    else:
+                        inter.append((now - seq.last_emit_t) * 1e3)
+                    seq.last_emit_t = now
+                    seq.req.future._emit(tok)
+                if not toks:
+                    continue
                 if seq.req.future._cancel_requested:
                     seq.req.future._finish("cancelled")
                     self._release(seq, "cancelled")
                 elif self.eos_token_id is not None and \
-                        tok == self.eos_token_id:
+                        int(toks[-1]) == self.eos_token_id:
                     seq.req.future._finish("eos")
                     self._release(seq, "completed")
                 elif seq.n_generated >= seq.req.max_new or \
@@ -700,9 +1005,21 @@ class GenerationServer:
 
     def _release(self, seq: _ActiveSeq, event: str):
         """Evict one sequence: drop its page references, free the slot
-        (lock held)."""
+        (lock held). A COMPLETED sequence first publishes its full pages —
+        prompt AND generated tokens — into the prefix index, so they stay
+        cached (refcount 1, index-held) instead of returning to the free
+        list; everything else frees as refcounts reach zero."""
         if self._slots[seq.slot] is not seq:
             return
+        if event == "completed" and self.prefix is not None \
+                and seq.published:
+            # history[:ctx] are the positions whose K/V is in the pool (the
+            # last emitted token was never written); under speculation, cap
+            # at what the DRAFT pools also hold, so shared pages are valid
+            # in both
+            n_ok = seq.ctx if self.draft is None \
+                else min(seq.ctx, seq.draft_ctx)
+            self.prefix.publish(seq.history, seq.pages, n_tokens=n_ok)
         self._slots[seq.slot] = None
         self._tables[seq.slot, :] = 0
         freed = self.kv.release(seq.pages)

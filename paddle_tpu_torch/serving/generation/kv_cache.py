@@ -2,17 +2,18 @@
 ``paddle_tpu/serving/generation/kv_cache.py``).
 
 The device side is the model's per-layer pools (``model.init_kv_pools``),
-``[num_pages, page_size, heads, head_dim]`` tensors that the prefill/decode
-steps update in place (ops/paged_attention.py). The host side here owns
+``[num_pages, page_size, heads, head_dim]`` tensors (or int8 ``(values,
+scales)`` tuples) that the prefill/decode steps update in place
+(ops/paged_attention.py). The host side here owns
 which pages belong to whom: a free list, per-page reference counts, and the
 eviction accounting. Page 0 is the reserved trash page (masked writes land
 there) and is never handed out.
 
 Pages are refcounted (``alloc`` hands them out at 1, ``retain`` adds a
 sharer, ``release``/``free`` drop one reference and a page returns to the
-free list with its last one), so the prefix cache can share pages when it
-is ported; ``leak_check`` verifies that free and referenced pages cover the
-capacity exactly.
+free list with its last one), so the prefix cache (prefix_cache.py) can
+share full pages; ``leak_check`` verifies that free and referenced pages
+cover the capacity exactly.
 
 Thread-safety: the engine's worker thread is the only mutator; the
 allocator itself is plain data guarded by the engine lock.
@@ -38,6 +39,9 @@ class PagedKVCache:
                              "trash page")
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
+        # dtype may be the string "int8": pools then carry per-slot absmax
+        # scales beside int8 values (ops/paged_attention)
+        self.kv_dtype = dtype if isinstance(dtype, str) else ""
         self.k, self.v = model.init_kv_pools(self.num_pages, self.page_size,
                                              dtype)
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
@@ -62,8 +66,12 @@ class PagedKVCache:
         return max(1, math.ceil(tokens / self.page_size))
 
     def pool_bytes(self) -> int:
-        """Device bytes resident in the K+V pools."""
-        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+        """Device bytes resident in the K+V pools (quantized pools count
+        their scale planes)."""
+        tensors = [t for pool in self.k + self.v
+                   for t in (pool if isinstance(pool, (tuple, list))
+                             else (pool,))]
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     # ---- allocation ----
     def alloc(self, n_pages: int) -> Optional[List[int]]:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.framework import flags as jflags
 from paddle_tpu.models import GPTForCausalLM as JGPT
 from paddle_tpu.models import gpt_tiny as j_gpt_tiny
 from paddle_tpu.serving.generation import GenerationServer as JServer
@@ -23,6 +24,7 @@ from paddle_tpu_torch.serving import (DeadlineExceededError, QueueFullError,
                                       ServerClosedError)
 from paddle_tpu_torch.serving.generation import (CachedDecoder,
                                                  GenerationServer)
+from test_torch_flags import kv_dtype_flag, pin_kv_dtype  # noqa: F401
 
 PROMPT_LENS = [3, 7, 12, 5, 20, 9]
 MAX_NEW = [6, 10, 4, 8, 5, 7]
@@ -63,7 +65,7 @@ def test_streams_match_reference_engine():
                                   prefix_cache=False, name="jref",
                                   start=False), prompts)
     srv = GenerationServer(tm, max_batch=4, page_size=8, device="cpu",
-                           name="port", start=False)
+                           prefix_cache=False, name="port", start=False)
     got, got_r = _serve(srv, prompts)
     assert got == want
     assert got_r == want_r == ["length"] * len(prompts)
@@ -204,12 +206,79 @@ def test_fault_barrier_fails_batch_not_engine():
         assert srv.leak_check()["ok"]
 
 
+@pytest.mark.parametrize("name", [
+    "FLAGS_decode_max_batch", "FLAGS_decode_page_size",
+    "FLAGS_decode_kv_pages", "FLAGS_decode_queue_capacity",
+    "FLAGS_decode_default_timeout_ms", "FLAGS_decode_prefix_cache",
+    "FLAGS_decode_spec_k", "FLAGS_decode_kv_dtype"])
+def test_decode_flags_match_reference(name):
+    """The port's decode knobs carry the reference's names, types and
+    defaults: the prefix cache on, speculation off."""
+    from paddle_tpu_torch.framework import flags as tflags
+    mine, ref = tflags._REGISTRY[name], jflags.flag_ref(name)
+    assert (mine.default, mine.type_) == (ref.default, ref.type_)
+
+
+@pytest.mark.parametrize("model_dtype,kv_dtype", [
+    ("float32", ""), ("bfloat16", ""), ("float32", "int8"),
+    ("bfloat16", "int8"), ("bfloat16", "bfloat16")])
+def test_page_auto_sizing_matches_reference(model_dtype, kv_dtype):
+    """The pool is priced in its storage flag ('' = float32, whatever the
+    model's dtype), so a bf16 model gets the reference's page count, and
+    int8 or bf16 pools twice the pages."""
+    jm, tm = make_pair()
+    if model_dtype == "bfloat16":
+        jm.to(dtype="bfloat16")
+        tm = tm.to(torch.bfloat16)
+    with kv_dtype_flag(kv_dtype):
+        ref = JServer(jm, max_batch=2, name="jsize", start=False)
+        srv = GenerationServer(tm, max_batch=2, device="cpu", name="size",
+                               start=False)
+    assert srv.kv.num_pages == ref.kv.num_pages
+    assert srv.kv_capacity_factor == ref.kv_capacity_factor
+    assert srv.kv.pool_bytes() == ref.kv.pool_bytes()
+    assert srv.metrics_snapshot()["kv_pages"]["pool_bytes"] == \
+        ref.metrics_snapshot()["kv_pages"]["pool_bytes"]
+    assert srv.kv_capacity_factor == (2 if kv_dtype else 1)
+
+
+@pytest.mark.parametrize("kv_dtype,pools,ok", [
+    ("", None, True), ("int8", "int8", True), ("float32", None, True),
+    ("int8", None, False), ("", "int8", False), ("bfloat16", None, False),
+    ("float32", "int8", False)])
+def test_decoder_refuses_pools_of_another_type(kv_dtype, pools, ok):
+    """``CachedDecoder(kv_dtype=)`` names the pools' storage type ('' = the
+    model's): pools of another type are refused before they are read."""
+    tm = GPTForCausalLM(gpt_tiny(), device="cpu")
+    dec = CachedDecoder(tm, max_batch=2, page_size=8, pages_per_seq=2,
+                        kv_dtype=kv_dtype, device="cpu")
+    k, v = tm.init_kv_pools(5, 8, pools)
+    args = (np.array([[1, 2, 3], [4, 5, 0]]), np.array([3, 2], np.int32),
+            np.array([[1, 2], [3, 4]], np.int32), k, v)
+    if ok:
+        logits, _, _ = dec.prefill(*args)
+        assert logits.shape == (2, tm.config.vocab_size)
+    else:
+        with pytest.raises(ValueError, match="pools"):
+            dec.prefill(*args)
+    assert dec.calls["prefill"] == 1
+
+
 def test_unported_features_raise():
+    """What the port still leaves out raises, naming its ROADMAP item: the
+    stacked decoder and the fp16 GradScaler. The prefix cache, speculative
+    decoding and int8 pools no longer raise."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
     _, tm = make_pair()
-    with pytest.raises(NotImplementedError, match="prefix"):
-        GenerationServer(tm, device="cpu", prefix_cache=True, start=False)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        GenerationServer(tm, device="cpu", draft_model=tm, start=False)
+    with pytest.raises(NotImplementedError, match="stacked"):
+        GPTForCausalLM(gpt_tiny(stacked=True), device="cpu")
+    opt = AdamW(learning_rate=1e-3, parameters=tm.named_parameters())
+    with pytest.raises(NotImplementedError, match="GradScaler"):
+        TrainStep(tm, lambda out, y: out.mean(), opt, scaler=object())
+    srv = GenerationServer(tm, device="cpu", prefix_cache=True,
+                           draft_model=tm, spec_k=2, start=False)
+    assert srv.prefix is not None and srv.spec_k == 2
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):

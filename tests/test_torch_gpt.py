@@ -154,8 +154,13 @@ def test_seeded_init_kv_spec_and_limits():
     assert spec["kv_bytes_per_token"] == 2 * 2 * 4 * 16 * 4
     k, v = a.init_kv_pools(5, 4)
     assert len(k) == len(v) == 2 and k[0].shape == (5, 4, 4, 16)
-    with pytest.raises(NotImplementedError, match="int8"):
-        a.init_kv_pools(5, 4, "int8")
+    k8, v8 = a.init_kv_pools(5, 4, "int8")
+    assert len(k8) == len(v8) == 2
+    assert k8[0][0].dtype == torch.int8 and k8[0][0].shape == (5, 4, 4, 16)
+    assert k8[0][1].dtype == torch.float32 and k8[0][1].shape == (5, 4, 4)
+    assert not any(t.any() for pool in k8 + v8 for t in pool)
+    assert a.kv_cache_spec("int8")["kv_bytes_per_token"] == \
+        2 * 2 * 4 * (16 + 4)
     with pytest.raises(NotImplementedError, match="stacked"):
         GPTForCausalLM(gpt_tiny(stacked=True), device="cpu")
     big = gpt3_1p3b()

@@ -36,6 +36,12 @@ def _imports(path: Path):
 
 def test_package_has_modules_to_scan():
     assert len(FILES) > 15
+    scanned = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("serving/generation/prefix_cache.py",
+                "serving/generation/spec_decode.py",
+                "serving/generation/engine.py", "ops/paged_attention.py",
+                "ops/cuda_paged_attention.py"):
+        assert f"paddle_tpu_torch/{mod}" in scanned
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

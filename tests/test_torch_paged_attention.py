@@ -6,7 +6,9 @@ ops/pallas_paged_attention.py in interpret mode).
 Inputs are made from seeded numpy and handed to both packages, in float32.
 Live rows are compared at atol 1e-5 (float32 sums in another order); dead
 rows of the port are exactly zero (the JAX pure path leaves an average of
-garbage there, so they are not compared with it).
+garbage there, so they are not compared with it). int8 pools: quantization
+and the pools after a write are bit-identical to the reference's; attention
+over them is held at atol/rtol 1e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -162,11 +164,161 @@ def test_paged_attention_update_writes_then_attends():
                                atol=ATOL, rtol=0)
 
 
-def test_int8_pools_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="int8"):
-        tpa.resolve_kv_dtype("int8")
-    pool = (torch.zeros(2, PS, H, D, dtype=torch.int8),
-            torch.zeros(2, PS, H))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tpa.write_pool(pool, torch.zeros(1, dtype=torch.long),
-                       torch.zeros(1, H, D))
+# ------------------------------------------------------- int8 pools
+def _quant_rows(seed, n=40):
+    """Rows of mixed scales, an all-zero row, a row of one repeated value,
+    and rows built so that x / scale lands on .5 exactly (ties, which both
+    packages round half to even)."""
+    rng = np.random.RandomState(seed)
+    kv = (rng.randn(n, H, D) * rng.choice([1e-3, 1.0, 30.0], (n, H, 1))
+          ).astype(np.float32)
+    kv[0] = 0.0
+    kv[1] = 2.5
+    kv[2, :, 0] = 127.0
+    kv[2, :, 1:] = np.arange(D - 1) % 7 - 3.5
+    return kv
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quantize_dequantize_bit_identical_to_jax(seed):
+    kv = _quant_rows(seed)
+    jq, js = jpa.quantize_kv_rows(jnp.asarray(kv))
+    tq, ts = tpa.quantize_kv_rows(torch.from_numpy(kv))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (ts[0] == 0).all() and (tq[0] == 0).all()
+    jd = jpa.dequantize_kv(jq, js)
+    td = tpa.dequantize_kv(tq, ts)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    assert td[0].abs().max() == 0           # zero rows come back exactly
+    # one rounding step of the int8 grid: |x - dq(q(x))| <= scale / 2
+    err = (td - torch.from_numpy(kv)).abs().amax(-1)
+    assert bool((err <= ts / 2 * (1 + 1e-6) + 1e-30).all())
+
+
+def _int8_pools(c):
+    """The case's float pools quantized into (values, scales) tuples, for
+    both packages."""
+    out = {}
+    for name in ("kp", "vp"):
+        n = c[name].shape[0] * PS
+        q, sc = jpa.quantize_kv_rows(jnp.asarray(
+            c[name].reshape(n, H, D)))
+        out[name] = (np.asarray(q).reshape(-1, PS, H, D),
+                     np.asarray(sc).reshape(-1, PS, H))
+    return out
+
+
+def _tt(pool):
+    return tuple(torch.from_numpy(np.array(a)) for a in pool)  # owned copies
+
+
+def _jt(pool):
+    return tuple(jnp.asarray(a) for a in pool)
+
+
+def test_int8_write_gather_roundtrip_matches_jax():
+    c = _case(5, b=2, p=3, s=PS * 3, kind="chunked")
+    pools = _int8_pools(c)
+    rng = np.random.RandomState(6)
+    n = 2 * PS * 3
+    kv = rng.randn(n, H, D).astype(np.float32)
+    valid = rng.rand(2, PS * 3) > 0.3
+    positions = np.broadcast_to(np.arange(PS * 3, dtype=np.int32),
+                                (2, PS * 3)).copy()
+    slots = np.asarray(jpa.flat_slots(jnp.asarray(c["tables"]),
+                                      jnp.asarray(positions),
+                                      jnp.asarray(valid), PS)).reshape(-1)
+    live = valid.reshape(-1)
+    j_pool = jpa.write_pool(_jt(pools["kp"]), jnp.asarray(slots[live]),
+                            jnp.asarray(kv[live]))
+    t_pool = _tt(pools["kp"])
+    out = tpa.write_pool(t_pool, torch.from_numpy(slots[live]),
+                         torch.from_numpy(kv[live]))
+    assert out is t_pool and tpa.is_quantized_pool(out)     # in place
+    for got, want in zip(t_pool, j_pool):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    tables = jnp.asarray(c["tables"])
+    for dt_j, dt_t in ((None, None), (jnp.bfloat16, torch.bfloat16)):
+        j_g = np.asarray(jpa.gather_pool(j_pool, tables, out_dtype=dt_j)
+                         .astype(jnp.float32))
+        t_g = tpa.gather_pool(t_pool, torch.from_numpy(c["tables"]),
+                              out_dtype=dt_t)
+        assert t_g.dtype == (dt_t or torch.float32)
+        np.testing.assert_array_equal(t_g.float().numpy(), j_g)
+
+
+def test_int8_bytes_and_dtype_marker():
+    assert tpa.resolve_kv_dtype("int8") == "int8"
+    assert tpa.resolve_kv_dtype("") is None
+    assert tpa.resolve_kv_dtype("bfloat16") is torch.bfloat16
+    with pytest.raises(ValueError, match="kv dtype"):
+        tpa.resolve_kv_dtype("int4")
+    for dt in ("", "float32", "bfloat16", "int8"):
+        assert tpa.kv_pool_bytes(7, 16, 4, 64, dt) == \
+            jpa.kv_pool_bytes(7, 16, 4, 64, dt)
+    assert tpa.kv_pool_bytes(1, 1, 16, 128, "int8") == 16 * (128 + 4)
+
+
+@pytest.mark.parametrize("kind,s", [("decode", 1), ("chunked", 5),
+                                    ("chunked", 9)])
+def test_int8_plain_version_matches_jax_pallas_interpret(kind, s):
+    c = _case(17 + s, s=s, kind=kind)
+    pools = _int8_pools(c)
+    t = _t(c)
+    scale = 1.0 / np.sqrt(D)
+    j = np.asarray(jppa.paged_attention(
+        jnp.asarray(c["q"]), _jt(pools["kp"]), _jt(pools["vp"]),
+        jnp.asarray(c["tables"]), jnp.asarray(c["ctx"]),
+        jnp.asarray(c["valid"].astype(np.int32)),
+        jnp.asarray(c["positions"]), page_size=PS, kind=kind, scale=scale))
+    before = cpa.plain_calls
+    o = cpa.paged_attention(t["q"], _tt(pools["kp"]), _tt(pools["vp"]),
+                            t["tables"], t["ctx"], t["valid"],
+                            t["positions"], page_size=PS, kind=kind,
+                            scale=scale).numpy()
+    assert cpa.plain_calls == before + 1     # CPU tensors: the plain version
+    live = _live(c, kind)
+    assert live.any() and (~live).any()
+    np.testing.assert_allclose(o[live], j[live], atol=ATOL, rtol=ATOL)
+    assert np.all(o[~live] == 0.0)
+
+
+@pytest.mark.parametrize("kind,s", [("decode", 1), ("chunked", 6)])
+def test_int8_update_matches_jax_pure_path(kind, s):
+    """Write (quantize) then attend, through both packages' plain paths:
+    the pools afterwards are bit-identical, and live rows agree; the tuple
+    pools come back as the same objects."""
+    c = _case(31 + s, s=s, kind=kind)
+    pools = _int8_pools(c)
+    t = _t(c)
+    b = c["q"].shape[0]
+    rng = np.random.RandomState(40 + s)
+    k_new = rng.randn(b, s, H, D).astype(np.float32)
+    v_new = rng.randn(b, s, H, D).astype(np.float32)
+    kp, vp = _tt(pools["kp"]), _tt(pools["vp"])
+    out, kp2, vp2 = tpa.paged_attention_update(
+        t["q"], torch.from_numpy(k_new), torch.from_numpy(v_new), kp, vp,
+        t["tables"], t["ctx"], t["valid"], t["positions"], page_size=PS,
+        kind=kind)
+    assert kp2 is kp and vp2 is vp
+    j_out, j_kp, j_vp = jpa.paged_attention_update(
+        jnp.asarray(c["q"]), jnp.asarray(k_new), jnp.asarray(v_new),
+        _jt(pools["kp"]), _jt(pools["vp"]), jnp.asarray(c["tables"]),
+        jnp.asarray(c["ctx"]), jnp.asarray(c["valid"]),
+        jnp.asarray(c["positions"]), page_size=PS, kind=kind,
+        use_pallas=False)
+    live_slot = np.asarray(jpa.flat_slots(
+        jnp.asarray(c["tables"]), jnp.asarray(c["positions"]),
+        jnp.asarray(c["valid"]), PS)).reshape(-1) >= PS
+    for got, want in ((kp, j_kp), (vp, j_vp)):
+        for g, w in zip(got, want):
+            g = g.numpy().reshape(-1, *g.shape[2:])
+            w = np.asarray(w).reshape(g.shape)
+            # the trash page takes colliding writes in no agreed order
+            np.testing.assert_array_equal(g[PS:], w[PS:])
+    assert live_slot.any()
+    live = _live(c, kind)
+    np.testing.assert_allclose(out.numpy()[live], np.asarray(j_out)[live],
+                               atol=ATOL, rtol=ATOL)
