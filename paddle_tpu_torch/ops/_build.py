@@ -3,7 +3,10 @@
 The sources under ``paddle_tpu_torch/csrc`` have a plain C interface, so
 they are compiled with ``nvcc`` straight into one shared library and bound
 with ``ctypes`` (no PyTorch headers, so the build takes seconds, not
-minutes). The library lands in ``paddle_tpu_torch/_build/`` (listed in
+minutes). The bf16 flash forward encodes its TMA tensor maps on the host
+with the driver's ``cuTensorMapEncodeTiled``, which it gets from the runtime
+(``cudaGetDriverEntryPoint``), so the link line needs no ``-lcuda``. The
+library lands in ``paddle_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use, under a name keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once. Each
 source compiles in its own ``nvcc`` process, all started together, and one
@@ -31,7 +34,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 # -Xptxas=-v: registers, shared memory and spills per kernel, kept in
 # build_log() for whoever needs to read them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

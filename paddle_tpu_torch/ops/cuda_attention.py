@@ -8,15 +8,21 @@ Kernel: ``csrc/flash_fwd.cu``, the port of the TPU kernel
   attention with an online softmax in float, returning ``out`` and the row
   logsumexp ``lse`` (``[B*H, S]`` float; the TPU kept it 128-lane
   replicated).
-- What bounds it on the H100: at prefill widths it is bound by operations
-  (``4*S^2*D/2`` flops per head against ``4*S*D`` elements moved).
-- What its design does about it: bf16 runs both products on the tensor
-  cores (``mma.sync`` m16n8k16, FlashAttention-2 register layout: scores,
-  probabilities and the output accumulator stay in registers); float32
-  uses float FMAs over 64x64 tiles in shared memory, which keeps float32
-  exact. Causal tiles stop at the diagonal and ragged edges are masked, so
-  any ``S`` runs (``csrc/flash_fwd.cu`` has the details). ``wgmma``/TMA
-  are later work.
+- What bounds it on the H100: at prefill and training widths it is bound
+  by operations (``4*S^2*D/2`` flops per head against ``4*S*D`` elements
+  moved); in bf16 only ``wgmma`` reaches the tensor cores' dense rate.
+- What its design does about it: bf16 runs a warp-specialised Hopper
+  kernel. A producer warpgroup loads Q once and K/V tiles of 128 keys by
+  TMA into a two-stage ``mbarrier`` ring (128-byte swizzled shared memory;
+  the tensor maps are encoded per call from the tensors' pointers and
+  strides). Two consumer warpgroups, 64 query rows each, run S = Q K^T and
+  O += P V with ``wgmma`` (P from registers, V read MN-major from its TMA
+  tile) and the online softmax in registers. Only tiles on the causal
+  diagonal or the ragged end build a mask, and the heaviest causal blocks
+  start first. float32 uses float FMAs over 64x64 tiles in shared memory,
+  which keeps float32 exact. Causal tiles stop at the diagonal and ragged
+  edges are masked, so any ``S`` runs (``csrc/flash_fwd.cu`` has the
+  details, ``csrc/hopper.cuh`` the TMA, ``mbarrier`` and ``wgmma`` pieces).
 
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and raises on
 what the kernel does not take; only CPU tensors take the plain version
@@ -99,11 +105,15 @@ def _check(q, k, v, causal):
         raise ValueError(f"causal attention masks top-left aligned windows "
                          f"only: sq={sq} != sk={k.shape[1]}")
     if q.dtype == torch.bfloat16:
-        # the tensor-core path loads rows as 16-byte vectors
+        # TMA takes a 16-byte aligned base and strides of whole 16 bytes
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError(f"{name}: the bf16 kernel needs 16-byte "
                                  f"aligned rows (pointer and b/s/h strides)")
+        # one block per 128 query rows of a (batch, head), on a 1-D grid
+        if b * h * -(-sq // 128) > 2**31 - 1:
+            raise ValueError(f"flash_fwd bf16 kernel takes at most 2^31 - 1 "
+                             f"blocks of 128 rows, got B={b} H={h} S={sq}")
 
 
 def flash_attention_fwd(q, k, v, causal=True, scale=None):
