@@ -351,19 +351,28 @@ def kernel_device_ms(fn, names, iters: int = 10) -> dict:
     return out
 
 
-def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False):
+def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
     """The backward kernels against ``mha_bwd_reference`` (p and ds rounded
     to the input type, as the kernels and the TPU reference round them) on
     the forward kernel's out and lse, q/k/v as views of one fused
-    [B, S, H, 3, D] tensor. Returns the row; the limits are checked by
-    :func:`check_bwd`."""
+    [B, S, H, 3, D] tensor; with ``sk`` (full attention only) k/v of that
+    length as views of one fused [B, Sk, H, 2, D] tensor beside q. Returns
+    the row; the limits are checked by :func:`check_bwd`."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn(b, s, h, 3, d, device="cuda", generator=g).to(dtype)
-    q, k, v = qkv.unbind(3)
+    if sk is None:
+        sk = s
+        qkv = torch.randn(b, s, h, 3, d, device="cuda", generator=g).to(
+            dtype)
+        q, k, v = qkv.unbind(3)
+    else:
+        q = torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype)
+        kv = torch.randn(b, sk, h, 2, d, device="cuda", generator=g).to(
+            dtype)
+        k, v = kv.unbind(3)
     do = torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype)
     ct = (0.1 * torch.randn(b * h, s, device="cuda", generator=g)
           if lse_ct else None)
@@ -374,8 +383,9 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False):
     torch.cuda.synchronize()
     want = cab.mha_bwd_reference(q, k, v, out, lse, do, causal=causal,
                                  scale=scale, lse_ct=ct)
-    name = (f"flash_bwd B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
-            f"{'causal' if causal else 'full'}{' lse_ct' if lse_ct else ''}")
+    name = (f"flash_bwd B={b} S={s}{f' Sk={sk}' if sk != s else ''} H={h} "
+            f"D={d} {str(dtype)[6:]} {'causal' if causal else 'full'}"
+            f"{' lse_ct' if lse_ct else ''}")
     row = {"case": name, "dtype": str(dtype)}
     for gname, x, y in zip(("dq", "dk", "dv"), got, want):
         require(bool(torch.isfinite(x.float()).all()),
@@ -388,12 +398,15 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False):
     row["repeatable"] = all(bool(torch.equal(x, y))
                             for x, y in zip(got, again))
     elt = torch.empty((), dtype=dtype).element_size()
-    pairs = s * (s + 1) // 2 if causal else s * s
-    ins = 4 * b * s * h * d * elt + 2 * b * h * s * 4
-    for kname, n_prod, n_out in (("flash_bwd_dq", 3, 1),
-                                 ("flash_bwd_dkv", 4, 2)):
-        bms, by = bound_ms(ins + n_out * b * s * h * d * elt,
-                           2.0 * d * b * h * pairs * n_prod, dtype)
+    pairs = s * (s + 1) // 2 if causal else s * sk
+    # q, dO, k, v once each, lse and delta; outputs dq, or dk and dv
+    ins = (2 * s + 2 * sk) * b * h * d * elt + 2 * b * h * s * 4
+    flops = {}
+    for kname, n_prod, out_rows in (("flash_bwd_dq", 3, s),
+                                    ("flash_bwd_dkv", 4, 2 * sk)):
+        flops[kname] = 2.0 * d * b * h * pairs * n_prod
+        bms, by = bound_ms(ins + out_rows * b * h * d * elt, flops[kname],
+                           dtype)
         row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = bms, by
 
     def bwd():
@@ -401,7 +414,12 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False):
                                 scale=scale, lse_ct=ct)
     ms = kernel_device_ms(bwd, ("dq_", "dkv_"))
     row["flash_bwd_dq_ms"], row["flash_bwd_dkv_ms"] = ms["dq_"], ms["dkv_"]
+    for kname in flops:
+        row[f"{kname}_tflops"] = flops[kname] / (row[f"{kname}_ms"] * 1e-3) \
+            / 1e12
     row["bwd_ms"] = device_ms(bwd)
+    # the wrapper's delta reduction (and its allocations) beside the kernels
+    row["delta_ms"] = row["bwd_ms"] - ms["dq_"] - ms["dkv_"]
     row["host_us"] = host_us(bwd)
     row["plain_ms"] = device_ms(lambda: cab.mha_bwd_reference(
         q, k, v, out, lse, do, causal=causal, scale=scale, lse_ct=ct),
@@ -636,7 +654,13 @@ def phase_kernels(state):
             _bwd_case(2, 300, 16, 128, torch.bfloat16, False, seed + 10),
             _bwd_case(2, 300, 8, 64, torch.float32, False, seed + 10),
             _bwd_case(2, 256, 16, 128, torch.bfloat16, True, seed + 11,
-                      lse_ct=True)]
+                      lse_ct=True),
+            # the bf16 kernels at D=64, and with a K/V length other than
+            # Q's at both kernels' tile edges (blocks of 128 rows, tiles of
+            # 64)
+            _bwd_case(2, 1000, 16, 64, torch.bfloat16, True, seed + 20),
+            _bwd_case(2, 300, 16, 128, torch.bfloat16, False, seed + 21,
+                      sk=520)]
     for row in brow:
         check_bwd(row)
     state["bwd_rows"] = brow
@@ -1578,14 +1602,18 @@ def kernels_line(state) -> dict:
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
                                        for g in grads),
                     "ms": row[f"{name}_ms"],
+                    "tflops": row[f"{name}_tflops"],
                     # one plain call computes dq, dk and dv together
                     "plain_ms": row["plain_ms"],
                     "bound_ms": row[f"{name}_bound_ms"],
                     "bound_by": row[f"{name}_bound_by"],
                     # fwd+bwd of scaled_dot_product_attention, beside the
-                    # port's fwd+dq+dkv
+                    # port's fwd+dq+dkv; its backward alone (dq, dk, dv)
+                    # beside the two kernels and the wrapper's delta
                     "library_ms": row["library_ms"],
                     "port_fwd_bwd_ms": row["port_fwd_bwd_ms"],
+                    "library_bwd_ms": row["library_bwd_ms"],
+                    "delta_ms": row["delta_ms"],
                     "shape": row["case"]})
     return {"kernels": out}
 

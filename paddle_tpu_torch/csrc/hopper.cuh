@@ -2,7 +2,7 @@
 // maps and loads, mbarrier rings, wgmma descriptors and instructions, and
 // warp-specialisation helpers (register rebalancing, named barriers).
 //
-// How the pieces fit (csrc/flash_fwd.cu is the first user):
+// How the pieces fit (csrc/flash_fwd.cu and csrc/flash_bwd.cu use them):
 // - A tensor map describes a strided tensor in device memory. It is encoded
 //   on the host (encode_bshd_bf16, through the driver entry point that the
 //   runtime hands out, so the library links no libcuda) and passed to the
@@ -99,6 +99,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
           "r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copy the box at element c0 of a 1-D tensor map (the backward's lse and
+// delta, flattened [B*H*S] float) into shared memory at dst.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -201,6 +213,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         PT_ACC8(d, 24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TransB));
+}
+
+// both operands K-major (no transpose bits)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PT_ACC8(d, 0),
+        PT_ACC8(d, 8),
+        PT_ACC8(d, 16),
+        PT_ACC8(d, 24)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // both operands K-major (no transpose bits)
@@ -331,6 +362,26 @@ inline bool encode_bshd_bf16(CUtensorMap* map, const void* ptr, int B, int S,
                 const_cast<void*>(ptr), dims, strides, box, estride,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 1-D map over n contiguous floats (the backward's [B*H, S] lse and
+// delta, flattened), boxes of `box` elements, no swizzle. A box that starts
+// near the end of one row holds the next row's first values (the kernels
+// mask those columns); past n it is zero-filled. Returns false if the driver
+// refuses it (a base pointer not 16-byte aligned).
+inline bool encode_1d_f32(CUtensorMap* map, const float* ptr, int64_t n,
+                          int box) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[1] = {(cuuint64_t)n};
+  cuuint64_t strides[1] = {0};  // rank 1: no strides are read
+  cuuint32_t boxd[1] = {(cuuint32_t)box};
+  cuuint32_t estride[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                const_cast<float*>(ptr), dims, strides, boxd, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

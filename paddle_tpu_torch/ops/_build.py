@@ -3,9 +3,10 @@
 The sources under ``paddle_tpu_torch/csrc`` have a plain C interface, so
 they are compiled with ``nvcc`` straight into one shared library and bound
 with ``ctypes`` (no PyTorch headers, so the build takes seconds, not
-minutes). The bf16 flash forward encodes its TMA tensor maps on the host
-with the driver's ``cuTensorMapEncodeTiled``, which it gets from the runtime
-(``cudaGetDriverEntryPoint``), so the link line needs no ``-lcuda``. The
+minutes). The bf16 flash kernels (forward and backward) encode their TMA
+tensor maps on the host with the driver's ``cuTensorMapEncodeTiled``, which
+they get from the runtime (``cudaGetDriverEntryPoint``), so the link line
+needs no ``-lcuda``. The
 library lands in ``paddle_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use, under a name keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once. Each

@@ -2,20 +2,31 @@
 
 Kernels: ``csrc/flash_bwd.cu``, the port of the two TPU kernels of
 ``paddle_tpu/ops/pallas_attention.py::_mha_bwd``: ``flash_bwd_dq`` replaces
-``_mha_bwd_dq_kernel`` (``pl.pallas_call`` at ``pallas_attention.py:288``)
-and ``flash_bwd_dkv`` replaces ``_mha_bwd_dkv_kernel`` (``:313``).
+``_mha_bwd_dq_kernel`` (``:162``, ``pl.pallas_call`` at
+``pallas_attention.py:288``) and ``flash_bwd_dkv`` replaces
+``_mha_bwd_dkv_kernel`` (``:212``, call ``:313``).
 
 - What they compute: from q, k, v, the forward's output and row logsumexp
   and the output's cotangent dO, p = exp(q kᵀ·scale − lse) recomputed per
   tile, ds = p·(dO vᵀ − δ)·scale with δ = rowsum(o·dO) − lse_ct, and
-  dq = ds k, dk = dsᵀ q, dv = pᵀ dO, accumulated in float. δ is a torch
-  reduction here, as the reference left it to XLA (``:281``).
+  dq = ds k, dk = dsᵀ q, dv = pᵀ dO, accumulated in float (p and ds rounded
+  to bf16 before the products that take them, as the reference rounds
+  them). δ is a torch reduction here, as the reference left it to XLA
+  (``:281``).
 - What bounds them on the H100: operations (3 and 4 products of 2·S²·D per
-  head, halved when causal, against ~5·S·D elements moved).
-- What their design does about it: bf16 runs every product on the tensor
-  cores (``mma.sync``), float32 keeps exact float FMAs; two kernels, as the
-  TPU, so no float atomics and bit-for-bit repeatable gradients;
-  ``csrc/flash_bwd.cu`` has the details.
+  head, halved when causal, against ~5·S·D elements moved); in bf16 only
+  ``wgmma`` reaches the tensor cores' dense rate.
+- What their design does about it: bf16 runs two warp-specialised Hopper
+  kernels shaped like the forward. A block owns 128 rows (queries for dq,
+  keys for dk/dv), loaded once by TMA; a producer warpgroup streams the
+  other side's 64-row tiles through a three-stage ``mbarrier`` ring (dk/dv
+  with their lse and δ); two consumer warpgroups run every product with
+  ``wgmma`` straight from the tiles TMA wrote, the transposed operands read
+  through the descriptors' transpose bit (no transposed copy), p and ds
+  built in registers as the next product's operand. The tensor maps are
+  encoded per call; a map the driver refuses raises. float32 keeps exact
+  float FMAs. Two kernels, as the TPU, so no float atomics and bit-for-bit
+  repeatable gradients; ``csrc/flash_bwd.cu`` has the details.
 
 ``flash_attention_bwd`` launches both kernels for CUDA tensors and raises on
 what they do not take; only CPU tensors take the plain version
@@ -49,8 +60,8 @@ def _delta(out, do, lse_ct):
     """δ = rowsum(o·dO) in float as ``[B*H, S]`` (minus the lse
     cotangent, ``[B*H, S]`` or ``[B, H, S]``, when one is given)."""
     b, s, h, _ = out.shape
-    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).reshape(
-        b * h, s)
+    # dO is widened inside the product's kernel (no float copy of it)
+    delta = (out.float() * do).sum(-1).transpose(1, 2).reshape(b * h, s)
     if lse_ct is not None:
         delta = delta - lse_ct.float().reshape(b * h, s)
     return delta.contiguous()
@@ -97,6 +108,37 @@ def _strides(*tensors):
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
+def _check_bwd(q, k, v, out, lse, do, causal):
+    """What the kernels take, beyond the forward's ``_check`` of q/k/v
+    (which also holds dq's grid, one block per 128 query rows, to 2^31 - 1
+    blocks) and of dO against k/v."""
+    _check(q, k, v, causal)
+    if do.dtype == torch.bfloat16 and (
+            do.data_ptr() % 16 or any(st % 8 for st in do.stride()[:3])):
+        raise ValueError("dO: the bf16 kernels need 16-byte aligned rows "
+                         "(pointer and b/s/h strides)")
+    _check(do, k, v, causal)
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dO {tuple(do.shape)} "
+                         f"must match q {tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        # dk/dv: one block per 128 keys, on a 1-D grid
+        if b * h * -(-sk // 128) > 2**31 - 1:
+            raise ValueError(f"flash_bwd_dkv bf16 kernel takes at most "
+                             f"2^31 - 1 blocks of 128 keys, got B={b} H={h} "
+                             f"Sk={sk}")
+        # its lse tiles come by TMA, from a 16-byte aligned base
+        if lse.data_ptr() % 16:
+            raise ValueError("lse: the bf16 kernels need a 16-byte aligned "
+                             "base pointer")
+    if lse.shape != (b * h, sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError(f"lse must be the forward's contiguous [B*H, Sq] "
+                         f"float32, got {tuple(lse.shape)} {lse.dtype}")
+
+
 def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
                         lse_ct=None):
     """Flash-attention backward over ``[B, S, H, D]`` tensors (q/k/v/dO in
@@ -115,17 +157,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, got "
                          f"{q.device}")
-    _check(q, k, v, causal)
-    _check(do, k, v, causal)
+    _check_bwd(q, k, v, out, lse, do, causal)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if out.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"out {tuple(out.shape)} and dO {tuple(do.shape)} "
-                         f"must match q {tuple(q.shape)}")
-    if lse.shape != (b * h, sq) or lse.dtype != torch.float32 or \
-            not lse.is_contiguous():
-        raise ValueError(f"lse must be the forward's contiguous [B*H, Sq] "
-                         f"float32, got {tuple(lse.shape)} {lse.dtype}")
     delta = _delta(out, do, lse_ct)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)

@@ -160,3 +160,109 @@ def test_bf16_rounds_p_and_ds_as_the_reference():
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got, want.transpose(1, 2).bfloat16(),
                                    atol=0, rtol=0)
+
+
+# ------------------------------------------------ the bf16 kernels' tile edges
+# The bf16 kernels own blocks of 128 rows (queries for dq, keys for dk/dv)
+# and stream tiles of 64 rows: S one below, at and one above each edge, at
+# both head dims, through the wrapper on CPU tensors (the plain version).
+
+def _vjp_case(sq, sk, d, causal, seed):
+    """q, k, v, dO ([B, S, H, d] float32), jax.vjp of _mha_reference (its
+    out and (dq, dk, dv)) and the forward's lse ([B*H, Sq], from float64
+    scores)."""
+    rng = np.random.RandomState(seed)
+    q, do = (rng.randn(B, sq, H, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, sk, H, d).astype(np.float32) for _ in range(2))
+    scale = 1.0 / np.sqrt(d)
+    out, vjp = jax.vjp(lambda a, b_, c: _mha_reference(a, b_, c, causal,
+                                                       scale),
+                       _bhsd(q), _bhsd(k), _bhsd(v))
+    logits = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                       k.astype(np.float64)) * scale
+    if causal:
+        logits = np.where(np.tril(np.ones((sq, sk), bool)), logits, -np.inf)
+    m = logits.max(-1, keepdims=True)
+    lse = (m + np.log(np.exp(logits - m).sum(-1, keepdims=True)))[..., 0]
+    return (q, k, v, do, out, vjp(_bhsd(do)),
+            lse.reshape(B * H, sq).astype(np.float32), scale)
+
+
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_edges_match_vjp_of_mha_reference(s, d, causal):
+    _tile_edge_case(s, s, d, causal, seed=s * 5 + d + causal)
+
+
+def test_full_attention_with_other_kv_length_matches_vjp():
+    # Sq = 129 and Sk = 65: one row past a dq block's and a dk/dv tile's edge
+    _tile_edge_case(129, 65, 128, False, seed=31)
+
+
+def _tile_edge_case(sq, sk, d, causal, seed):
+    q, k, v, do, out, want, lse, scale = _vjp_case(sq, sk, d, causal, seed)
+    got = cab.flash_attention_bwd(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.from_numpy(_bshd(out).copy()), torch.from_numpy(lse),
+        torch.from_numpy(do), causal=causal, scale=scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == _bshd(w).shape
+        np.testing.assert_allclose(a.numpy(), _bshd(w), atol=ATOL, rtol=0,
+                                   err_msg=name)
+
+
+# ------------------------------------------- what the bf16 kernels refuse
+# _check_bwd runs before every launch; on CPU tensors it is called directly.
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+def _bwd_args(b=2, s=16, h=4, d=64):
+    q, k, v, out, do = (_bf16(b, s, h, d) for _ in range(5))
+    return q, k, v, out, torch.zeros(b * h, s), do
+
+
+def test_check_bwd_takes_fused_views():
+    q, k, v = _bf16(2, 40, 4, 3, 64).unbind(3)
+    _, _, _, out, lse, do = _bwd_args(s=40)
+    cab._check_bwd(q, k, v, out, lse, do, causal=True)
+
+
+@pytest.mark.parametrize("what", ["base", "b", "s", "h"])
+def test_check_bwd_refuses_unaligned_do(what):
+    q, k, v, out, lse, do = _bwd_args()
+    b, s, h, d = do.shape
+    if what == "base":
+        n = b * s * h * d
+        do = _bf16(n + 8)[1:1 + n].view(do.shape)
+        assert do.data_ptr() % 16
+    else:
+        strides = [s * h * d * 2, h * d * 2, d * 2, 1]
+        strides["bsh".index(what)] += 4      # 8 bytes: no whole 16
+        do = torch.as_strided(_bf16(4 * b * s * h * d), do.shape, strides)
+    with pytest.raises(ValueError, match="dO: .*16-byte"):
+        cab._check_bwd(q, k, v, out, lse, do, causal=True)
+
+
+def test_check_bwd_refuses_unaligned_lse():
+    q, k, v, out, lse, do = _bwd_args()
+    lse = torch.zeros(lse.numel() + 1)[1:].view(lse.shape)
+    assert lse.data_ptr() % 16
+    with pytest.raises(ValueError, match="lse: .*16-byte"):
+        cab._check_bwd(q, k, v, out, lse, do, causal=True)
+
+
+@pytest.mark.parametrize("side", ["dq", "dkv"])
+def test_check_bwd_refuses_grids_over_2_31_blocks(side):
+    # 2^31 blocks of 128 rows, as stride-0 views that hold no memory:
+    # dq's grid runs over the queries, dk/dv's over the keys
+    big, small = 128 * 2**31, 8
+    sq, sk = (big, small) if side == "dq" else (small, big)
+    one = _bf16(1, 1, 1, 64)
+    q, out, do = (one.expand(1, sq, 1, 64) for _ in range(3))
+    k, v = (one.expand(1, sk, 1, 64) for _ in range(2))
+    lse = torch.zeros(1, small)
+    with pytest.raises(ValueError, match=r"2\^31 - 1 blocks"):
+        cab._check_bwd(q, k, v, out, lse, do, causal=False)
