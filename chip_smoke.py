@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
-        [--phases card,build,kernels,model,engine,serving,train]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
+        [--phases card,build,kernels,tiny,model,engine,serving,train]
 
 Phases, each failing loudly (exit code 1, no result line):
 
 1. card     — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    — builds the hand-written kernels from ``paddle_tpu_torch/csrc``.
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the serving and training shapes (the paged kernel over bf16,
-              float32 and int8 pools; the backward kernels also
-              launched twice and compared bit for bit), with its median
+              the serving and training shapes (the paged kernels over bf16,
+              float32 and int8 pools, at the window and decode kernels'
+              tile edges and with pages of 128 slots; the backward kernels
+              also launched twice and compared bit for bit), with its median
               device time (CUDA events
               around calls queued behind a device-side sleep), its host
               launch overhead, the
               plain version's time, the least time the card could take
               (bytes over 3.35 TB/s or operations over the peak rate of
               their type, whichever is larger) and, where one PyTorch call
-              computes the same function, that call's time.
-4. model    — GPT-3 1.3B in bf16 from a seeded generator: one cached
+              computes the same function, that call's time. With
+              ``--parent DIR`` the paged rows also time DIR's paged kernel
+              (another tree's csrc, e.g. the parent commit's) in turns
+              with this tree's: parent, this, this, parent.
+4. tiny     — gpt_tiny (head_dim 16, which no kernel takes) decodes and
+              trains a step on the card through the default path: the
+              callers route every attention to the plain versions
+              (plain_calls rise, launches stay 0), and the logits and loss
+              match the use_kernels=False run.
+5. model    — GPT-3 1.3B in bf16 from a seeded generator: one cached
               prefill and teacher-forced decode steps, once through the
               kernels and once through their plain versions; the same
               weights in float32 hold the two paths together tightly and
@@ -27,16 +36,16 @@ Phases, each failing loudly (exit code 1, no result line):
               path is held; then the same over int8 pools, with a chunked
               suffix and a verify window in the sequence; a profile of
               decode steps shows where the step's time goes.
-5. engine   — GenerationServer over the same model serving 16 requests;
+6. engine   — GenerationServer over the same model serving 16 requests;
               the serving kernels' launch counts are read around this run.
-6. serving  — the reference's default engine on the same model: prefix
+7. serving  — the reference's default engine on the same model: prefix
               cache on, int8 KV pools, self-speculation (the model drafts
               for itself, spec_k=4); 16 requests sharing a 1024-token
               system prompt in two waves, so the second wave's admissions
               hit the first's pages; launch counts by kind and pool type
               read around this run, and a profile of one speculative
               iteration (k draft decode steps and the verify window).
-7. train    — GPT-3 1.3B training through TrainStep (AdamW with bf16
+8. train    — GPT-3 1.3B training through TrainStep (AdamW with bf16
               moments, AMP O2, b=2, s=2048): the full model, 2 warm-up
               steps and a timed run_steps(10) around which the forward and
               backward kernels' launch counts are read; tokens/s, MFU, peak
@@ -69,8 +78,8 @@ OUT_DIR = REPO / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
-ALL_PHASES = ("card", "build", "kernels", "model", "engine", "serving",
-              "train")
+ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
+              "serving", "train")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -477,11 +486,14 @@ def check_bwd(row) -> None:
 
 
 def _paged_inputs(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
-                  kv="model"):
+                  kv="model", one_long=False, q_offset=False):
     """Pools filled with unit-normal values (the trash page too; ``kv=
     "int8"``: those values quantized into (values, scales) pools), a
     shuffled page table with trash-page tails past each row's context,
-    ragged contexts and one dead row."""
+    ragged contexts and one dead row. ``one_long`` (decode): the first row
+    holds the table's whole capacity and the others are short.
+    ``q_offset``: q as a view one element into its storage, so its rows are
+    not 16-byte aligned."""
     import torch
     from paddle_tpu_torch.ops.paged_attention import quantize_kv_rows
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -496,12 +508,19 @@ def _paged_inputs(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
             for p in (k_pool, v_pool))
     q = torch.randn(b, s, h, 3, d, device="cuda", generator=g).to(dtype)[
         :, :, :, 0]
+    if q_offset:
+        q = torch.randn(b, s, h, d + 1, device="cuda", generator=g).to(
+            dtype)[..., 1:]
     cap = pages_per_seq * page_size
     perm = 1 + torch.randperm(num_pages - 1, device="cuda", generator=g)
     tables = perm.reshape(b, pages_per_seq).to(torch.int32)
     if kind == "decode":
         ctx = torch.linspace(1, cap, b, device="cuda").round().to(
             torch.int32)
+        if one_long:
+            ctx = torch.linspace(1, min(cap, 200), b,
+                                 device="cuda").round().to(torch.int32)
+            ctx[0] = cap
         ctx[b // 2] = 0                                  # a dead lane
         valid = (ctx > 0)[:, None].expand(b, s).contiguous()
         positions = (ctx - 1).clamp(min=0)[:, None].expand(b, s).contiguous()
@@ -523,11 +542,17 @@ def _paged_inputs(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
 
 
 def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
-                report=False, kv="model"):
+                report=False, kv="model", one_long=False, q_offset=False,
+                parent=None):
+    """The paged kernel against ``paged_attention_reference``; with
+    ``report`` its device time, host time and the plain version's time,
+    and, given the ``parent`` tree's kernel (``--parent``), both kernels
+    timed in turns (parent, this tree, this tree, parent)."""
     import torch
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     q, kp, vp, tables, ctx, valid, positions = _paged_inputs(
-        b, s, h, d, page_size, pages_per_seq, dtype, kind, seed, kv=kv)
+        b, s, h, d, page_size, pages_per_seq, dtype, kind, seed, kv=kv,
+        one_long=one_long, q_offset=q_offset)
     scale = 1.0 / math.sqrt(d)
     kw = dict(page_size=page_size, kind=kind, scale=scale)
     out = cpa.paged_attention(q, kp, vp, tables, ctx, valid, positions, **kw)
@@ -536,7 +561,9 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
                                         positions, **kw)
     name = (f"paged_attention {kind} B={b} S={s} H={h} D={d} "
             f"page={page_size} {str(dtype)[6:]}"
-            + (" int8 pools" if kv == "int8" else ""))
+            + (" int8 pools" if kv == "int8" else "")
+            + (" one long row" if one_long else "")
+            + (" unaligned q" if q_offset else ""))
     err, rel = check_close(name, out, ref, dtype,
                            BF16_ROW_LIMIT["paged_attention"])
     # the live context this call needs: per row of the batch, the longest
@@ -557,19 +584,91 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
               + tables.numel() * 4 + ctx.numel() * 4 + 8 * b * s)
     flops = 4.0 * d * h * float(n_live.sum())
     bms, by = bound_ms(nbytes, flops, dtype)
-    row = {"case": name, "max_abs_err": err, "row_err": rel,
-           "bound_ms": bms, "bound_by": by}
+    row = {"case": name, "kernel": cpa.kernel_for(kind, dtype, s),
+           "max_abs_err": err, "row_err": rel, "bound_ms": bms,
+           "bound_by": by}
     if report:
         def kern():
             cpa.paged_attention(q, kp, vp, tables, ctx, valid, positions,
                                 **kw)
-        row["ms"] = device_ms(kern)
+        if parent is not None:
+            def old():
+                parent(q, kp, vp, tables, ctx, valid, positions, **kw)
+            got = parent(q, kp, vp, tables, ctx, valid, positions, **kw)
+            row["parent_max_abs_err"] = max_abs_err(got, ref)
+            p1, c1, c2, p2 = (device_ms(f) for f in (old, kern, kern, old))
+            row["ms"], row["ms_turns"], row["parent_ms"] = c1, [c1, c2], \
+                [p1, p2]
+            row["faster_than_parent"] = max(c1, c2) < min(p1, p2)
+        else:
+            row["ms"] = device_ms(kern)
+        if dtype == torch.bfloat16:
+            # the split kernels' own time and their combine kernel's
+            names = (("decode_kernel",) if row["kernel"] ==
+                     "paged_decode_split_bf16" else ("window_kernel",))
+            if kind == "decode" and s == 1 or s <= 16:
+                names += ("combine_kernel",)
+            row["kernel_ms_by_name"] = kernel_device_ms(kern, names)
         row["host_us"] = host_us(kern)
         row["plain_ms"] = device_ms(lambda: cpa.paged_attention_reference(
             q, kp, vp, tables, ctx, valid, positions, **kw), iters=5)
         row["library_ms"] = None
+        row["ms_over_bound"] = row["ms"] / bms
     log("  " + json.dumps(row))
     return row
+
+
+def _parent_paged(parent_dir):
+    """The paged kernel of another tree (``--parent DIR``, e.g. the parent
+    commit's ``paddle_tpu_torch/csrc`` unpacked with ``git archive``),
+    built into a library of its own and bound with that tree's entry point
+    (``pt_paged_attention`` without the workspace arguments), for timing in
+    turns with this tree's. Returns a callable with the wrapper's
+    signature."""
+    import ctypes
+    import torch
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.paged_attention import is_quantized_pool
+    csrc = Path(parent_dir).resolve() / "paddle_tpu_torch" / "csrc"
+    require((csrc / "paged_attention.cu").exists(),
+            f"--parent: no paged_attention.cu under {csrc}")
+    out_dir = _build.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "libparent_paged.so"
+    t0 = time.perf_counter()
+    _build._run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                 str(csrc), str(csrc / "paged_attention.cu"), "-o",
+                 str(so)])
+    log(f"kernels: parent tree's paged kernel ({csrc}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fn = ctypes.CDLL(str(so)).pt_paged_attention
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = ([ptr] * 10 + [i32] * 7 + [i64] * 3
+                   + [ctypes.c_float, i32, i32, i32, ptr])
+    fn.restype = i32
+    codes = _build.DTYPE_CODES
+
+    def call(q, kp, vp, tables, ctx, valid, positions, *, page_size, kind,
+             scale):
+        kv, ks = (kp[0], kp[1]) if is_quantized_pool(kp) else (kp, None)
+        vv, vs = (vp[0], vp[1]) if is_quantized_pool(vp) else (vp, None)
+        b, s, h, d = q.shape
+        out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+        tab, cl, pos = (t.to(torch.int32).contiguous()
+                        for t in (tables, ctx, positions))
+        val = valid.to(torch.bool).contiguous()
+        err = fn(q.data_ptr(), kv.data_ptr(), vv.data_ptr(),
+                 ks.data_ptr() if ks is not None else None,
+                 vs.data_ptr() if vs is not None else None, out.data_ptr(),
+                 tab.data_ptr(), cl.data_ptr(), val.data_ptr(),
+                 pos.data_ptr(), b, s, h, d, kv.shape[0], page_size,
+                 tab.shape[1], q.stride(0), q.stride(1), q.stride(2),
+                 float(scale), {"decode": 0, "chunked": 1}[kind],
+                 codes[str(q.dtype)], codes[str(kv.dtype)],
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"parent paged kernel: CUDA error {err}")
+        return out
+    return call
 
 
 def phase_kernels(state):
@@ -613,26 +712,48 @@ def phase_kernels(state):
 
     log(f"kernels: paged_attention vs paged_attention_reference (same; "
         f"bf16 row_err <= {BF16_ROW_LIMIT['paged_attention']})")
+    parent = (_parent_paged(state["parent"]) if state.get("parent")
+              else None)
     prow = []
-    for dtype in (torch.bfloat16, torch.float32):
-        prow.append(_paged_case(8, 1, 16, 128, 16, 128, dtype,
-                                "decode", seed + 3, report=True))
-        for s in (5, 300):
-            prow.append(_paged_case(8, s, 16, 128, 16, 128, dtype,
-                                    "chunked", seed + s, report=True))
+    for kv in ("model", "int8"):
+        if kv == "int8":
+            log("kernels: paged_attention over int8 pools vs the plain "
+                "version (dequantized to float32; same tolerances)")
+        for dtype in (torch.bfloat16, torch.float32):
+            sd = seed + (13 if kv == "int8" else 3)
+            prow.append(_paged_case(8, 1, 16, 128, 16, 128, dtype, "decode",
+                                    sd, report=True, kv=kv,
+                                    parent=parent))
+            for s in (5, 300):
+                prow.append(_paged_case(
+                    8, s, 16, 128, 16, 128, dtype, "chunked",
+                    seed + s + (13 if kv == "int8" else 0), report=True,
+                    kv=kv, parent=parent))
+        # the bf16 kernels' edges: windows of one row, at and across the
+        # 16-row tile and the 64-row tiles (S=300: five, the last of 44
+        # rows); one row holding the table's whole 2048 context beside
+        # short ones (16 chunks of 128 tokens against one)
+        for s in (1, 16, 17, 64, 65):
+            prow.append(_paged_case(8, s, 16, 128, 16, 128, torch.bfloat16,
+                                    "chunked", seed + 30 + s, kv=kv))
+        prow.append(_paged_case(8, 1, 16, 128, 16, 128, torch.bfloat16,
+                                "decode", seed + 31, kv=kv, one_long=True))
+        # head_dim 64, and pages of 128 slots (the kernels resolve each
+        # token's page, so no page size is refused), float32 too
+        prow.append(_paged_case(5, 1, 4, 64, 4, 40, torch.bfloat16,
+                                "decode", seed + 5, kv=kv))
+        prow.append(_paged_case(5, 17, 4, 64, 16, 20, torch.bfloat16,
+                                "chunked", seed + 14, kv=kv))
+        # q rows off 16-byte alignment: the window kernel's scalar q loads
+        prow.append(_paged_case(4, 70, 16, 128, 16, 16, torch.bfloat16,
+                                "chunked", seed + 32, kv=kv, q_offset=True))
+        for dtype in (torch.bfloat16, torch.float32):
+            for kind, s in (("decode", 1), ("chunked", 65)):
+                prow.append(_paged_case(4, s, 16, 128, 128, 16, dtype, kind,
+                                        seed + 40 + s, kv=kv))
     prow.append(_paged_case(3, 5, 4, 64, 64, 6, torch.float32,
                             "chunked", seed + 4))
-    prow.append(_paged_case(5, 1, 4, 64, 4, 40, torch.bfloat16,
-                            "decode", seed + 5))
-    log("kernels: paged_attention over int8 pools vs the plain version "
-        "(dequantized to float32; same tolerances)")
     for dtype in (torch.bfloat16, torch.float32):
-        prow.append(_paged_case(8, 1, 16, 128, 16, 128, dtype, "decode",
-                                seed + 13, report=True, kv="int8"))
-        for s in (5, 300):
-            prow.append(_paged_case(8, s, 16, 128, 16, 128, dtype,
-                                    "chunked", seed + 13 + s, report=True,
-                                    kv="int8"))
         prow.append(_paged_case(5, 5, 4, 64, 16, 20, dtype, "chunked",
                                 seed + 14, kv="int8"))
     state["paged_rows"] = prow
@@ -673,6 +794,109 @@ def phase_kernels(state):
 
 PAGE_SIZE = 16
 MAX_BATCH = 8
+
+
+def _tiny_runs(cfg, seed, use_kernels):
+    """gpt_tiny in float32 on the card: a cached prefill, 4 decode steps
+    and a verify window (teacher-forced by a fixed stream), then one
+    TrainStep step (AdamW) from the same weights. Returns (logits per step,
+    the loss)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.models.gpt import GPTAttention
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.serving.generation import CachedDecoder
+    rng = np.random.RandomState(seed)
+    b, pps = 4, cfg.max_seq_len // PAGE_SIZE
+    lens = np.array([5, 17, 40, 64], np.int32)
+    ids = rng.randint(0, cfg.vocab_size, (b, 64))
+    feed = rng.randint(0, cfg.vocab_size, (5, b))
+    window = rng.randint(0, cfg.vocab_size, (b, SPEC_K + 1))
+    tables = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           seed=seed)
+    model.eval()
+    dec = CachedDecoder(model, max_batch=b, page_size=PAGE_SIZE,
+                        pages_per_seq=pps, use_kernels=use_kernels,
+                        device="cuda")
+    k, v = model.init_kv_pools(1 + b * pps, PAGE_SIZE)
+    last, k, v = dec.prefill(ids, lens, tables, k, v)
+    outs = [last.float()]
+    ctx = lens.copy()
+    for tok in feed[:4]:
+        logits, k, v = dec.decode(tok, ctx, np.ones(b, bool), ctx + 1,
+                                  tables, k, v)
+        outs.append(logits.float())
+        ctx = ctx + 1
+    logits, k, v = dec.verify(window, ctx, np.full(b, SPEC_K + 1, np.int32),
+                              tables, k, v)
+    outs.append(logits.float())
+    model.train()
+    for mod in model.modules():
+        if isinstance(mod, GPTAttention):
+            mod.use_kernels = use_kernels
+    crit = GPTPretrainingCriterion()
+    step = TrainStep(model, lambda out, y: crit(out, y),
+                     AdamW(learning_rate=TRAIN_LR,
+                           parameters=model.named_parameters()))
+    x = torch.from_numpy(ids).cuda()
+    loss = float(step(x, x))
+    return outs, loss
+
+
+def phase_tiny(state):
+    """The shapes no kernel takes: gpt_tiny (hidden 64 over 4 heads, so
+    head_dim 16) serves and trains on the card through the default path,
+    whose attention calls the callers route to the plain versions, as the
+    reference routes them to its dense and gather paths. Every kernel's
+    launch count must stay 0 and every plain version's count rise; the
+    logits and the loss must match the same model run with
+    use_kernels=False within float32 tolerance (both take the same plain
+    versions, so they should agree exactly)."""
+    import torch
+    from paddle_tpu_torch.models import gpt_tiny
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    cfg = gpt_tiny()
+    for mod in (ca, cpa):
+        mod.launches = 0
+        mod.plain_calls = 0
+    for name in cab.KERNELS:
+        cab.launches[name] = cab.plain_calls[name] = 0
+    outs, loss = _tiny_runs(cfg, state["seed"], use_kernels=True)
+    torch.cuda.synchronize()
+    counts = {"flash_fwd": (ca.launches, ca.plain_calls),
+              "paged_attention": (cpa.launches, cpa.plain_calls),
+              **{n: (cab.launches[n], cab.plain_calls[n])
+                 for n in cab.KERNELS}}
+    ref_outs, ref_loss = _tiny_runs(cfg, state["seed"], use_kernels=False)
+    dist = [max_abs_err(a, r) / float(r.std())
+            for a, r in zip(outs, ref_outs)]
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    out = {"config": "gpt_tiny", "head_dim": cfg.hidden_size // cfg.num_heads,
+           "launches": {k: c[0] for k, c in counts.items()},
+           "plain_calls": {k: c[1] for k, c in counts.items()},
+           "logits_max_err_over_std": max(dist), "loss": loss,
+           "loss_rel": loss_rel}
+    log("tiny: " + json.dumps(out))
+    for name, (launched, plain) in counts.items():
+        require(launched == 0, f"tiny: {name} launched {launched} times for "
+                               f"shapes it does not take")
+        require(plain > 0, f"tiny: {name}'s plain version was never routed "
+                           f"to")
+    require(all(bool(torch.isfinite(a).all()) for a in outs)
+            and math.isfinite(loss), "tiny: non-finite logits or loss")
+    require(max(dist) <= F32_MODEL_LIMIT,
+            f"tiny: logits differ from the use_kernels=False run by "
+            f"{max(dist):.2e} x std")
+    require(loss_rel <= TRAIN_F32_LOSS_RTOL,
+            f"tiny: loss differs from the use_kernels=False run by "
+            f"{loss_rel:.2e}")
+    state["tiny"] = out
 
 
 def _model(state):
@@ -991,8 +1215,10 @@ def device_profile(fn, steps: int) -> dict:
         group = next((g for g, keys in PROFILE_GROUPS if any(
             k in name for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + ms
+    paged = sum(ms for name, ms, _ in rows if "paged_attention" in name)
     return {"wall_ms_per_step": wall_ms,
             "device_ms_by_group": groups,
+            "paged_attention_ms": paged,
             "device_busy_ms_per_step": busy if rows else None,
             "device_busy_share": busy / wall_ms if rows else None,
             "kernels_per_step": sum(r[2] for r in rows),
@@ -1107,7 +1333,7 @@ def phase_engine(state):
     for mod in (ca, cpa):
         mod.launches = 0
         mod.plain_calls = 0
-    cpa.launches_by = {}
+    cpa.launches_by, cpa.launches_by_kernel = {}, {}
     t0 = time.perf_counter()
     with srv:
         srv.start()
@@ -1118,6 +1344,7 @@ def phase_engine(state):
         outs = [f.result(timeout=900) for f in futs]
     wall = time.perf_counter() - t0
     launches_by = dict(cpa.launches_by)
+    by_kernel = dict(cpa.launches_by_kernel)
     counts = {"flash_fwd": (ca.launches, ca.plain_calls),
               "paged_attention": (cpa.launches, cpa.plain_calls)}
     snap = srv.metrics_snapshot()
@@ -1144,6 +1371,12 @@ def phase_engine(state):
             and counts["flash_fwd"][0] == cfg.num_layers * calls["prefill"],
             f"engine: launches {launches_by}, flash {counts['flash_fwd']} "
             f"against the decoder's calls {calls}")
+    # bf16 queries: the window kernel for every chunked call, the
+    # split-context kernel for every decode step
+    require(by_kernel == {"paged_window_bf16": want[("chunked", "bfloat16")],
+                          "paged_decode_split_bf16":
+                              want[("decode", "bfloat16")]},
+            f"engine: paged launches by kernel {by_kernel}, want {want}")
     dec = snap["step_ms"]["decode"]
     decode_tokens = snap["tokens_total"] - n_req   # the rest come from prefill
     eng = {"requests": n_req, "tokens": snap["tokens_total"], "wall_s": wall,
@@ -1157,6 +1390,7 @@ def phase_engine(state):
            "launches": {k: v[0] for k, v in counts.items()},
            "paged_launches_by": {"/".join(k): n
                                  for k, n in launches_by.items()},
+           "paged_launches_by_kernel": by_kernel,
            "plain_calls": {k: v[1] for k, v in counts.items()}}
     state["engine"] = eng
     log("engine: " + json.dumps(eng))
@@ -1247,7 +1481,7 @@ def phase_serving(state):
     for mod in (ca, cpa):
         mod.launches = 0
         mod.plain_calls = 0
-    cpa.launches_by = {}
+    cpa.launches_by, cpa.launches_by_kernel = {}, {}
     futs = []
     t0 = time.perf_counter()
     with srv:
@@ -1260,6 +1494,7 @@ def phase_serving(state):
             outs = [f.result(timeout=900) for f in futs]
     wall = time.perf_counter() - t0
     launches_by = dict(cpa.launches_by)
+    by_kernel = dict(cpa.launches_by_kernel)
     counts = {"flash_fwd": (ca.launches, ca.plain_calls),
               "paged_attention": (cpa.launches, cpa.plain_calls)}
     snap = srv.metrics_snapshot()
@@ -1299,6 +1534,9 @@ def phase_serving(state):
             and counts["flash_fwd"][0] == want_flash,
             f"serving: launches {launches_by}, flash {counts['flash_fwd']} "
             f"against the decoders' calls {calls}")
+    require(by_kernel == {"paged_window_bf16": want_chunked,
+                          "paged_decode_split_bf16": want_decode},
+            f"serving: paged launches by kernel {by_kernel}")
     dec = snap["step_ms"]["decode"]
     decode_tokens = snap["tokens_total"] - n_req   # the rest from prefill
     out = {"requests": n_req, "tokens": snap["tokens_total"], "wall_s": wall,
@@ -1317,6 +1555,7 @@ def phase_serving(state):
            "launches": {k: v[0] for k, v in counts.items()},
            "paged_launches_by": {"/".join(k): n
                                  for k, n in launches_by.items()},
+           "paged_launches_by_kernel": by_kernel,
            "plain_calls": {k: v[1] for k, v in counts.items()}}
     del srv
     # the greedy prompts again, greedy only, in a 2 x 2 of model and pool
@@ -1586,6 +1825,12 @@ def kernels_line(state) -> dict:
                  "library_ms": row["library_ms"], "shape": row["case"]}
         if by is not None:
             entry["launches_by_kind"] = by
+            src = state["engine"] if name == "paged_attention" else serving
+            entry["launches_by_kernel"] = src["paged_launches_by_kernel"]
+            entry["kernel"] = row["kernel"]
+            for key in ("ms_turns", "parent_ms", "kernel_ms_by_name"):
+                if key in row:
+                    entry[key] = row[key]
         if name == "flash_fwd":
             train_row = state["flash_train"]
             entry.update({"tflops": row["tflops"],
@@ -1623,6 +1868,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="a tree holding another paddle_tpu_torch/csrc "
+                         "(e.g. the parent commit, unpacked with git "
+                         "archive): its paged kernel is timed in turns with "
+                         "this tree's in the kernels phase")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
@@ -1650,9 +1900,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    state = {"seed": args.seed}
+    state = {"seed": args.seed, "parent": args.parent}
     fns = {"card": phase_card, "build": phase_build,
-           "kernels": phase_kernels, "model": phase_model,
+           "kernels": phase_kernels, "tiny": phase_tiny,
+           "model": phase_model,
            "engine": phase_engine, "serving": phase_serving,
            "train": phase_train}
     t_start = time.perf_counter()
@@ -1670,7 +1921,7 @@ def main(argv=None) -> int:
         log(f"== phase {name} done in {time.perf_counter() - t0:.1f} s")
     state["total_s"] = time.perf_counter() - t_start
     log(f"total {state['total_s']:.1f} s")
-    summary = {k: state[k] for k in ("smi", "build_s", "model_check",
+    summary = {k: state[k] for k in ("smi", "build_s", "tiny", "model_check",
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "total_s")
                if k in state}

@@ -11,39 +11,875 @@
 //   decode:  t < ctx_len[b]
 //   chunked: t <= positions[b, s] and valid[b, s] (and t < ctx_len[b])
 // so each row has n_live slots, and a row with n_live == 0 (a dead decode lane
-// or an invalid window position) writes zeros.
+// or an invalid window position) writes zeros. Every token resolves its own
+// page, so any page_size >= 1 is taken.
 //
 // Quantized pools (the reference's quantized branch, :95-101, :139-144): K and
 // V are int8 [num_pages, page_size, H, D] with one f32 scale per (slot, head)
-// in [num_pages, page_size, H]. Each row is dequantized in its load (int8 times
-// its scale, in float), so q . k, the online softmax and p . v all run in
-// float as the reference's f32 tiles do; p stays float (the reference's
-// p.astype(v_t.dtype) is float32 there). The output is in q's type.
+// in [num_pages, page_size, H]. The reference dequantizes to float32 tiles and
+// keeps p in float32.
 //
 // What bounds it on the H100: decode reads every live K/V slot once and does
 // 4*D flops per slot and head, far below the card's 295 flops/byte balance,
 // so it is bound by the bytes of the context (3.35 TB/s): D*2 bytes a row in
-// bf16, D + 4 in int8. What the design
-// does about it: one block per (row, head, query tile) walks only the tokens
-// up to n_live (nothing past the context is loaded, and the gathered context
-// never exists in device memory). Its warps (sixteen for a decode row,
-// eight for a chunked window's eight rows) split the context into 32-token
-// tiles and each keeps its own online softmax, merged once at the end. A lane
-// owns D/32 consecutive columns: every K or V row is one coalesced vector
-// load per lane (8 bytes for bf16 at D=128, 4 for int8), straight from the
-// pool into registers (for a decode row in bursts of eight rows, so that one
-// HBM latency covers eight tokens), and q . k is a warp-shuffle sum. Lane i
-// also loads the scale of its tile's token i once, and the burst takes it by
-// shuffle. Each block loads its own
-// page ids from the table, which replaces the TPU's scalar prefetch and the
-// pages_per_tile-fold pool passing (BlockSpec workarounds). Splitting one
-// sequence over several blocks (when a batch has fewer (row, head) pairs than
-// the card has SMs, or ragged lengths leave SMs idle) is the next step.
+// bf16, D + 4 in int8. A window of S rows does S times the flops on the same
+// bytes; at the engine's widths it stays bound by bytes up to a few hundred
+// rows. Three kernels, by q's type and the kind:
+//
+// - paged_attention_window_kernel (bf16 q, chunked; decode windows of more
+//   than one row): blocks of four warps. A window of more than 16 rows takes
+//   one block per (row b, head h, tile of 64 window rows), 16 rows a warp,
+//   over the whole context. A window of at most 16 rows (the [8, k+1] verify
+//   window) takes one 16-row tile whose four warps split each context tile
+//   (16 tokens each) and merge their softmax states once; its context is
+//   also split across blocks, eight tiles (512 tokens) a block, so that
+//   ragged contexts spread over the card, and the combine kernel merges the
+//   blocks' partial states. The context streams in tiles of 64 tokens
+//   through a ring of 2-3 stages in shared memory, gathered with 16-byte
+//   cp.async copies, each token row through its own page (a tile may span
+//   pages; rows past the block's longest live prefix are zero-filled and
+//   never read into a live score). Rows are padded by 16 bytes so that
+//   ldmatrix reads them without bank conflicts; the query rows are staged
+//   once in the ring's last stage (or the widened tiles) on their way to
+//   registers. S = Q K^T and O += P V run on tensor cores (mma.sync
+//   m16n8k16, bf16 in, float accumulators) with the online softmax in float
+//   registers, in the exp2 domain. P is split into bf16 hi + lo parts, two
+//   products, so it keeps ~16 bits (the plain version keeps p in float; the
+//   reference rounds it to the pool type for bf16 pools and keeps float32
+//   for int8). int8 tiles are widened to bf16 in shared memory once per tile
+//   (int8 is exact in bf16); the K scale factors out of the dot (score_t =
+//   s_k,t * (q . k_int,t)) and the V scale folds into p before the PV
+//   product, so the maths is the reference's float32 maths reordered. The
+//   tile loop stops at the block's longest live prefix, and a warp skips
+//   tiles past its own rows' prefixes.
+// - paged_attention_decode_kernel (bf16 q, decode, one row): the context of
+//   each (b, h) is split into chunks of 128 tokens, one block each. A block
+//   issues its chunk's K rows and V rows as two cp.async groups at once
+//   (64 KB in flight for bf16 at D=128), scores one token a thread from
+//   shared memory (no shuffle tree per token), takes the chunk's max and sum
+//   once, then accumulates P V with each thread on 16 bytes of a row and one
+//   reduction across the block.
+// - paged_attention_combine_kernel: the split kernels write their partial
+//   states (m, l, acc) to a float workspace, and one block per (b, h, row)
+//   merges the parts that hold a live token of its row, its loads issued
+//   together. When one block's part covers a (b, h)'s whole context, that
+//   block writes the output itself and the combine block returns at once.
+//   Blocks past a row's context exit at once; a dead row writes zeros.
+// - paged_attention_fma_kernel (float32 q, both kinds, float/int8 pools): one
+//   block per (row, head, 1 or 8 query rows), warps splitting the context
+//   into 32-token tiles, exact float FMAs with warp-shuffle sums. It is the
+//   float32 parity path, which tensor cores (tf32) would not keep.
+//
+// Each block loads its own page ids from the table, which replaces the TPU's
+// scalar prefetch and the pages_per_tile-fold pool passing (BlockSpec
+// workarounds).
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+template <typename T>
+__host__ __device__ constexpr T ceil_div(T a, T b) {
+  return (a + b - 1) / b;
+}
+
+// ------------------------------------------------------ shared-memory copies
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !full (the
+// source is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------ tensor cores
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
+                                              uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// d += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 float
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kInf = __builtin_huge_valf();
+
+// the pool slot of logical token t of a sequence (t below the table's
+// capacity; a page id out of range is clamped into the pool)
+__device__ __forceinline__ int64_t token_slot(const int* __restrict__ table,
+                                              int t, int page_size,
+                                              int num_pages) {
+  int page = table[t / page_size];
+  page = min(max(page, 0), num_pages - 1);
+  return (int64_t)page * page_size + t % page_size;
+}
+
+// live prefix of window position s of row b (0 for a dead row)
+__device__ __forceinline__ int live_prefix(const int* __restrict__ ctx_len,
+                                           const unsigned char* __restrict__ valid,
+                                           const int* __restrict__ positions,
+                                           int b, int s, int S, int capacity,
+                                           int chunked) {
+  const int ctx_b = min(max(ctx_len[b], 0), capacity);
+  if (!chunked) return ctx_b;
+  const int idx = b * S + s;
+  return valid[idx] ? max(min(positions[idx] + 1, ctx_b), 0) : 0;
+}
+
+// 16 int8 values widened to bf16 (exact), as two 16-byte words
+__device__ __forceinline__ void widen_int8x16(const int4 v, uint4& lo,
+                                              uint4& hi) {
+  const int8_t* e = reinterpret_cast<const int8_t*>(&v);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = pt::pack_bf16(static_cast<float>(e[2 * i]),
+                         static_cast<float>(e[2 * i + 1]));
+  lo = make_uint4(w[0], w[1], w[2], w[3]);
+  hi = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// ============================================================ window kernel
+namespace win {
+
+constexpr int kTok = 64;       // context tokens per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+constexpr int kSplitTiles = 8;  // tiles a block takes in split mode
+
+// Shared-memory plan of one block. WQ warps along the window (16 rows
+// each), kWarps / WQ along each context tile; TKV the pools' type. A
+// 16-row block (WQ == 1) runs in split mode: it takes kSplitTiles tiles of
+// the context and writes its partial softmax state for the combine kernel.
+template <typename TKV, int D, int WQ>
+struct Plan {
+  static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  static constexpr bool kSplit = WQ == 1;
+  static constexpr int BQ = 16 * WQ;                // window rows per block
+  static constexpr int WK = kWarps / WQ;            // warps along a tile
+  static constexpr int TOKW = kTok / WK;            // tokens per warp
+  static constexpr int STAGES = kSplit ? 3 : (kQuant ? 3 : 2);
+  static constexpr int ROW = D + 8;                 // bf16 row, padded
+  static constexpr int ROW_B = ROW * 2;             // its bytes
+  // a staged K or V tile: bf16 rows (padded), or raw int8 rows
+  static constexpr int TILE_B = kQuant ? kTok * D : kTok * ROW_B;
+  static constexpr int CH = D * (int)sizeof(TKV) / 16;  // 16 B chunks a row
+  static constexpr int RING_OFF = 0;
+  static constexpr int SCALE_OFF = RING_OFF + STAGES * 2 * TILE_B;
+  static constexpr int WIDE_OFF =
+      SCALE_OFF + (kQuant ? STAGES * 2 * kTok * 4 : 0);
+  static constexpr int NLIVE_OFF = WIDE_OFF + (kQuant ? 2 * kTok * ROW_B : 0);
+  static constexpr int BYTES = NLIVE_OFF + BQ * 4;
+  // the query rows are staged where nothing is written before the first
+  // tile is consumed (they go to registers first): the widened int8 tiles,
+  // or the ring's last stage, which the prologue leaves empty
+  static constexpr int Q_OFF =
+      kQuant ? WIDE_OFF : RING_OFF + (STAGES - 1) * 2 * TILE_B;
+  static_assert(BQ * ROW_B <= (kQuant ? 2 * kTok * ROW_B : 2 * TILE_B),
+                "the query rows must fit where they are staged");
+  // the warps' merge (WK > 1) reuses the ring after the last tile
+  static constexpr int MERGE_B = WK * 16 * (D + 2) * 4;
+  static_assert(WK == 1 || MERGE_B <= STAGES * 2 * TILE_B,
+                "merge area must fit in the ring");
+  static_assert((kTok * CH) % kThreads == 0, "tile copies per thread");
+  static_assert(kSplit == (WK > 1), "split mode merges the warps' states");
+};
+
+template <typename TKV, int D, int WQ>
+__global__ void __launch_bounds__(kThreads) paged_attention_window_kernel(
+    const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pool,
+    const TKV* __restrict__ v_pool, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, __nv_bfloat16* __restrict__ out,
+    const int* __restrict__ tables, const int* __restrict__ ctx_len,
+    const unsigned char* __restrict__ valid,
+    const int* __restrict__ positions, float* __restrict__ work_acc,
+    float* __restrict__ work_m, float* __restrict__ work_l, int S, int H,
+    int num_pages, int page_size, int P, int64_t q_sb, int64_t q_ss,
+    int64_t q_sh, float scale_log2, int chunked) {
+  using L = Plan<TKV, D, WQ>;
+  constexpr int BQ = L::BQ, WK = L::WK, TOKW = L::TOKW, STAGES = L::STAGES;
+  constexpr int NT = TOKW / 8;      // score n-tiles a warp
+  constexpr int DT = D / 8;         // output n-tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::Q_OFF);
+  int* n_live_s = reinterpret_cast<int*>(smem + L::NLIVE_OFF);
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  // split mode: one 16-row tile (S <= 16), blockIdx.y picks the context
+  // chunk; otherwise blockIdx.y picks the query tile
+  const int s0 = L::kSplit ? 0 : blockIdx.y * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int capacity = P * page_size;
+  const int* table = tables + (int64_t)b * P;
+
+  if (tid < BQ)
+    n_live_s[tid] = s0 + tid < S ? live_prefix(ctx_len, valid, positions, b,
+                                               s0 + tid, S, capacity, chunked)
+                                 : 0;
+  __syncthreads();
+  int kv_end = 0;
+#pragma unroll 8
+  for (int r = 0; r < BQ; ++r) kv_end = max(kv_end, n_live_s[r]);
+  // this block's tiles [tb, te) of the context
+  int tb = 0, te = ceil_div(kv_end, kTok);
+  if constexpr (L::kSplit) {
+    tb = blockIdx.y * kSplitTiles;
+    te = min(te, tb + kSplitTiles);
+    if (tb >= te) {
+      // past every row's context; every row dead: the first block writes
+      // the zeros
+      if (te == 0 && blockIdx.y == 0)
+        for (int i = tid; i < S * D; i += kThreads)
+          out[(((int64_t)b * S + i / D) * H + h) * D + i % D] =
+              pt::from_float<__nv_bfloat16>(0.f);
+      return;
+    }
+  }
+  const int n_tiles = te - tb;
+  const int64_t slot_stride = (int64_t)H * D;
+
+  // gather context tile `tile` into ring stage `st`: each 16-byte chunk of
+  // a token row through the token's own page; rows past kv_end zero-filled
+  auto load_tile = [&](int tile, int st) {
+    unsigned char* kt = smem + L::RING_OFF + st * 2 * L::TILE_B;
+    unsigned char* vt = kt + L::TILE_B;
+#pragma unroll
+    for (int i = 0; i < kTok * L::CH / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / L::CH, c = idx % L::CH;
+      const int t = tile * kTok + r;
+      const bool live = t < kv_end;
+      const int64_t off =
+          live ? token_slot(table, t, page_size, num_pages) * slot_stride +
+                     h * D
+               : 0;
+      const int dst = L::kQuant ? r * D + c * 16 : r * L::ROW_B + c * 16;
+      const TKV* ks = k_pool + off;
+      const TKV* vs = v_pool + off;
+      cp_async16(smem_addr(kt + dst),
+                 reinterpret_cast<const unsigned char*>(ks) + c * 16, live);
+      cp_async16(smem_addr(vt + dst),
+                 reinterpret_cast<const unsigned char*>(vs) + c * 16, live);
+    }
+    if constexpr (L::kQuant) {
+      // one f32 scale per (slot, head) for each token, beside its values
+      float* sc = reinterpret_cast<float*>(smem + L::SCALE_OFF) +
+                  st * 2 * kTok;
+      const int r = tid % kTok;
+      const int t = tile * kTok + r;
+      const bool live = t < kv_end;
+      const int64_t off =
+          live ? token_slot(table, t, page_size, num_pages) * H + h : 0;
+      const float* src = (tid < kTok ? k_scales : v_scales) + off;
+      cp_async4(smem_addr(sc + (tid < kTok ? 0 : kTok) + r), src, live);
+    }
+  };
+
+  if (n_tiles == 0) {
+    // every row of the block is dead (or past S): zeros
+    for (int i = tid; i < BQ * D; i += kThreads) {
+      const int s = s0 + i / D;
+      if (s < S)
+        out[(((int64_t)b * S + s) * H + h) * D + i % D] =
+            pt::from_float<__nv_bfloat16>(0.f);
+    }
+    return;
+  }
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_tile(tb + st, st);
+    cp_async_commit();
+  }
+
+  // the block's query rows, bf16, into shared memory (zeros past S)
+  {
+    const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+    const bool vec =
+        ((reinterpret_cast<uintptr_t>(q) | (uintptr_t)(q_sb * 2) |
+          (uintptr_t)(q_ss * 2) | (uintptr_t)(q_sh * 2)) &
+         15) == 0;
+    if (vec) {
+      for (int i = tid; i < BQ * (D / 8); i += kThreads) {
+        const int r = i / (D / 8), c = i % (D / 8);
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (s0 + r < S)
+          v = *reinterpret_cast<const uint4*>(qb + (s0 + r) * q_ss + c * 8);
+        *reinterpret_cast<uint4*>(q_s + r * L::ROW + c * 8) = v;
+      }
+    } else {
+      for (int i = tid; i < BQ * D; i += kThreads) {
+        const int r = i / D, c = i % D;
+        q_s[r * L::ROW + c] = s0 + r < S ? qb[(s0 + r) * q_ss + c]
+                                         : pt::from_float<__nv_bfloat16>(0.f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // this warp's 16 rows and its share of each tile
+  const int wq = warp % WQ, wk = warp / WQ;
+  const int row0 = wq * 16;
+  const int g = lane >> 2, c4 = lane & 3;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(smem_addr(q_s + (row0 + (lane & 15)) * L::ROW + kk * 16 +
+                      (lane >> 4) * 8),
+            qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+  const int nA = n_live_s[row0 + g], nB = n_live_s[row0 + g + 8];
+  // longest live prefix among the warp's rows: tiles past it are skipped
+  int w_end = max(nA, nB);
+#pragma unroll
+  for (int off = 16; off >= 4; off >>= 1)
+    w_end = max(w_end, __shfl_xor_sync(pt::kFullMask, w_end, off));
+
+  float mA = -kInf, mB = -kInf, lA = 0.f, lB = 0.f;
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // tile i is in, and the stage tile i - 1 read is free
+    {
+      const int nxt = i + STAGES - 1;
+      if (nxt < n_tiles) load_tile(tb + nxt, nxt % STAGES);
+      cp_async_commit();
+    }
+    const int it = tb + i;    // the tile's index in the context
+    const int st = i % STAGES;
+    const unsigned char* kt = smem + L::RING_OFF + st * 2 * L::TILE_B;
+    const unsigned char* vt = kt + L::TILE_B;
+    const float* ksc = nullptr;
+    const float* vsc = nullptr;
+    if constexpr (L::kQuant) {
+      // widen the int8 tiles to bf16 once, for ldmatrix
+      unsigned char* wide = smem + L::WIDE_OFF;
+      for (int i = tid; i < 2 * kTok * (D / 16); i += kThreads) {
+        const int kv = i / (kTok * (D / 16));
+        const int r = (i / (D / 16)) % kTok, c = i % (D / 16);
+        const int4 v = *reinterpret_cast<const int4*>(
+            (kv ? vt : kt) + r * D + c * 16);
+        uint4 lo, hi;
+        widen_int8x16(v, lo, hi);
+        uint4* dst = reinterpret_cast<uint4*>(wide + kv * kTok * L::ROW_B +
+                                              r * L::ROW_B + c * 32);
+        dst[0] = lo;
+        dst[1] = hi;
+      }
+      ksc = reinterpret_cast<const float*>(smem + L::SCALE_OFF) +
+            st * 2 * kTok;
+      vsc = ksc + kTok;
+      kt = wide;
+      vt = wide + kTok * L::ROW_B;
+      __syncthreads();
+    }
+    const int t0 = it * kTok + wk * TOKW;     // this warp's first token
+    if (t0 >= w_end) continue;                // warp-uniform
+    const int tw = wk * TOKW;                 // its first row in the tile
+
+    // S = Q K^T over this warp's TOKW tokens
+    float sc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int jn = 0; jn < NT / 2; ++jn) {
+        const int mi = lane >> 3;
+        const int r = tw + jn * 16 + (mi >> 1) * 8 + (lane & 7);
+        const int col = kk * 16 + (mi & 1) * 8;
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(smem_addr(kt + r * L::ROW_B + col * 2), b0, b1, b2, b3);
+        mma_bf16(sc[2 * jn], qa[kk], b0, b1);
+        mma_bf16(sc[2 * jn + 1], qa[kk], b2, b3);
+      }
+    }
+    // scale (and the K scale), mask, row max over the quad
+    float mxA = -kInf, mxB = -kInf;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tl = tw + j * 8 + 2 * c4 + e;    // token in the tile
+        const int t = it * kTok + tl;
+        float f = scale_log2;
+        if constexpr (L::kQuant) f *= ksc[tl];
+        sc[j][e] = t < nA ? sc[j][e] * f : -kInf;
+        sc[j][2 + e] = t < nB ? sc[j][2 + e] * f : -kInf;
+        mxA = fmaxf(mxA, sc[j][e]);
+        mxB = fmaxf(mxB, sc[j][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mxA = fmaxf(mxA, __shfl_xor_sync(pt::kFullMask, mxA, off));
+      mxB = fmaxf(mxB, __shfl_xor_sync(pt::kFullMask, mxB, off));
+    }
+    const float mnA = fmaxf(mA, mxA), mnB = fmaxf(mB, mxB);
+    // a row with nothing live yet keeps m = -inf and gets p = 0
+    const float uA = mnA == -kInf ? 0.f : mnA;
+    const float uB = mnB == -kInf ? 0.f : mnB;
+    const float aA = exp2f(mA - uA), aB = exp2f(mB - uB);
+    mA = mnA;
+    mB = mnB;
+    lA *= aA;
+    lB *= aB;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      o[j][0] *= aA;
+      o[j][1] *= aA;
+      o[j][2] *= aB;
+      o[j][3] *= aB;
+    }
+    // per 16 tokens: p, its row sums, P (the V scale folded in) as bf16
+    // hi + lo parts, and O += P V
+#pragma unroll
+    for (int kb = 0; kb < NT / 2; ++kb) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kb + jj;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = exp2f(sc[j][e] - (e < 2 ? uA : uB));
+          if (e < 2) lA += p[e]; else lB += p[e];
+        }
+        if constexpr (L::kQuant) {
+          const int tl = tw + j * 8 + 2 * c4;
+          const float v0 = vsc[tl], v1 = vsc[tl + 1];
+          p[0] *= v0;
+          p[1] *= v1;
+          p[2] *= v0;
+          p[3] *= v1;
+        }
+        // A fragment: n-tile 2kb gives a0 (row g) / a1 (row g + 8), n-tile
+        // 2kb + 1 gives a2 / a3
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x0 = p[2 * e], x1 = p[2 * e + 1];
+          const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+          const float2 hf = __bfloat1622float2(hb);
+          ph[2 * jj + e] = *reinterpret_cast<const uint32_t*>(&hb);
+          pl[2 * jj + e] = pt::pack_bf16(x0 - hf.x, x1 - hf.y);
+        }
+      }
+#pragma unroll
+      for (int dn = 0; dn < DT / 2; ++dn) {
+        const int mi = lane >> 3;
+        const int r = tw + kb * 16 + (mi & 1) * 8 + (lane & 7);
+        const int col = dn * 16 + (mi >> 1) * 8;
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(smem_addr(vt + r * L::ROW_B + col * 2), b0, b1, b2, b3);
+        mma_bf16(o[2 * dn], ph, b0, b1);
+        mma_bf16(o[2 * dn], pl, b0, b1);
+        mma_bf16(o[2 * dn + 1], ph, b2, b3);
+        mma_bf16(o[2 * dn + 1], pl, b2, b3);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    lA += __shfl_xor_sync(pt::kFullMask, lA, off);
+    lB += __shfl_xor_sync(pt::kFullMask, lB, off);
+  }
+  const int64_t out_row = (int64_t)H * D;
+  __nv_bfloat16* ob = out + ((int64_t)b * S) * out_row + h * D;
+  if constexpr (WK == 1) {
+    const float iA = lA > 0.f ? 1.f / lA : 0.f;
+    const float iB = lB > 0.f ? 1.f / lB : 0.f;
+    const int sA = s0 + row0 + g, sB = sA + 8;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int d = j * 8 + 2 * c4;
+      if (sA < S)
+        *reinterpret_cast<uint32_t*>(ob + sA * out_row + d) =
+            pt::pack_bf16(o[j][0] * iA, o[j][1] * iA);
+      if (sB < S)
+        *reinterpret_cast<uint32_t*>(ob + sB * out_row + d) =
+            pt::pack_bf16(o[j][2] * iB, o[j][3] * iB);
+    }
+  } else {
+    // merge the WK warps' states of the same 16 rows (the ring is free)
+    __syncthreads();
+    float* m_w = reinterpret_cast<float*>(smem + L::RING_OFF);  // [WK][16]
+    float* l_w = m_w + WK * 16;                                   // [WK][16]
+    float* a_w = l_w + WK * 16;                                   // [WK][16][D]
+    if (c4 == 0) {
+      m_w[wk * 16 + g] = mA;
+      m_w[wk * 16 + g + 8] = mB;
+      l_w[wk * 16 + g] = lA;
+      l_w[wk * 16 + g + 8] = lB;
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int d = j * 8 + 2 * c4;
+      float* ra = a_w + (wk * 16 + g) * D + d;
+      float* rb = a_w + (wk * 16 + g + 8) * D + d;
+      ra[0] = o[j][0];
+      ra[1] = o[j][1];
+      rb[0] = o[j][2];
+      rb[1] = o[j][3];
+    }
+    __syncthreads();
+    // the block's state of each row: the output itself when one block
+    // took the whole context, else a partial state for the combine kernel
+    const bool alone = ceil_div(kv_end, kSplitTiles * kTok) == 1;
+    const int64_t part = ((int64_t)blockIdx.x * gridDim.y + blockIdx.y) * S;
+    for (int i = tid; i < S * D; i += kThreads) {
+      const int r = i / D, d = i % D;
+      float mx = -kInf;
+#pragma unroll
+      for (int w = 0; w < WK; ++w) mx = fmaxf(mx, m_w[w * 16 + r]);
+      float num = 0.f, den = 0.f;
+      if (mx != -kInf) {
+#pragma unroll
+        for (int w = 0; w < WK; ++w) {
+          const float e = exp2f(m_w[w * 16 + r] - mx);   // 0 for -inf
+          den += l_w[w * 16 + r] * e;
+          num += a_w[(w * 16 + r) * D + d] * e;
+        }
+      }
+      if (alone) {
+        ob[r * out_row + d] =
+            pt::from_float<__nv_bfloat16>(den > 0.f ? num / den : 0.f);
+      } else {
+        work_acc[(part + r) * D + d] = num;
+        if (d == 0) {
+          work_m[part + r] = mx;
+          work_l[part + r] = den;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace win
+
+// ==================================================== split-context decode
+namespace dec {
+
+constexpr int kChunk = 128;    // context tokens per block
+constexpr int kThreads = 128;  // one token a thread when scoring
+
+template <typename TKV, int D>
+struct Plan {
+  static constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  static constexpr int CH = D * (int)sizeof(TKV) / 16;   // 16 B chunks a row
+  static constexpr int E = 16 / (int)sizeof(TKV);        // values a chunk
+  static constexpr int ROW_B = D * (int)sizeof(TKV) + 16;  // padded row
+  static constexpr int G = kThreads / CH;                // PV token groups
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + kChunk * ROW_B;
+  static constexpr int Q_OFF = V_OFF + kChunk * ROW_B;         // float [D]
+  static constexpr int P_OFF = Q_OFF + D * 4;                  // [kChunk]
+  static constexpr int KS_OFF = P_OFF + kChunk * 4;            // [kChunk]
+  static constexpr int VS_OFF = KS_OFF + kChunk * 4;           // [kChunk]
+  static constexpr int RED_OFF = VS_OFF + kChunk * 4;          // [2][warps]
+  static constexpr int ACC_OFF = RED_OFF + 2 * (kThreads / 32) * 4;
+  static constexpr int BYTES = ACC_OFF + G * D * 4;            // [G][D]
+  static_assert(kThreads % CH == 0, "PV groups");
+};
+
+template <typename TKV, int D>
+__global__ void __launch_bounds__(kThreads) paged_attention_decode_kernel(
+    const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k_pool,
+    const TKV* __restrict__ v_pool, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ tables,
+    const int* __restrict__ ctx_len, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ work_acc, float* __restrict__ work_m,
+    float* __restrict__ work_l, int H, int num_pages, int page_size, int P,
+    int64_t q_sb, int64_t q_sh, float scale_log2) {
+  using L = Plan<TKV, D>;
+  static_assert(D <= kThreads, "a thread per output column");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* p_s = reinterpret_cast<float*>(smem + L::P_OFF);
+  float* ks_s = reinterpret_cast<float*>(smem + L::KS_OFF);
+  float* vs_s = reinterpret_cast<float*>(smem + L::VS_OFF);
+  float* red = reinterpret_cast<float*>(smem + L::RED_OFF);
+  float* acc_s = reinterpret_cast<float*>(smem + L::ACC_OFF);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int chunk = blockIdx.y;
+  const int capacity = P * page_size;
+  const int ctx_b = min(max(ctx_len[b], 0), capacity);
+  const int t0 = chunk * kChunk;
+  const int tid = threadIdx.x;
+  if (t0 >= ctx_b) {
+    // past the context: not part of the merge; a dead lane: zeros
+    if (ctx_b == 0 && chunk == 0 && tid < D)
+      out[(int64_t)bh * D + tid] = pt::from_float<__nv_bfloat16>(0.f);
+    return;
+  }
+  const int n = min(kChunk, ctx_b - t0);
+  const int* table = tables + (int64_t)b * P;
+  const int64_t slot_stride = (int64_t)H * D;
+
+  // group 0: the chunk's K rows (and both scales); group 1: its V rows
+  for (int i = tid; i < n * L::CH; i += kThreads) {
+    const int r = i / L::CH, c = i % L::CH;
+    const int64_t off =
+        token_slot(table, t0 + r, page_size, num_pages) * slot_stride + h * D;
+    cp_async16(smem_addr(smem + L::K_OFF + r * L::ROW_B + c * 16),
+               reinterpret_cast<const unsigned char*>(k_pool + off) + c * 16,
+               true);
+  }
+  if constexpr (L::kQuant) {
+    if (tid < n) {
+      const int64_t off =
+          token_slot(table, t0 + tid, page_size, num_pages) * H + h;
+      cp_async4(smem_addr(ks_s + tid), k_scales + off, true);
+      cp_async4(smem_addr(vs_s + tid), v_scales + off, true);
+    }
+  }
+  cp_async_commit();
+  for (int i = tid; i < n * L::CH; i += kThreads) {
+    const int r = i / L::CH, c = i % L::CH;
+    const int64_t off =
+        token_slot(table, t0 + r, page_size, num_pages) * slot_stride + h * D;
+    cp_async16(smem_addr(smem + L::V_OFF + r * L::ROW_B + c * 16),
+               reinterpret_cast<const unsigned char*>(v_pool + off) + c * 16,
+               true);
+  }
+  cp_async_commit();
+  for (int d = tid; d < D; d += kThreads)
+    q_s[d] = pt::to_float(q[b * q_sb + h * q_sh + d]);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // one token a thread: its whole row against q (broadcast from shared)
+  float s = -kInf;
+  if (tid < n) {
+    const unsigned char* kr = smem + L::K_OFF + tid * L::ROW_B;
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < L::CH; ++c) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(kr + c * 16);
+      const float4* qv = reinterpret_cast<const float4*>(q_s + c * L::E);
+      if constexpr (L::kQuant) {
+        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 qq = qv[j];
+          dot = fmaf(qq.x, static_cast<float>(e[4 * j]), dot);
+          dot = fmaf(qq.y, static_cast<float>(e[4 * j + 1]), dot);
+          dot = fmaf(qq.z, static_cast<float>(e[4 * j + 2]), dot);
+          dot = fmaf(qq.w, static_cast<float>(e[4 * j + 3]), dot);
+        }
+      } else {
+        const __nv_bfloat162* e =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float4 qq = qv[j];
+          const float2 a = __bfloat1622float2(e[2 * j]);
+          const float2 bb = __bfloat1622float2(e[2 * j + 1]);
+          dot = fmaf(qq.x, a.x, dot);
+          dot = fmaf(qq.y, a.y, dot);
+          dot = fmaf(qq.z, bb.x, dot);
+          dot = fmaf(qq.w, bb.y, dot);
+        }
+      }
+    }
+    // the K scale factors out of the dot
+    s = dot * scale_log2 * (L::kQuant ? ks_s[tid] : 1.f);
+  }
+  // the chunk's max and sum, once
+  const int warp = tid >> 5, lane = tid & 31;
+  float m = pt::warp_max(s);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
+  const float p = tid < n ? exp2f(s - m) : 0.f;   // token t0 is live
+  float l = pt::warp_sum(p);
+  if (lane == 0) red[kThreads / 32 + warp] = l;
+  // the V scale folds into p
+  if (tid < kChunk) p_s[tid] = L::kQuant && tid < n ? p * vs_s[tid] : p;
+  cp_async_wait<0>();
+  __syncthreads();
+  l = 0.f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) l += red[kThreads / 32 + w];
+
+  // acc = sum_t p_t v_t: each thread E columns of every G-th token
+  const int c = tid % L::CH, grp = tid / L::CH;
+  float acc[L::E];
+#pragma unroll
+  for (int e = 0; e < L::E; ++e) acc[e] = 0.f;
+  for (int t = grp; t < n; t += L::G) {
+    const float pt_ = p_s[t];
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        smem + L::V_OFF + t * L::ROW_B + c * 16);
+    if constexpr (L::kQuant) {
+      const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        acc[j] = fmaf(pt_, static_cast<float>(e[j]), acc[j]);
+    } else {
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 v = __bfloat1622float2(e[j]);
+        acc[2 * j] = fmaf(pt_, v.x, acc[2 * j]);
+        acc[2 * j + 1] = fmaf(pt_, v.y, acc[2 * j + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < L::E; ++e) acc_s[grp * D + c * L::E + e] = acc[e];
+  __syncthreads();
+  float a = 0.f;
+  if (tid < D) {
+#pragma unroll
+    for (int gi = 0; gi < L::G; ++gi) a += acc_s[gi * D + tid];
+  }
+  // the whole context in this chunk: the output itself (l >= 1: token t0
+  // is live); else the partial state, for the combine kernel
+  if (ceil_div(ctx_b, kChunk) == 1) {
+    if (tid < D) out[(int64_t)bh * D + tid] = pt::from_float<__nv_bfloat16>(
+        a / l);
+    return;
+  }
+  const int64_t part = (int64_t)bh * gridDim.y + chunk;
+  if (tid < D) work_acc[part * D + tid] = a;
+  if (tid == 0) {
+    work_m[part] = m;
+    work_l[part] = l;
+  }
+}
+
+}  // namespace dec
+
+// Merge the split kernels' partial states: one block per (b, h) and window
+// row s, a thread per column. The workspace holds acc [B*H, n_chunks, S, D],
+// then m and l [B*H, n_chunks, S]. A row reads its parts that hold a live
+// token; when one part covered the whole (b, h) the split kernel wrote the
+// output itself, and a dead row gets zeros from there too. The parts' m and
+// l are read by all threads at once, their weights staged in shared memory,
+// and the acc loads of a group of parts issued together: a few L2 round
+// trips, whatever the number of parts.
+template <int D>
+__global__ void __launch_bounds__(D) paged_attention_combine_kernel(
+    const float* __restrict__ work_acc, const float* __restrict__ work_m,
+    const float* __restrict__ work_l, const int* __restrict__ ctx_len,
+    const unsigned char* __restrict__ valid,
+    const int* __restrict__ positions, __nv_bfloat16* __restrict__ out,
+    int S, int H, int capacity, int chunk_tokens, int n_chunks, int chunked) {
+  constexpr int kWarps = D / 32;
+  __shared__ float w_s[D];
+  __shared__ float red[kWarps];
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int s = blockIdx.y;
+  const int d = threadIdx.x, lane = d & 31, warp = d >> 5;
+  // the split kernel's own test for "one part covered everything"
+  int kv_end = 0;
+  for (int r = 0; r < S; ++r)
+    kv_end = max(kv_end, live_prefix(ctx_len, valid, positions, b, r, S,
+                                     capacity, chunked));
+  if (ceil_div(kv_end, chunk_tokens) <= 1) return;
+  const int n_parts = ceil_div(
+      live_prefix(ctx_len, valid, positions, b, s, S, capacity, chunked),
+      chunk_tokens);
+  const int64_t base = (int64_t)bh * n_chunks;
+  float mx = -kInf;
+  for (int c = d; c < n_parts; c += D)
+    mx = fmaxf(mx, work_m[(base + c) * S + s]);
+  mx = pt::warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[w]);
+  float num = 0.f, den = 0.f;
+  if (mx != -kInf) {
+    for (int g = 0; g < n_parts; g += D) {
+      __syncthreads();              // the previous group's weights are read
+      const int c = g + d;
+      float w = 0.f;
+      if (c < n_parts) {
+        const int64_t i = (base + c) * S + s;
+        w = exp2f(work_m[i] - mx);   // 0 for -inf
+        den += work_l[i] * w;
+      }
+      w_s[d] = w;
+      __syncthreads();
+      const int ng = min(D, n_parts - g);
+#pragma unroll 16
+      for (int j = 0; j < ng; ++j)
+        num += w_s[j] * work_acc[((base + g + j) * S + s) * D + d];
+    }
+  }
+  // den: each thread holds the sum over its own parts
+  den = pt::warp_sum(den);
+  __syncthreads();
+  if (lane == 0) red[warp] = den;
+  __syncthreads();
+  den = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) den += red[w];
+  out[(((int64_t)b * S + s) * H + h) * D + d] =
+      pt::from_float<__nv_bfloat16>(den > 0.f ? num / den : 0.f);
+}
+
+// ====================================================== float32 FMA kernel
+namespace f32 {
 
 constexpr int kTile = 32;  // tokens per warp tile: one per lane
 
@@ -62,22 +898,6 @@ __device__ __forceinline__ void load_vec<float, 2>(const float* __restrict__ p,
                                                    float* out) {
   const float2 v = *reinterpret_cast<const float2*>(p);
   out[0] = v.x; out[1] = v.y;
-}
-template <>
-__device__ __forceinline__ void load_vec<__nv_bfloat16, 4>(
-    const __nv_bfloat16* __restrict__ p, float* out) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  out[0] = fa.x; out[1] = fa.y; out[2] = fb.x; out[3] = fb.y;
-}
-template <>
-__device__ __forceinline__ void load_vec<__nv_bfloat16, 2>(
-    const __nv_bfloat16* __restrict__ p, float* out) {
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 fa = __bfloat1622float2(a);
-  out[0] = fa.x; out[1] = fa.y;
 }
 template <>
 __device__ __forceinline__ void load_vec<int8_t, 4>(
@@ -105,13 +925,18 @@ __device__ __forceinline__ void load_row(const TKV* __restrict__ p, float sc,
 }
 
 // BQ query rows per block, NW warps, K/V rows loaded BURST at a time before
-// they are used; T is q's and out's type, TKV the pools' (T, or int8_t with
-// k_scales/v_scales)
-template <typename T, typename TKV, int D, int BQ, int NW, int BURST>
-__global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
-    const T* __restrict__ q, const TKV* __restrict__ k_pool,
+// they are used; q and out are float, TKV the pools' type (float, or int8_t
+// with k_scales/v_scales). A lane owns D/32 consecutive columns: every K or
+// V row is one coalesced vector load per lane, and q . k a warp-shuffle sum;
+// int8 rows are dequantized in their load, so everything runs in float.
+// MINB blocks an SM are asked for: one keeps every variable in registers
+// (the decode instantiations spilled without it); two suit long windows
+// over float pools, whose many blocks want the occupancy.
+template <typename TKV, int D, int BQ, int NW, int BURST, int MINB>
+__global__ void __launch_bounds__(NW * 32, MINB) paged_attention_fma_kernel(
+    const float* __restrict__ q, const TKV* __restrict__ k_pool,
     const TKV* __restrict__ v_pool, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales, T* __restrict__ out,
+    const float* __restrict__ v_scales, float* __restrict__ out,
     const int* __restrict__ tables, const int* __restrict__ ctx_len,
     const unsigned char* __restrict__ valid, const int* __restrict__ positions, int S,
     int H, int num_pages, int page_size, int P, int64_t q_sb, int64_t q_ss,
@@ -132,29 +957,21 @@ __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
   const int lane = tid & 31;
   const int col = lane * VEC;
   const int capacity = P * page_size;  // slots the table can address
-  const int ctx_b = min(max(ctx_len[b], 0), capacity);
 
   if (tid < BQ) {
     const int s = s0 + tid;
-    int n = 0;
-    if (s < S) {
-      if (chunked) {
-        const int idx = b * S + s;
-        n = valid[idx] ? min(positions[idx] + 1, ctx_b) : 0;
-      } else {
-        n = ctx_b;
-      }
-    }
-    n_live_s[tid] = max(n, 0);
+    n_live_s[tid] = s < S ? live_prefix(ctx_len, valid, positions, b, s, S,
+                                        capacity, chunked)
+                          : 0;
   }
   // this lane's columns of every query row of the tile, in registers
   float qr[BQ][VEC];
 #pragma unroll
   for (int r = 0; r < BQ; ++r) {
     const int s = min(s0 + r, S - 1);
-    const T* qp = q + b * q_sb + s * q_ss + h * q_sh + col;
+    const float* qp = q + b * q_sb + s * q_ss + h * q_sh + col;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) qr[r][j] = pt::to_float(qp[j]);
+    for (int j = 0; j < VEC; ++j) qr[r][j] = qp[j];
   }
   __syncthreads();
   int n_live[BQ];
@@ -184,12 +1001,8 @@ __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
     // lane i resolves the pool slot of token t0 + i through the table
     const int n_tile = min(kTile, kv_end - t0);
     int64_t slot = 0;
-    if (lane < n_tile) {
-      const int t = t0 + lane;
-      int page = table[t / page_size];
-      page = min(max(page, 0), num_pages - 1);
-      slot = (int64_t)page * page_size + t % page_size;
-    }
+    if (lane < n_tile) slot = token_slot(table, t0 + lane, page_size,
+                                         num_pages);
     // lane i's token's scales (quantized pools only; 1 otherwise)
     float k_sc = 1.f, v_sc = 1.f;
     if (kQuant && lane < n_tile) {
@@ -300,78 +1113,182 @@ __global__ void __launch_bounds__(NW * 32) paged_attention_kernel(
       }
       o = num / fmaxf(den, 1e-30f);
     }
-    out[(((int64_t)b * S + s) * H + h) * D + d] = pt::from_float<T>(o);
+    out[(((int64_t)b * S + s) * H + h) * D + d] = o;
   }
 }
 
-template <typename T, typename TKV, int D, int BQ, int NW, int BURST>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const float* k_scales, const float* v_scales, void* out,
-                   const int* tables, const int* ctx_len,
-                   const unsigned char* valid, const int* positions, int B,
-                   int S, int H, int num_pages, int page_size, int P,
-                   int64_t q_sb, int64_t q_ss, int64_t q_sh, float scale,
-                   int chunked, cudaStream_t stream) {
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
-  paged_attention_kernel<T, TKV, D, BQ, NW, BURST>
-      <<<grid, NW * 32, 0, stream>>>(
-          static_cast<const T*>(q), static_cast<const TKV*>(k_pool),
-          static_cast<const TKV*>(v_pool), k_scales, v_scales,
-          static_cast<T*>(out), tables, ctx_len, valid, positions, S, H,
-          num_pages, page_size, P, q_sb, q_ss, q_sh, scale, chunked);
+}  // namespace f32
+
+// ------------------------------------------------------------- launchers
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scales;
+  const float* v_scales;
+  void* out;
+  const int* tables;
+  const int* ctx_len;
+  const unsigned char* valid;
+  const int* positions;
+  int B, S, H, num_pages, page_size, P;
+  int64_t q_sb, q_ss, q_sh;
+  float scale;
+  int chunked;
+  float* work;
+  int64_t work_floats;
+  cudaStream_t stream;
+};
+
+// Context chunks of the split kernels (bf16 q): a decode row takes
+// dec::kChunk tokens a block; a window of at most 16 rows kSplitTiles
+// tiles; other windows do not split (0).
+inline int split_tokens(int kind, int S) {
+  if (kind == 0 && S == 1) return dec::kChunk;
+  if (S <= 16) return win::kSplitTiles * win::kTok;
+  return 0;
+}
+
+// Floats of the split kernels' workspace: acc [B*H, n_chunks, S, D], then m
+// and l [B*H, n_chunks, S]
+inline int64_t split_floats(int B, int S, int H, int D, int page_size,
+                            int P, int kind) {
+  const int chunk = split_tokens(kind, S);
+  if (chunk == 0) return 0;
+  const int64_t n_chunks = ceil_div<int64_t>((int64_t)P * page_size, chunk);
+  return (int64_t)B * H * n_chunks * S * (D + 2);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  // above 48 KB a block's shared memory must be asked for
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaSuccess;
+}
+
+template <typename TKV, int D, int WQ>
+cudaError_t launch_window(const Args& a, float* work_acc, float* work_m,
+                          float* work_l, int n_chunks) {
+  using L = win::Plan<TKV, D, WQ>;
+  auto kernel = win::paged_attention_window_kernel<TKV, D, WQ>;
+  static const cudaError_t attr = allow_smem(kernel, L::BYTES);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(a.B * a.H, L::kSplit ? n_chunks : ceil_div(a.S, L::BQ));
+  kernel<<<grid, win::kThreads, L::BYTES, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const TKV*>(a.k_pool), static_cast<const TKV*>(a.v_pool),
+      a.k_scales, a.v_scales, static_cast<__nv_bfloat16*>(a.out), a.tables,
+      a.ctx_len, a.valid, a.positions, work_acc, work_m, work_l, a.S, a.H,
+      a.num_pages, a.page_size, a.P, a.q_sb, a.q_ss, a.q_sh,
+      a.scale * kLog2e, a.chunked);
   return cudaGetLastError();
 }
 
-template <typename T, typename TKV, int D>
-cudaError_t launch_rows(const void* q, const void* k_pool,
-                        const void* v_pool, const float* k_scales,
-                        const float* v_scales, void* out, const int* tables,
-                        const int* ctx_len, const unsigned char* valid,
-                        const int* positions, int B, int S, int H,
-                        int num_pages, int page_size, int P, int64_t q_sb,
-                        int64_t q_ss, int64_t q_sh, float scale, int chunked,
-                        cudaStream_t stream) {
+template <typename TKV, int D>
+cudaError_t launch_decode(const Args& a, float* work_acc, float* work_m,
+                          float* work_l, int n_chunks) {
+  using L = dec::Plan<TKV, D>;
+  auto kernel = dec::paged_attention_decode_kernel<TKV, D>;
+  static const cudaError_t attr = allow_smem(kernel, L::BYTES);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(a.B * a.H, n_chunks);
+  kernel<<<grid, dec::kThreads, L::BYTES, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const TKV*>(a.k_pool), static_cast<const TKV*>(a.v_pool),
+      a.k_scales, a.v_scales, a.tables, a.ctx_len,
+      static_cast<__nv_bfloat16*>(a.out), work_acc, work_m, work_l, a.H,
+      a.num_pages, a.page_size, a.P, a.q_sb, a.q_sh, a.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename TKV, int D>
+cudaError_t launch_bf16(const Args& a) {
+  // one decode row: the split-context decode kernel; windows of at most 16
+  // rows: 16-row window blocks over chunks of the context; both then merged
+  // by the combine kernel. Longer windows: 64-row tiles of 16 rows a warp
+  // over the whole context.
+  const int kind = a.chunked ? 1 : 0;
+  const int chunk = split_tokens(kind, a.S);
+  if (chunk == 0)
+    return launch_window<TKV, D, 4>(a, nullptr, nullptr, nullptr, 0);
+  const int64_t n_chunks =
+      ceil_div<int64_t>((int64_t)a.P * a.page_size, chunk);
+  const int64_t parts = (int64_t)a.B * a.H * n_chunks * a.S;
+  if (n_chunks > 65535 || a.work == nullptr ||
+      a.work_floats < split_floats(a.B, a.S, a.H, D, a.page_size, a.P, kind))
+    return cudaErrorInvalidValue;
+  float* work_acc = a.work;
+  float* work_m = work_acc + parts * D;
+  float* work_l = work_m + parts;
+  const cudaError_t err =
+      a.S == 1 && kind == 0
+          ? launch_decode<TKV, D>(a, work_acc, work_m, work_l, (int)n_chunks)
+          : launch_window<TKV, D, 1>(a, work_acc, work_m, work_l,
+                                     (int)n_chunks);
+  if (err != cudaSuccess) return err;
+  paged_attention_combine_kernel<D><<<dim3(a.B * a.H, a.S), D, 0, a.stream>>>(
+      work_acc, work_m, work_l, a.ctx_len, a.valid, a.positions,
+      static_cast<__nv_bfloat16*>(a.out), a.S, a.H, a.P * a.page_size, chunk,
+      (int)n_chunks, a.chunked);
+  return cudaGetLastError();
+}
+
+template <typename TKV, int D, int BQ, int NW, int BURST, int MINB = 1>
+cudaError_t launch_fma_rows(const Args& a) {
+  dim3 grid(a.B * a.H, (a.S + BQ - 1) / BQ);
+  f32::paged_attention_fma_kernel<TKV, D, BQ, NW, BURST, MINB>
+      <<<grid, NW * 32, 0, a.stream>>>(
+          static_cast<const float*>(a.q), static_cast<const TKV*>(a.k_pool),
+          static_cast<const TKV*>(a.v_pool), a.k_scales, a.v_scales,
+          static_cast<float*>(a.out), a.tables, a.ctx_len, a.valid,
+          a.positions, a.S, a.H, a.num_pages, a.page_size, a.P, a.q_sb,
+          a.q_ss, a.q_sh, a.scale, a.chunked);
+  return cudaGetLastError();
+}
+
+template <typename TKV, int D>
+cudaError_t launch_fma(const Args& a) {
   // a decode step has one query row per block and sixteen warps splitting
   // its context, loading eight rows at a time; a chunked window eight rows
   // and eight warps, whose eight dot products per row already overlap loads
-#define PT_LAUNCH_ARGS                                                       \
-  q, k_pool, v_pool, k_scales, v_scales, out, tables, ctx_len, valid,       \
-      positions, B, S, H, num_pages, page_size, P, q_sb, q_ss, q_sh, scale, \
-      chunked, stream
-  if (S == 1) return launch<T, TKV, D, 1, 16, 8>(PT_LAUNCH_ARGS);
-  return launch<T, TKV, D, 8, 8, 1>(PT_LAUNCH_ARGS);
-#undef PT_LAUNCH_ARGS
+  if (a.S == 1) return launch_fma_rows<TKV, D, 1, 16, 8>(a);
+  if constexpr (std::is_same<TKV, float>::value) {
+    if (a.S > 64) return launch_fma_rows<TKV, D, 8, 8, 1, 2>(a);
+  }
+  return launch_fma_rows<TKV, D, 8, 8, 1>(a);
 }
 
-template <typename T, int D>
-cudaError_t launch_kv(const void* q, const void* k_pool, const void* v_pool,
-                      const float* k_scales, const float* v_scales, void* out,
-                      const int* tables, const int* ctx_len,
-                      const unsigned char* valid, const int* positions, int B,
-                      int S, int H, int num_pages, int page_size, int P,
-                      int64_t q_sb, int64_t q_ss, int64_t q_sh, float scale,
-                      int chunked, int kv_dtype, cudaStream_t stream) {
-#define PT_ROWS_ARGS                                                         \
-  q, k_pool, v_pool, k_scales, v_scales, out, tables, ctx_len, valid,       \
-      positions, B, S, H, num_pages, page_size, P, q_sb, q_ss, q_sh, scale, \
-      chunked, stream
-  if (kv_dtype == pt::kInt8) {
-    if (k_scales == nullptr || v_scales == nullptr)
-      return cudaErrorInvalidValue;
-    return launch_rows<T, int8_t, D>(PT_ROWS_ARGS);
-  }
-  return launch_rows<T, T, D>(PT_ROWS_ARGS);
-#undef PT_ROWS_ARGS
+template <int D>
+cudaError_t launch_d(const Args& a, int dtype, int kv_dtype) {
+  const bool quant = kv_dtype == pt::kInt8;
+  if (quant && (a.k_scales == nullptr || a.v_scales == nullptr))
+    return cudaErrorInvalidValue;
+  if (dtype == pt::kBFloat16)
+    return quant ? launch_bf16<int8_t, D>(a) : launch_bf16<__nv_bfloat16, D>(a);
+  return quant ? launch_fma<int8_t, D>(a) : launch_fma<float, D>(a);
 }
 
 }  // namespace
+
+// Floats of workspace that pt_paged_attention needs for this call (the
+// split kernels' partial states; 0 for the others).
+extern "C" int64_t pt_paged_workspace_floats(int B, int S, int H, int D,
+                                             int page_size, int P, int kind,
+                                             int dtype) {
+  if (dtype != pt::kBFloat16 || page_size < 1 || P < 1) return 0;
+  return split_floats(B, S, H, D, page_size, P, kind);
+}
 
 // C entry point bound with ctypes (ops/_build.py). kind: 0 = decode,
 // 1 = chunked (valid, one byte per position, and positions are read only
 // for chunked). dtype is q's and out's type; kv_dtype the pools' (dtype
 // itself, or pt::kInt8 with the f32 scale pools k_scales/v_scales, which are
-// null otherwise). Returns cudaGetLastError() after the launch; a shape or
-// type it does not take returns cudaErrorInvalidValue without launching.
+// null otherwise). work: pt_paged_workspace_floats(...) floats of device
+// memory (may be unused). Returns cudaGetLastError() after the launches; a
+// shape or type it does not take returns cudaErrorInvalidValue without
+// launching.
 extern "C" int pt_paged_attention(const void* q, const void* k_pool,
                                   const void* v_pool, const float* k_scales,
                                   const float* v_scales, void* out,
@@ -381,24 +1298,21 @@ extern "C" int pt_paged_attention(const void* q, const void* k_pool,
                                   int D, int num_pages, int page_size, int P,
                                   int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                   float scale, int kind, int dtype,
-                                  int kv_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (page_size < 1 || page_size > 64 || num_pages < 1 || P < 1)
+                                  int kv_dtype, float* work,
+                                  int64_t work_floats, void* stream) {
+  if (page_size < 1 || num_pages < 1 || P < 1 ||
+      (int64_t)P * page_size > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   if (kv_dtype != dtype && kv_dtype != pt::kInt8)
     return (int)cudaErrorInvalidValue;
-#define PT_PAGED_ARGS                                                   \
-  q, k_pool, v_pool, k_scales, v_scales, out, tables, ctx_len, valid,   \
-      positions, B, S, H, num_pages, page_size, P, q_sb, q_ss, q_sh,    \
-      scale, kind, kv_dtype, st
-  if (dtype == pt::kFloat32 && D == 64)
-    return launch_kv<float, 64>(PT_PAGED_ARGS);
-  if (dtype == pt::kFloat32 && D == 128)
-    return launch_kv<float, 128>(PT_PAGED_ARGS);
-  if (dtype == pt::kBFloat16 && D == 64)
-    return launch_kv<__nv_bfloat16, 64>(PT_PAGED_ARGS);
-  if (dtype == pt::kBFloat16 && D == 128)
-    return launch_kv<__nv_bfloat16, 128>(PT_PAGED_ARGS);
-#undef PT_PAGED_ARGS
+  if (dtype != pt::kFloat32 && dtype != pt::kBFloat16)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q,         k_pool,     v_pool,    k_scales, v_scales, out,
+               tables,    ctx_len,    valid,     positions, B,       S,
+               H,         num_pages,  page_size, P,         q_sb,    q_ss,
+               q_sh,      scale,      kind == 1 ? 1 : 0,   work,
+               work_floats, static_cast<cudaStream_t>(stream)};
+  if (D == 64) return (int)launch_d<64>(a, dtype, kv_dtype);
+  if (D == 128) return (int)launch_d<128>(a, dtype, kv_dtype);
   return (int)cudaErrorInvalidValue;
 }

@@ -68,10 +68,14 @@ _SIGNATURES = {
     "pt_flash_bwd_dkv": [_P] * 8 + _BWD_TAIL,
     # q, k_pool, v_pool, k_scales, v_scales, out, tables, ctx, valid,
     # positions, B, S, H, D, num_pages, page_size, P, q strides (b, s, h),
-    # scale, kind, dtype, kv_dtype, stream
+    # scale, kind, dtype, kv_dtype, workspace (float*), its floats, stream
     "pt_paged_attention": [_P] * 10 + [_I] * 7 + [_I64] * 3
-                          + [_F, _I, _I, _I, _P],
+                          + [_F, _I, _I, _I, _P, _I64, _P],
 }
+# entry points that return something other than an error code:
+# B, S, H, D, page_size, P, kind, dtype -> floats of pt_paged_attention's
+# workspace
+_RESTYPES = {"pt_paged_workspace_floats": ([_I] * 8, ctypes.c_int64)}
 
 
 def _nvcc() -> str:
@@ -151,6 +155,9 @@ def load_library():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in _RESTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
             lib.pt_error_string.argtypes = [ctypes.c_int]
             lib.pt_error_string.restype = ctypes.c_char_p
             _LIB = lib

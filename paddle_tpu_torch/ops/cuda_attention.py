@@ -26,8 +26,11 @@ Kernel: ``csrc/flash_fwd.cu``, the port of the TPU kernel
 
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and raises on
 what the kernel does not take; only CPU tensors take the plain version
-``mha_fwd_reference``. ``launches`` counts kernel launches, ``plain_calls``
-calls of the plain version (both plain module-level integers).
+``mha_fwd_reference``. ``supported`` says, from shapes, dtype and strides
+alone, whether the kernel takes a call: the callers
+(``ops/flash_attention.py``) send what it refuses to the plain version.
+``launches`` counts kernel launches, ``plain_calls`` calls of the plain
+version (both plain module-level integers).
 """
 from __future__ import annotations
 
@@ -37,8 +40,8 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_fwd", "mha_fwd_reference", "HEAD_DIMS",
-           "NEG_INF", "REPLACES", "SOURCE"]
+__all__ = ["flash_attention_fwd", "mha_fwd_reference", "supported",
+           "HEAD_DIMS", "NEG_INF", "REPLACES", "SOURCE"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -77,43 +80,77 @@ def mha_fwd_reference(q, k, v, causal=True, scale=None):
     return out.transpose(1, 2).to(q.dtype), lse
 
 
-def _check(q, k, v, causal):
+def _refusal(q, k, v, causal, backward=False):
+    """Why the kernel would not take these tensors, as ``(exception type,
+    message)``, or None when it takes them. Decided by shape, dtype, strides
+    and alignment alone, before any launch. ``backward`` adds what the two
+    backward kernels need beyond the forward (dk/dv's grid over the keys)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+            return ValueError, f"{name} is on {t.device}, q on {q.device}"
         if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+            return TypeError, f"{name} is {t.dtype}, q is {q.dtype}"
         if t.dim() != 4:
-            raise ValueError(f"{name} must be [B, S, H, D], got "
-                             f"{tuple(t.shape)}")
+            return ValueError, (f"{name} must be [B, S, H, D], got "
+                                f"{tuple(t.shape)}")
         if t.stride(-1) != 1:
-            raise ValueError(f"{name}'s head_dim must be contiguous "
-                             f"(stride {t.stride(-1)})")
-    if str(q.dtype) not in _build.DTYPE_CODES:
-        raise TypeError(f"flash_fwd kernel takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+            return ValueError, (f"{name}'s head_dim must be contiguous "
+                                f"(stride {t.stride(-1)})")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        return TypeError, (f"flash_fwd kernel takes float32 or bfloat16, "
+                           f"got {q.dtype}")
     b, sq, h, d = q.shape
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
+        return ValueError, (f"flash_fwd kernel takes head_dim in "
+                            f"{HEAD_DIMS}, got {d}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
-        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
-                         f"not match q {tuple(q.shape)}")
-    if k.shape[1] < 1:
-        raise ValueError("flash_fwd needs at least one key")
-    if causal and k.shape[1] != sq:
-        raise ValueError(f"causal attention masks top-left aligned windows "
-                         f"only: sq={sq} != sk={k.shape[1]}")
+        return ValueError, (f"k/v shapes {tuple(k.shape)}/"
+                            f"{tuple(v.shape)} do not match q "
+                            f"{tuple(q.shape)}")
+    sk = k.shape[1]
+    if sk < 1:
+        return ValueError, "flash_fwd needs at least one key"
+    if causal and sk != sq:
+        return ValueError, (f"causal attention masks top-left aligned "
+                            f"windows only: sq={sq} != sk={sk}")
     if q.dtype == torch.bfloat16:
         # TMA takes a 16-byte aligned base and strides of whole 16 bytes
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-                raise ValueError(f"{name}: the bf16 kernel needs 16-byte "
-                                 f"aligned rows (pointer and b/s/h strides)")
+                return ValueError, (f"{name}: the bf16 kernel needs 16-byte "
+                                    f"aligned rows (pointer and b/s/h "
+                                    f"strides)")
         # one block per 128 query rows of a (batch, head), on a 1-D grid
         if b * h * -(-sq // 128) > 2**31 - 1:
-            raise ValueError(f"flash_fwd bf16 kernel takes at most 2^31 - 1 "
-                             f"blocks of 128 rows, got B={b} H={h} S={sq}")
+            return ValueError, (f"flash_fwd bf16 kernel takes at most "
+                                f"2^31 - 1 blocks of 128 rows, got B={b} "
+                                f"H={h} S={sq}")
+        # dk/dv: one block per 128 keys, on a 1-D grid
+        if backward and b * h * -(-sk // 128) > 2**31 - 1:
+            return ValueError, (f"flash_bwd_dkv bf16 kernel takes at most "
+                                f"2^31 - 1 blocks of 128 keys, got B={b} "
+                                f"H={h} Sk={sk}")
+    return None
+
+
+def _check(q, k, v, causal, backward=False):
+    """Raise on what the forward kernel (with ``backward``, also the two
+    backward kernels) does not take."""
+    refused = _refusal(q, k, v, causal, backward=backward)
+    if refused is not None:
+        exc, msg = refused
+        raise exc(msg)
+
+
+def supported(q, k, v, causal=True, backward=False) -> bool:
+    """Does the flash kernel take this call (and, with ``backward``, do the
+    two backward kernels take its gradient)? The counterpart of the
+    reference's ``flash_attention.supported``: callers send what it refuses
+    (a head_dim outside ``HEAD_DIMS``, another dtype, unaligned bf16 rows)
+    to the plain version, as the reference sends it to its dense path. The
+    device is the wrapper's business: CPU tensors of a shape it takes still
+    go through the wrapper, which runs the plain version there."""
+    return _refusal(q, k, v, causal, backward=backward) is None
 
 
 def flash_attention_fwd(q, k, v, causal=True, scale=None):

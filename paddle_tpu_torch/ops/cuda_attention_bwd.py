@@ -109,27 +109,21 @@ def _strides(*tensors):
 
 
 def _check_bwd(q, k, v, out, lse, do, causal):
-    """What the kernels take, beyond the forward's ``_check`` of q/k/v
-    (which also holds dq's grid, one block per 128 query rows, to 2^31 - 1
-    blocks) and of dO against k/v."""
-    _check(q, k, v, causal)
+    """What the kernels take, beyond ``_check`` of q/k/v (which also holds
+    dq's grid, one block per 128 query rows, and dk/dv's, one per 128 keys,
+    to 2^31 - 1 blocks) and of dO against k/v."""
+    _check(q, k, v, causal, backward=True)
     if do.dtype == torch.bfloat16 and (
             do.data_ptr() % 16 or any(st % 8 for st in do.stride()[:3])):
         raise ValueError("dO: the bf16 kernels need 16-byte aligned rows "
                          "(pointer and b/s/h strides)")
     _check(do, k, v, causal)
     b, sq, h, _ = q.shape
-    sk = k.shape[1]
     if out.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dO {tuple(do.shape)} "
                          f"must match q {tuple(q.shape)}")
     if q.dtype == torch.bfloat16:
-        # dk/dv: one block per 128 keys, on a 1-D grid
-        if b * h * -(-sk // 128) > 2**31 - 1:
-            raise ValueError(f"flash_bwd_dkv bf16 kernel takes at most "
-                             f"2^31 - 1 blocks of 128 keys, got B={b} H={h} "
-                             f"Sk={sk}")
-        # its lse tiles come by TMA, from a 16-byte aligned base
+        # dk/dv's lse tiles come by TMA, from a 16-byte aligned base
         if lse.data_ptr() % 16:
             raise ValueError("lse: the bf16 kernels need a 16-byte aligned "
                              "base pointer")

@@ -13,21 +13,31 @@ for float32, bfloat16 and int8 pools.
   (and ``t < ctx_len[b]``: the reference's kernel never loads a tile past
   the context either). Dead rows — no visible slot — write zeros. An int8
   pool is the ``(values int8 [N, page, H, D], scales f32 [N, page, H])``
-  tuple: each row is dequantized in its load and everything after runs in
-  float, as the reference's quantized branch (``:95-101, :139-144``).
+  tuple, whose maths follows the reference's float32 quantized branch
+  (``:95-101, :139-144``).
 - What bounds it on the H100: the bytes of the live context (decode does
   ``4*D`` flops per slot and head), so HBM bandwidth: ``2*D`` bytes per
   slot and head in bf16, ``D + 4`` in int8.
-- What its design does about it: each block loads its own page ids and
-  walks only the live tokens with coalesced vector loads straight from the
-  pool; its eight warps split the context and merge their softmax states
-  once (``csrc/paged_attention.cu`` has the details).
+- What its design does about it (``KERNELS``; ``csrc/paged_attention.cu``
+  has the details): bf16 queries take a tensor-core window kernel (chunked
+  windows: K/V tiles of 64 tokens gathered through the table with
+  ``cp.async`` into a shared-memory ring, S = Q Kᵀ and O += P V on
+  ``mma.sync``, P as bf16 hi + lo, int8's K scale factored out of the dot
+  and its V scale folded into p) or a split-context decode kernel (each
+  row's context in chunks of 128 tokens, one block each); windows of at
+  most 16 rows split their context too, and a combine kernel merges the
+  parts' softmax states, kept in a float workspace that the wrapper
+  allocates. float32 queries take an FMA kernel that keeps float32 exact.
+  Every token resolves its own page, so any page size is taken.
 
-``paged_attention`` launches the kernel for CUDA tensors and raises on what
-the kernel does not take; only CPU tensors take the plain version
-``paged_attention_reference``. ``launches`` counts kernel launches
-(``launches_by`` by kind and pool type, e.g. ``("chunked", "int8")``),
-``plain_calls`` calls of the plain version.
+``paged_attention`` launches the kernels for CUDA tensors and raises on
+what they do not take; only CPU tensors take the plain version
+``paged_attention_reference``. ``supported`` says, from shapes and dtypes
+alone, whether the kernels take a call: ``paged_attention_update`` sends
+what it refuses (a head_dim outside ``HEAD_DIMS``) to the plain version.
+``launches`` counts wrapper calls that launched (``launches_by`` by kind and
+pool type, e.g. ``("chunked", "int8")``; ``launches_by_kernel`` by the entry
+of ``KERNELS`` that ran), ``plain_calls`` calls of the plain version.
 """
 from __future__ import annotations
 
@@ -37,18 +47,32 @@ from . import _build
 from .paged_attention import (_chunked_attention, _decode_attention,
                               gather_pool, is_quantized_pool)
 
-__all__ = ["paged_attention", "paged_attention_reference", "HEAD_DIMS",
-           "MAX_PAGE_SIZE", "REPLACES", "SOURCE"]
+__all__ = ["paged_attention", "paged_attention_reference", "supported",
+           "kernel_for", "HEAD_DIMS", "KERNELS", "REPLACES", "SOURCE"]
 
 HEAD_DIMS = (64, 128)
-MAX_PAGE_SIZE = 64
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas_paged_attention.py:259"
 _KIND_CODES = {"decode": 0, "chunked": 1}
 
+# the CUDA kernel each call runs (csrc/paged_attention.cu): bf16 queries
+# take the tensor-core window kernel (chunked) or the split-context decode
+# kernel (decode); float32 queries the FMA kernel
+KERNELS = ("paged_window_bf16", "paged_decode_split_bf16", "paged_fma_f32")
+
 launches = 0
 launches_by = {}
+launches_by_kernel = {}
 plain_calls = 0
+
+
+def kernel_for(kind: str, dtype, s: int) -> str:
+    """Which of ``KERNELS`` a call of ``kind`` with q of ``dtype`` and
+    ``s`` window rows runs (a decode call of several rows per sequence is a
+    window of the decode mask)."""
+    if dtype != torch.bfloat16:
+        return KERNELS[2]
+    return KERNELS[1] if kind == "decode" and s == 1 else KERNELS[0]
 
 
 def paged_attention_reference(q, k_pool, v_pool, block_tables, ctx_len,
@@ -93,36 +117,86 @@ def _as_i32(t, name, shape):
     return t.to(torch.int32).contiguous()
 
 
-def _check_pool(name, pool, q, page_size, h, d):
+def _pool_refusal(name, pool, q, page_size, h, d):
     """The kernel's pool contract: contiguous, 16-byte aligned, on q's
     device, [N, page_size, H, D] values in q's type or int8, and for int8
-    f32 scales [N, page_size, H]. Returns (values, scales or None)."""
-    scales = None
+    f32 scales [N, page_size, H]. Returns why a pool breaks it, as
+    ``(exception type, message)``, or None."""
     if is_quantized_pool(pool):
         values, scales = pool
         if values.dtype != torch.int8:
-            raise TypeError(f"{name} values must be int8, got {values.dtype}")
+            return TypeError, f"{name} values must be int8, got {values.dtype}"
         if scales.device != q.device or scales.dtype != torch.float32:
-            raise TypeError(f"{name} scales are {scales.dtype} on "
-                            f"{scales.device}; the kernel takes float32 on "
-                            f"{q.device}")
+            return TypeError, (f"{name} scales are {scales.dtype} on "
+                               f"{scales.device}; the kernel takes float32 "
+                               f"on {q.device}")
         if tuple(scales.shape) != (values.shape[0], page_size, h) or \
                 not scales.is_contiguous():
-            raise ValueError(
+            return ValueError, (
                 f"{name} scales must be a contiguous [{values.shape[0]}, "
                 f"{page_size}, {h}] pool, got {tuple(scales.shape)}")
     else:
         values = pool
         if values.dtype != q.dtype:
-            raise TypeError(f"{name} is {values.dtype}; q is {q.dtype}")
+            return TypeError, f"{name} is {values.dtype}; q is {q.dtype}"
     if values.device != q.device:
-        raise TypeError(f"{name} is on {values.device}; q on {q.device}")
+        return TypeError, f"{name} is on {values.device}; q on {q.device}"
     if values.dim() != 4 or values.shape[1:] != (page_size, h, d) or \
             not values.is_contiguous() or values.data_ptr() % 16:
-        raise ValueError(
+        return ValueError, (
             f"{name} must be a contiguous, 16-byte aligned [num_pages, "
             f"{page_size}, {h}, {d}] pool, got {tuple(values.shape)}")
-    return values, scales
+    return None
+
+
+def _refusal(q, k_pool, v_pool, block_tables, page_size, kind):
+    """Why the kernel would not take this call, as ``(exception type,
+    message)``, or None: decided by kind, shapes, dtypes, strides and
+    alignment of q, the pools and the block table, before any launch."""
+    if kind not in _KIND_CODES:
+        return ValueError, (f"kind must be 'decode' or 'chunked', got "
+                            f"{kind!r}")
+    if q.dim() != 4 or q.stride(-1) != 1:
+        return ValueError, ("q must be [B, S, H, D] with a contiguous "
+                            "head_dim")
+    b, _, h, d = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        return TypeError, (f"paged_attention kernel takes float32 or "
+                           f"bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        return ValueError, (f"paged_attention kernel takes head_dim in "
+                            f"{HEAD_DIMS}, got {d}")
+    if is_quantized_pool(k_pool) != is_quantized_pool(v_pool):
+        return TypeError, ("k_pool and v_pool must both be int8 tuples or "
+                           "both tensors")
+    for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+        refused = _pool_refusal(name, pool, q, page_size, h, d)
+        if refused is not None:
+            return refused
+    k_vals = k_pool[0] if is_quantized_pool(k_pool) else k_pool
+    v_vals = v_pool[0] if is_quantized_pool(v_pool) else v_pool
+    if k_vals.shape != v_vals.shape:
+        return ValueError, "k_pool and v_pool differ in shape"
+    if page_size < 1:
+        return ValueError, f"page_size must be at least 1, got {page_size}"
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        return ValueError, (f"block_tables must be [{b}, P], got "
+                            f"{tuple(block_tables.shape)}")
+    return None
+
+
+def supported(q, k_pool, v_pool, block_tables, page_size: int,
+              kind: str) -> bool:
+    """Does the kernel take this call? The counterpart of the reference's
+    ``pallas_paged_attention.supported`` (``:69-80``): the caller
+    (``paged_attention_update``) sends what it refuses — a head_dim outside
+    ``HEAD_DIMS``, pools it cannot read — to the plain version, as the
+    reference sends it to its gather path. Any page size of at least one
+    slot is taken. The device is the wrapper's business: CPU tensors of a
+    shape it takes still go through the wrapper, which runs the plain
+    version there."""
+    return _refusal(q, k_pool, v_pool, block_tables, page_size,
+                    kind) is None
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, ctx_len, valid,
@@ -146,30 +220,15 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_len, valid,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, got "
                          f"{q.device}")
-    if kind not in _KIND_CODES:
-        raise ValueError(f"kind must be 'decode' or 'chunked', got {kind!r}")
-    if q.dim() != 4 or q.stride(-1) != 1:
-        raise ValueError("q must be [B, S, H, D] with a contiguous head_dim")
+    refused = _refusal(q, k_pool, v_pool, block_tables, page_size, kind)
+    if refused is not None:
+        exc, msg = refused
+        raise exc(msg)
     b, s, h, d = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"paged_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
-    if is_quantized_pool(k_pool) != is_quantized_pool(v_pool):
-        raise TypeError("k_pool and v_pool must both be int8 tuples or "
-                        "both tensors")
-    k_vals, k_sc = _check_pool("k_pool", k_pool, q, page_size, h, d)
-    v_vals, v_sc = _check_pool("v_pool", v_pool, q, page_size, h, d)
-    if k_vals.shape != v_vals.shape:
-        raise ValueError("k_pool and v_pool differ in shape")
-    if not 1 <= page_size <= MAX_PAGE_SIZE:
-        raise ValueError(f"page_size must be in [1, {MAX_PAGE_SIZE}], got "
-                         f"{page_size}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != b:
-        raise ValueError(f"block_tables must be [{b}, P], got "
-                         f"{tuple(block_tables.shape)}")
+    k_vals, k_sc = ((k_pool[0], k_pool[1]) if is_quantized_pool(k_pool)
+                    else (k_pool, None))
+    v_vals, v_sc = ((v_pool[0], v_pool[1]) if is_quantized_pool(v_pool)
+                    else (v_pool, None))
     for name, t in (("block_tables", block_tables), ("ctx_len", ctx_len),
                     ("valid", valid), ("positions", positions)):
         if t.device != q.device:
@@ -185,6 +244,11 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_len, valid,
     if b * s * h == 0:
         return out
     lib = _build.load_library()
+    dtype = _build.DTYPE_CODES[str(q.dtype)]
+    # the split kernels' partial softmax states
+    n_work = lib.pt_paged_workspace_floats(b, s, h, d, page_size, n_tab,
+                                           _KIND_CODES[kind], dtype)
+    work = torch.empty(max(n_work, 1), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_paged_attention(
@@ -194,11 +258,13 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_len, valid,
             out.data_ptr(), tables.data_ptr(), ctx.data_ptr(),
             val.data_ptr(), pos.data_ptr(), b, s, h, d, k_vals.shape[0],
             page_size, n_tab, q.stride(0), q.stride(1), q.stride(2),
-            float(scale), _KIND_CODES[kind],
-            _build.DTYPE_CODES[str(q.dtype)],
-            _build.DTYPE_CODES[str(k_vals.dtype)], stream)
+            float(scale), _KIND_CODES[kind], dtype,
+            _build.DTYPE_CODES[str(k_vals.dtype)], work.data_ptr(),
+            work.numel(), stream)
     _build.check(err, "paged_attention")
     launches += 1
     key = (kind, str(k_vals.dtype).replace("torch.", ""))
     launches_by[key] = launches_by.get(key, 0) + 1
+    name = kernel_for(kind, q.dtype, s)
+    launches_by_kernel[name] = launches_by_kernel.get(name, 0) + 1
     return out

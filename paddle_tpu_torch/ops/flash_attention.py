@@ -5,8 +5,13 @@ and of ``pallas_paged_attention.prefill_flash``. The TPU gates do not carry
 over: the reference only took its flash kernel for sequences that are a
 multiple of 128 and at least ``FLAGS_flash_min_seqlen`` (2048) long, with
 512x1024 blocks — TPU constants. The port's kernels mask ragged edges, so on
-the card every window goes through them, whatever its length, and there is
-no dense branch to fall back to.
+the card every window goes through them, whatever its length. What the
+kernels do not take by shape (``cuda_attention.supported``: a head_dim
+outside {64, 128}, another dtype, unaligned bf16 rows) goes to their plain
+versions, as the reference sends what its ``flash_attention.supported``
+refuses to its dense path; such calls count in the plain versions'
+``plain_calls``. A kernel that fails to build or launch raises: nothing
+here catches an exception.
 
 The gradient is :class:`FlashAttention`, the counterpart of the reference's
 ``pallas_attention.mha`` ``custom_vjp``: the forward kernel saves
@@ -22,7 +27,7 @@ import math
 import torch
 from torch.overrides import handle_torch_function, has_torch_function
 
-from .cuda_attention import flash_attention_fwd, mha_fwd_reference
+from .cuda_attention import flash_attention_fwd, mha_fwd_reference, supported
 from .cuda_attention_bwd import flash_attention_bwd, mha_bwd_reference
 
 __all__ = ["FlashAttention", "attention_bshd", "prefill_flash"]
@@ -30,9 +35,12 @@ __all__ = ["FlashAttention", "attention_bshd", "prefill_flash"]
 
 def prefill_flash(q, k, v, scale):
     """Serving prefill: causal attention over the window through the flash
-    kernel (``ops/cuda_attention.py``; its plain version on CPU tensors).
-    q/k/v: [B, S, H, D]; returns [B, S, H, D]."""
-    out, _ = flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    kernel (``ops/cuda_attention.py``; its plain version on CPU tensors and
+    for shapes the kernel does not take). q/k/v: [B, S, H, D]; returns
+    [B, S, H, D]."""
+    fwd = (flash_attention_fwd if supported(q, k, v, causal=True)
+           else mha_fwd_reference)
+    out, _ = fwd(q, k, v, causal=True, scale=scale)
     return out
 
 
@@ -61,9 +69,9 @@ class FlashAttention(torch.autograd.Function):
 
 def attention_bshd(q, k, v, causal=False, scale=None, use_kernels=True):
     """Maskless attention in [B, S, H, D] layout through the flash kernels
-    (their plain versions on CPU tensors, or anywhere with
-    ``use_kernels=False``), differentiable in q, k and v. It dispatches
-    through ``__torch_function__``, so the port's AMP
+    (their plain versions on CPU tensors, for shapes the kernels do not take,
+    or anywhere with ``use_kernels=False``), differentiable in q, k and v.
+    It dispatches through ``__torch_function__``, so the port's AMP
     (``amp/auto_cast.py``) casts its inputs under the reference's op name
     ``scaled_dot_product_attention``."""
     if has_torch_function((q, k, v)):
@@ -71,8 +79,10 @@ def attention_bshd(q, k, v, causal=False, scale=None, use_kernels=True):
                                      causal=causal, scale=scale,
                                      use_kernels=use_kernels)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    use_kernels = use_kernels and supported(q, k, v, causal, backward=grad)
+    if grad:
         return FlashAttention.apply(q, k, v, causal, s, use_kernels)
     fwd = flash_attention_fwd if use_kernels else mha_fwd_reference
     out, _ = fwd(q, k, v, causal=causal, scale=s)

@@ -17,8 +17,9 @@ Quantized pools (``FLAGS_decode_kv_dtype=int8``), as the reference: a pool
 is the 2-tuple ``(values int8 [num_pages, page_size, H, D], scales f32
 [num_pages, page_size, H])``, symmetric absmax quantization over head_dim
 with one scale per written (slot, head). ``write_pool`` quantizes on write;
-``gather_pool`` dequantizes on read (the plain path), and the paged kernel
-dequantizes inside its row loads (``csrc/paged_attention.cu``).
+``gather_pool`` dequantizes on read (the plain path), and the paged kernels
+read the int8 values and their scales straight from the pools
+(``csrc/paged_attention.cu``).
 """
 from __future__ import annotations
 
@@ -202,9 +203,10 @@ def paged_attention_update(q, k, v, k_pool, v_pool, block_tables, ctx_len,
       table — self is included (the paged kernel).
 
     ``use_kernels`` picks the hand-written kernels (the default; on CPU
-    tensors their wrappers run the plain versions) or calls the kernels'
-    plain versions directly, which is how the kernel path is held against
-    the plain path on the card. ``slots`` are this call's
+    tensors their wrappers run the plain versions, and shapes a kernel does
+    not take — ``supported`` — go to its plain version) or calls the
+    kernels' plain versions directly, which is how the kernel path is held
+    against the plain path on the card. ``slots`` are this call's
     ``flat_slots(...)`` flattened to [B*S], when the caller has them (a
     model computes them once for all its layers).
 
@@ -229,7 +231,12 @@ def paged_attention_update(q, k, v, k_pool, v_pool, block_tables, ctx_len,
             out, _ = cuda_attention.mha_fwd_reference(q, k, v, causal=True,
                                                       scale=scale)
         return out, k_pool, v_pool
-    fn = (cuda_paged_attention.paged_attention if use_kernels
+    # what the kernel does not take by shape goes to its plain version, as
+    # the reference sends it to gather_pool and its pure attention
+    # (paddle_tpu/ops/paged_attention.py:381-387); counted in plain_calls
+    take = use_kernels and cuda_paged_attention.supported(
+        q, k_pool, v_pool, block_tables, page_size, kind)
+    fn = (cuda_paged_attention.paged_attention if take
           else cuda_paged_attention.paged_attention_reference)
     out = fn(q, k_pool, v_pool, block_tables, ctx_len, valid, positions,
              page_size=page_size, kind=kind, scale=scale)

@@ -322,3 +322,260 @@ def test_int8_update_matches_jax_pure_path(kind, s):
     live = _live(c, kind)
     np.testing.assert_allclose(out.numpy()[live], np.asarray(j_out)[live],
                                atol=ATOL, rtol=ATOL)
+
+
+# ------------------------------------- the CUDA kernels' arithmetic, emulated
+# The bf16-query kernels of csrc/paged_attention.cu reorder the reference's
+# maths; these tests emulate the two reorderings in torch (float32) on the
+# same seeded inputs and hold them against the JAX package's kernel in
+# interpret mode:
+# - the split-context decode kernel computes a softmax state (m, l, acc) per
+#   chunk of the context, in the exp2 domain, and the last block merges them;
+#   chunks with no live token hold (-inf, 0, 0);
+# - the window kernel runs an online softmax over context tiles, each tile
+#   split among warps whose states merge at the end; a window of at most 16
+#   rows also splits its context into blocks of tiles, each block's state a
+#   partial merged as the decode kernel's are;
+# - both factor int8's K scale out of the dot (s = s_k * (q . k_int)), fold
+#   the V scale into p, and feed P to the PV product as bf16 hi + lo parts.
+# Emulated chunk and tile sizes are small (8 tokens, warps of 4) so that the
+# 32-slot tables span several of them, and some hold no live token.
+# Tolerances: int8 pools with q rounded to bf16 (the kernel's q type) fed to
+# both as float32, atol/rtol 1e-5 (float32 sums in another order; P keeps
+# ~16 bits); bf16 pools, the reference in bf16 (it rounds p and its output to
+# bf16), atol 2e-2 on outputs of magnitude below 3 (bf16 rounding of the
+# reference's p and output, 2^-8 relative).
+LOG2E = 1.4426950408889634
+EMU_TILE, EMU_WARPS, EMU_CHUNK = 8, 2, 8
+
+
+def _bf16(x):
+    return np.asarray(torch.from_numpy(np.ascontiguousarray(x)).to(
+        torch.bfloat16).float())
+
+
+def _raw_context(pool, tables):
+    """The gathered pool values as float32 (int8 values undequantized) and
+    their per-token scales (ones for a float pool): [B, T, H, D], [B, H, T]."""
+    if tpa.is_quantized_pool(pool):
+        vals = tpa._gather_flat(pool[0], tables).float()
+        sc = tpa._gather_flat(pool[1], tables).float()
+    else:
+        vals = tpa._gather_flat(pool, tables).float()
+        sc = torch.ones(vals.shape[:3])
+    return vals, sc.permute(0, 2, 1)
+
+
+def _n_live(ctx, valid, positions, kind, s, cap):
+    ctx = ctx.long().clamp(0, cap)
+    if kind == "decode":
+        return ctx[:, None].expand(-1, s)
+    n = torch.minimum(positions.long() + 1, ctx[:, None])
+    return torch.where(valid, n, torch.zeros_like(n)).clamp(min=0)
+
+
+def _hi_lo(p):
+    """p through bf16 hi + lo parts, as the kernels feed P to the PV
+    product."""
+    hi = p.to(torch.bfloat16).float()
+    return hi + (p - hi).to(torch.bfloat16).float()
+
+
+def _scores(ctx_, t0, t1):
+    """Scores of tokens [t0, t1) in the exp2 domain, the K scale factored
+    out of the dot, -inf past each row's live prefix: [B, S, H, T']."""
+    q, k, ks, n, scale = (ctx_[x] for x in ("q", "k", "ks", "n", "scale"))
+    s = torch.einsum("bshd,bthd->bsht", q, k[:, t0:t1])
+    s = s * (scale * LOG2E) * ks[:, None, :, t0:t1]
+    t = torch.arange(t0, t1)
+    return torch.where(t < n[:, :, None, None], s, torch.tensor(-np.inf))
+
+
+def _pv(ctx_, p, t0, t1):
+    """acc contribution of p over tokens [t0, t1): the V scale folded into
+    p, P as hi + lo."""
+    pv = _hi_lo(p * ctx_["vs"][:, None, :, t0:t1])
+    return torch.einsum("bsht,bthd->bshd", pv, ctx_["v"][:, t0:t1])
+
+
+def _chunk_state(ctx_, t0, t1):
+    s = _scores(ctx_, t0, t1)
+    m = s.amax(-1)
+    p = torch.exp2(s - torch.where(m == -np.inf, 0.0, m)[..., None])
+    return m, p.sum(-1), _pv(ctx_, p, t0, t1)
+
+
+def _merge(states):
+    """Merge softmax states (m, l, acc): weights exp2(m - max m), 0 for a
+    state with no live token; a row with none anywhere writes zeros."""
+    ms = torch.stack([m for m, _, _ in states])
+    top = ms.amax(0)
+    w = torch.where(top == -np.inf, 0.0,
+                    torch.exp2(ms - torch.where(top == -np.inf, 0.0, top)))
+    den = sum(wi * l for wi, (_, l, _) in zip(w, states))
+    num = sum(wi[..., None] * a for wi, (_, _, a) in zip(w, states))
+    return torch.where(den[..., None] > 0, num / den.clamp(min=1e-30)[..., None],
+                       torch.zeros_like(num))
+
+
+def _emu_ctx(c, k_pool, v_pool, kind):
+    t = _t(c)
+    k, ks = _raw_context(k_pool, t["tables"])
+    v, vs = _raw_context(v_pool, t["tables"])
+    s = c["q"].shape[1]
+    n = _n_live(t["ctx"], t["valid"], t["positions"], kind, s, k.shape[1])
+    return {"q": torch.from_numpy(_bf16(c["q"])), "k": k, "ks": ks, "v": v,
+            "vs": vs, "n": n, "scale": 1.0 / np.sqrt(D)}
+
+
+def _emulate_split_decode(ctx_, chunk=EMU_CHUNK, keep_empty=False):
+    """The decode kernel: one state per chunk of the context, merged.
+    Chunks at or past the row's context are not merged (their blocks exit
+    at once) unless ``keep_empty``."""
+    t_cap = ctx_["k"].shape[1]
+    n_max = int(ctx_["n"].max())
+    ends = range(0, t_cap if keep_empty else n_max, chunk)
+    return _merge([_chunk_state(ctx_, t0, min(t0 + chunk, t_cap))
+                   for t0 in ends])
+
+
+def _warp_online(ctx_, starts, share):
+    """One warp's online softmax over its ``share`` tokens from each tile
+    start in ``starts``: (m, l, acc)."""
+    shape = ctx_["q"].shape
+    m = torch.full(shape[:3], -np.inf)
+    lsum = torch.zeros(shape[:3])
+    acc = torch.zeros(shape)
+    for t0 in starts:
+        t1 = t0 + share
+        s = _scores(ctx_, t0, t1)
+        m_new = torch.maximum(m, s.amax(-1))
+        use = torch.where(m_new == -np.inf, 0.0, m_new)
+        alpha = torch.exp2(m - use)
+        p = torch.exp2(s - use[..., None])
+        lsum = lsum * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _pv(ctx_, p, t0, t1)
+        m = m_new
+    return m, lsum, acc
+
+
+def _emulate_window(ctx_, tile=EMU_TILE, warps=EMU_WARPS, block_tiles=None):
+    """The window kernel: each warp's online softmax over its share of
+    every context tile up to the longest live prefix, the warps' states
+    merged; with ``block_tiles`` (windows of at most 16 rows) the context
+    is split into blocks of that many tiles, each block's merged state a
+    partial, and the partials merged as the decode kernel's are."""
+    share = tile // warps
+    kv_end = int(ctx_["n"].max())
+    n_tiles = -(-kv_end // tile)
+    per = block_tiles or n_tiles
+    partials = []
+    for tb in range(0, n_tiles, per):
+        starts = [t * tile for t in range(tb, min(tb + per, n_tiles))]
+        warp_states = [_warp_online(ctx_, [t0 + w * share for t0 in starts],
+                                    share) for w in range(warps)]
+        out = _merge(warp_states)
+        if block_tiles is None:
+            return out
+        # the block's partial: its merged state, unnormalised
+        ms = torch.stack([m for m, _, _ in warp_states]).amax(0)
+        use = torch.where(ms == -np.inf, 0.0, ms)
+        w8 = [torch.exp2(m - use) for m, _, _ in warp_states]
+        lsum = sum(w * lw for w, (_, lw, _) in zip(w8, warp_states))
+        acc = sum(w[..., None] * a for w, (_, _, a) in zip(w8, warp_states))
+        partials.append((ms, lsum, acc))
+    return _merge(partials)
+
+
+def _jax_kernel(c, k_pool, v_pool, kind, q):
+    return np.asarray(jppa.paged_attention(
+        jnp.asarray(q), k_pool, v_pool, jnp.asarray(c["tables"]),
+        jnp.asarray(c["ctx"]), jnp.asarray(c["valid"].astype(np.int32)),
+        jnp.asarray(c["positions"]), page_size=PS, kind=kind,
+        scale=1.0 / np.sqrt(D))).astype(np.float32)
+
+
+def _pools_both(c, kv):
+    """(torch K, torch V, jax K, jax V, jax q, atol, rtol) for bf16 or int8
+    pools; q rounded to bf16 either way."""
+    if kv == "int8":
+        p = _int8_pools(c)
+        return (_tt(p["kp"]), _tt(p["vp"]), _jt(p["kp"]), _jt(p["vp"]),
+                _bf16(c["q"]), 1e-5, 1e-5)
+    kb, vb = (torch.from_numpy(c[x]).to(torch.bfloat16) for x in ("kp", "vp"))
+    return (kb, vb, jnp.asarray(c["kp"], jnp.bfloat16),
+            jnp.asarray(c["vp"], jnp.bfloat16),
+            jnp.asarray(c["q"], jnp.bfloat16), 2e-2, 0.0)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_split_context_decode_emulation_matches_jax_pallas_interpret(kv):
+    c = _case(51, b=3, p=4, s=1, kind="decode")
+    kp, vp, jk, jv, jq, atol, rtol = _pools_both(c, kv)
+    ctx_ = _emu_ctx(c, kp, vp, "decode")
+    got = _emulate_split_decode(ctx_).numpy()
+    want = _jax_kernel(c, jk, jv, "decode", jq)
+    live = _live(c, "decode")
+    assert live.any() and (~live).any()
+    np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=rtol)
+    assert np.all(got[~live] == 0.0)
+    # the 32-slot row spans four chunks, the 11-slot row two
+    assert int(ctx_["n"].max()) > 3 * EMU_CHUNK
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_split_merge_of_chunks_with_no_live_token(kv):
+    """Chunks past a row's context contribute (m = -inf, l = 0, acc = 0):
+    merged in, they change nothing and make no NaN, also for a dead
+    lane."""
+    c = _case(52, b=3, p=4, s=1, kind="decode")
+    kp, vp = _pools_both(c, kv)[:2]
+    ctx_ = _emu_ctx(c, kp, vp, "decode")
+    m, lsum, acc = _chunk_state(ctx_, 3 * EMU_CHUNK, 4 * EMU_CHUNK)
+    short = ctx_["n"][:, 0] <= 3 * EMU_CHUNK
+    assert short.any() and bool((m[short] == -np.inf).all())
+    assert bool((lsum[short] == 0).all()) and bool((acc[short] == 0).all())
+    got = _emulate_split_decode(ctx_, keep_empty=True)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_array_equal(got.numpy(),
+                                  _emulate_split_decode(ctx_).numpy())
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("kind,s", [("chunked", 5), ("chunked", 9),
+                                    ("decode", 1)])
+@pytest.mark.parametrize("block_tiles", [None, 2])
+def test_window_emulation_matches_jax_pallas_interpret(kv, kind, s,
+                                                       block_tiles):
+    c = _case(53 + s, b=3, p=4, s=s, kind=kind)
+    kp, vp, jk, jv, jq, atol, rtol = _pools_both(c, kv)
+    ctx_ = _emu_ctx(c, kp, vp, kind)
+    got = _emulate_window(ctx_, block_tiles=block_tiles).numpy()
+    want = _jax_kernel(c, jk, jv, kind, jq)
+    live = _live(c, kind)
+    assert live.any() and (~live).any()
+    np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=rtol)
+    assert np.all(got[~live] == 0.0)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_emulations_match_the_plain_version(kv):
+    """Both reorderings against the port's own plain version (float
+    softmax over dequantized K/V) on bf16-rounded q: atol/rtol 1e-5, the
+    hi + lo split keeping P to ~16 bits."""
+    for kind, s in (("decode", 1), ("chunked", 7)):
+        c = _case(60 + s, b=3, p=4, s=s, kind=kind)
+        kp, vp = _pools_both(c, kv)[:2]
+        ctx_ = _emu_ctx(c, kp, vp, kind)
+        t = _t(c)
+        want = cpa.paged_attention_reference(
+            ctx_["q"], kp, vp, t["tables"], t["ctx"], t["valid"],
+            t["positions"], page_size=PS, kind=kind,
+            scale=1.0 / np.sqrt(D)).numpy()
+        emulated = [_emulate_window(ctx_), _emulate_window(ctx_,
+                                                          block_tiles=2)]
+        if kind == "decode":
+            emulated.append(_emulate_split_decode(ctx_))
+        for got in emulated:
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-5,
+                                       rtol=1e-5)
