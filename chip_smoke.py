@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
-        [--phases card,build,kernels,tiny,model,engine,serving,train]
+        [--phases card,build,kernels,tiny,model,engine,serving,train,stacked]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -19,7 +19,8 @@ Phases, each failing loudly (exit code 1, no result line):
               plain version's time, the least time the card could take
               (bytes over 3.35 TB/s or operations over the peak rate of
               their type, whichever is larger) and, where one PyTorch call
-              computes the same function, that call's time. With
+              computes the same function, that call's time (the flash
+              kernels also at the long-context shape, B=2 S=8192). With
               ``--parent DIR`` the paged rows also time DIR's paged kernel
               (another tree's csrc, e.g. the parent commit's) in turns
               with this tree's: parent, this, this, parent.
@@ -54,6 +55,18 @@ Phases, each failing loudly (exit code 1, no result line):
               kernels against plain versions on gradients, losses and
               parameters; bf16 O2 against the plain path's rounding
               floor).
+9. stacked  — the layer-stacked decoder (gpt3_1p3b(stacked=True)) with the
+              engine model's weights: cached prefill, decode, chunked and
+              verify windows over stacked bf16 and int8 pools against the
+              per-layer model, and GenerationServer runs on stacked pools
+              with the prefix cache on; a 4-layer float32 parity under
+              every recompute policy against the per-layer model (kernels
+              and plain versions; "none" and "full" bit for bit; O2 against
+              the plain path's floor); then the north-star training run
+              under each policy ("full", "attn", "dots", "none") at b=2,
+              s=2048 and the long-context row (recompute "full",
+              max_seq_len=8192, b=2, s=8192), each with its launches per
+              step against the policy's expected count.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -79,7 +92,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
-              "serving", "train")
+              "serving", "train", "stacked")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -709,6 +722,11 @@ def phase_kernels(state):
     state["flash_train"] = next(
         r for r in rows if r["case"].startswith("flash_fwd B=2 S=2048")
         and "bfloat16" in r["case"])
+    # the long-context training row (stacked decoder, s=8192)
+    state["flash_long"] = _flash_case(TRAIN_BATCH, LONG_SEQ, 16, 128,
+                                      torch.bfloat16, True, seed + 22,
+                                      report=True)
+    rows.append(state["flash_long"])
 
     log(f"kernels: paged_attention vs paged_attention_reference (same; "
         f"bf16 row_err <= {BF16_ROW_LIMIT['paged_attention']})")
@@ -782,6 +800,10 @@ def phase_kernels(state):
             _bwd_case(2, 1000, 16, 64, torch.bfloat16, True, seed + 20),
             _bwd_case(2, 300, 16, 128, torch.bfloat16, False, seed + 21,
                       sk=520)]
+    # the long-context training shape (stacked decoder, s=8192)
+    state["bwd_long"] = _bwd_case(TRAIN_BATCH, LONG_SEQ, 16, 128,
+                                  torch.bfloat16, True, seed + 23)
+    brow.append(state["bwd_long"])
     for row in brow:
         check_bwd(row)
     state["bwd_rows"] = brow
@@ -940,22 +962,30 @@ def _model_step(dec, what, tok, ctx, tables, k, v, extra):
     return logits, k, v, ctx + SPEC_K + 1
 
 
-def _lockstep_f32(m32, ids, lens, tables, plan, extra, feed):
+def _lockstep_f32(m32, ids, lens, tables, plan, extra, feed, ref32=None):
     """The float32 model over int8 pools, its kernel and plain paths in
     lockstep over ONE set of pools: at each step the kernel path runs first
     and writes the step's K/V, then the plain path runs with its pool
     writes switched off, so every attention of both paths reads the same
-    int8 values. Returns max |kernel - plain| / std(plain) of the logits
-    per step (the prefill first)."""
+    int8 values. With ``ref32`` (the same weights in the other decoder
+    structure) the plain path is ``ref32``'s, reading the kernel path's
+    pools through per-layer views. Returns max |kernel - plain| /
+    std(plain) of the logits per step (the prefill first)."""
     import torch
+    from paddle_tpu_torch.models.gpt import layer_pool
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.serving.generation import CachedDecoder
     b, pps = tables.shape
-    kern, plain = (CachedDecoder(m32, max_batch=b, page_size=PAGE_SIZE,
+    ref32 = m32 if ref32 is None else ref32
+    kern, plain = (CachedDecoder(mdl, max_batch=b, page_size=PAGE_SIZE,
                                  pages_per_seq=pps, use_kernels=use_kernels,
                                  kv_dtype="int8", device="cuda")
-                   for use_kernels in (True, False))
+                   for mdl, use_kernels in ((m32, True), (ref32, False)))
     k, v = m32.init_kv_pools(1 + b * pps, PAGE_SIZE, "int8")
+    pk, pv = k, v
+    if ref32.config.stacked != m32.config.stacked:
+        pk, pv = ([layer_pool(pool, i) for i in range(m32.config.num_layers)]
+                  for pool in (k, v))
     write_pool = pa.write_pool
 
     def reading(fn, *args):
@@ -966,23 +996,26 @@ def _lockstep_f32(m32, ids, lens, tables, plan, extra, feed):
             pa.write_pool = write_pool
 
     outs = [[kern.prefill(ids, lens, tables, k, v)[0].float()],
-            [reading(plain.prefill, ids, lens, tables, k, v)[0].float()]]
+            [reading(plain.prefill, ids, lens, tables, pk, pv)[0].float()]]
     ctx = lens.copy()
     for step, what in enumerate(plan):
         outs[0].append(_model_step(kern, what, feed[step], ctx, tables, k, v,
                                    extra)[0].float())
         logits, _, _, ctx = reading(_model_step, plain, what, feed[step],
-                                    ctx, tables, k, v, extra)
+                                    ctx, tables, pk, pv, extra)
         outs[1].append(logits.float())
     dist = [max_abs_err(a, p) / float(p.std()) for a, p in zip(*outs)]
-    del k, v, outs
+    del k, v, pk, pv, outs
     torch.cuda.empty_cache()
     return dist
 
 
-def _model_runs(model, m32, ids, lens, tables, kv, plan, extra):
+def _model_runs(model, m32, ids, lens, tables, kv, plan, extra,
+                ref32=None, tag="model"):
     """The four runs of one comparison (bf16 kernels, bf16 plain, float32
-    plain, float32 kernels), each a cached prefill and then ``plan``'s
+    plain, float32 kernels; the float32 plain run on ``ref32`` when given,
+    the same weights in the other decoder structure, else on ``m32``),
+    each a cached prefill and then ``plan``'s
     steps: ``decode`` (teacher-forced by the bf16 kernel run's argmax),
     ``chunked`` (a CHUNK_LEN-token suffix from ``extra``) or ``verify`` (a
     SPEC_K + 1 window: the forced token, then ``extra``'s). Pools in the
@@ -1016,7 +1049,9 @@ def _model_runs(model, m32, ids, lens, tables, kv, plan, extra):
     try:
         for label, mdl, use_kernels in (("kernels", model, True),
                                         ("plain", model, False),
-                                        ("plain_f32", m32, False),
+                                        ("plain_f32",
+                                         m32 if ref32 is None else ref32,
+                                         False),
                                         ("kernels_f32", m32, True)):
             cpa.paged_attention = held if use_kernels else kernel
             dec = CachedDecoder(mdl, max_batch=b, page_size=PAGE_SIZE,
@@ -1042,7 +1077,7 @@ def _model_runs(model, m32, ids, lens, tables, kv, plan, extra):
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3 / len(plan)
             runs[label] = outs
-            log(f"model: {kv or 'bf16/f32'} pools, {label:11s} prefill "
+            log(f"{tag}: {kv or 'bf16/f32'} pools, {label:11s} prefill "
                 f"{prefill_ms:.1f} ms, step {step_ms:.2f} ms "
                 f"({'/'.join(plan)})")
             del k, v
@@ -1052,7 +1087,7 @@ def _model_runs(model, m32, ids, lens, tables, kv, plan, extra):
     return runs, feed, inner
 
 
-def _model_check(runs, inner, vocab, what, f32_limit):
+def _model_check(runs, inner, vocab, what, f32_limit, tag="model"):
     """The kernel-vs-plain limits over one comparison's runs."""
     import numpy as np
     import torch
@@ -1063,39 +1098,39 @@ def _model_check(runs, inner, vocab, what, f32_limit):
     for label, outs in runs.items():
         for i, a in enumerate(outs):
             require(bool(torch.isfinite(a).all()) and a.shape[-1] == vocab,
-                    f"model: {what} {label} step {i} logits bad")
+                    f"{tag}: {what} {label} step {i} logits bad")
     ratios = [dist(a, p) for a, p in zip(runs["kernels"], runs["plain"])]
     k_f32 = [dist(a, r) for a, r in zip(runs["kernels"], runs["plain_f32"])]
     floors = [dist(p, r) for p, r in zip(runs["plain"], runs["plain_f32"])]
     f32 = [dist(a, p) for a, p in zip(runs["kernels_f32"], runs["plain_f32"])]
     agree = [float((a.argmax(-1) == p.argmax(-1)).float().mean())
              for a, p in zip(runs["kernels"], runs["plain"])]
-    log(f"model: {what}: float32, max |kernel - plain| / std per step "
+    log(f"{tag}: {what}: float32, max |kernel - plain| / std per step "
         + " ".join(f"{x:.2e}" for x in f32) + f" (limit {f32_limit})")
-    log(f"model: {what}: bf16, max |kernel - plain f32| / std per step "
+    log(f"{tag}: {what}: bf16, max |kernel - plain f32| / std per step "
         + " ".join(f"{x:.4f}" for x in k_f32))
-    log(f"model: {what}: bf16 floor, max |plain - plain f32| / std per step "
+    log(f"{tag}: {what}: bf16 floor, max |plain - plain f32| / std per step "
         + " ".join(f"{x:.4f}" for x in floors)
         + f" (kernel path limit {BF16_FLOOR_FACTOR} x its max)")
-    log(f"model: {what}: bf16, max |kernel - plain| / std per step "
+    log(f"{tag}: {what}: bf16, max |kernel - plain| / std per step "
         + " ".join(f"{x:.4f}" for x in ratios))
-    log(f"model: {what}: argmax agreement kernel/plain {np.mean(agree):.4f} "
+    log(f"{tag}: {what}: argmax agreement kernel/plain {np.mean(agree):.4f} "
         f"(min {min(agree):.3f})")
-    log(f"model: {what}: paged kernel vs plain inside the kernel runs "
+    log(f"{tag}: {what}: paged kernel vs plain inside the kernel runs "
         + json.dumps(inner))
     require(inner.get("float32", {}).get("allclose", False),
-            f"model: {what}: float32 paged calls differ from the plain "
+            f"{tag}: {what}: float32 paged calls differ from the plain "
             f"version beyond atol/rtol {INNER_F32_TOL}: {inner}")
     require(inner.get("bfloat16", {}).get("row_err", 1.0)
             <= BF16_ROW_LIMIT["paged_attention"],
-            f"model: {what}: bf16 paged calls beyond row_err "
+            f"{tag}: {what}: bf16 paged calls beyond row_err "
             f"{BF16_ROW_LIMIT['paged_attention']}: {inner}")
     require(max(f32) <= f32_limit,
-            f"model: {what}: float32 kernel path differs from the plain path "
+            f"{tag}: {what}: float32 kernel path differs from the plain path "
             f"by {max(f32):.2e} x std (limit {f32_limit})")
     bf16_limit = BF16_FLOOR_FACTOR * max(floors)
     require(max(k_f32) <= bf16_limit,
-            f"model: {what}: bf16 kernel path is {max(k_f32):.4f} x std from "
+            f"{tag}: {what}: bf16 kernel path is {max(k_f32):.4f} x std from "
             f"float32, beyond {BF16_FLOOR_FACTOR} x the plain path's "
             f"{max(floors):.4f}")
     return {"f32_max_err_over_std": max(f32),
@@ -1613,12 +1648,13 @@ def _parity_run(cfg, base, ids, use_kernels, amp_level, steps=2):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (GPTForCausalLM,
                                          GPTPretrainingCriterion)
-    from paddle_tpu_torch.models.gpt import GPTAttention
+    from paddle_tpu_torch.models.gpt import (GPTAttention,
+                                             GPTStackedTransformer)
     from paddle_tpu_torch.optimizer import AdamW
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
     model.load_state_dict(base)
     for mod in model.modules():
-        if isinstance(mod, GPTAttention):
+        if isinstance(mod, (GPTAttention, GPTStackedTransformer)):
             mod.use_kernels = use_kernels
     grads = [{} for _ in range(steps)]
     done = []
@@ -1713,6 +1749,30 @@ def _train_parity(state, ids):
     return out
 
 
+def _fwd_bwd_peak_gb(model, crit, ids) -> float:
+    """The device memory one O2 forward and backward takes above what is
+    allocated before it (parameters and optimizer state): the gradients,
+    the bf16 weight copies, the activations kept for the backward and the
+    logits. The whole step's peak is higher, set by AdamW's foreach
+    passes, which allocate their intermediates over every parameter."""
+    import torch
+    from paddle_tpu_torch.amp import auto_cast
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with auto_cast(level="O2"):
+        loss = crit(model(ids), ids)
+    loss.float().backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    for p in model.parameters():
+        p.grad = None
+    return peak / 1e9
+
+
 def phase_train(state):
     """gpt3_1p3b, full width and depth, seed 0: TrainStep with AdamW (bf16
     moments) at AMP O2, b=2, s=2048, 2 warm-up steps and a timed
@@ -1772,6 +1832,7 @@ def phase_train(state):
     tok_s = tokens / wall
     prof = device_profile(lambda: (step(ids, ids), torch.cuda.synchronize()),
                           1)
+    fwd_bwd = _fwd_bwd_peak_gb(model, crit, ids)
     out = {"config": "gpt3_1p3b", "params": n_params, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "amp": "O2", "moment_dtype": "bfloat16",
            "losses": {"step1": losses[0], "step2": losses[1],
@@ -1780,6 +1841,7 @@ def phase_train(state):
            "tokens_per_s": tok_s,
            "mfu": tok_s * flops_per_token / PEAK_BF16,
            "peak_memory_gb": peak / 1e9,
+           "fwd_bwd_peak_above_state_gb": fwd_bwd,
            "launches": {k: v[0] for k, v in counts.items()},
            "plain_calls": {k: v[1] for k, v in counts.items()},
            # the profiler slows the host: its wall time per step exceeds
@@ -1796,26 +1858,397 @@ def phase_train(state):
     state["train"] = out
 
 
+# ------------------------------------------------ the stacked decoder
+STACKED_POLICIES = ("full", "attn", "dots", "none")
+# flash forward launches a training step per layer, by recompute policy:
+# "full" and "dots" run the forward again when they recompute the layer,
+# "attn" keeps its (out, lse); the backward kernels run once a layer
+STACKED_FWD_PER_LAYER = {"none": 1, "full": 2, "dots": 2, "attn": 1}
+LONG_SEQ = 8192           # bench.py --config 1.3b --seq 8192
+STACKED_SERVE_REQUESTS, STACKED_SERVE_NEW = 9, 32
+
+
+def _stacked_serving(state):
+    """The stacked bf16 gpt3_1p3b with the engine model's weights: cached
+    prefill, 4 decode steps, a chunked window and a verify window over
+    stacked bf16 and int8 pools, held against the per-layer model (float32
+    within F32_MODEL_LIMIT x std, in lockstep over int8; bf16 within
+    BF16_FLOOR_FACTOR x the stacked plain path's distance from the
+    per-layer float32 model); then GenerationServer runs on stacked bf16
+    and int8 pools with the prefix cache on, the kernels' launch counts
+    read around each."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import stack_layer_state
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    model = _model(state)
+    cfg = gpt3_1p3b(stacked=True)
+    stacked_state = stack_layer_state(model.state_dict())
+    sm = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+    sm.load_state_dict(stacked_state)
+    sm.eval()
+    s32 = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    s32.load_state_dict({k: v.float() for k, v in stacked_state.items()})
+    s32.eval()
+    del stacked_state
+    m32 = GPTForCausalLM(model.config, device="cuda", dtype=torch.float32)
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    m32.eval()
+    state.pop("model")        # the per-layer bf16 model is not needed again
+    del model
+    rng = np.random.RandomState(state["seed"] + 5)
+    b, pps = MAX_BATCH, cfg.max_seq_len // PAGE_SIZE
+    lens = rng.permutation(np.linspace(64, 1536, b).astype(np.int32))
+    ids = np.zeros((b, cfg.max_seq_len), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.randint(0, cfg.vocab_size, n)
+    tables = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+    extra = {"chunk": rng.randint(0, cfg.vocab_size, (b, CHUNK_LEN)),
+             "verify": rng.randint(0, cfg.vocab_size, (b, SPEC_K))}
+    plan = ["decode"] * 4 + ["chunked", "verify"]
+    out = {"plan": plan}
+    for kv in ("", "int8"):
+        what = f"stacked, {kv or 'bf16/f32'} pools vs the per-layer model"
+        runs, feed, inner = _model_runs(sm, s32, ids, lens, tables, kv, plan,
+                                        extra, ref32=m32, tag="stacked")
+        check = _model_check(runs, inner, cfg.vocab_size, what,
+                             F32_INT8_MODEL_LIMIT if kv else F32_MODEL_LIMIT,
+                             tag="stacked")
+        del runs
+        if kv:
+            lock = _lockstep_f32(s32, ids, lens, tables, plan, extra, feed,
+                                 ref32=m32)
+            log(f"stacked: {what}: float32 in lockstep (the per-layer plain "
+                f"path reads the stacked kernel path's pools), max |kernel "
+                f"- plain| / std per step "
+                + " ".join(f"{x:.2e}" for x in lock)
+                + f" (limit {F32_MODEL_LIMIT})")
+            require(max(lock) <= F32_MODEL_LIMIT,
+                    f"stacked: int8 pools: float32 in lockstep differs from "
+                    f"the per-layer model by {max(lock):.2e} x std")
+            check["f32_lockstep_max_err_over_std"] = max(lock)
+        out[kv or "bf16"] = check
+    del s32, m32
+    torch.cuda.empty_cache()
+
+    # GenerationServer on stacked pools: requests sharing a preamble; the
+    # first is served alone, so every later admission hits the pages it
+    # published (chunked suffix prefills)
+    preamble = rng.randint(0, cfg.vocab_size, ENGINE_PREAMBLE)
+    prompts = [np.concatenate([preamble, rng.randint(0, cfg.vocab_size, n)])
+               for n in rng.randint(32, 513, STACKED_SERVE_REQUESTS)]
+    serve = {}
+    for kv in ("", "int8"):
+        old = _set_kv_dtype(kv)
+        try:
+            srv = GenerationServer(sm, max_batch=MAX_BATCH,
+                                   page_size=PAGE_SIZE, device="cuda",
+                                   name=f"stacked{kv}", start=False)
+        finally:
+            _set_kv_dtype(old)
+        require(srv.prefix is not None and isinstance(srv.kv.k, (
+            tuple, torch.Tensor)), "stacked: the engine's pools are not "
+            "stacked, or the prefix cache is off")
+        for mod in (ca, cpa):
+            mod.launches = 0
+            mod.plain_calls = 0
+        cpa.launches_by, cpa.launches_by_kernel = {}, {}
+        t0 = time.perf_counter()
+        with srv:
+            srv.start()
+            futs = []
+            for i, p in enumerate(prompts):
+                futs.append(srv.submit_generate(
+                    p, max_new_tokens=STACKED_SERVE_NEW,
+                    temperature=0.0 if i % 2 == 0 else 0.8,
+                    seed=state["seed"] + i))
+                if i == 0:
+                    futs[0].result(timeout=600)
+            toks = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        counts = {"flash_fwd": (ca.launches, ca.plain_calls),
+                  "paged_attention": (cpa.launches, cpa.plain_calls)}
+        launches_by = dict(cpa.launches_by)
+        snap = srv.metrics_snapshot()
+        calls = dict(srv.decoder.calls)
+        pool = "int8" if kv else "bfloat16"
+        want = {("decode", pool): cfg.num_layers * calls["decode"],
+                ("chunked", pool): cfg.num_layers * calls["chunked"]}
+        row = {"kv_dtype": kv or "bfloat16", "wall_s": wall,
+               "tokens": snap["tokens_total"], "prefix": snap["prefix"],
+               "decoder_calls": calls, "pool_bytes": srv.kv.pool_bytes(),
+               "launches": {k: c[0] for k, c in counts.items()},
+               "plain_calls": {k: c[1] for k, c in counts.items()},
+               "paged_launches_by": {"/".join(k): n
+                                     for k, n in launches_by.items()},
+               "paged_launches_by_kernel": dict(cpa.launches_by_kernel),
+               "kv_leak_check": snap["kv_leak_check"]["ok"]}
+        log("stacked: GenerationServer " + json.dumps(row))
+        for i, (f, t) in enumerate(zip(futs, toks)):
+            require(f.finish_reason == "length"
+                    and len(t) == STACKED_SERVE_NEW
+                    and all(0 <= x < cfg.vocab_size for x in t),
+                    f"stacked: request {i} ended {f.finish_reason} with "
+                    f"{len(t)} tokens")
+        require(snap["kv_leak_check"]["ok"],
+                f"stacked: leak check {snap['kv_leak_check']}")
+        require(snap["prefix"]["hits"] > 0 and calls["chunked"] > 0,
+                f"stacked: no prefix hit ({snap['prefix']}, calls {calls})")
+        require(launches_by == want and counts["flash_fwd"][0] ==
+                cfg.num_layers * calls["prefill"],
+                f"stacked: launches {launches_by}, flash "
+                f"{counts['flash_fwd']} against the decoder's calls {calls}")
+        for name, (_, plain) in counts.items():
+            require(plain == 0, f"stacked: {name}'s plain version ran "
+                                f"{plain} times on the main path")
+        serve[pool] = row
+        srv.clear_prefix_cache()
+        del srv
+        torch.cuda.empty_cache()
+    out["serve"] = serve
+    del sm
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stacked_parity(state, ids):
+    """gpt3_1p3b at full width and PARITY_LAYERS layers in float32, the
+    per-layer model's weights copied into the stacked decoder: two AdamW
+    steps under every recompute policy, through the kernels and through
+    their plain versions, each held against the per-layer model's plain
+    run (losses within TRAIN_F32_LOSS_RTOL, each step's gradients within
+    TRAIN_F32_GRAD_RTOL of each parameter's largest); "none" and "full"
+    through the kernels bit for bit; then O2 under "full", the kernel
+    path's distance from the float32 run within BF16_FLOOR_FACTOR x the
+    plain O2 path's."""
+    import torch
+    from paddle_tpu_torch.convert import stack_layer_state
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    flat_cfg = gpt3_1p3b(num_layers=PARITY_LAYERS)
+    flat = GPTForCausalLM(flat_cfg, device="cuda", dtype=torch.float32,
+                          seed=state["seed"]).state_dict()
+    base = stack_layer_state(flat)
+    rl, rp, rg = _parity_run(flat_cfg, flat, ids, False, None)
+    del flat
+    rp = stack_layer_state(rp)
+    rg = [stack_layer_state(g) for g in rg]
+    out, kept = {}, {}
+    for policy in ("none", "full", "dots", "attn"):
+        cfg = gpt3_1p3b(num_layers=PARITY_LAYERS, stacked=True,
+                        recompute=policy)
+        for use_kernels in (True, False):
+            losses, _, grads = _parity_run(cfg, base, ids, use_kernels, None)
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, rl))
+            grad_rel = 0.0
+            for gs, gr in zip(grads, rg):
+                for n, g in gr.items():
+                    require(n in gs, f"stacked parity: {policy} {n} got no "
+                                     f"gradient")
+                    grad_rel = max(grad_rel, max_abs_err(gs[n], g) / max(
+                        float(g.abs().max()), 1e-30))
+            label = f"{policy}_{'kernels' if use_kernels else 'plain'}"
+            out[label] = {"losses": losses, "loss_rel": loss_rel,
+                          "grad_rel_max": grad_rel}
+            require(loss_rel <= TRAIN_F32_LOSS_RTOL,
+                    f"stacked parity: {label} losses differ from the "
+                    f"per-layer model's by {loss_rel:.2e}")
+            require(grad_rel <= TRAIN_F32_GRAD_RTOL,
+                    f"stacked parity: {label} gradients differ from the "
+                    f"per-layer model's by {grad_rel:.2e} of their largest")
+            if use_kernels and policy in ("none", "full"):
+                kept[policy] = (losses, grads)
+            del grads
+        if policy == "full":
+            (ln, gn), (lf, gf) = kept["none"], kept["full"]
+            same = ln == lf and all(torch.equal(a[n], b[n])
+                                    for a, b in zip(gn, gf) for n in a)
+            out["none_equals_full"] = same
+            require(same, "stacked parity: recompute 'full' changed the "
+                          "float32 losses or gradients of 'none'")
+            kept.clear()
+    names = list(rp)
+
+    def l2(a, b):
+        return float(torch.sqrt(sum(((a[n] - b[n]).double() ** 2).sum()
+                                    for n in names)))
+    cfg = gpt3_1p3b(num_layers=PARITY_LAYERS, stacked=True, recompute="full")
+    ko = _parity_run(cfg, base, ids, True, "O2")
+    po = _parity_run(cfg, base, ids, False, "O2")
+    o2 = {"losses_kernel": ko[0], "losses_plain": po[0],
+          "loss_kernel": max(abs(a - b) for a, b in zip(ko[0], rl)),
+          "loss_plain": max(abs(a - b) for a, b in zip(po[0], rl)),
+          "params_l2_kernel": l2(ko[1], rp), "params_l2_plain": l2(po[1], rp)}
+    out["o2_full"] = o2
+    log("stacked: parity " + json.dumps(out))
+    for what in ("loss", "params_l2"):
+        k, p = o2[f"{what}_kernel"], o2[f"{what}_plain"]
+        require(k <= BF16_FLOOR_FACTOR * p,
+                f"stacked parity: O2 {what} {k:.3e} from float32, beyond "
+                f"{BF16_FLOOR_FACTOR} x the plain path's {p:.3e}")
+    return out
+
+
+def _stacked_train(state, recompute, seq, profile=True):
+    """gpt3_1p3b(stacked=True, recompute=...) at full width and depth,
+    float32 master weights, AdamW with bf16 moments, O2, b=TRAIN_BATCH:
+    2 warm-up steps, then a timed run_steps(TRAIN_STEPS) around which the
+    kernels' launch counts are read; step ms, tokens/s, MFU (model flops
+    only, bench.py's formula), peak memory and, with ``profile``, a
+    profile of one step and the forward and backward's own memory."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt3_1p3b)
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt3_1p3b(stacked=True, recompute=recompute,
+                    max_seq_len=max(seq, 2048))
+    rng = np.random.RandomState(state["seed"])
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (TRAIN_BATCH, seq))).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           seed=state["seed"])
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    step = TrainStep(model, lambda out, y: crit(out, y), opt,
+                     amp_level="O2")
+    t0 = time.perf_counter()
+    losses = [float(step(ids, ids)) for _ in range(2)]
+    warm_s = time.perf_counter() - t0
+    ca.launches = ca.plain_calls = 0
+    for name in cab.KERNELS:
+        cab.launches[name] = cab.plain_calls[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = step.run_steps(TRAIN_STEPS, ids, ids)
+    wall = time.perf_counter() - t0
+    counts = {"flash_fwd": (ca.launches, ca.plain_calls),
+              **{n: (cab.launches[n], cab.plain_calls[n])
+                 for n in cab.KERNELS}}
+    losses.append(float(last))
+    peak = torch.cuda.max_memory_allocated()
+    tag = f"stacked train {recompute} s={seq}"
+    require(all(math.isfinite(x) for x in losses),
+            f"{tag}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{tag}: the loss did not fall: "
+                                    f"{losses}")
+    per_step = {"flash_fwd": cfg.num_layers
+                * STACKED_FWD_PER_LAYER[recompute],
+                **{n: cfg.num_layers for n in cab.KERNELS}}
+    for name, (launched, plain) in counts.items():
+        require(launched == per_step[name] * TRAIN_STEPS,
+                f"{tag}: {name} launched {launched} times in {TRAIN_STEPS} "
+                f"steps, not {per_step[name]} a step")
+        require(plain == 0, f"{tag}: {name}'s plain version ran {plain} "
+                            f"times on the main path")
+    tokens = TRAIN_BATCH * seq * TRAIN_STEPS
+    n_params = model.num_params()
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * \
+        cfg.hidden_size * seq
+    tok_s = tokens / wall
+    out = {"config": f"gpt3_1p3b(stacked=True, recompute={recompute!r}, "
+                     f"max_seq_len={cfg.max_seq_len})",
+           "params": n_params, "batch": TRAIN_BATCH, "seq": seq, "amp": "O2",
+           "moment_dtype": "bfloat16",
+           "losses": {"step1": losses[0], "step2": losses[1],
+                      f"step{2 + TRAIN_STEPS}": losses[2]},
+           "warmup_s": warm_s, "step_ms": wall / TRAIN_STEPS * 1e3,
+           "tokens_per_s": tok_s,
+           "mfu": tok_s * flops_per_token / PEAK_BF16,
+           "peak_memory_gb": peak / 1e9,
+           "launches": {k: v[0] for k, v in counts.items()},
+           "launches_per_step": {k: v[0] / TRAIN_STEPS
+                                 for k, v in counts.items()},
+           "expected_per_step": per_step,
+           "plain_calls": {k: v[1] for k, v in counts.items()}}
+    if profile:
+        prof = device_profile(
+            lambda: (step(ids, ids), torch.cuda.synchronize()), 1)
+        out["fwd_bwd_peak_above_state_gb"] = _fwd_bwd_peak_gb(model, crit,
+                                                               ids)
+        out["device_busy_share_of_step"] = prof["device_busy_ms_per_step"] \
+            / out["step_ms"]
+        out["step_profile"] = prof
+    log("stacked: train " + json.dumps({k: v for k, v in out.items()
+                                        if k != "step_profile"}))
+    if profile:
+        log(f"stacked: train {recompute} s={seq} step profile "
+            + json.dumps(prof))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stacked(state):
+    """The layer-stacked decoder with activation recompute: serving on
+    stacked pools against the per-layer model, the 4-layer training parity
+    under every policy, then the north-star run under each policy at
+    s=2048 and the long-context row (recompute "full", s=8192)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt3_1p3b
+    out = {"serving": _stacked_serving(state)}
+    rng = np.random.RandomState(state["seed"])
+    ids = torch.from_numpy(rng.randint(0, gpt3_1p3b().vocab_size,
+                                       (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+    out["parity"] = _stacked_parity(state, ids)
+    # the policies in turns, forward and back (the host's clock spreads
+    # between runs); the first turn of each is also profiled
+    turns = {p: [] for p in STACKED_POLICIES}
+    for i, p in enumerate(STACKED_POLICIES + STACKED_POLICIES[::-1]):
+        turns[p].append(_stacked_train(state, p, TRAIN_SEQ,
+                                       profile=i < len(STACKED_POLICIES)))
+    out["train"] = {p: dict(runs[0], turns=[
+        {k: r[k] for k in ("step_ms", "tokens_per_s", "mfu",
+                           "peak_memory_gb", "launches")} for r in runs])
+        for p, runs in turns.items()}
+    out["train_long"] = _stacked_train(state, "full", LONG_SEQ)
+    log("stacked: step ms by policy, in turns "
+        + json.dumps({p: [r["step_ms"] for r in runs]
+                      for p, runs in turns.items()}))
+    state["stacked"] = out
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
-    forward's over the engine's run, the serving run and the training
-    window together; the paged kernel's over the engine's run (bf16 pools)
-    and, as its own entry, its int8 variant's over the serving run; the
-    backward kernels' over the training window."""
+    forward's over the engine's run, the serving run, the training window
+    and the stacked decoder's serving runs and training windows together;
+    the paged kernel's over the engine's run and the stacked engine's run
+    (bf16 pools) and, as its own entry, its int8 variant's over the serving
+    run and the stacked engine's int8 run; the backward kernels' over the
+    training windows (per-layer and stacked)."""
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     eng, train = state["engine"]["launches"], state["train"]["launches"]
     serving = state["serving"]
+    st = state["stacked"]
+    st_serve = st["serving"]["serve"]
+    st_train = [t["launches"] for p in STACKED_POLICIES
+                for t in st["train"][p]["turns"]] + \
+        [st["train_long"]["launches"]]
     out = []
     for name, mod, row, launches, by in (
             ("flash_fwd", ca, state["flash_main"],
              eng["flash_fwd"] + serving["launches"]["flash_fwd"]
-             + train["flash_fwd"], None),
+             + train["flash_fwd"]
+             + sum(r["launches"]["flash_fwd"] for r in st_serve.values())
+             + sum(t["flash_fwd"] for t in st_train), None),
             ("paged_attention", cpa, state["paged_main"],
-             eng["paged_attention"], state["engine"]["paged_launches_by"]),
+             eng["paged_attention"]
+             + st_serve["bfloat16"]["launches"]["paged_attention"],
+             state["engine"]["paged_launches_by"]),
             ("paged_attention_int8", cpa, state["paged_int8_main"],
-             serving["launches"]["paged_attention"],
+             serving["launches"]["paged_attention"]
+             + st_serve["int8"]["launches"]["paged_attention"],
              serving["paged_launches_by"])):
         entry = {"name": name, "route": "cuda", "source": mod.SOURCE,
                  "replaces": mod.REPLACES, "launches": launches,
@@ -1832,18 +2265,25 @@ def kernels_line(state) -> dict:
                 if key in row:
                     entry[key] = row[key]
         if name == "flash_fwd":
-            train_row = state["flash_train"]
+            train_row, long_row = state["flash_train"], state["flash_long"]
             entry.update({"tflops": row["tflops"],
                           "train_shape": train_row["case"],
                           "train_shape_ms": train_row["ms"],
                           "train_shape_library_ms": train_row["library_ms"],
-                          "train_shape_bound_ms": train_row["bound_ms"]})
+                          "train_shape_bound_ms": train_row["bound_ms"],
+                          "long_shape": long_row["case"],
+                          "long_shape_ms": long_row["ms"],
+                          "long_shape_library_ms": long_row["library_ms"],
+                          "long_shape_plain_ms": long_row["plain_ms"],
+                          "long_shape_bound_ms": long_row["bound_ms"],
+                          "long_shape_max_abs_err": long_row["max_abs_err"]})
         out.append(entry)
-    row = state["bwd_main"]
+    row, long_row = state["bwd_main"], state["bwd_long"]
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
+        launches = train[name] + sum(t[name] for t in st_train)
         out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
-                    "replaces": cab.REPLACES[name], "launches": train[name],
+                    "replaces": cab.REPLACES[name], "launches": launches,
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
                                        for g in grads),
                     "ms": row[f"{name}_ms"],
@@ -1859,7 +2299,14 @@ def kernels_line(state) -> dict:
                     "port_fwd_bwd_ms": row["port_fwd_bwd_ms"],
                     "library_bwd_ms": row["library_bwd_ms"],
                     "delta_ms": row["delta_ms"],
-                    "shape": row["case"]})
+                    "shape": row["case"],
+                    "long_shape": long_row["case"],
+                    "long_shape_ms": long_row[f"{name}_ms"],
+                    "long_shape_bound_ms": long_row[f"{name}_bound_ms"],
+                    "long_shape_plain_ms": long_row["plain_ms"],
+                    "long_shape_library_bwd_ms": long_row["library_bwd_ms"],
+                    "long_shape_max_abs_err": max(
+                        long_row[f"{g}_max_abs_err"] for g in grads)})
     return {"kernels": out}
 
 
@@ -1905,7 +2352,7 @@ def main(argv=None) -> int:
            "kernels": phase_kernels, "tiny": phase_tiny,
            "model": phase_model,
            "engine": phase_engine, "serving": phase_serving,
-           "train": phase_train}
+           "train": phase_train, "stacked": phase_stacked}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -1923,9 +2370,11 @@ def main(argv=None) -> int:
     log(f"total {state['total_s']:.1f} s")
     summary = {k: state[k] for k in ("smi", "build_s", "tiny", "model_check",
                                      "decode_profile", "engine", "serving",
-                                     "spec_profile", "train", "total_s")
+                                     "spec_profile", "train", "stacked",
+                                     "total_s")
                if k in state}
-    if all(k in state for k in ("flash_main", "engine", "serving", "train")):
+    if all(k in state for k in ("flash_main", "engine", "serving", "train",
+                                "stacked")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

@@ -19,9 +19,12 @@ functions that stand for the ops the reference dispatches in the GPT step,
 under the reference's names (``_OP_NAMES``): ``embedding``,
 ``getitem``, ``add``, ``layer_norm``, ``linear``, ``reshape``,
 ``scaled_dot_product_attention`` (the port's ``attention_bshd``), ``gelu``,
-``matmul`` and ``cross_entropy``; every other torch call passes through
-unchanged. Nested ``auto_cast`` blocks replace the state, as the
-reference's do, rather than stacking casts.
+``matmul``, ``cross_entropy`` and ``gpt_stacked_decoder`` (the stacked
+decoder, one op in the reference as here: O2 casts its input and its
+stacked parameters once, O1 casts nothing, and its body runs with the rule
+suspended); every other torch call passes through unchanged. Nested
+``auto_cast`` blocks replace the state, as the reference's do, rather than
+stacking casts.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ def _op_names() -> dict:
     imports the port's own ops)."""
     global _OP_NAMES
     if _OP_NAMES is None:
+        from ..models.gpt import gpt_stacked_decoder
         from ..nn.functional.loss import cross_entropy
         from ..ops.flash_attention import attention_bshd
         T = torch.Tensor
@@ -73,6 +77,7 @@ def _op_names() -> dict:
             torch.matmul: "matmul", T.matmul: "matmul",
             T.__matmul__: "matmul",
             cross_entropy: "cross_entropy",
+            gpt_stacked_decoder: "gpt_stacked_decoder",
         }
         _OP_NAMES = names
     return _OP_NAMES

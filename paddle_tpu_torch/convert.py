@@ -16,6 +16,15 @@
   linear weights, plus the step count.
 - ``export_jax_state(model)`` is the way back: the port's parameters as
   float32 numpy arrays under the JAX names and layouts, for comparisons.
+- ``stack_layer_state(state)`` turns a per-layer GPT state (the module
+  stack's ``gpt.layers.{i}.*`` names, torch layouts) into the stacked
+  decoder's (``gpt.decoder.qkv_w [L, in, out]``, ...), so one set of weights
+  runs through both decoders.
+
+The stacked decoder's parameters (``gpt.decoder.qkv_w`` and the rest) are
+not ``nn.Linear`` weights: they keep the reference's ``[L, in, out]``
+layout and cross all three functions untransposed, their AdamW moments
+too.
 """
 from __future__ import annotations
 
@@ -27,7 +36,22 @@ import torch
 from torch import nn
 
 __all__ = ["load_paddle_state", "load_jax_state",
-           "load_jax_optimizer_state", "export_jax_state"]
+           "load_jax_optimizer_state", "export_jax_state",
+           "stack_layer_state"]
+
+# the stacked decoder's parameter ← the module stack's, per layer; True
+# where the module stack holds an nn.Linear weight ([out, in])
+_STACKED_FROM_LAYER = {
+    "ln1_w": ("ln_1.weight", False), "ln1_b": ("ln_1.bias", False),
+    "qkv_w": ("attn.qkv_proj.weight", True),
+    "qkv_b": ("attn.qkv_proj.bias", False),
+    "out_w": ("attn.out_proj.weight", True),
+    "out_b": ("attn.out_proj.bias", False),
+    "ln2_w": ("ln_2.weight", False), "ln2_b": ("ln_2.bias", False),
+    "fc1_w": ("mlp.fc_in.weight", True), "fc1_b": ("mlp.fc_in.bias", False),
+    "fc2_w": ("mlp.fc_out.weight", True),
+    "fc2_b": ("mlp.fc_out.bias", False),
+}
 
 
 def _unpack(obj):
@@ -127,4 +151,23 @@ def export_jax_state(model: nn.Module) -> Dict[str, np.ndarray]:
         if name in linear and t.dim() == 2:
             t = t.t()
         out[name] = t.contiguous().numpy()
+    return out
+
+
+@torch.no_grad()
+def stack_layer_state(state: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """The stacked decoder's state from a per-layer one (tensors in the
+    port's layouts, e.g. ``model.state_dict()`` or a dict of gradients
+    under the same names): the ``gpt.layers.{i}.*`` entries stacked along
+    a new leading layer axis as ``gpt.decoder.*`` (linear weights
+    transposed to ``[in, out]``), every other entry as it is."""
+    n_layers = 1 + max((int(k.split(".")[2]) for k in state
+                        if k.startswith("gpt.layers.")), default=-1)
+    out = {k: v for k, v in state.items()
+           if not k.startswith("gpt.layers.")}
+    for name, (suffix, linear) in _STACKED_FROM_LAYER.items():
+        ts = [state[f"gpt.layers.{i}.{suffix}"] for i in range(n_layers)]
+        out[f"gpt.decoder.{name}"] = torch.stack(
+            [t.t() if linear else t for t in ts])
     return out

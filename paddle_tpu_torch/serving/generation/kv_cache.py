@@ -1,10 +1,12 @@
 """Paged KV cache: device pools + the host-side page allocator (the port of
 ``paddle_tpu/serving/generation/kv_cache.py``).
 
-The device side is the model's per-layer pools (``model.init_kv_pools``),
+The device side is the model's pools (``model.init_kv_pools``): per-layer
 ``[num_pages, page_size, heads, head_dim]`` tensors (or int8 ``(values,
-scales)`` tuples) that the prefill/decode steps update in place
-(ops/paged_attention.py). The host side here owns
+scales)`` tuples), or one ``[num_layers, ...]`` stacked pool per side for the
+stacked decoder, which the prefill/decode steps update in place
+(ops/paged_attention.py). Nothing here looks inside them but
+``pool_bytes``. The host side here owns
 which pages belong to whom: a free list, per-page reference counts, and the
 eviction accounting. Page 0 is the reserved trash page (masked writes land
 there) and is never handed out.
@@ -24,6 +26,15 @@ import math
 from typing import Dict, List, Optional
 
 __all__ = ["PagedKVCache"]
+
+
+def _pool_leaves(pools):
+    """The tensors of a pool structure — a tensor, or nested lists and
+    tuples of them (per-layer lists, int8 ``(values, scales)`` tuples,
+    stacked pools) — in order."""
+    if isinstance(pools, (list, tuple)):
+        return [t for p in pools for t in _pool_leaves(p)]
+    return [pools]
 
 
 class PagedKVCache:
@@ -67,11 +78,10 @@ class PagedKVCache:
 
     def pool_bytes(self) -> int:
         """Device bytes resident in the K+V pools (quantized pools count
-        their scale planes)."""
-        tensors = [t for pool in self.k + self.v
-                   for t in (pool if isinstance(pool, (tuple, list))
-                             else (pool,))]
-        return sum(t.numel() * t.element_size() for t in tensors)
+        their scale planes), whatever their structure: per-layer lists or
+        one stacked pool per side."""
+        return sum(t.numel() * t.element_size()
+                   for t in _pool_leaves((self.k, self.v)))
 
     # ---- allocation ----
     def alloc(self, n_pages: int) -> Optional[List[int]]:

@@ -19,8 +19,9 @@
   returning ALL window logits ``[B, k+1, vocab]``.
 
 Inputs are host numpy arrays, as in the reference; the pools are the
-model's device tensors (or int8 ``(values, scales)`` tuples) and are
-updated in place (the returned ``k, v`` are the same lists). Every entry
+model's device tensors (or int8 ``(values, scales)`` tuples): per-layer
+lists, or one stacked pool per side for the stacked decoder. They are
+updated in place (the returned ``k, v`` are the same objects). Every entry
 point runs under ``torch.inference_mode()``. Except in ``verify``, the lm
 head runs on the selected last positions only, so the full ``[B, S,
 vocab]`` logits never exist. ``calls`` counts each entry point's calls.
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from ...framework.device import resolve_device, same_device
-from ...models.gpt import GPTKVCache
+from ...models.gpt import GPTKVCache, is_stacked_pool, layer_pool
 from ...ops.paged_attention import is_quantized_pool, resolve_kv_dtype
 
 __all__ = ["CachedDecoder", "supports_cached_decode"]
@@ -86,18 +87,26 @@ class CachedDecoder:
         self.kv_dtype = str(kv_dtype or "")
         self._pool_dtype = resolve_kv_dtype(self.kv_dtype) or model.dtype
         self.calls = {"prefill": 0, "chunked": 0, "verify": 0, "decode": 0}
-        self.max_positions = int(
-            max_positions if max_positions is not None
-            else model.kv_cache_spec()["max_seq_len"])
+        spec = model.kv_cache_spec()
+        self._stacked = bool(spec["stacked"])
+        self.max_positions = int(max_positions if max_positions is not None
+                                 else spec["max_seq_len"])
 
     def _t(self, a, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
             self.device)
 
     def _check_pools(self, k):
-        """Raise unless the pools have the storage type ``kv_dtype``
-        names: int8 (values, scales) tuples, or float pools of that dtype."""
-        pool = k[0]
+        """Raise unless the pools have the structure of the model's
+        (per-layer lists for the module stack, one stacked pool for the
+        stacked decoder) and the storage type ``kv_dtype`` names: int8
+        (values, scales) tuples, or float pools of that dtype."""
+        if is_stacked_pool(k) != self._stacked:
+            want = ("one stacked pool" if self._stacked
+                    else "a list of per-layer pools")
+            raise ValueError(f"the model takes {want} per side, got a "
+                             f"{type(k).__name__}")
+        pool = layer_pool(k, 0)
         got = "int8" if is_quantized_pool(pool) else pool.dtype
         if got != self._pool_dtype:
             raise ValueError(f"the decoder was built for {self._pool_dtype} "

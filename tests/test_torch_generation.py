@@ -266,13 +266,17 @@ def test_decoder_refuses_pools_of_another_type(kv_dtype, pools, ok):
 
 def test_unported_features_raise():
     """What the port still leaves out raises, naming its ROADMAP item: the
-    stacked decoder and the fp16 GradScaler. The prefix cache, speculative
-    decoding and int8 pools no longer raise."""
+    fp16 GradScaler. The stacked decoder, the prefix cache, speculative
+    decoding and int8 pools no longer raise; an unknown recompute policy
+    raises the reference's ValueError."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
     _, tm = make_pair()
-    with pytest.raises(NotImplementedError, match="stacked"):
-        GPTForCausalLM(gpt_tiny(stacked=True), device="cpu")
+    st = GPTForCausalLM(gpt_tiny(stacked=True, recompute="attn"),
+                        device="cpu")
+    assert st.config.recompute == "attn" and st.kv_cache_spec()["stacked"]
+    with pytest.raises(ValueError, match="recompute must be"):
+        gpt_tiny(stacked=True, recompute="sometimes")
     opt = AdamW(learning_rate=1e-3, parameters=tm.named_parameters())
     with pytest.raises(NotImplementedError, match="GradScaler"):
         TrainStep(tm, lambda out, y: out.mean(), opt, scaler=object())
@@ -292,3 +296,54 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
         GenerationServer(tm, start=False)
     with pytest.raises(RuntimeError, match="no CUDA"):
         GenerationServer(tm, device="cuda", start=False)
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+def test_pool_bytes_of_stacked_pools_match_reference(kv_dtype):
+    """``pool_bytes`` sums the leaves of stacked pools (one [L, ...] tensor
+    per side, or an int8 (values, scales) pair of them) instead of adding
+    the two stacked tensors element by element; equal to the reference's
+    over its stacked model, and to the per-layer pools of the same
+    geometry."""
+    from paddle_tpu.serving.generation.kv_cache import \
+        PagedKVCache as JPagedKVCache
+    from paddle_tpu_torch.serving.generation.kv_cache import PagedKVCache
+    paddle.seed(0)
+    jm = JGPT(j_gpt_tiny(stacked=True))
+    st = GPTForCausalLM(gpt_tiny(stacked=True), device="cpu")
+    flat = GPTForCausalLM(gpt_tiny(), device="cpu")
+    dt = kv_dtype or None
+    got = PagedKVCache(st, num_pages=9, page_size=4, dtype=dt)
+    assert got.pool_bytes() == JPagedKVCache(jm, num_pages=9, page_size=4,
+                                             dtype=dt).pool_bytes()
+    assert got.pool_bytes() == PagedKVCache(flat, num_pages=9, page_size=4,
+                                            dtype=dt).pool_bytes()
+    per_slot = 4 * (16 + 4) if kv_dtype else 4 * 16 * 4
+    assert got.pool_bytes() == 2 * 2 * 9 * 4 * per_slot
+
+
+@pytest.mark.parametrize("kv_dtype,pools,stacked,ok", [
+    ("", None, True, True), ("int8", "int8", True, True),
+    ("", "int8", True, False), ("int8", None, True, False),
+    ("", None, False, False), ("int8", "int8", False, False)])
+def test_decoder_checks_stacked_pools(kv_dtype, pools, stacked, ok):
+    """``CachedDecoder._check_pools`` on a stacked model: it reads layer
+    0's pool of every leaf (not the int8 tuple's values tensor), takes the
+    right stacked pools and refuses pools of another type or of the
+    per-layer structure."""
+    tm = GPTForCausalLM(gpt_tiny(stacked=True), device="cpu")
+    dec = CachedDecoder(tm, max_batch=2, page_size=8, pages_per_seq=2,
+                        kv_dtype=kv_dtype, device="cpu")
+    src = tm if stacked else GPTForCausalLM(gpt_tiny(), device="cpu")
+    k, v = src.init_kv_pools(5, 8, pools)
+    args = (np.array([[1, 2, 3], [4, 5, 0]]), np.array([3, 2], np.int32),
+            np.array([[1, 2], [3, 4]], np.int32), k, v)
+    if ok:
+        logits, k2, _ = dec.prefill(*args)
+        assert logits.shape == (2, tm.config.vocab_size) and k2 is k
+        written = k[0] if pools == "int8" else k
+        # both layers wrote both rows' first pages (1 and 3), in place
+        assert bool(written[:, [1, 3]].reshape(2, 2, -1).any(-1).all())
+    else:
+        with pytest.raises(ValueError, match="pool"):
+            dec.prefill(*args)

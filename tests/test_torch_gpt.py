@@ -161,8 +161,15 @@ def test_seeded_init_kv_spec_and_limits():
     assert not any(t.any() for pool in k8 + v8 for t in pool)
     assert a.kv_cache_spec("int8")["kv_bytes_per_token"] == \
         2 * 2 * 4 * (16 + 4)
-    with pytest.raises(NotImplementedError, match="stacked"):
-        GPTForCausalLM(gpt_tiny(stacked=True), device="cpu")
+    # the stacked decoder builds (tests/test_torch_stacked.py holds it
+    # against the reference); an unknown recompute policy raises as there
+    st = GPTForCausalLM(gpt_tiny(stacked=True), device="cpu")
+    assert st.kv_cache_spec()["stacked"] and len(st.gpt.layers) == 0
+    assert tuple(st.gpt.decoder.qkv_w.shape) == (2, 64, 192)
+    sk, sv = st.init_kv_pools(5, 4)
+    assert sk.shape == sv.shape == (2, 5, 4, 4, 16)
+    with pytest.raises(ValueError, match="recompute must be"):
+        gpt_tiny(stacked=True, recompute="sometimes")
     big = gpt3_1p3b()
     assert (big.hidden_size, big.num_layers, big.num_heads,
             big.hidden_size // big.num_heads, big.vocab_size,
