@@ -2,7 +2,8 @@
 """Drive the PyTorch/H100 port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
-        [--phases card,build,kernels,tiny,model,engine,serving,train,stacked]
+        [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
+                  recipe]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -20,7 +21,10 @@ Phases, each failing loudly (exit code 1, no result line):
               (bytes over 3.35 TB/s or operations over the peak rate of
               their type, whichever is larger) and, where one PyTorch call
               computes the same function, that call's time (the flash
-              kernels also at the long-context shape, B=2 S=8192). With
+              kernels also at the long-context shape, B=2 S=8192, and in
+              float16 at the training, serving and long shapes, with a
+              float16 cotangent that overflowed, whose inf and NaN must
+              reach every gradient). With
               ``--parent DIR`` the paged rows also time DIR's paged kernel
               (another tree's csrc, e.g. the parent commit's) in turns
               with this tree's: parent, this, this, parent.
@@ -67,6 +71,20 @@ Phases, each failing loudly (exit code 1, no result line):
               s=2048 and the long-context row (recompute "full",
               max_seq_len=8192, b=2, s=8192), each with its launches per
               step against the policy's expected count.
+10. recipe  — training as the reference's users run it: gpt3_1p3b in
+              float16 (O2) with GradScaler() at its defaults on the float16
+              flash kernels (launches a step, skipped steps, final scale);
+              a 4-layer float16 parity against the plain path's rounding
+              floor and a forced overflow (init scale 2^40) that must skip
+              its steps with parameters and moments bit for bit unchanged
+              and halve the scale, on both paths; dropout 0.1 at full
+              width through the reference's dense attention (no flash
+              launch; one seed bit for bit, another different; each
+              site's kept fraction within 5 sigma of 0.9); the north star
+              fed by io.DataLoader (2 workers, the shared-memory ring)
+              against the same-batch run; and a 4-layer run stopped,
+              saved (model, optimizer, scaler, generator), rebuilt, loaded
+              and resumed, bit for bit against an uninterrupted one.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -76,6 +94,7 @@ result. It imports nothing of JAX and nothing of ``paddle_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -89,10 +108,11 @@ OUT_DIR = REPO / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
+              "torch.float32": 67e12}
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
-              "serving", "train", "stacked")
+              "serving", "train", "stacked", "recipe")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -100,10 +120,15 @@ ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
 # Rounding the output costs up to 2^-8 of an element, a few times the row's
 # rms at its largest elements: the paged kernel read at most 0.0215. The
 # flash kernel also rounds its probabilities to bf16 for the second
-# product: it read at most 0.0349, and the plain version with its
-# probabilities rounded so reads 0.0331 against the plain version itself
-# (printed beside each case as row_err_plain_p_bf16).
+# product: against a plain version that did not, it read at most 0.0349
+# (that rounding alone read 0.0331). The plain version now rounds them as
+# the kernel does, so the flash readings sit well under this limit.
 BF16_ROW_LIMIT = {"flash_fwd": 0.05, "paged_attention": 0.03}
+# float16 flash forward, by the same rule: its first readings (NVIDIA H100
+# 80GB HBM3, 700 W), against a plain version that did not round the
+# probabilities, were 0.0032 to 0.0043 over seven cases (that rounding
+# alone: 0.0032 to 0.0043; float16 keeps 3 more bits than bf16)
+F16_ROW_LIMIT = 0.0065
 
 # model logits, max |a - b| / std(b) per step: the float32 model's kernel
 # and plain paths; the bf16 kernel path's distance from the float32 model
@@ -219,7 +244,7 @@ def check_close(name, got, want, dtype, row_limit) -> tuple:
             f"{name}: non-finite output")
     require(ok, f"{name}: max abs err {err:.3e} beyond atol/rtol {tol}")
     rel = row_err(got, want)
-    if dtype == torch.bfloat16:
+    if dtype in (torch.bfloat16, torch.float16):
         require(rel <= row_limit,
                 f"{name}: row-scaled err {rel:.4f} beyond {row_limit}")
     return err, rel
@@ -257,26 +282,6 @@ def phase_build(state):
             log(f"  ptxas: {line.strip()}")
 
 
-def _mha_p_bf16(q, k, v, causal, scale):
-    """The plain flash forward with its unnormalised probabilities rounded
-    to bf16 before the product with v, as the bf16 kernel rounds them for
-    its second tensor-core product: the size of that rounding alone."""
-    import torch
-    from paddle_tpu_torch.ops.cuda_attention import NEG_INF
-    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
-    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    if causal:
-        sq, sk = logits.shape[-2:]
-        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
-            sk - sq)
-        logits = logits.masked_fill(~mask, NEG_INF)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
-    del logits
-    out = torch.matmul(p.to(torch.bfloat16).float(), vf) / p.sum(
-        -1, keepdim=True)
-    return out.transpose(1, 2).to(q.dtype)
-
-
 # the bf16 forward's times with the earlier mma.sync kernel (PERF.md's
 # kernel table; NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 FLASH_MS_BEFORE = {"flash_fwd B=8 S=2048 H=16 D=128 bfloat16 causal": 2.147}
@@ -310,7 +315,8 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
             f"{' separate q/k/v' if separate else ''}"
             f"{f' scale={scale:g}' if custom_scale else ''}")
     err, rel = check_close(name, out, ref, dtype,
-                           BF16_ROW_LIMIT["flash_fwd"])
+                           F16_ROW_LIMIT if dtype == torch.float16
+                           else BF16_ROW_LIMIT["flash_fwd"])
     lerr = max_abs_err(lse, ref_lse)
     require(lerr <= 1e-3, f"{name}: lse max abs err {lerr:.3e}")
     elt = torch.empty((), dtype=dtype).element_size()
@@ -320,9 +326,6 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
     bms, by = bound_ms(nbytes, flops, dtype)
     row = {"case": name, "max_abs_err": err, "row_err": rel,
            "lse_err": lerr, "bound_ms": bms, "bound_by": by}
-    if dtype == torch.bfloat16:
-        row["row_err_plain_p_bf16"] = row_err(
-            _mha_p_bf16(q, k, v, causal, scale), ref)
     if report:
         def kern():
             ca.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
@@ -479,18 +482,60 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
 # to 5.4, held at the forward cases' 2e-5 scaled by the gradient's size
 BWD_BF16_GRAD_LIMIT = 0.035
 BWD_F32_TOL = 2e-5
+# float16, by the same rule: grad_err read 0.0011 to 0.0040 over five cases
+# (S=8192 the largest; NVIDIA H100 80GB HBM3, 700 W)
+BWD_F16_GRAD_LIMIT = 0.006
+
+
+def _bwd_overflow_f16(seed) -> dict:
+    """float16 with a cotangent that overflowed (entries beyond float16's
+    range are inf, as a loss scaled past the range leaves them): the
+    kernels let inf and NaN through to every gradient, as the plain version
+    and the reference's casts do, so dynamic loss scaling sees the
+    overflow and skips the step. Nothing may clamp it."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s, h, d = 2, 256, 16, 128
+    q, k, v = torch.randn(b, s, h, 3, d, device="cuda",
+                          generator=g).half().unbind(3)
+    do = (3e4 * torch.randn(b, s, h, d, device="cuda", generator=g)).half()
+    scale = 1.0 / math.sqrt(d)
+    out, lse = ca.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    got = cab.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                  scale=scale)
+    want = cab.mha_bwd_reference(q, k, v, out, lse, do, causal=True,
+                                 scale=scale)
+    torch.cuda.synchronize()
+    row = {"case": f"flash_bwd B={b} S={s} H={h} D={d} float16 causal, dO "
+                   f"3e4 x N(0, 1) (inf beyond float16's range)",
+           "dO_non_finite": int((~torch.isfinite(do)).sum())}
+    for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+        row[f"{gname}_non_finite_kernel"] = int((~torch.isfinite(x)).sum())
+        row[f"{gname}_non_finite_plain"] = int((~torch.isfinite(y)).sum())
+    log("  " + json.dumps(row))
+    require(row["dO_non_finite"] > 0, "overflow case: dO is finite")
+    for gname in ("dq", "dk", "dv"):
+        require(row[f"{gname}_non_finite_kernel"] > 0,
+                f"overflow case: the kernels' {gname} is finite: an "
+                f"overflow was clamped")
+        require(row[f"{gname}_non_finite_plain"] > 0,
+                f"overflow case: the plain version's {gname} is finite")
+    return row
 
 
 def check_bwd(row) -> None:
     import torch
     name = row["case"]
     require(row["repeatable"], f"{name}: two launches differ")
+    half = {str(torch.bfloat16): BWD_BF16_GRAD_LIMIT,
+            str(torch.float16): BWD_F16_GRAD_LIMIT}
     for gname in ("dq", "dk", "dv"):
-        if row["dtype"] == str(torch.bfloat16):
-            err = row[f"{gname}_grad_err"]
-            require(err <= BWD_BF16_GRAD_LIMIT,
-                    f"{name}: {gname} grad_err {err:.4f} beyond "
-                    f"{BWD_BF16_GRAD_LIMIT}")
+        if row["dtype"] in half:
+            err, lim = row[f"{gname}_grad_err"], half[row["dtype"]]
+            require(err <= lim, f"{name}: {gname} grad_err {err:.4f} beyond "
+                                f"{lim}")
         else:
             err = row[f"{gname}_max_abs_err"]
             lim = BWD_F32_TOL * (1.0 + row[f"{gname}_max_abs"])
@@ -727,6 +772,27 @@ def phase_kernels(state):
                                       torch.bfloat16, True, seed + 22,
                                       report=True)
     rows.append(state["flash_long"])
+    # float16 (fp16 AMP training, the recipe phase): the training shape, the
+    # serving batch and the long-context row, timed, and the tensor-core
+    # kernel's edges (ragged tiles, D=64, a full window, separate tensors, a
+    # negative scale)
+    log(f"kernels: flash_fwd float16 (atol/rtol 2e-2; row_err <= "
+        f"{F16_ROW_LIMIT})")
+    f16 = torch.float16
+    state["flash_f16_train"], state["flash_f16_main"], \
+        state["flash_f16_long"] = (
+            _flash_case(b, s, 16, 128, f16, True, seed + 50 + b, report=True)
+            for b, s in ((TRAIN_BATCH, TRAIN_SEQ), (8, 2048),
+                         (TRAIN_BATCH, LONG_SEQ)))
+    rows += [state["flash_f16_train"], state["flash_f16_main"],
+             state["flash_f16_long"],
+             _flash_case(2, 129, 16, 128, f16, True, seed + 53),
+             _flash_case(2, 1000, 16, 64, f16, True, seed + 54),
+             _flash_case(2, 300, 16, 128, f16, False, seed + 55),
+             _flash_case(2, 1000, 16, 128, f16, True, seed + 56,
+                         separate=True),
+             _flash_case(2, 300, 16, 128, f16, True, seed + 57,
+                         scale=-1.0 / math.sqrt(128))]
 
     log(f"kernels: paged_attention vs paged_attention_reference (same; "
         f"bf16 row_err <= {BF16_ROW_LIMIT['paged_attention']})")
@@ -804,14 +870,26 @@ def phase_kernels(state):
     state["bwd_long"] = _bwd_case(TRAIN_BATCH, LONG_SEQ, 16, 128,
                                   torch.bfloat16, True, seed + 23)
     brow.append(state["bwd_long"])
+    # float16: the training shape, the long-context shape and the edges
+    f16 = torch.float16
+    state["bwd_f16_main"] = _bwd_case(TRAIN_BATCH, TRAIN_SEQ, 16, 128, f16,
+                                      True, seed + 60)
+    state["bwd_f16_long"] = _bwd_case(TRAIN_BATCH, LONG_SEQ, 16, 128, f16,
+                                      True, seed + 61)
+    brow += [state["bwd_f16_main"], state["bwd_f16_long"],
+             _bwd_case(2, 40, 16, 128, f16, True, seed + 62),
+             _bwd_case(2, 1000, 16, 64, f16, True, seed + 63),
+             _bwd_case(2, 300, 16, 128, f16, False, seed + 64, sk=520)]
     for row in brow:
         check_bwd(row)
     state["bwd_rows"] = brow
     state["bwd_main"] = brow[0]      # the training shape, bf16
+    state["bwd_overflow"] = _bwd_overflow_f16(seed + 65)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "kernels.json").write_text(json.dumps(
         {"card": state.get("smi"), "flash_fwd": rows,
-         "paged_attention": prow, "flash_bwd": brow}, indent=1))
+         "paged_attention": prow, "flash_bwd": brow,
+         "flash_bwd_f16_overflow": state["bwd_overflow"]}, indent=1))
 
 
 PAGE_SIZE = 16
@@ -1197,7 +1275,7 @@ def phase_model(state):
 
 # kernel-name groups of a step's device time, first match wins
 PROFILE_GROUPS = (
-    ("port kernels", ("flash_fwd", "dq_bf16", "dkv_bf16", "dq_f32",
+    ("port kernels", ("flash_fwd", "dq_wgmma", "dkv_wgmma", "dq_f32",
                       "dkv_f32", "paged_attention")),
     ("matmuls", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -1639,12 +1717,16 @@ TRAIN_LR = 1e-4
 PEAK_BF16 = 989e12
 
 
-def _parity_run(cfg, base, ids, use_kernels, amp_level, steps=2):
+def _parity_run(cfg, base, ids, use_kernels, amp_level, steps=2,
+                amp_dtype="bfloat16", scaler=False):
     """``steps`` TrainStep steps of a fresh model from ``base``'s weights,
-    through the kernels or their plain versions. Returns the losses, the
-    parameters after the steps and each step's gradients (recorded by
-    post-accumulate hooks as TrainStep's backward finishes each one)."""
+    through the kernels or their plain versions (``scaler``: with a
+    GradScaler() at its defaults). Returns the losses, the parameters after
+    the steps and each step's gradients (recorded by post-accumulate hooks
+    as TrainStep's backward finishes each one; scaled when a scaler
+    runs)."""
     import torch
+    from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (GPTForCausalLM,
                                          GPTPretrainingCriterion)
@@ -1666,7 +1748,8 @@ def _parity_run(cfg, base, ids, use_kernels, amp_level, steps=2):
     opt = AdamW(learning_rate=TRAIN_LR, parameters=model.named_parameters(),
                 moment_dtype="bfloat16")
     step = TrainStep(model, lambda out, y: crit(out, y), opt,
-                     amp_level=amp_level)
+                     amp_level=amp_level, amp_dtype=amp_dtype,
+                     scaler=GradScaler() if scaler else None)
     losses = []
     for _ in range(steps):
         losses.append(float(step(ids, ids)))
@@ -2217,6 +2300,561 @@ def phase_stacked(state):
     state["stacked"] = out
 
 
+# ------------------------------------------------ the training recipe
+RECIPE_DROPOUT = 0.1
+# the forced overflow: a scale that overflows float16's range in the
+# backward (logits' gradient x 2^40 / 4096 tokens), halved after the second
+# bad step
+OVERFLOW_SCALE, OVERFLOW_DECR_EVERY = 2.0 ** 40, 2
+RESUME_STEPS = 6          # uninterrupted; the resumed run stops after 3
+PIPELINE_WORKERS = 2
+
+
+def _reset_counts():
+    """Every flash kernel's launch count and plain-version count, and the
+    dense attention's calls, set to 0."""
+    from paddle_tpu_torch.nn.functional import attention as attn
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    ca.launches = ca.plain_calls = 0
+    for name in cab.KERNELS:
+        cab.launches[name] = cab.plain_calls[name] = 0
+    attn.dense_calls = 0
+
+
+def _read_counts() -> dict:
+    from paddle_tpu_torch.nn.functional import attention as attn
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    return {"launches": {"flash_fwd": ca.launches, **dict(cab.launches)},
+            "plain_calls": {"flash_fwd": ca.plain_calls,
+                            **dict(cab.plain_calls)},
+            "dense_calls": attn.dense_calls}
+
+
+def _require_launches(tag, counts, per_step: dict, steps: int) -> None:
+    for name, n in per_step.items():
+        got = counts["launches"][name]
+        require(got == n * steps, f"{tag}: {name} launched {got} times in "
+                                  f"{steps} steps, not {n} a step")
+        require(counts["plain_calls"][name] == 0,
+                f"{tag}: {name}'s plain version ran "
+                f"{counts['plain_calls'][name]} times on the main path")
+
+
+def _train_parts(cfg, seed, amp_dtype="bfloat16", scaler=None, lr=None):
+    """A fresh model from ``seed`` (float32 master weights), AdamW with
+    bf16 moments, the criterion and an O2 TrainStep."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           seed=seed)
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(learning_rate=TRAIN_LR if lr is None else lr,
+                parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    step = TrainStep(model, lambda out, y: crit(out, y), opt,
+                     amp_level="O2", amp_dtype=amp_dtype, scaler=scaler)
+    return model, opt, step
+
+
+def _timed_window(fn, n_steps):
+    """Host seconds of ``fn()`` (which ends in a device sync)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _mfu(n_params, cfg, seq, tok_s) -> float:
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * \
+        cfg.hidden_size * seq
+    return tok_s * flops_per_token / PEAK_BF16
+
+
+def _recipe_fp16(state, ids) -> dict:
+    """gpt3_1p3b, per-layer, AMP O2 float16 with GradScaler() at its
+    defaults, AdamW (bf16 moments): 2 warm-up steps, then a timed
+    run_steps(TRAIN_STEPS) around which the launches are read; every step's
+    found_inf is kept on the device and summed at the end."""
+    import torch
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models import gpt3_1p3b
+    cfg = gpt3_1p3b()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scaler = GradScaler()
+    model, opt, step = _train_parts(cfg, state["seed"], "float16", scaler)
+    found = []
+    schedule = step._schedule
+
+    def keep_found(st, found_inf):
+        found.append(found_inf)
+        schedule(st, found_inf)
+    step._schedule = keep_found
+    t0 = time.perf_counter()
+    losses = [float(step(ids, ids)) for _ in range(2)]
+    warm_s = time.perf_counter() - t0
+    _reset_counts()
+    wall, last = _timed_window(
+        lambda: step.run_steps(TRAIN_STEPS, ids, ids), TRAIN_STEPS)
+    counts = _read_counts()
+    losses.append(float(last))
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: (step(ids, ids), torch.cuda.synchronize()),
+                          1)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
+    out = {"config": "gpt3_1p3b", "amp": "O2 float16",
+           "scaler": "GradScaler() defaults", "moment_dtype": "bfloat16",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "losses": {"step1": losses[0], "step2": losses[1],
+                      f"step{2 + TRAIN_STEPS}": losses[2]},
+           "warmup_s": warm_s, "step_ms": wall / TRAIN_STEPS * 1e3,
+           "tokens_per_s": tok_s,
+           "mfu": _mfu(model.num_params(), cfg, TRAIN_SEQ, tok_s),
+           "peak_memory_gb": peak / 1e9,
+           "final_scale": scaler.state_dict()["scale"],
+           "steps_run": len(found),
+           "skipped_steps": int(torch.stack(found).sum()),
+           **counts,
+           "device_busy_share_of_step": prof["device_busy_ms_per_step"]
+           / (wall / TRAIN_STEPS * 1e3)}
+    log("recipe: fp16 " + json.dumps(out))
+    log("recipe: fp16 step profile " + json.dumps(prof))
+    out["step_profile"] = prof
+    require(all(math.isfinite(x) for x in losses),
+            f"recipe fp16: non-finite loss {losses}")
+    require(counts["dense_calls"] == 0,
+            "recipe fp16: attention left the flash path")
+    _require_launches("recipe fp16", counts,
+                      {n: cfg.num_layers for n in counts["launches"]},
+                      TRAIN_STEPS)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moments(opt) -> dict:
+    return {(an, pid): t.clone() for an, store in opt._accumulators.items()
+            for pid, t in store.items()}
+
+
+def _overflow_run(cfg, base, ids, use_kernels) -> dict:
+    """One good float16 step, then the scaler reloaded with
+    OVERFLOW_SCALE (``load_state_dict`` takes effect at the next call):
+    two steps whose gradients overflow must leave every parameter and
+    moment bit for bit as they were, and the second bad step halves the
+    scale (decr_every_n_nan_or_inf=2)."""
+    import torch
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models.gpt import GPTAttention
+    scaler = GradScaler(init_loss_scaling=OVERFLOW_SCALE,
+                        decr_every_n_nan_or_inf=OVERFLOW_DECR_EVERY)
+    scaler.load_state_dict({"scale": 2.0 ** 15})
+    model, opt, step = _train_parts(cfg, 0, "float16", scaler)
+    model.load_state_dict(base)
+    for mod in model.modules():
+        if isinstance(mod, GPTAttention):
+            mod.use_kernels = use_kernels
+    good = float(step(ids, ids))
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    moments = _moments(opt)
+    scaler.load_state_dict({"scale": OVERFLOW_SCALE, "incr_count": 0,
+                            "decr_count": 0})
+    bad = [float(step(ids, ids))]
+    after_one = scaler.state_dict()
+    found_one = bool(scaler._found_inf)
+    bad.append(float(step(ids, ids)))
+    after_two = scaler.state_dict()
+    same_p = all(torch.equal(p, params[n])
+                 for n, p in model.named_parameters())
+    same_m = all(torch.equal(t, moments[key])
+                 for key, t in _moments(opt).items())
+    out = {"good_loss": good, "bad_losses": bad, "found_inf": [
+        found_one, bool(scaler._found_inf)],
+        "scale_after": [after_one["scale"], after_two["scale"]],
+        "decr_count_after": [after_one["decr_count"],
+                             after_two["decr_count"]],
+        "params_unchanged": same_p, "moments_unchanged": same_m,
+        "moments": len(moments), "step_count": opt._step_count}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recipe_fp16_parity(state, ids) -> dict:
+    """gpt3_1p3b at full width and PARITY_LAYERS layers: two float16 O2
+    steps with GradScaler() through the kernels and through the plain
+    versions, each one's distance from the float32 plain run (loss; L2
+    over all parameters), the kernel path's within BF16_FLOOR_FACTOR x the
+    plain path's; then the forced overflow on both paths."""
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    cfg = gpt3_1p3b(num_layers=PARITY_LAYERS)
+    base = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                          seed=state["seed"]).state_dict()
+    fl, fp, _ = _parity_run(cfg, base, ids, False, None)
+    ko = _parity_run(cfg, base, ids, True, "O2", amp_dtype="float16",
+                     scaler=True)
+    po = _parity_run(cfg, base, ids, False, "O2", amp_dtype="float16",
+                     scaler=True)
+
+    def l2(a, b):
+        return float(torch.sqrt(sum(((a[n] - b[n]).double() ** 2).sum()
+                                    for n in b)))
+    out = {"layers": PARITY_LAYERS, "losses_f32": fl,
+           "losses_kernel": ko[0], "losses_plain": po[0],
+           "loss_kernel": max(abs(a - b) for a, b in zip(ko[0], fl)),
+           "loss_plain": max(abs(a - b) for a, b in zip(po[0], fl)),
+           "params_l2_kernel": l2(ko[1], fp), "params_l2_plain": l2(po[1], fp)}
+    del fp, ko, po
+    out["overflow"] = {"kernels": _overflow_run(cfg, base, ids, True),
+                       "plain": _overflow_run(cfg, base, ids, False)}
+    log("recipe: fp16 parity " + json.dumps(out))
+    for what in ("loss", "params_l2"):
+        k, p = out[f"{what}_kernel"], out[f"{what}_plain"]
+        require(0 < p and k <= BF16_FLOOR_FACTOR * p,
+                f"recipe fp16 parity: {what} {k:.3e} from float32, beyond "
+                f"{BF16_FLOOR_FACTOR} x the plain path's {p:.3e}")
+    for path, r in out["overflow"].items():
+        tag = f"recipe overflow ({path})"
+        require(all(math.isfinite(x) for x in [r["good_loss"]]
+                    + r["bad_losses"]), f"{tag}: non-finite loss")
+        require(r["found_inf"] == [True, True],
+                f"{tag}: found_inf {r['found_inf']}")
+        require(r["scale_after"] == [OVERFLOW_SCALE, OVERFLOW_SCALE / 2],
+                f"{tag}: scale {r['scale_after']}, not halved after the "
+                f"second bad step")
+        require(r["params_unchanged"] and r["moments_unchanged"]
+                and r["moments"] > 0,
+                f"{tag}: a skipped step changed the parameters or moments")
+    return out
+
+
+class _KeptFraction:
+    """Counts every dropout mask's kept elements by site, on the device:
+    wraps ``keep_mask`` where the dropout layers and the dense attention
+    call it. Calls come in the forward's order: the embeddings, then per
+    layer the attention probabilities, the attention output and the MLP
+    output."""
+
+    SITES = ("embeddings", "attention_probs", "attention_out", "mlp_out")
+
+    def __init__(self, n_layers):
+        from paddle_tpu_torch.nn.functional import attention, common
+        self.mods = (common, attention)
+        self.orig = common.keep_mask
+        self.per_forward = 1 + 3 * n_layers
+        self.calls = 0
+        self.kept = {s: [] for s in self.SITES}
+        self.total = dict.fromkeys(self.SITES, 0)
+
+    def _site(self):
+        i = self.calls % self.per_forward
+        return "embeddings" if i == 0 else self.SITES[1 + (i - 1) % 3]
+
+    def __call__(self, shape, p, device, generator=None):
+        keep = self.orig(shape, p, device, generator)
+        site = self._site()
+        self.kept[site].append(keep.sum())
+        self.total[site] += keep.numel()
+        self.calls += 1
+        return keep
+
+    def __enter__(self):
+        for m in self.mods:
+            m.keep_mask = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.keep_mask = self.orig
+        return False
+
+    def fractions(self) -> dict:
+        import torch
+        return {s: float(torch.stack(self.kept[s]).sum()) / self.total[s]
+                for s in self.SITES if self.total[s]}
+
+
+def _dropout_run(cfg, seed, gen_seed, ids, steps, kept=None) -> dict:
+    """``steps`` O2 bf16 steps (one call, then run_steps(steps - 1)) of a
+    fresh per-layer model with dropout, its masks drawn from the port's
+    default generator seeded with ``gen_seed``."""
+    import torch
+    from paddle_tpu_torch.framework import random as random_mod
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, step = _train_parts(cfg, seed)
+    random_mod.seed(gen_seed)
+    _reset_counts()
+    with (kept if kept is not None else contextlib.nullcontext()):
+        losses = [float(step(ids, ids))]
+        wall = 0.0
+        if steps > 1:
+            wall, last = _timed_window(
+                lambda: step.run_steps(steps - 1, ids, ids), steps - 1)
+            losses.append(float(last))
+    out = {"losses": losses, "counts": _read_counts(),
+           "step_ms": wall / max(steps - 1, 1) * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           # on the host: two full-width copies would crowd the card
+           "params": {n: p.detach().cpu()
+                      for n, p in model.named_parameters()}}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recipe_dropout(state, ids) -> dict:
+    """gpt3_1p3b(dropout=0.1) at full width and depth, per-layer, O2 bf16:
+    one step and run_steps(4). Attention takes the reference's dense path
+    (no flash launch, the dense calls counted), two runs from one generator
+    seed are bit for bit equal and another seed differs, and each site's
+    kept fraction lies within 5 sigma of 0.9."""
+    import torch
+    from paddle_tpu_torch.models import gpt3_1p3b
+    cfg = gpt3_1p3b(dropout=RECIPE_DROPOUT)
+    steps = 5
+    kept = _KeptFraction(cfg.num_layers)
+    a = _dropout_run(cfg, state["seed"], 1234, ids, steps, kept)
+    b = _dropout_run(cfg, state["seed"], 1234, ids, steps)
+    same = a["losses"] == b["losses"] and all(
+        torch.equal(a["params"][n], p) for n, p in b["params"].items())
+    del b
+    c = _dropout_run(cfg, state["seed"], 4321, ids, 1)
+    differs = c["losses"][0] != a["losses"][0]
+    del c
+    fractions = kept.fractions()
+    sigma = {s: math.sqrt(RECIPE_DROPOUT * (1 - RECIPE_DROPOUT)
+                          / kept.total[s]) for s in fractions}
+    out = {"config": f"gpt3_1p3b(dropout={RECIPE_DROPOUT})",
+           "amp": "O2 bfloat16", "steps": steps, "losses": a["losses"],
+           "step_ms": a["step_ms"], "peak_memory_gb": a["peak_memory_gb"],
+           **a["counts"], "same_seed_bit_for_bit": same,
+           "other_seed_differs": differs, "kept_fraction": fractions,
+           "kept_sigma": sigma, "mask_calls": kept.calls}
+    del a
+    log("recipe: dropout " + json.dumps(out))
+    require(all(math.isfinite(x) for x in out["losses"]),
+            f"recipe dropout: non-finite loss {out['losses']}")
+    for name, n in out["launches"].items():
+        require(n == 0, f"recipe dropout: {name} launched {n} times; "
+                        f"attention with dropout takes the dense path")
+    require(out["dense_calls"] == cfg.num_layers * steps,
+            f"recipe dropout: {out['dense_calls']} dense attention calls, "
+            f"not {cfg.num_layers} a step")
+    require(kept.calls == (1 + 3 * cfg.num_layers) * steps,
+            f"recipe dropout: {kept.calls} masks drawn")
+    require(same, "recipe dropout: two runs from one seed differ")
+    require(differs, "recipe dropout: another seed gave the same loss")
+    for s, f in fractions.items():
+        require(abs(f - (1 - RECIPE_DROPOUT)) <= 5 * sigma[s],
+                f"recipe dropout: {s} kept {f:.6f}, beyond 5 sigma "
+                f"({sigma[s]:.2e}) of {1 - RECIPE_DROPOUT}")
+    return out
+
+
+class _TokenDataset:
+    """bench.py's TokenDataset (``bench.py:380-389``): sample i is
+    ``RandomState(i).randint(0, vocab, (seq,))``."""
+
+    def __init__(self, n, vocab, seq):
+        self.n, self.vocab, self.seq = n, vocab, seq
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import numpy as np
+        return np.random.RandomState(i).randint(
+            0, self.vocab, (self.seq,)).astype("int64")
+
+
+def _loader(n_batches, vocab, seq):
+    from paddle_tpu_torch.io import DataLoader
+    return DataLoader(_TokenDataset(n_batches * TRAIN_BATCH, vocab, seq),
+                      batch_size=TRAIN_BATCH, shuffle=False,
+                      num_workers=PIPELINE_WORKERS, drop_last=True)
+
+
+def _recipe_pipeline(state) -> dict:
+    """The north star, gpt3_1p3b(stacked=True, recompute="full"), O2 bf16,
+    fed by io.DataLoader (2 workers, the shared-memory ring): 2 warm-up
+    steps, then TRAIN_STEPS steps each on the loader's next batch, against
+    run_steps(TRAIN_STEPS) on one resident batch (bench.py's "with input
+    pipeline" row). The ring must carry every batch."""
+    import torch
+    from paddle_tpu_torch.models import gpt3_1p3b
+    cfg = gpt3_1p3b(stacked=True, recompute="full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, step = _train_parts(cfg, state["seed"])
+    loader = _loader(2 + TRAIN_STEPS, cfg.vocab_size, TRAIN_SEQ)
+    batches = iter(loader)
+    first = next(batches)
+    losses = [float(step(first, first))]
+    b = next(batches)
+    losses.append(float(step(b, b)))
+    _reset_counts()
+
+    def fed():
+        loss = None
+        for b in batches:
+            loss = step(b, b)
+        return loss
+    wall, last = _timed_window(fed, TRAIN_STEPS)
+    counts = _read_counts()
+    losses.append(float(last))
+    ids = first.cuda()
+    same_wall, _ = _timed_window(
+        lambda: step.run_steps(TRAIN_STEPS, ids, ids), TRAIN_STEPS)
+    out = {"config": "gpt3_1p3b(stacked=True, recompute='full')",
+           "amp": "O2 bfloat16", "workers": PIPELINE_WORKERS,
+           "losses": losses, "step_ms": wall / TRAIN_STEPS * 1e3,
+           "same_batch_step_ms": same_wall / TRAIN_STEPS * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ring_pushes": loader.ring_pushes,
+           "queue_payloads": loader.queue_payloads, **counts}
+    out["mfu"] = _mfu(model.num_params(), cfg, TRAIN_SEQ,
+                      out["tokens_per_s"])
+    log("recipe: input pipeline " + json.dumps(out))
+    require(all(math.isfinite(x) for x in losses),
+            f"recipe pipeline: non-finite loss {losses}")
+    require(loader.ring_pushes == 2 + TRAIN_STEPS
+            and loader.queue_payloads == 0,
+            f"recipe pipeline: ring pushes {loader.ring_pushes}, queue "
+            f"payloads {loader.queue_payloads}")
+    _require_launches("recipe pipeline", counts,
+                      {"flash_fwd": 2 * cfg.num_layers,
+                       "flash_bwd_dq": cfg.num_layers,
+                       "flash_bwd_dkv": cfg.num_layers}, TRAIN_STEPS)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resume_parts(cfg, seed):
+    """Model, optimizer (an LR schedule), scaler and step of the resume
+    check: float16 O2 with a GradScaler whose scale doubles every 2 good
+    steps, so that every piece of state moves."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.optimizer import lr as plr
+    sched = plr.CosineAnnealingDecay(learning_rate=TRAIN_LR, T_max=20)
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2)
+    model, opt, step = _train_parts(cfg, seed, "float16", scaler, lr=sched)
+    return model, opt, scaler, sched, step
+
+
+def _recipe_resume(state) -> dict:
+    """The north star cut to PARITY_LAYERS layers, with embedding dropout
+    (the stacked decoder applies none), float16 O2 with a GradScaler and a
+    cosine LR schedule, on batches from io.DataLoader: RESUME_STEPS steps
+    straight through, against half of them, a save of the model, the
+    optimizer (accumulators, LR_Scheduler, @step), the scaler and the
+    generator, fresh objects built from another seed, a load, and the other
+    half. Losses and parameters must match bit for bit."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.framework import random as random_mod
+    from paddle_tpu_torch.framework.io import load, save
+    from paddle_tpu_torch.models import gpt3_1p3b
+    cfg = gpt3_1p3b(stacked=True, recompute="full",
+                    num_layers=PARITY_LAYERS, dropout=RECIPE_DROPOUT)
+    batches = [b.cuda() for b in _loader(RESUME_STEPS, cfg.vocab_size,
+                                         TRAIN_SEQ)]
+    half = RESUME_STEPS // 2
+
+    def run(step, sched, bs):
+        out = []
+        for b in bs:
+            out.append(float(step(b, b)))
+            sched.step()
+        return out
+
+    model, _, _, sched, step = _resume_parts(cfg, state["seed"])
+    random_mod.seed(77)
+    straight = run(step, sched, batches)
+    want = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, step
+    model, opt, scaler, sched, step = _resume_parts(cfg, state["seed"])
+    random_mod.seed(77)
+    first = run(step, sched, batches[:half])
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {k: f"{tmp}/ckpt.{k}" for k in ("pdparams", "pdopt",
+                                                 "pdscaler", "pdrng")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(model.state_dict(), files["pdparams"])
+        save(opt.state_dict(), files["pdopt"])
+        save(scaler.state_dict(), files["pdscaler"])
+        save(random_mod.get_rng_state(), files["pdrng"])
+        save_s = time.perf_counter() - t0
+        size = sum(Path(f).stat().st_size for f in files.values())
+        del model, opt, scaler, sched, step
+        torch.cuda.empty_cache()
+        model, opt, scaler, sched, step = _resume_parts(cfg,
+                                                        state["seed"] + 1)
+        random_mod.seed(1)
+        t0 = time.perf_counter()
+        model.load_state_dict(load(files["pdparams"]))
+        opt.set_state_dict(load(files["pdopt"]))
+        scaler.load_state_dict(load(files["pdscaler"]))
+        random_mod.set_rng_state(load(files["pdrng"]))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    resumed = first + run(step, sched, batches[half:])
+    same_p = all(torch.equal(p, want[n]) for n, p in
+                 model.named_parameters())
+    out = {"config": f"gpt3_1p3b(stacked=True, recompute='full', "
+                     f"num_layers={PARITY_LAYERS}, dropout="
+                     f"{RECIPE_DROPOUT})",
+           "amp": "O2 float16 + GradScaler(incr_every_n_steps=2)",
+           "steps": RESUME_STEPS, "stopped_after": half,
+           "losses_straight": straight, "losses_resumed": resumed,
+           "params_bit_for_bit": same_p,
+           "final_scale": scaler.state_dict()["scale"],
+           "step_count": opt._step_count, "checkpoint_bytes": size,
+           "save_s": save_s, "load_s": load_s}
+    log("recipe: resume " + json.dumps(out))
+    require(straight == resumed, f"recipe resume: losses differ: "
+                                 f"{straight} against {resumed}")
+    require(same_p, "recipe resume: parameters differ after the resume")
+    require(opt._step_count == RESUME_STEPS,
+            f"recipe resume: step count {opt._step_count}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recipe(state):
+    """Training as the reference's users run it: float16 with dynamic loss
+    scaling on the float16 flash kernels (full width and depth, then a
+    4-layer parity and a forced overflow), dropout at full width through
+    the reference's dense attention, and the north star fed by
+    io.DataLoader, then stopped and resumed from a checkpoint."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt3_1p3b
+    state.pop("model", None)
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(state["seed"])
+    ids = torch.from_numpy(rng.randint(0, gpt3_1p3b().vocab_size,
+                                       (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+    out = {"fp16": _recipe_fp16(state, ids),
+           "fp16_parity": _recipe_fp16_parity(state, ids),
+           "dropout": _recipe_dropout(state, ids),
+           "pipeline": _recipe_pipeline(state),
+           "resume": _recipe_resume(state)}
+    state["recipe"] = out
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -2224,7 +2862,10 @@ def kernels_line(state) -> dict:
     the paged kernel's over the engine's run and the stacked engine's run
     (bf16 pools) and, as its own entry, its int8 variant's over the serving
     run and the stacked engine's int8 run; the backward kernels' over the
-    training windows (per-layer and stacked)."""
+    training windows (per-layer, stacked, and the recipe phase's input
+    pipeline window). The float16 variants of the three flash kernels are
+    entries of their own (``*_f16``), with the recipe phase's float16
+    training window's launches and their times at the training shape."""
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
@@ -2234,7 +2875,8 @@ def kernels_line(state) -> dict:
     st_serve = st["serving"]["serve"]
     st_train = [t["launches"] for p in STACKED_POLICIES
                 for t in st["train"][p]["turns"]] + \
-        [st["train_long"]["launches"]]
+        [st["train_long"]["launches"], state["recipe"]["pipeline"]["launches"]]
+    fp16 = state["recipe"]["fp16"]["launches"]
     out = []
     for name, mod, row, launches, by in (
             ("flash_fwd", ca, state["flash_main"],
@@ -2307,6 +2949,41 @@ def kernels_line(state) -> dict:
                     "long_shape_library_bwd_ms": long_row["library_bwd_ms"],
                     "long_shape_max_abs_err": max(
                         long_row[f"{g}_max_abs_err"] for g in grads)})
+    row, long_row = state["flash_f16_train"], state["flash_f16_long"]
+    out.append({"name": "flash_fwd_f16", "route": "cuda",
+                "source": ca.SOURCE, "replaces": ca.REPLACES,
+                "launches": fp16["flash_fwd"],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "tflops": row["tflops"], "shape": row["case"],
+                "batch8_ms": state["flash_f16_main"]["ms"],
+                "batch8_library_ms": state["flash_f16_main"]["library_ms"],
+                "batch8_bound_ms": state["flash_f16_main"]["bound_ms"],
+                "long_shape": long_row["case"],
+                "long_shape_ms": long_row["ms"],
+                "long_shape_library_ms": long_row["library_ms"],
+                "long_shape_bound_ms": long_row["bound_ms"]})
+    row, long_row = state["bwd_f16_main"], state["bwd_f16_long"]
+    for name, grads in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
+        out.append({"name": f"{name}_f16", "route": "cuda",
+                    "source": cab.SOURCE, "replaces": cab.REPLACES[name],
+                    "launches": fp16[name],
+                    "max_abs_err": max(row[f"{g}_max_abs_err"]
+                                       for g in grads),
+                    "ms": row[f"{name}_ms"], "tflops": row[f"{name}_tflops"],
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row[f"{name}_bound_ms"],
+                    "bound_by": row[f"{name}_bound_by"],
+                    "library_ms": row["library_ms"],
+                    "library_bwd_ms": row["library_bwd_ms"],
+                    "delta_ms": row["delta_ms"], "shape": row["case"],
+                    "long_shape": long_row["case"],
+                    "long_shape_ms": long_row[f"{name}_ms"],
+                    "long_shape_bound_ms": long_row[f"{name}_bound_ms"],
+                    "long_shape_library_bwd_ms":
+                        long_row["library_bwd_ms"]})
     return {"kernels": out}
 
 
@@ -2352,7 +3029,8 @@ def main(argv=None) -> int:
            "kernels": phase_kernels, "tiny": phase_tiny,
            "model": phase_model,
            "engine": phase_engine, "serving": phase_serving,
-           "train": phase_train, "stacked": phase_stacked}
+           "train": phase_train, "stacked": phase_stacked,
+           "recipe": phase_recipe}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -2371,10 +3049,10 @@ def main(argv=None) -> int:
     summary = {k: state[k] for k in ("smi", "build_s", "tiny", "model_check",
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
-                                     "total_s")
+                                     "recipe", "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
-                                "stacked")):
+                                "stacked", "recipe")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

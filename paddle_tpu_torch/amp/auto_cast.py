@@ -18,7 +18,8 @@ The port applies the rule with a ``TorchFunctionMode`` at the torch
 functions that stand for the ops the reference dispatches in the GPT step,
 under the reference's names (``_OP_NAMES``): ``embedding``,
 ``getitem``, ``add``, ``layer_norm``, ``linear``, ``reshape``,
-``scaled_dot_product_attention`` (the port's ``attention_bshd``), ``gelu``,
+``scaled_dot_product_attention`` (the port's function of that name and
+``attention_bshd``), ``gelu``,
 ``matmul``, ``cross_entropy`` and ``gpt_stacked_decoder`` (the stacked
 decoder, one op in the reference as here: O2 casts its input and its
 stacked parameters once, O1 casts nothing, and its body runs with the rule
@@ -61,6 +62,7 @@ def _op_names() -> dict:
     global _OP_NAMES
     if _OP_NAMES is None:
         from ..models.gpt import gpt_stacked_decoder
+        from ..nn.functional.attention import scaled_dot_product_attention
         from ..nn.functional.loss import cross_entropy
         from ..ops.flash_attention import attention_bshd
         T = torch.Tensor
@@ -73,6 +75,7 @@ def _op_names() -> dict:
             F.linear: "linear",
             T.view: "reshape", T.reshape: "reshape", torch.reshape: "reshape",
             attention_bshd: "scaled_dot_product_attention",
+            scaled_dot_product_attention: "scaled_dot_product_attention",
             F.gelu: "gelu",
             torch.matmul: "matmul", T.matmul: "matmul",
             T.__matmul__: "matmul",

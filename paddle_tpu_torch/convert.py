@@ -20,6 +20,16 @@
   stack's ``gpt.layers.{i}.*`` names, torch layouts) into the stacked
   decoder's (``gpt.decoder.qkv_w [L, in, out]``, ...), so one set of weights
   runs through both decoders.
+- ``load_paddle_training_state(model, optimizer, model_file, opt_file,
+  scaler=, scaler_file=)`` resumes from the reference's training checkpoint
+  (``paddle.save`` of the model's and the optimizer's ``state_dict()``, and
+  of a ``GradScaler``'s): weights, accumulators, ``LR_Scheduler`` and
+  ``@step`` (so Adam's t continues), and the scaler's state. The
+  reference's optimizer keys its accumulators by each parameter's unique
+  name (``p.name``, ``paddle_tpu/optimizer/optimizer.py:208-233``), the
+  port by its ``named_parameters()`` name; the model file holds both (each
+  tensor's ``name`` under its structured key), which maps one to the
+  other.
 
 The stacked decoder's parameters (``gpt.decoder.qkv_w`` and the rest) are
 not ``nn.Linear`` weights: they keep the reference's ``[L, in, out]``
@@ -35,9 +45,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from .framework.io import to_tensor as _to_torch
+
 __all__ = ["load_paddle_state", "load_jax_state",
            "load_jax_optimizer_state", "export_jax_state",
-           "stack_layer_state"]
+           "stack_layer_state", "load_paddle_training_state"]
 
 # the stacked decoder's parameter ← the module stack's, per layer; True
 # where the module stack holds an nn.Linear weight ([out, in])
@@ -70,16 +82,6 @@ def load_paddle_state(path) -> Dict[str, np.ndarray]:
     containers kept)."""
     with open(path, "rb") as f:
         return _unpack(pickle.load(f))
-
-
-def _to_torch(arr) -> torch.Tensor:
-    """A writable tensor copy of a numpy array; JAX's bfloat16 (an
-    ``ml_dtypes`` type numpy cannot hand to torch) goes through float32,
-    which holds it exactly."""
-    arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.array(arr))
 
 
 def _linear_weights(model: nn.Module):
@@ -143,14 +145,15 @@ def load_jax_optimizer_state(optimizer, model: nn.Module,
 @torch.no_grad()
 def export_jax_state(model: nn.Module) -> Dict[str, np.ndarray]:
     """The model's state as float32 numpy arrays under the JAX names, the
-    linear weights transposed back to ``[in, out]``."""
+    linear weights transposed back to ``[in, out]``: copies, which later
+    updates of the model leave as they are."""
     linear = _linear_weights(model)
     out = {}
     for name, t in model.state_dict().items():
         t = t.detach().float().cpu()
         if name in linear and t.dim() == 2:
             t = t.t()
-        out[name] = t.contiguous().numpy()
+        out[name] = t.contiguous().numpy().copy()
     return out
 
 
@@ -171,3 +174,40 @@ def stack_layer_state(state: Dict[str, torch.Tensor]
         out[f"gpt.decoder.{name}"] = torch.stack(
             [t.t() if linear else t for t in ts])
     return out
+
+
+def _read_raw(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+@torch.no_grad()
+def load_paddle_training_state(model: nn.Module, optimizer, model_file,
+                               opt_file, scaler=None, scaler_file=None):
+    """Resume the port's ``model``, ``optimizer`` (and ``scaler``) from the
+    reference's training checkpoint: ``model_file`` from
+    ``paddle.save(model.state_dict())``, ``opt_file`` from
+    ``paddle.save(opt.state_dict())`` (accumulators under
+    ``f"{p.name}_{accumulator}"``, ``LR_Scheduler``, ``@step``) and
+    ``scaler_file`` from ``paddle.save(scaler.state_dict())``. Weights go
+    through :func:`load_jax_state`, accumulators through
+    :func:`load_jax_optimizer_state` once renamed to the structured names;
+    the scheduler's state into the optimizer's ``LRScheduler``."""
+    raw = _read_raw(model_file)
+    by_pname = {v["name"]: k for k, v in raw.items()
+                if isinstance(v, dict) and v.get("__tensor__")}
+    load_jax_state(model, _unpack(raw))
+    opt = _unpack(_read_raw(opt_file))
+    state = {}
+    for key, value in opt.items():
+        for an in optimizer._accum_names:
+            suffix = f"_{an}"
+            if key.endswith(suffix) and key[:-len(suffix)] in by_pname:
+                state[f"{by_pname[key[:-len(suffix)]]}{suffix}"] = value
+    load_jax_optimizer_state(optimizer, model, state,
+                             step_count=int(opt.get("@step", 0)))
+    if "LR_Scheduler" in opt and hasattr(optimizer._lr, "set_state_dict"):
+        optimizer._lr.set_state_dict(opt["LR_Scheduler"])
+    if scaler is not None and scaler_file is not None:
+        scaler.load_state_dict(_unpack(_read_raw(scaler_file)))
+    return model, optimizer

@@ -1,12 +1,14 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel takes its element type as a template parameter (float or
-// __nv_bfloat16; the paged kernel's pools also int8) and does all of its
-// arithmetic in float: values are widened on load and narrowed once, on the
-// final store.
+// Every kernel takes its element type as a template parameter (float,
+// __nv_bfloat16 or, for the flash kernels, __half; the paged kernel's pools
+// also int8) and does all of its arithmetic in float: values are widened on
+// load and narrowed where the reference rounds them (the operands of a
+// 16-bit product, the final store).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,6 +23,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -31,6 +34,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -48,11 +55,26 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // dtype codes shared with the Python wrappers (ops/_build.py)
-enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2, kFloat16 = 3 };
 
 // two floats rounded to bf16 and packed into one register (low half first)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the same for a 16-bit element type T (__nv_bfloat16 or __half). Rounding
+// to nearest: a value beyond float16's range becomes inf and NaN stays NaN,
+// as the reference's astype lets them through (nothing is clamped).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 

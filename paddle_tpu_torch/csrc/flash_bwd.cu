@@ -11,9 +11,12 @@
 //   dp = dO v^T
 //   ds = p * (dp - delta) * scale
 //   dq = ds k        dk = ds^T q        dv = p^T dO
-// with every product accumulated in float, as the reference; in bf16, p
-// (for dv) and ds (for dq, dk) are rounded to bf16 before the products that
-// take them, as the reference rounds them to the input type. Two kernels, as
+// with every product accumulated in float, as the reference; in bf16 and
+// f16, p (for dv) and ds (for dq, dk) are rounded to the input type before
+// the products that take them, as the reference rounds them. In f16 a ds
+// beyond its range (a loss scaled up for dynamic loss scaling) rounds to
+// inf, and an inf or NaN in dO flows through: nothing is clamped, so the
+// overflow reaches the gradients as the reference's does. Two kernels, as
 // on the TPU: dq walks the key tiles of a block of queries, dk/dv walk the
 // query tiles of a block of keys. Neither needs atomics, so the gradients
 // repeat bit for bit from run to run. p is recomputed from (q, k, lse) in
@@ -28,10 +31,10 @@
 // What bounds it on the H100: dq is 3 products of 2*S^2*D flops per head,
 // dk/dv 4, both halved when causal, against ~5*S*D elements moved: at
 // training widths (S = 2048, D = 128) it is bound by operations, and in bf16
-// only wgmma reaches the tensor cores' dense rate.
+// and f16 only wgmma reaches the tensor cores' dense rate.
 //
-// What the design does about it: bf16 inputs take two warp-specialised
-// kernels with the forward's shape (csrc/flash_fwd.cu; the Hopper pieces in
+// What the design does about it: bf16 and f16 inputs take two
+// warp-specialised kernels (templates over the element type) with the forward's shape (csrc/flash_fwd.cu; the Hopper pieces in
 // hopper.cuh). A block owns 128 rows (queries for dq, keys for dk/dv) of one
 // (batch, head): a producer warpgroup loads them once by TMA and streams the
 // other side's tiles of 64 rows through a three-stage mbarrier ring, and two
@@ -48,7 +51,7 @@
 // it issues the score products of tile n with dQ += dS K of tile n - 1 and
 // builds dS of tile n while the latter runs. A dk/dv consumer cannot: with
 // dK and dV (128 floats a thread at D = 128) pinned, the next tile's S^T and
-// dP^T (64) beside this tile's bf16 P^T and dS^T operands (32) exceed the
+// dP^T (64) beside this tile's 16-bit P^T and dS^T operands (32) exceed the
 // 240 registers a consumer gets, and ptxas spilled and serialized the wgmma
 // (C7518); so it issues the score products, waits, builds P^T and dS^T,
 // issues the gradient products, and waits. dk/dv needs the lse and delta of
@@ -356,14 +359,14 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(BwdArgs a) {
   }
 }
 
-// ---------------------------------------------------------------- bf16 path
-// Both kernels are warp-specialised, 384 threads: warpgroup 0 is the
+// --------------------------------------------------- bf16 and f16 path
+// Both kernels (element type T: __nv_bfloat16 or __half) are
+// warp-specialised, 384 threads: warpgroup 0 is the
 // producer (one thread issues every TMA load; the warpgroup gives most of
 // its registers to the consumers, setmaxnreg 24 against 240), warpgroups 1
 // and 2 the consumers, 64 of the block's 128 rows each. Shared memory holds
-// bf16 tiles as TMA writes them with SWIZZLE_128B: per 64-column box, one
+// 16-bit tiles as TMA writes them with SWIZZLE_128B: per 64-column box, one
 // 128-byte row per sequence position (hopper.cuh).
-using bf16 = __nv_bfloat16;
 constexpr int kBM = 128;           // rows a block owns (2 consumers x 64)
 constexpr int kBN = 64;            // rows of a streamed tile
 constexpr int kStages = 3;         // ring depth
@@ -439,7 +442,7 @@ __device__ __forceinline__ BlockPos block_pos(int BH, int S, int group,
 // (a: its first row in the first 64-column box; a_box: bytes between boxes),
 // B = a tile of kBN rows (b, b_box), both K-major as TMA wrote them. A step
 // of 16 along D is 32 bytes inside a box.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_abt(float (&acc)[kAcc], uint32_t a,
                                           uint32_t a_box, uint32_t b,
                                           uint32_t b_box) {
@@ -450,34 +453,37 @@ __device__ __forceinline__ void wgmma_abt(float (&acc)[kAcc], uint32_t a,
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
-    hopper::wgmma_m64n64k16_ss(acc, da + (((kk / 4) * a_box + col) >> 4),
-                               db + (((kk / 4) * b_box + col) >> 4), kk > 0);
+    hopper::wgmma_m64n64k16_ss<T>(acc, da + (((kk / 4) * a_box + col) >> 4),
+                                  db + (((kk / 4) * b_box + col) >> 4),
+                                  kk > 0);
   }
 }
 
-// acc += X M, issued: X = 64 x kBN from registers (bf16 A fragments, x[kk]
+// acc += X M, issued: X = 64 x kBN from registers (T A fragments, x[kk]
 // for columns 16kk..16kk+15), M = a [kBN][D] tile read MN-major (transpose
 // bit): a step of 16 is 16 rows (2048 bytes), its 64-column boxes lie kBN
 // rows apart
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_xm(float (&acc)[D / 2],
                                          const uint32_t (&x)[kBN / 16][4],
                                          uint32_t m) {
   const uint64_t dm = hopper::desc_sw128(m, kBN * kRowBytes, 1024);
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
-    hopper::wgmma_rs<D, 1>(acc, x[kk], dm + ((kk * 16 * kRowBytes) >> 4), 1);
+    hopper::wgmma_rs<T, D, 1>(acc, x[kk], dm + ((kk * 16 * kRowBytes) >> 4),
+                              1);
 }
 
-// a score-layout accumulator, rounded to bf16, as the A operand of the next
-// product: columns 16kk..16kk+15 are x[8kk..8kk+7], two bf16 to a register
+// a score-layout accumulator, rounded to T, as the A operand of the next
+// product: columns 16kk..16kk+15 are x[8kk..8kk+7], two T to a register
+template <typename T>
 __device__ __forceinline__ void narrow(const float (&x)[kAcc],
                                        uint32_t (&a)[kBN / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = pt::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+      a[kk][r] = pt::pack2<T>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
 // dq's tile (rows: this thread's queries qpos[0], qpos[1]; columns: keys
@@ -540,13 +546,13 @@ __device__ __forceinline__ void grad_cols(float (&st)[kAcc],
 }
 
 // One consumer's 64 x D float gradient into rows first.. of a contiguous
-// [B, S, H, D] bf16 tensor: staged as bf16 in the consumer's own rows of a
+// [B, S, H, D] T tensor: staged as T in the consumer's own rows of a
 // block buffer (`stage`, its first row in box 0; boxes kBM rows apart;
 // 16-byte chunks swizzled by row), then stored as 16-byte vectors. ct is the
 // thread's index in the consumer warpgroup.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
-                                           unsigned char* stage, bf16* out,
+                                           unsigned char* stage, T* out,
                                            int b, int S, int H, int h,
                                            int first, int ct, int cw) {
   const int warp = ct >> 5;
@@ -560,7 +566,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
       const uint32_t off = (j / 8) * kBM * kRowBytes + r * kRowBytes +
                            (((j % 8) ^ (r & 7)) * 16) + t * 4;
       *reinterpret_cast<uint32_t*>(stage + off) =
-          pt::pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+          pt::pack2<T>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
   }
   hopper::named_barrier_sync(1 + cw, 128);
@@ -593,37 +599,37 @@ __device__ __forceinline__ void their_turn(int cw) {
 // x = A B^T and y = C E^T (dq: S = Q K^T, dP = dO V^T; dk/dv: S^T = K Q^T,
 // dP^T = V dO^T), a and c one consumer's rows of a 128-row block, b and e
 // a streamed tile
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_scores(float (&x)[kAcc],
                                              float (&y)[kAcc], uint32_t a,
                                              uint32_t c, uint32_t b,
                                              uint32_t e) {
   hopper::wgmma_fence();
-  wgmma_abt<D>(x, a, kBM * kRowBytes, b, kBN * kRowBytes);
-  wgmma_abt<D>(y, c, kBM * kRowBytes, e, kBN * kRowBytes);
+  wgmma_abt<T, D>(x, a, kBM * kRowBytes, b, kBN * kRowBytes);
+  wgmma_abt<T, D>(y, c, kBM * kRowBytes, e, kBN * kRowBytes);
   hopper::wgmma_commit();
 }
 
 // dQ += dS K, issued and committed
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_dq(float (&acc)[D / 2],
                                          const uint32_t (&dsa)[kBN / 16][4],
                                          uint32_t k) {
   hopper::wgmma_fence();
-  wgmma_xm<D>(acc, dsa, k);
+  wgmma_xm<T, D>(acc, dsa, k);
   hopper::wgmma_commit();
 }
 
 // dV += P^T dO and dK += dS^T Q, issued and committed as one group
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_dkv(float (&dka)[D / 2],
                                           float (&dva)[D / 2],
                                           const uint32_t (&pa)[kBN / 16][4],
                                           const uint32_t (&dsa)[kBN / 16][4],
                                           uint32_t q, uint32_t o) {
   hopper::wgmma_fence();
-  wgmma_xm<D>(dva, pa, o);
-  wgmma_xm<D>(dka, dsa, q);
+  wgmma_xm<T, D>(dva, pa, o);
+  wgmma_xm<T, D>(dka, dsa, q);
   hopper::wgmma_commit();
 }
 
@@ -631,13 +637,13 @@ __device__ __forceinline__ void issue_dkv(float (&dka)[D / 2],
 // through the ring; per tile S = Q K^T and dP = dO V^T (SS wgmma), then
 // dQ += dS K (dS from registers, K MN-major). A K slot is released when its
 // dQ product is done, a V slot when its dP product is.
-template <int D>
-__global__ void __launch_bounds__(kWsThreads, 1) dq_bf16_kernel(
+template <typename T, int D>
+__global__ void __launch_bounds__(kWsThreads, 1) dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_do,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int BH, int H,
+    const float* __restrict__ delta, T* __restrict__ dq, int BH, int H,
     int Sq, int Sk, int group, float scale, float scale_log2, int causal) {
   using L = DqSmem<D>;
   constexpr int kHalves = D / 64;  // 64-column boxes per row
@@ -746,7 +752,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) dq_bf16_kernel(
     hopper::mbar_wait(k_full, 0);
     hopper::mbar_wait(v_full, 0);
     my_turn(cw);
-    issue_scores<D>(sc, dp, q_rows, o_rows, sK, sV);
+    issue_scores<T, D>(sc, dp, q_rows, o_rows, sK, sV);
     their_turn(cw);
     hopper::wgmma_wait<0>();
     hopper::fence_operands(sc);
@@ -754,7 +760,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) dq_bf16_kernel(
     if (lane == 0) hopper::mbar_arrive(v_empty);
     grad_rows(sc, dp, lse2, dl, scale, scale_log2, edge(0), 0, Sk, causal,
               qpos, t);
-    narrow(sc, dsa);
+    narrow<T>(sc, dsa);
 
     for (int n = 1; n < n_tiles; ++n) {
       const int s = n % kStages;
@@ -764,9 +770,9 @@ __global__ void __launch_bounds__(kWsThreads, 1) dq_bf16_kernel(
       hopper::mbar_wait(k_full + 8 * s, (n / kStages) & 1);
       hopper::mbar_wait(v_full + 8 * s, (n / kStages) & 1);
       my_turn(cw);
-      issue_scores<D>(sc, dp, q_rows, o_rows, sK + s * L::kTileBytes,
-                      sV + s * L::kTileBytes);
-      issue_dq<D>(acc, dsa, sK + ps * L::kTileBytes);
+      issue_scores<T, D>(sc, dp, q_rows, o_rows, sK + s * L::kTileBytes,
+                         sV + s * L::kTileBytes);
+      issue_dq<T, D>(acc, dsa, sK + ps * L::kTileBytes);
       their_turn(cw);
       hopper::wgmma_wait<1>();  // the scores
       hopper::fence_operands(sc);
@@ -777,12 +783,12 @@ __global__ void __launch_bounds__(kWsThreads, 1) dq_bf16_kernel(
       hopper::wgmma_wait<0>();  // dQ of tile n - 1
       hopper::fence_operands(acc);
       if (lane == 0) hopper::mbar_arrive(k_empty + 8 * ps);
-      narrow(sc, dsa);
+      narrow<T>(sc, dsa);
     }
     {
       const int s = (n_tiles - 1) % kStages;
       my_turn(cw);
-      issue_dq<D>(acc, dsa, sK + s * L::kTileBytes);
+      issue_dq<T, D>(acc, dsa, sK + s * L::kTileBytes);
       if (cw == 0) their_turn(cw);
       hopper::wgmma_wait<0>();
       hopper::fence_operands(acc);
@@ -791,8 +797,8 @@ __global__ void __launch_bounds__(kWsThreads, 1) dq_bf16_kernel(
 
     // the warpgroup's rows of the Q tile are free now: only its own
     // products read them
-    store_rows<D>(acc, smem + L::kQ + cw * 64 * kRowBytes, dq, b, Sq, H, h,
-                  cw_first, ct & 127, cw);
+    store_rows<T, D>(acc, smem + L::kQ + cw * 64 * kRowBytes, dq, b, Sq, H,
+                     h, cw_first, ct & 127, cw);
   }
 }
 
@@ -802,15 +808,15 @@ __global__ void __launch_bounds__(kWsThreads, 1) dq_bf16_kernel(
 // dS^T from registers, dO and Q MN-major), one after the other (see the
 // header: the consumer's registers do not hold both in flight). A slot is
 // released when both gradient products of its tile are done.
-template <int D>
-__global__ void __launch_bounds__(kWsThreads, 1) dkv_bf16_kernel(
+template <typename T, int D>
+__global__ void __launch_bounds__(kWsThreads, 1) dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_do,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_lse,
-    const __grid_constant__ CUtensorMap tm_dl, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int BH, int H, int Sq, int Sk, int group,
+    const __grid_constant__ CUtensorMap tm_dl, T* __restrict__ dk,
+    T* __restrict__ dv, int BH, int H, int Sq, int Sk, int group,
     float scale, float scale_log2, int causal) {
   using L = DkvSmem<D>;
   constexpr int kHalves = D / 64;
@@ -916,19 +922,19 @@ __global__ void __launch_bounds__(kWsThreads, 1) dkv_bf16_kernel(
       const int q0 = (qt0 + n) * kBN;
       hopper::mbar_wait(full + 8 * s, (n / kStages) & 1);
       my_turn(cw);
-      issue_scores<D>(st, dpt, k_rows, v_rows, sQ + s * L::kTileBytes,
-                      sO + s * L::kTileBytes);
+      issue_scores<T, D>(st, dpt, k_rows, v_rows, sQ + s * L::kTileBytes,
+                         sO + s * L::kTileBytes);
       their_turn(cw);
       hopper::wgmma_wait<0>();
       hopper::fence_operands(st);
       hopper::fence_operands(dpt);
       grad_cols(st, dpt, lse_s(s), dl_s(s), scale, scale_log2, edge(q0), q0,
                 Sq, Sk, causal, kpos, t);
-      narrow(st, pa);
-      narrow(dpt, dsa);
+      narrow<T>(st, pa);
+      narrow<T>(dpt, dsa);
       my_turn(cw);
-      issue_dkv<D>(dka, dva, pa, dsa, sQ + s * L::kTileBytes,
-                   sO + s * L::kTileBytes);
+      issue_dkv<T, D>(dka, dva, pa, dsa, sQ + s * L::kTileBytes,
+                      sO + s * L::kTileBytes);
       if (n + 1 < n_tiles || cw == 0) their_turn(cw);
       hopper::wgmma_wait<0>();
       hopper::fence_operands(dka);
@@ -937,10 +943,10 @@ __global__ void __launch_bounds__(kWsThreads, 1) dkv_bf16_kernel(
     }
 
     // the warpgroup's rows of the K and V blocks are free now
-    store_rows<D>(dka, smem + L::kK + cw * 64 * kRowBytes, dk, b, Sk, H, h,
-                  cw_first, ct & 127, cw);
-    store_rows<D>(dva, smem + L::kV + cw * 64 * kRowBytes, dv, b, Sk, H, h,
-                  cw_first, ct & 127, cw);
+    store_rows<T, D>(dka, smem + L::kK + cw * 64 * kRowBytes, dk, b, Sk, H,
+                     h, cw_first, ct & 127, cw);
+    store_rows<T, D>(dva, smem + L::kV + cw * 64 * kRowBytes, dv, b, Sk, H,
+                     h, cw_first, ct & 127, cw);
   }
 }
 
@@ -963,56 +969,56 @@ cudaError_t ws_prepare(Kernel kernel, size_t smem, int64_t blocks) {
   return cudaSuccess;
 }
 
-template <int D>
-cudaError_t launch_dq_bf16(const BwdArgs& a, int B, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_dq_wgmma(const BwdArgs& a, int B, cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
-  if (!hopper_host::encode_bshd_bf16(&tm_q, a.q, B, a.Sq, a.H, D, a.q_sb,
-                                     a.q_ss, a.q_sh, kBM) ||
-      !hopper_host::encode_bshd_bf16(&tm_do, a.dout, B, a.Sq, a.H, D, a.o_sb,
-                                     a.o_ss, a.o_sh, kBM) ||
-      !hopper_host::encode_bshd_bf16(&tm_k, a.k, B, a.Sk, a.H, D, a.k_sb,
-                                     a.k_ss, a.k_sh, kBN) ||
-      !hopper_host::encode_bshd_bf16(&tm_v, a.v, B, a.Sk, a.H, D, a.v_sb,
-                                     a.v_ss, a.v_sh, kBN))
+  if (!hopper_host::encode_bshd<T>(&tm_q, a.q, B, a.Sq, a.H, D, a.q_sb,
+                                    a.q_ss, a.q_sh, kBM) ||
+      !hopper_host::encode_bshd<T>(&tm_do, a.dout, B, a.Sq, a.H, D, a.o_sb,
+                                    a.o_ss, a.o_sh, kBM) ||
+      !hopper_host::encode_bshd<T>(&tm_k, a.k, B, a.Sk, a.H, D, a.k_sb,
+                                    a.k_ss, a.k_sh, kBN) ||
+      !hopper_host::encode_bshd<T>(&tm_v, a.v, B, a.Sk, a.H, D, a.v_sb,
+                                    a.v_ss, a.v_sh, kBN))
     return cudaErrorInvalidValue;
   const int64_t blocks = (int64_t)B * a.H * ((a.Sq + kBM - 1) / kBM);
   cudaError_t err =
-      ws_prepare(dq_bf16_kernel<D>, DqSmem<D>::kDynamic, blocks);
+      ws_prepare(dq_wgmma_kernel<T, D>, DqSmem<D>::kDynamic, blocks);
   if (err != cudaSuccess) return err;
   const int BH = B * a.H;
-  dq_bf16_kernel<D><<<(unsigned)blocks, kWsThreads, DqSmem<D>::kDynamic,
-                      stream>>>(
-      tm_q, tm_do, tm_k, tm_v, a.lse, a.delta, static_cast<bf16*>(a.dq), BH,
+  dq_wgmma_kernel<T, D><<<(unsigned)blocks, kWsThreads, DqSmem<D>::kDynamic,
+                          stream>>>(
+      tm_q, tm_do, tm_k, tm_v, a.lse, a.delta, static_cast<T*>(a.dq), BH,
       a.H, a.Sq, a.Sk, head_group(BH, 4ll * a.Sk * D), a.scale,
       a.scale * kLog2e, a.causal);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv_bf16(const BwdArgs& a, int B, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_dkv_wgmma(const BwdArgs& a, int B, cudaStream_t stream) {
   const int64_t n_rows = (int64_t)B * a.H * a.Sq;  // lse and delta
   if (n_rows + kBN > 0x7fffffff) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_lse, tm_dl;
-  if (!hopper_host::encode_bshd_bf16(&tm_q, a.q, B, a.Sq, a.H, D, a.q_sb,
-                                     a.q_ss, a.q_sh, kBN) ||
-      !hopper_host::encode_bshd_bf16(&tm_do, a.dout, B, a.Sq, a.H, D, a.o_sb,
-                                     a.o_ss, a.o_sh, kBN) ||
-      !hopper_host::encode_bshd_bf16(&tm_k, a.k, B, a.Sk, a.H, D, a.k_sb,
-                                     a.k_ss, a.k_sh, kBM) ||
-      !hopper_host::encode_bshd_bf16(&tm_v, a.v, B, a.Sk, a.H, D, a.v_sb,
-                                     a.v_ss, a.v_sh, kBM) ||
+  if (!hopper_host::encode_bshd<T>(&tm_q, a.q, B, a.Sq, a.H, D, a.q_sb,
+                                    a.q_ss, a.q_sh, kBN) ||
+      !hopper_host::encode_bshd<T>(&tm_do, a.dout, B, a.Sq, a.H, D, a.o_sb,
+                                    a.o_ss, a.o_sh, kBN) ||
+      !hopper_host::encode_bshd<T>(&tm_k, a.k, B, a.Sk, a.H, D, a.k_sb,
+                                    a.k_ss, a.k_sh, kBM) ||
+      !hopper_host::encode_bshd<T>(&tm_v, a.v, B, a.Sk, a.H, D, a.v_sb,
+                                    a.v_ss, a.v_sh, kBM) ||
       !hopper_host::encode_1d_f32(&tm_lse, a.lse, n_rows, kBN) ||
       !hopper_host::encode_1d_f32(&tm_dl, a.delta, n_rows, kBN))
     return cudaErrorInvalidValue;
   const int64_t blocks = (int64_t)B * a.H * ((a.Sk + kBM - 1) / kBM);
   cudaError_t err =
-      ws_prepare(dkv_bf16_kernel<D>, DkvSmem<D>::kDynamic, blocks);
+      ws_prepare(dkv_wgmma_kernel<T, D>, DkvSmem<D>::kDynamic, blocks);
   if (err != cudaSuccess) return err;
   const int BH = B * a.H;
-  dkv_bf16_kernel<D><<<(unsigned)blocks, kWsThreads, DkvSmem<D>::kDynamic,
-                       stream>>>(
-      tm_q, tm_do, tm_k, tm_v, tm_lse, tm_dl, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), BH, a.H, a.Sq, a.Sk,
+  dkv_wgmma_kernel<T, D><<<(unsigned)blocks, kWsThreads,
+                           DkvSmem<D>::kDynamic, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, tm_lse, tm_dl, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), BH, a.H, a.Sq, a.Sk,
       head_group(BH, 4ll * a.Sq * D + 8ll * a.Sq), a.scale, a.scale * kLog2e,
       a.causal);
   return cudaGetLastError();
@@ -1087,9 +1093,14 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == pt::kFloat32 && D == 128)
     return launch(dq_f32_kernel<128>, dq_f32_smem<128>(), B, Sq, kRows,
                   kThreads, a, st);
-  if (dtype == pt::kBFloat16 && D == 64) return launch_dq_bf16<64>(a, B, st);
+  if (dtype == pt::kBFloat16 && D == 64)
+    return launch_dq_wgmma<__nv_bfloat16, 64>(a, B, st);
   if (dtype == pt::kBFloat16 && D == 128)
-    return launch_dq_bf16<128>(a, B, st);
+    return launch_dq_wgmma<__nv_bfloat16, 128>(a, B, st);
+  if (dtype == pt::kFloat16 && D == 64)
+    return launch_dq_wgmma<__half, 64>(a, B, st);
+  if (dtype == pt::kFloat16 && D == 128)
+    return launch_dq_wgmma<__half, 128>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1109,8 +1120,12 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return launch(dkv_f32_kernel<128>, dkv_f32_smem<128>(), B, Sk, kRows,
                   kThreads, a, st);
   if (dtype == pt::kBFloat16 && D == 64)
-    return launch_dkv_bf16<64>(a, B, st);
+    return launch_dkv_wgmma<__nv_bfloat16, 64>(a, B, st);
   if (dtype == pt::kBFloat16 && D == 128)
-    return launch_dkv_bf16<128>(a, B, st);
+    return launch_dkv_wgmma<__nv_bfloat16, 128>(a, B, st);
+  if (dtype == pt::kFloat16 && D == 64)
+    return launch_dkv_wgmma<__half, 64>(a, B, st);
+  if (dtype == pt::kFloat16 && D == 128)
+    return launch_dkv_wgmma<__half, 128>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }

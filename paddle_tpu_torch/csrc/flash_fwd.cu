@@ -15,11 +15,13 @@
 //
 // What bounds it on the H100: at prefill and training widths (S up to 2048,
 // D=128) the work is 4*S^2*D/2 flops per (batch, head) against 4*S*D elements
-// moved, so it is bound by operations: in bf16 only wgmma reaches the tensor
-// cores' dense rate, and only if the loads hide behind it.
+// moved, so it is bound by operations: in bf16 and f16 only wgmma reaches the
+// tensor cores' dense rate, and only if the loads hide behind it.
 //
-// What the design does about it: bf16 inputs take the warp-specialised
-// kernel below: TMA loads into a two-stage K/V ring in shared memory, one
+// What the design does about it: bf16 and f16 inputs take the
+// warp-specialised kernel below (one template over the element type: the
+// tensor maps' data type, the wgmma kind and the rounding of P and of the
+// output follow it): TMA loads into a two-stage K/V ring in shared memory, one
 // producer warpgroup and two consumer warpgroups that run both products with
 // wgmma (the second straight from the V tile as TMA wrote it), the softmax in
 // registers, the mask only on tiles that need one, and the heaviest causal
@@ -225,8 +227,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 
-// ---------------------------------------------------------------- bf16 path
-// The bf16 forward is warp-specialised for Hopper. A block owns 128 query
+// --------------------------------------------------- bf16 and f16 path
+// The 16-bit forward (T = __nv_bfloat16 or __half) is warp-specialised for
+// Hopper. A block owns 128 query
 // rows of one (batch, head) and runs three warpgroups:
 // - warpgroup 0 is the producer: one thread loads the Q tile once and then
 //   K and V tiles of 128 keys by TMA into a ring of kStages stages (128-byte
@@ -239,8 +242,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 //   the raw scores and the scale folds into one FFMA per element; only
 //   tiles that touch the causal diagonal or the ragged end of the keys
 //   build a mask), then O += P V by wgmma with P as the register operand
-//   (the score accumulator narrowed to bf16 in place, as the reference
-//   rounds p to v's type) and V read MN-major straight from its TMA tile
+//   (the score accumulator narrowed to T in place, as the reference rounds
+//   p to v's type) and V read MN-major straight from its TMA tile
 //   (transpose bit, no transposed copy).
 // Each consumer overlaps the softmax of tile n with the P V product of tile
 // n - 1 (both products are issued before it waits for the first), and the
@@ -248,8 +251,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // other's products hold the tensor cores. That needs about 200 registers a
 // consumer thread, more than the 168 a 384-thread block starts with: the
 // producer gives its registers up.
-// The epilogue divides by l, stages each warpgroup's 64 x D output in its
-// own rows of the Q tile and stores it as 16-byte vectors; lse is written
+// The epilogue divides by l, stages each warpgroup's 64 x D output (rounded
+// to T: a value beyond float16's range becomes inf, as the reference's cast
+// makes it) in its own rows of the Q tile and stores it as 16-byte vectors; lse is written
 // per row. Heads run in groups whose K/V fit in L2 together, the heaviest
 // causal blocks of a group first, and no block loads a tile above its
 // diagonal. TMA fills rows past S with zeros, so any S runs and the ragged
@@ -275,7 +279,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // barriers
 template <int D>
 struct FwdSmem {
-  static constexpr uint32_t kBoxRowBytes = 128;  // 64 bf16
+  static constexpr uint32_t kBoxRowBytes = 128;  // 64 16-bit elements
   static constexpr uint32_t kQBytes = kBM * D * 2;
   static constexpr uint32_t kKVBytes = kBN * D * 2;  // one K or V tile
   static constexpr uint32_t kQ = 0;
@@ -290,7 +294,7 @@ struct FwdSmem {
 // S = Q K^T for one consumer's 64 rows and a tile of kBN keys, issued (not
 // waited for): q is the consumer's first Q row in the first 64-column box,
 // k the stage's K tile. K = D in steps of 16 (32 bytes inside a box).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[kScores], uint32_t q,
                                          uint32_t k) {
   hopper::wgmma_fence();
@@ -301,14 +305,14 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kScores], uint32_t q,
         q + (kk / 4) * kBM * FwdSmem<D>::kBoxRowBytes + col, 16, 1024);
     const uint64_t db = hopper::desc_sw128(
         k + (kk / 4) * kBN * FwdSmem<D>::kBoxRowBytes + col, 16, 1024);
-    hopper::wgmma_m64n128k16_ss(sc, da, db, kk > 0);
+    hopper::wgmma_m64n128k16_ss<T>(sc, da, db, kk > 0);
   }
   hopper::wgmma_commit();
 }
 
 // O += P V, issued: V [keys][D] is MN-major for this product; a step of 16
 // keys is 16 rows (2048 bytes), the 64-column boxes lie kBN rows apart
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pa)[kBN / 16][4],
                                          uint32_t v) {
@@ -318,7 +322,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
     const uint64_t db = hopper::desc_sw128(
         v + kk * 16 * FwdSmem<D>::kBoxRowBytes,
         kBN * FwdSmem<D>::kBoxRowBytes, 1024);
-    hopper::wgmma_rs<D, 1>(o, pa[kk], db, 1);
+    hopper::wgmma_rs<T, D, 1>(o, pa[kk], db, 1);
   }
   hopper::wgmma_commit();
 }
@@ -376,21 +380,22 @@ __device__ __forceinline__ void online_softmax(
 }
 
 // p (the score accumulator layout) to the A operand of P V: keys
-// 16kk..16kk+15 are sc[8kk..8kk+7], two bf16 to a register
+// 16kk..16kk+15 are sc[8kk..8kk+7], two T to a register
+template <typename T>
 __device__ __forceinline__ void narrow_p(const float (&p)[kScores],
                                          uint32_t (&pa)[kBN / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      pa[kk][r] = pt::pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+      pa[kk][r] = pt::pack2<T>(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
 }
 
-template <int D, bool kPositiveScale>
-__global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_bf16_kernel(
+template <typename T, int D, bool kPositiveScale>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+    const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
     float* __restrict__ lse, int BH, int H, int Sq, int Sk, int group,
     float scale_log2, int causal) {
   using L = FwdSmem<D>;
@@ -511,14 +516,14 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_bf16_kernel(
     hopper::mbar_wait(q_full, 0);
     hopper::mbar_wait(k_full, 0);
     my_turn();
-    issue_qk<D>(sc, q_rows, sK);
+    issue_qk<T, D>(sc, q_rows, sK);
     their_turn();
     hopper::wgmma_wait<0>();
     hopper::fence_operands(sc);
     release(k_empty);
     online_softmax<kPositiveScale>(sc, m, l, alpha, scale_log2, edge(0), 0,
                                    Sk, causal, qpos, t);
-    narrow_p(sc, pa);
+    narrow_p<T>(sc, pa);
 
     for (int n = 1; n < n_tiles; ++n) {
       const int s = n % kStages;
@@ -528,8 +533,8 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_bf16_kernel(
       hopper::mbar_wait(k_full + 8 * s, (n / kStages) & 1);
       hopper::mbar_wait(v_full + 8 * ps, ((n - 1) / kStages) & 1);
       my_turn();
-      issue_qk<D>(sc, q_rows, sK + s * L::kKVBytes);
-      issue_pv<D>(o, pa, sV + ps * L::kKVBytes);
+      issue_qk<T, D>(sc, q_rows, sK + s * L::kKVBytes);
+      issue_pv<T, D>(o, pa, sV + ps * L::kKVBytes);
       their_turn();
       hopper::wgmma_wait<1>();  // the scores
       hopper::fence_operands(sc);
@@ -546,14 +551,14 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_bf16_kernel(
         o[4 * j + 2] *= alpha[1];
         o[4 * j + 3] *= alpha[1];
       }
-      narrow_p(sc, pa);
+      narrow_p<T>(sc, pa);
     }
     {
       const int n = n_tiles - 1;
       const int s = n % kStages;
       hopper::mbar_wait(v_full + 8 * s, (n / kStages) & 1);
       my_turn();
-      issue_pv<D>(o, pa, sV + s * L::kKVBytes);
+      issue_pv<T, D>(o, pa, sV + s * L::kKVBytes);
       if (cw == 0) their_turn();
       hopper::wgmma_wait<0>();
       hopper::fence_operands(o);
@@ -563,7 +568,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_bf16_kernel(
     // ------------------------------------------------------- epilogue
     // out = o / l, lse = m ln 2 + log(l). The warpgroup's own rows of the
     // Q tile are free now (only its own products read them): stage the
-    // bf16 rows there, 128-byte rows with 16-byte chunks swizzled by row,
+    // T rows there, 128-byte rows with 16-byte chunks swizzled by row,
     // then store them as 16-byte vectors.
     float inv[2];
 #pragma unroll
@@ -582,7 +587,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_bf16_kernel(
         const uint32_t off = (j / 8) * kBM * L::kBoxRowBytes +
                              r * L::kBoxRowBytes +
                              (((j % 8) ^ (r & 7)) * 16) + t * 4;
-        *reinterpret_cast<uint32_t*>(stage + off) = pt::pack_bf16(
+        *reinterpret_cast<uint32_t*>(stage + off) = pt::pack2<T>(
             o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
       }
     }
@@ -602,25 +607,25 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_bf16_kernel(
   }
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+template <typename T, int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int H, int Sq, int Sk,
                         int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                         int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                         int64_t v_sh, float scale, int causal,
                         cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!hopper_host::encode_bshd_bf16(&tm_q, q, B, Sq, H, D, q_sb, q_ss, q_sh,
-                                     kBM) ||
-      !hopper_host::encode_bshd_bf16(&tm_k, k, B, Sk, H, D, k_sb, k_ss, k_sh,
-                                     kBN) ||
-      !hopper_host::encode_bshd_bf16(&tm_v, v, B, Sk, H, D, v_sb, v_ss, v_sh,
-                                     kBN))
+  if (!hopper_host::encode_bshd<T>(&tm_q, q, B, Sq, H, D, q_sb, q_ss, q_sh,
+                                    kBM) ||
+      !hopper_host::encode_bshd<T>(&tm_k, k, B, Sk, H, D, k_sb, k_ss, k_sh,
+                                    kBN) ||
+      !hopper_host::encode_bshd<T>(&tm_v, v, B, Sk, H, D, v_sb, v_ss, v_sh,
+                                    kBN))
     return cudaErrorInvalidValue;
   const size_t smem = FwdSmem<D>::kDynamic;
   const bool positive = scale > 0.f;
-  auto kernel = positive ? flash_fwd_bf16_kernel<D, true>
-                         : flash_fwd_bf16_kernel<D, false>;
+  auto kernel = positive ? flash_fwd_wgmma_kernel<T, D, true>
+                         : flash_fwd_wgmma_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -628,13 +633,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   // heads per group: as few groups as keep a group's K/V within kL2Budget,
   // of equal size
-  const int64_t kv_bytes = 4ll * Sk * D;  // K and V of one head, bf16
+  const int64_t kv_bytes = 4ll * Sk * D;  // K and V of one head, 16-bit
   const int64_t n_groups =
       std::max<int64_t>(1, ((int64_t)B * H * kv_bytes + kL2Budget - 1) /
                                kL2Budget);
   const int group = (int)(((int64_t)B * H + n_groups - 1) / n_groups);
   kernel<<<(unsigned)blocks, kWsThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, B * H, H, Sq,
+      tm_q, tm_k, tm_v, static_cast<T*>(out), lse, B * H, H, Sq,
       Sk, group, scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -663,9 +668,14 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == pt::kFloat32 && D == 64) return launch<float, 64>(PT_FLASH_ARGS);
   if (dtype == pt::kFloat32 && D == 128)
     return launch<float, 128>(PT_FLASH_ARGS);
-  if (dtype == pt::kBFloat16 && D == 64) return launch_bf16<64>(PT_FLASH_ARGS);
+  if (dtype == pt::kBFloat16 && D == 64)
+    return launch_wgmma<__nv_bfloat16, 64>(PT_FLASH_ARGS);
   if (dtype == pt::kBFloat16 && D == 128)
-    return launch_bf16<128>(PT_FLASH_ARGS);
+    return launch_wgmma<__nv_bfloat16, 128>(PT_FLASH_ARGS);
+  if (dtype == pt::kFloat16 && D == 64)
+    return launch_wgmma<__half, 64>(PT_FLASH_ARGS);
+  if (dtype == pt::kFloat16 && D == 128)
+    return launch_wgmma<__half, 128>(PT_FLASH_ARGS);
 #undef PT_FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,7 @@
 //
 // How the pieces fit (csrc/flash_fwd.cu and csrc/flash_bwd.cu use them):
 // - A tensor map describes a strided tensor in device memory. It is encoded
-//   on the host (encode_bshd_bf16, through the driver entry point that the
+//   on the host (encode_bshd, through the driver entry point that the
 //   runtime hands out, so the library links no libcuda) and passed to the
 //   kernel as a __grid_constant__ parameter.
 // - One thread issues tma_load_4d for a box of the tensor into shared
@@ -15,8 +15,8 @@
 //   swizzle; when done they arrive on the stage's "empty" barrier so the
 //   producer may load the next tile into it.
 //
-// Shared memory layout of a bf16 tile as TMA writes it with SWIZZLE_128B: a
-// box of 64 columns (128 bytes) by R rows is R rows of 128 bytes, the 16-byte
+// Shared memory layout of a 16-bit (bf16 or f16) tile as TMA writes it with
+// SWIZZLE_128B: a box of 64 columns (128 bytes) by R rows is R rows of 128 bytes, the 16-byte
 // chunk c of row r stored at chunk c ^ (r % 8). Wider rows are loaded as
 // several such boxes, one after the other. Every box starts on a 1024-byte
 // boundary.
@@ -24,8 +24,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -145,10 +148,10 @@ __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
 // ---------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor for a 128-byte swizzled operand (layout
 // type 1 in bits 62-63). Offsets are in bytes:
-// - K-major operand (rows of 64 bf16 along K, as TMA wrote them): sbo is the
+// - K-major operand (rows of 64 elements along K, as TMA wrote them): sbo is the
 //   stride between groups of 8 rows (1024); lbo is unused. A step of 16
 //   along K adds 32 bytes to the start address, inside the swizzle atom.
-// - MN-major operand (rows of 64 bf16 along M or N, one row per K index):
+// - MN-major operand (rows of 64 elements along M or N, one row per K index):
 //   sbo is the stride between groups of 8 K rows (1024), lbo the stride
 //   between the 64-wide blocks along M or N. Use it with the transpose bit.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr,
@@ -182,126 +185,124 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// The products below are m64nNk16 with bf16 inputs and float accumulators
-// d. Thread t of the warpgroup (warp w = t / 32, g = (t % 32) / 4,
-// q = t % 4) holds rows 16w + g (d[4j], d[4j + 1]) and 16w + g + 8
-// (d[4j + 2], d[4j + 3]) at columns 8j + 2q and 8j + 2q + 1. A register A
-// operand holds the same rows at k = 2q, 2q + 1 (a[0], a[1] for the two rows)
-// and 2q + 8, 2q + 9 (a[2], a[3]), two bf16 to a register: the accumulator
-// of keys 16k..16k+15 (d[8k..8k+7]) is the A operand of step k as it stands.
-// scale_d = 0 overwrites d, 1 accumulates. Trans = 1: MN-major operand.
+// The products below are m64nNk16 with 16-bit inputs of type T (bf16 or
+// f16: the template argument picks the instruction's .bf16 or .f16 kind; the
+// operands' layouts and descriptors are the same, both types being 2 bytes)
+// and float accumulators d. Thread t of the warpgroup (warp w = t / 32,
+// g = (t % 32) / 4, q = t % 4) holds rows 16w + g (d[4j], d[4j + 1]) and
+// 16w + g + 8 (d[4j + 2], d[4j + 3]) at columns 8j + 2q and 8j + 2q + 1. A
+// register A operand holds the same rows at k = 2q, 2q + 1 (a[0], a[1] for
+// the two rows) and 2q + 8, 2q + 9 (a[2], a[3]), two elements to a register:
+// the accumulator of keys 16k..16k+15 (d[8k..8k+7]) is the A operand of
+// step k as it stands. scale_d = 0 overwrites d, 1 accumulates. Trans = 1:
+// MN-major operand.
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
 #define PT_ACC8(d, i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PT_ACC32(d, i)                                                       \
+  PT_ACC8(d, i), PT_ACC8(d, i + 8), PT_ACC8(d, i + 16), PT_ACC8(d, i + 24)
+#define PT_REGS32                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31"
+#define PT_REGS64                                                            \
+  PT_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+            "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
+            "%56, %57, %58, %59, %60, %61, %62, %63"
 
-template <int TransB>
+// m64n64k16, A from registers, B from shared memory; TY is "bf16" or "f16"
+#define PT_WGMMA_N64_RS(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"  \
+               PT_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"  \
+               : PT_ACC32(d, 0)                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),        \
+                 "r"(scale_d), "n"(TransB))
+// m64n64k16, both operands K-major in shared memory (no transpose bits)
+#define PT_WGMMA_N64_SS(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"  \
+               PT_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                  \
+               : PT_ACC32(d, 0)                                              \
+               : "l"(da), "l"(db), "r"(scale_d))
+// m64n128k16, both operands K-major in shared memory
+#define PT_WGMMA_N128_SS(TY)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+               PT_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                  \
+               : PT_ACC32(d, 0), PT_ACC32(d, 32)                             \
+               : "l"(da), "l"(db), "r"(scale_d))
+// m64n128k16, A from registers
+#define PT_WGMMA_N128_RS(TY)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+               PT_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"  \
+               : PT_ACC32(d, 0), PT_ACC32(d, 32)                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),        \
+                 "r"(scale_d), "n"(TransB))
+
+template <typename T, int TransB>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                   const uint32_t (&a)[4],
                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, "
-      "%38;\n}\n"
-      : PT_ACC8(d, 0),
-        PT_ACC8(d, 8),
-        PT_ACC8(d, 16),
-        PT_ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TransB));
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_N64_RS("f16");
+  else
+    PT_WGMMA_N64_RS("bf16");
 }
 
-// both operands K-major (no transpose bits)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
                                                    uint64_t da, uint64_t db,
                                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : PT_ACC8(d, 0),
-        PT_ACC8(d, 8),
-        PT_ACC8(d, 16),
-        PT_ACC8(d, 24)
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_N64_SS("f16");
+  else
+    PT_WGMMA_N64_SS("bf16");
 }
 
-// both operands K-major (no transpose bits)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
                                                     uint64_t da, uint64_t db,
                                                     int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : PT_ACC8(d, 0),
-        PT_ACC8(d, 8),
-        PT_ACC8(d, 16),
-        PT_ACC8(d, 24),
-        PT_ACC8(d, 32),
-        PT_ACC8(d, 40),
-        PT_ACC8(d, 48),
-        PT_ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_N128_SS("f16");
+  else
+    PT_WGMMA_N128_SS("bf16");
 }
 
-template <int TransB>
+template <typename T, int TransB>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, "
-      "%70;\n}\n"
-      : PT_ACC8(d, 0),
-        PT_ACC8(d, 8),
-        PT_ACC8(d, 16),
-        PT_ACC8(d, 24),
-        PT_ACC8(d, 32),
-        PT_ACC8(d, 40),
-        PT_ACC8(d, 48),
-        PT_ACC8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TransB));
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_N128_RS("f16");
+  else
+    PT_WGMMA_N128_RS("bf16");
 }
 
+#undef PT_WGMMA_N128_RS
+#undef PT_WGMMA_N128_SS
+#undef PT_WGMMA_N64_SS
+#undef PT_WGMMA_N64_RS
+#undef PT_REGS64
+#undef PT_REGS32
+#undef PT_ACC32
 #undef PT_ACC8
 
 // the register-A products above by their N (64 or 128)
-template <int N, int TransB>
+template <typename T, int N, int TransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
   static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
   if constexpr (N == 128)
-    wgmma_m64n128k16_rs<TransB>(d, a, db, scale_d);
+    wgmma_m64n128k16_rs<T, TransB>(d, a, db, scale_d);
   else
-    wgmma_m64n64k16_rs<TransB>(d, a, db, scale_d);
+    wgmma_m64n64k16_rs<T, TransB>(d, a, db, scale_d);
 }
 
 }  // namespace hopper
@@ -337,18 +338,21 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 4-D map (D, H, S, B), innermost first, over a bf16 [B, S, H, D] tensor
-// with element strides sb, ss, sh and a contiguous last dim; boxes of 64
-// columns (128 bytes, SWIZZLE_128B) by box_rows positions of one head.
-// Dims of size 1 get a stride that is never used but is valid. Returns false
-// if the driver refuses the map (e.g. strides that are not multiples of 16
-// bytes, a base pointer not 16-byte aligned).
-inline bool encode_bshd_bf16(CUtensorMap* map, const void* ptr, int B, int S,
-                             int H, int D, int64_t sb, int64_t ss, int64_t sh,
-                             int box_rows) {
+// A 4-D map (D, H, S, B), innermost first, over a 16-bit [B, S, H, D]
+// tensor of type T (__nv_bfloat16 or __half) with element strides sb, ss, sh
+// and a contiguous last dim; boxes of 64 columns (128 bytes, SWIZZLE_128B)
+// by box_rows positions of one head. Dims of size 1 get a stride that is
+// never used but is valid. Returns false if the driver refuses the map (e.g.
+// strides that are not multiples of 16 bytes, a base pointer not 16-byte
+// aligned).
+template <typename T>
+inline bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int S,
+                        int H, int D, int64_t sb, int64_t ss, int64_t sh,
+                        int box_rows) {
+  static_assert(sizeof(T) == 2, "encode_bshd: a 16-bit element type");
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  const uint64_t elt = sizeof(__nv_bfloat16);
+  const uint64_t elt = sizeof(T);
   if (H == 1) sh = D;
   if (S == 1) ss = sh * H;
   if (B == 1) sb = ss * S;
@@ -358,9 +362,12 @@ inline bool encode_bshd_bf16(CUtensorMap* map, const void* ptr, int B, int S,
                            (cuuint64_t)sb * elt};
   cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   cuuint32_t estride[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, estride,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType type = hopper::kIsHalf<T>
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+                estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -14,11 +14,23 @@ hand-written flash kernels forward and backward.
   with the device once, at the end (reference ``:614-675``).
 - Every trainable parameter is updated at every step, a parameter that got
   no gradient with a zero one, as the reference's ``value_and_grad`` gives.
+- ``scaler=GradScaler(...)`` (enabled) brings dynamic loss scaling into the
+  step, as the reference's (``:436-551``): the loss is scaled before
+  ``backward()``, the gradients are unscaled in float32 and cast back to
+  their type, ``found_inf`` is taken over all of them, a step that found one
+  leaves the parameters and every accumulator untouched (t still
+  advances), and the scale follows the incr/decr schedule. The scale and
+  the counters stay on the device as 0-d tensors (no host sync a step,
+  ``run_steps`` included) and are mirrored into the scaler after each
+  step; a ``load_state_dict`` on the scaler takes effect at the next call
+  (its ``_epoch`` changed, as the reference checks). A disabled scaler is
+  ignored.
+- Randomness (dropout) draws from the port's generator
+  (``framework/random.py``), which advances with every step.
 
 Not in this slice: buffer donation, meshes, the compile cache and xstats,
-the numerics tripwires, DGC/LocalSGD, ASP masks and the fp16 ``GradScaler``.
-Asking for any of them raises ``NotImplementedError`` naming its ROADMAP
-item.
+the numerics tripwires, DGC/LocalSGD and ASP masks. Asking for any of them
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -49,10 +61,6 @@ class TrainStep:
                 "buffer donation is not ported: the port updates parameters "
                 "and optimizer state in place (ROADMAP queue 1 item 11: the "
                 "compiled step's features)")
-        if scaler is not None:
-            raise NotImplementedError(
-                "the fp16 GradScaler is not ported yet (ROADMAP queue 1 item "
-                "6: dynamic loss scaling)")
         for attr in ("_dgc_cfg", "_localsgd_cfg"):
             if getattr(optimizer, attr, None) is not None:
                 raise NotImplementedError(
@@ -66,6 +74,10 @@ class TrainStep:
         self.optimizer = optimizer
         self._amp_level = amp_level
         self._amp_dtype = amp_dtype
+        self._scaler = scaler if (scaler is not None
+                                  and scaler.is_enable()) else None
+        self._scaler_state = None
+        self._scaler_epoch = None
         self._named = [(n, p) for n, p in model.named_parameters()
                        if p.requires_grad]
         for n, p in self._named:
@@ -84,11 +96,54 @@ class TrainStep:
 
     def _tensor(self, x):
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        if t.device.type == "cpu" and self._device.type == "cuda":
+            # a copy from pageable host memory first waits for the stream
+            # (every queued kernel): a batch from io.DataLoader is pinned
+            # and copied without blocking, as the reference's device_put
+            return t.pin_memory().to(self._device, non_blocking=True)
         return t.to(self._device)
+
+    def _scaler_tensors(self) -> dict:
+        """The scaler's scale and counters as 0-d device tensors, seeded
+        from the scaler at the first call and again after its
+        ``load_state_dict`` (reference ``:817-834``)."""
+        sc = self._scaler
+        if self._scaler_state is None or self._scaler_epoch != sc._epoch:
+            dev = self._device
+            self._scaler_epoch = sc._epoch
+            self._scaler_state = {
+                "scale": torch.tensor(float(sc._scale), dtype=torch.float32,
+                                      device=dev),
+                "good": torch.tensor(int(sc._good_steps), dtype=torch.int32,
+                                     device=dev),
+                "bad": torch.tensor(int(sc._bad_steps), dtype=torch.int32,
+                                    device=dev)}
+        return self._scaler_state
+
+    def _schedule(self, st: dict, found_inf) -> None:
+        """The incr/decr schedule on the device (reference ``:531-546``),
+        mirrored into the scaler."""
+        sc = self._scaler
+        scale, good, bad = st["scale"], st["good"], st["bad"]
+        if sc._dynamic:
+            zero = torch.zeros_like(good)
+            good = torch.where(found_inf, zero, good + 1)
+            bad = torch.where(found_inf, bad + 1, zero)
+            dec = bad >= sc._decr_every
+            inc = good >= sc._incr_every
+            scale = torch.where(dec, torch.clamp(scale * sc._decr_ratio,
+                                                 min=1.0), scale)
+            scale = torch.where(inc, scale * sc._incr_ratio, scale)
+            bad = torch.where(dec, zero, bad)
+            good = torch.where(inc, zero, good)
+        self._scaler_state = {"scale": scale, "good": good, "bad": bad}
+        sc._scale, sc._good_steps, sc._bad_steps = scale, good, bad
+        sc._found_inf = found_inf
 
     def _step(self, batch, lr: float, t: int):
         """Forward, loss, backward, clip and update at ``lr`` and step
-        ``t``; the loss as a float32 0-d tensor (no host sync)."""
+        ``t`` (with a scaler: scaled, unscaled, skipped on an overflow);
+        the loss as a float32 0-d tensor (no host sync)."""
         arrays = [self._tensor(b) for b in batch]
         n = self._n_inputs
         for p in self._params:
@@ -99,15 +154,30 @@ class TrainStep:
             out = self.model(*arrays[:n])
             loss = self.loss_fn(out, *arrays[n:])
         loss = loss.float()
-        loss.backward()
+        st = self._scaler_tensors() if self._scaler is not None else None
+        (loss if st is None else loss * st["scale"]).backward()
         params_grads = [(p, p.grad if p.grad is not None
                          else torch.zeros_like(p)) for p in self._params]
         for p in self._params:
             p.grad = None
+        found_inf = None
+        if st is not None:
+            with torch.no_grad():
+                # in place, in float32 and rounded to each gradient's type;
+                # then one pass that sets `found` if any unscaled gradient
+                # is not finite (multiplying them by 1, which keeps them)
+                grads = [g for _, g in params_grads]
+                torch._foreach_mul_(grads, 1.0 / st["scale"])
+                found = torch.zeros((), device=self._device)
+                torch._amp_foreach_non_finite_check_and_unscale_(
+                    grads, found, torch.ones((), device=self._device))
+                found_inf = found > 0
         clip = self.optimizer._grad_clip
         if clip is not None:
             params_grads = clip(params_grads)
-        self.optimizer._apply(params_grads, lr, t)
+        self.optimizer._apply(params_grads, lr, t, skip=found_inf)
+        if st is not None:
+            self._schedule(st, found_inf)
         return loss.detach()
 
     def _set_inputs(self, batch, n_inputs):

@@ -22,8 +22,16 @@ Training goes through ``jit/train_step.py``: the uncached forward's
 attention is differentiable (``ops/flash_attention.FlashAttention``, whose
 backward is the two backward kernels), ``GPTPretrainingCriterion`` is the
 loss, and the port's AMP (``amp/auto_cast.py``) casts the float32 master
-weights op by op as the reference does. ``dropout > 0`` in training raises
-``NotImplementedError`` (ROADMAP).
+weights op by op as the reference does.
+
+Dropout (``GPTConfig.dropout``) is applied where the reference applies it
+(``paddle_tpu/models/gpt.py:205-306``): after the embeddings, on the
+attention's output projection and on the MLP's output (``nn.Dropout``'s
+port, drawing from the port's generator, ``framework/random.py``), and on
+the attention probabilities, which in training takes the attention to the
+reference's dense path (``nn/functional/attention.py``) instead of the
+flash kernels, as the reference routes. The stacked decoder applies no
+layer dropout, as the reference's (``gpt.py:61-65``); its embeddings do.
 
 ``stacked=True`` swaps the module stack for :class:`GPTStackedTransformer`
 (reference ``gpt.py:333-636``): twelve layer-stacked parameters
@@ -50,7 +58,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..amp.auto_cast import auto_cast
 from ..framework.device import resolve_device
+from ..nn.functional.attention import scaled_dot_product_attention
 from ..nn.functional.loss import cross_entropy
+from ..nn.layer.common import Dropout
 from ..ops.cuda_attention import (flash_attention_fwd, mha_fwd_reference,
                                   supported)
 from ..ops.cuda_attention_bwd import flash_attention_bwd, mha_bwd_reference
@@ -214,7 +224,7 @@ class GPTEmbeddings(nn.Module):
         self.position_embeddings = nn.Parameter(torch.empty(
             config.max_seq_len, config.hidden_size, device=device,
             dtype=dtype))
-        self.dropout = nn.Dropout(config.dropout)
+        self.dropout = Dropout(config.dropout)
 
     def forward(self, input_ids, positions=None):
         h = self.word_embeddings(input_ids)
@@ -232,7 +242,9 @@ class GPTAttention(nn.Module):
     """Fused-qkv attention. ``use_kernels`` (an attribute, True by default)
     picks the hand-written kernels or their plain versions for the uncached
     forward and its gradient, as ``GPTKVCache.use_kernels`` does for the
-    cached paths."""
+    cached paths. With ``dropout > 0`` in training the uncached attention
+    takes the reference's dense path (probability dropout); in eval, and in
+    every cached path, dropout is off."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
@@ -240,11 +252,12 @@ class GPTAttention(nn.Module):
         self.num_heads = config.num_heads
         self.head_dim = config.hidden_size // config.num_heads
         self.hidden_size = config.hidden_size
+        self.attn_dropout_p = config.dropout
         self.qkv_proj = nn.Linear(config.hidden_size, 3 * config.hidden_size,
                                   device=device, dtype=dtype)
         self.out_proj = nn.Linear(config.hidden_size, config.hidden_size,
                                   device=device, dtype=dtype)
-        self.dropout = nn.Dropout(config.dropout)
+        self.dropout = Dropout(config.dropout)
 
     def forward(self, x, kv_cache: Optional[GPTKVCache] = None):
         b, s, _ = x.shape
@@ -260,9 +273,10 @@ class GPTAttention(nn.Module):
                 use_kernels=kv_cache.use_kernels, slots=kv_cache.slots)
             out = out.reshape(b, s, self.hidden_size)
             return self.dropout(self.out_proj(out)), k_pool, v_pool
-        out = attention_bshd(q, k, v, causal=True,
-                             scale=1.0 / math.sqrt(self.head_dim),
-                             use_kernels=self.use_kernels)
+        out = scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=self.attn_dropout_p,
+            training=self.training, scale=1.0 / math.sqrt(self.head_dim),
+            use_kernels=self.use_kernels)
         return self.dropout(self.out_proj(out.reshape(b, s,
                                                       self.hidden_size)))
 
@@ -274,7 +288,7 @@ class GPTMLP(nn.Module):
                                device=device, dtype=dtype)
         self.fc_out = nn.Linear(config.intermediate_size, config.hidden_size,
                                 device=device, dtype=dtype)
-        self.dropout = nn.Dropout(config.dropout)
+        self.dropout = Dropout(config.dropout)
 
     def forward(self, x):
         # tanh-approximate gelu (GPT-2's "gelu_new"), as the reference
@@ -483,9 +497,9 @@ def gpt_stacked_decoder(x, *params, config: GPTConfig,
     "full" and "attn" checkpoint without reentry, so the recompute stops
     once it has what the backward needs (the last projection's output is
     not); "dots" reenters, since its matmul tells the forward from the
-    recompute by the grad mode. The layers draw no random numbers (dropout
-    in training raises), so the checkpoints do not save the generators'
-    states."""
+    recompute by the grad mode. The layers draw no random numbers (the
+    reference's stacked decoder applies no layer dropout), so the
+    checkpoints do not save the generators' states."""
     if has_torch_function((x, *params)):
         return handle_torch_function(gpt_stacked_decoder, (x, *params), x,
                                      *params, config=config,
@@ -596,12 +610,6 @@ class GPTModel(nn.Module):
         Cached: ``(h, (k_pools, v_pools))`` — the pools are the cache's own
         tensors, updated in place."""
         if cache is None:
-            if self.training and self.config.dropout > 0 and \
-                    torch.is_grad_enabled():
-                raise NotImplementedError(
-                    "dropout > 0 in training is not ported yet (ROADMAP "
-                    "queue 1 item 7: dropout with the port's own random "
-                    "stream, attention probabilities included)")
             h = self.embeddings(input_ids)
             if self.config.stacked:
                 return self.ln_f(self.decoder(h))

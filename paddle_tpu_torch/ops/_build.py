@@ -3,7 +3,7 @@
 The sources under ``paddle_tpu_torch/csrc`` have a plain C interface, so
 they are compiled with ``nvcc`` straight into one shared library and bound
 with ``ctypes`` (no PyTorch headers, so the build takes seconds, not
-minutes). The bf16 flash kernels (forward and backward) encode their TMA
+minutes). The 16-bit flash kernels (forward and backward) encode their TMA
 tensor maps on the host with the driver's ``cuTensorMapEncodeTiled``, which
 they get from the runtime (``cudaGetDriverEntryPoint``), so the link line
 needs no ``-lcuda``. The
@@ -41,8 +41,9 @@ HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # element type codes shared with csrc/common.cuh (pt::DType); int8 is a
-# pool type of the paged kernel only
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.int8": 2}
+# pool type of the paged kernel only, float16 a type of the flash kernels
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.int8": 2,
+               "torch.float16": 3}
 
 _LOCK = threading.Lock()
 _LIB = None

@@ -10,8 +10,10 @@ Kernel: ``csrc/flash_fwd.cu``, the port of the TPU kernel
   replicated).
 - What bounds it on the H100: at prefill and training widths it is bound
   by operations (``4*S^2*D/2`` flops per head against ``4*S*D`` elements
-  moved); in bf16 only ``wgmma`` reaches the tensor cores' dense rate.
-- What its design does about it: bf16 runs a warp-specialised Hopper
+  moved); in bf16 and float16 only ``wgmma`` reaches the tensor cores'
+  dense rate.
+- What its design does about it: bf16 and float16 (one template over the
+  element type) run a warp-specialised Hopper
   kernel. A producer warpgroup loads Q once and K/V tiles of 128 keys by
   TMA into a two-stage ``mbarrier`` ring (128-byte swizzled shared memory;
   the tensor maps are encoded per call from the tensors' pointers and
@@ -41,10 +43,12 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_fwd", "mha_fwd_reference", "supported",
-           "HEAD_DIMS", "NEG_INF", "REPLACES", "SOURCE"]
+           "HEAD_DIMS", "HALF_DTYPES", "NEG_INF", "REPLACES", "SOURCE"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+# the 16-bit types, which take the tensor-core (TMA + wgmma) kernels
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 SOURCE = "paddle_tpu_torch/csrc/flash_fwd.cu"
 REPLACES = "paddle_tpu/ops/pallas_attention.py:135"
 
@@ -53,10 +57,14 @@ plain_calls = 0
 
 
 def mha_fwd_reference(q, k, v, causal=True, scale=None):
-    """Plain PyTorch version of the kernel, with the maths of the JAX
-    reference ``_mha_reference`` (``pallas_attention.py:350``): float
-    scores, ``NEG_INF`` mask (top-left aligned ``tril(k=sk-sq)``), softmax,
-    float product with v, cast to q's type; plus the row logsumexp.
+    """Plain PyTorch version of the kernel: float scores, the ``NEG_INF``
+    mask (top-left aligned ``tril(k=sk-sq)``), p = exp(s - row max) rounded
+    to v's type before the float product with v (as the TPU kernel rounds
+    it, ``pallas_attention.py:104``, and the reference's dense path its
+    probabilities, ``paddle_tpu/ops/flash_attention.py:207-208``; a no-op in
+    float32, where this is ``_mha_reference``'s maths), divided by the row
+    sum of the unrounded p, cast to q's type; plus the row logsumexp. The
+    backward's plain version rounds p and ds the same way.
 
     q: ``[B, Sq, H, D]``; k/v: ``[B, Sk, H, D]``. Returns
     ``(out [B, Sq, H, D] in q.dtype, lse [B*H, Sq] float32)``.
@@ -75,8 +83,12 @@ def mha_fwd_reference(q, k, v, causal=True, scale=None):
         mask = torch.ones(sq, sk, dtype=torch.bool,
                           device=q.device).tril(sk - sq)
         logits = logits.masked_fill(~mask, NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1).reshape(b * h, sq)
-    out = torch.matmul(torch.softmax(logits, dim=-1), vf)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    del logits
+    l = p.sum(-1, keepdim=True)
+    lse = (m + torch.log(l)).reshape(b * h, sq)
+    out = torch.matmul(p.to(v.dtype).float(), vf) / l
     return out.transpose(1, 2).to(q.dtype), lse
 
 
@@ -96,9 +108,9 @@ def _refusal(q, k, v, causal, backward=False):
         if t.stride(-1) != 1:
             return ValueError, (f"{name}'s head_dim must be contiguous "
                                 f"(stride {t.stride(-1)})")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        return TypeError, (f"flash_fwd kernel takes float32 or bfloat16, "
-                           f"got {q.dtype}")
+    if q.dtype not in (torch.float32, *HALF_DTYPES):
+        return TypeError, (f"flash_fwd kernel takes float32, bfloat16 or "
+                           f"float16, got {q.dtype}")
     b, sq, h, d = q.shape
     if d not in HEAD_DIMS:
         return ValueError, (f"flash_fwd kernel takes head_dim in "
@@ -113,21 +125,21 @@ def _refusal(q, k, v, causal, backward=False):
     if causal and sk != sq:
         return ValueError, (f"causal attention masks top-left aligned "
                             f"windows only: sq={sq} != sk={sk}")
-    if q.dtype == torch.bfloat16:
+    if q.dtype in HALF_DTYPES:
         # TMA takes a 16-byte aligned base and strides of whole 16 bytes
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-                return ValueError, (f"{name}: the bf16 kernel needs 16-byte "
-                                    f"aligned rows (pointer and b/s/h "
-                                    f"strides)")
+                return ValueError, (f"{name}: the 16-bit kernel needs "
+                                    f"16-byte aligned rows (pointer and "
+                                    f"b/s/h strides)")
         # one block per 128 query rows of a (batch, head), on a 1-D grid
         if b * h * -(-sq // 128) > 2**31 - 1:
-            return ValueError, (f"flash_fwd bf16 kernel takes at most "
+            return ValueError, (f"flash_fwd 16-bit kernel takes at most "
                                 f"2^31 - 1 blocks of 128 rows, got B={b} "
                                 f"H={h} S={sq}")
         # dk/dv: one block per 128 keys, on a 1-D grid
         if backward and b * h * -(-sk // 128) > 2**31 - 1:
-            return ValueError, (f"flash_bwd_dkv bf16 kernel takes at most "
+            return ValueError, (f"flash_bwd_dkv 16-bit kernel takes at most "
                                 f"2^31 - 1 blocks of 128 keys, got B={b} "
                                 f"H={h} Sk={sk}")
     return None
@@ -146,7 +158,8 @@ def supported(q, k, v, causal=True, backward=False) -> bool:
     """Does the flash kernel take this call (and, with ``backward``, do the
     two backward kernels take its gradient)? The counterpart of the
     reference's ``flash_attention.supported``: callers send what it refuses
-    (a head_dim outside ``HEAD_DIMS``, another dtype, unaligned bf16 rows)
+    (a head_dim outside ``HEAD_DIMS``, another dtype, unaligned 16-bit
+    rows)
     to the plain version, as the reference sends it to its dense path. The
     device is the wrapper's business: CPU tensors of a shape it takes still
     go through the wrapper, which runs the plain version there."""

@@ -10,13 +10,16 @@ Kernels: ``csrc/flash_bwd.cu``, the port of the two TPU kernels of
   and the output's cotangent dO, p = exp(q kᵀ·scale − lse) recomputed per
   tile, ds = p·(dO vᵀ − δ)·scale with δ = rowsum(o·dO) − lse_ct, and
   dq = ds k, dk = dsᵀ q, dv = pᵀ dO, accumulated in float (p and ds rounded
-  to bf16 before the products that take them, as the reference rounds
-  them). δ is a torch reduction here, as the reference left it to XLA
-  (``:281``).
+  to the input type, bf16 or float16, before the products that take them,
+  as the reference rounds them; in float16 an overflow becomes inf and is
+  not clamped, so a scaled loss's overflow reaches the gradients as the
+  reference's does). δ is a torch reduction here, as the reference left it
+  to XLA (``:281``).
 - What bounds them on the H100: operations (3 and 4 products of 2·S²·D per
-  head, halved when causal, against ~5·S·D elements moved); in bf16 only
-  ``wgmma`` reaches the tensor cores' dense rate.
-- What their design does about it: bf16 runs two warp-specialised Hopper
+  head, halved when causal, against ~5·S·D elements moved); in bf16 and
+  float16 only ``wgmma`` reaches the tensor cores' dense rate.
+- What their design does about it: bf16 and float16 run two
+  warp-specialised Hopper
   kernels shaped like the forward. A block owns 128 rows (queries for dq,
   keys for dk/dv), loaded once by TMA; a producer warpgroup streams the
   other side's 64-row tiles through a three-stage ``mbarrier`` ring (dk/dv
@@ -42,7 +45,7 @@ import math
 import torch
 
 from . import _build
-from .cuda_attention import NEG_INF, _check
+from .cuda_attention import HALF_DTYPES, NEG_INF, _check
 
 __all__ = ["flash_attention_bwd", "mha_bwd_reference", "KERNELS",
            "REPLACES", "SOURCE"]
@@ -113,19 +116,19 @@ def _check_bwd(q, k, v, out, lse, do, causal):
     dq's grid, one block per 128 query rows, and dk/dv's, one per 128 keys,
     to 2^31 - 1 blocks) and of dO against k/v."""
     _check(q, k, v, causal, backward=True)
-    if do.dtype == torch.bfloat16 and (
+    if do.dtype in HALF_DTYPES and (
             do.data_ptr() % 16 or any(st % 8 for st in do.stride()[:3])):
-        raise ValueError("dO: the bf16 kernels need 16-byte aligned rows "
+        raise ValueError("dO: the 16-bit kernels need 16-byte aligned rows "
                          "(pointer and b/s/h strides)")
     _check(do, k, v, causal)
     b, sq, h, _ = q.shape
     if out.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dO {tuple(do.shape)} "
                          f"must match q {tuple(q.shape)}")
-    if q.dtype == torch.bfloat16:
+    if q.dtype in HALF_DTYPES:
         # dk/dv's lse tiles come by TMA, from a 16-byte aligned base
         if lse.data_ptr() % 16:
-            raise ValueError("lse: the bf16 kernels need a 16-byte aligned "
+            raise ValueError("lse: the 16-bit kernels need a 16-byte aligned "
                              "base pointer")
     if lse.shape != (b * h, sq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():

@@ -7,7 +7,7 @@ multiple of 128 and at least ``FLAGS_flash_min_seqlen`` (2048) long, with
 512x1024 blocks — TPU constants. The port's kernels mask ragged edges, so on
 the card every window goes through them, whatever its length. What the
 kernels do not take by shape (``cuda_attention.supported``: a head_dim
-outside {64, 128}, another dtype, unaligned bf16 rows) goes to their plain
+outside {64, 128}, another dtype, unaligned 16-bit rows) goes to their plain
 versions, as the reference sends what its ``flash_attention.supported``
 refuses to its dense path; such calls count in the plain versions'
 ``plain_calls``. A kernel that fails to build or launch raises: nothing

@@ -120,10 +120,14 @@ class Optimizer:
         raise NotImplementedError
 
     @torch.no_grad()
-    def _apply(self, params_grads, lr, t) -> None:
+    def _apply(self, params_grads, lr, t, skip=None) -> None:
         """One update at learning rate ``lr`` and step ``t`` (no clipping,
         no step count): grouped by decay coefficient, in groups of at most
-        ``_CHUNK_ELEMS`` elements."""
+        ``_CHUNK_ELEMS`` elements. ``skip``, a 0-d bool tensor (dynamic loss
+        scaling's ``found_inf``), leaves the parameters and every
+        accumulator exactly as they were where it is True, without a host
+        sync: each group's values are kept before its update and selected
+        back after it, as the reference's ``where(found_inf, old, new)``."""
         groups: Dict[float, list] = {}
         for p, g in params_grads:
             if g is not None:
@@ -145,7 +149,12 @@ class Optimizer:
                     gs = torch._foreach_add(gs, ps, alpha=self._l2_coeff)
                 state = {an: [self._get_accum(an, p) for p in ps]
                          for an in self._accum_names}
+                touched = ps + [x for xs in state.values() for x in xs]
+                kept = None if skip is None else [x.clone() for x in touched]
                 self._update_rule(ps, gs, _f32(lr), t, _f32(wd), state)
+                if kept is not None:
+                    for x, old in zip(touched, kept):
+                        torch.where(skip, old, x, out=x)
 
     def apply_gradients(self, params_grads):
         """Apply explicit ``(param, grad)`` pairs: clip, advance the step

@@ -196,3 +196,65 @@ def test_check_refuses_causal_with_sq_ne_sk():
     with pytest.raises(ValueError, match="sq=8 != sk=16"):
         ca._check(q, kv, kv, causal=True)
     ca._check(q, kv, kv, causal=False)
+
+
+# ------------------------------------------------------------- float16
+# fp16 AMP training takes the same kernel in float16 (one template over the
+# element type). Its plain version computes in float from float16 inputs and
+# rounds the output, as ``_mha_reference`` does; the Pallas kernel also
+# rounds its probabilities to v's type. F16_ATOL = 2e-3: outputs of size
+# up to ~2 round to float16 within half an ulp (2^-10 at 1-2), and the
+# Pallas kernel's float16 probabilities move them by about as much.
+F16_ATOL = 2e-3
+
+
+def _qkv_f16(s, d, seed):
+    return [x.astype(np.float16) for x in _qkv_d(s, d, seed)]
+
+
+@pytest.mark.parametrize("s", [63, 129])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_float16_matches_mha_reference(s, d, causal):
+    q, k, v = _qkv_f16(s, d, seed=s * 3 + d + causal)
+    scale = 1.0 / np.sqrt(d)
+    j = np.swapaxes(np.asarray(_mha_reference(
+        _bhsd(q), _bhsd(k), _bhsd(v), causal, scale)), 1, 2)
+    assert j.dtype == np.float16
+    before = ca.plain_calls
+    out, lse = ca.flash_attention_fwd(*(torch.from_numpy(x) for x in
+                                        (q, k, v)), causal=causal,
+                                      scale=scale)
+    assert ca.plain_calls == before + 1
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(), j.astype(np.float32),
+                               atol=F16_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_float16_matches_pallas_interpret(causal):
+    s, d = 256, 128
+    q, k, v = _qkv_f16(s, d, seed=41 + causal)
+    scale = 1.0 / np.sqrt(d)
+    j_out, j_lse = _mha_fwd(_bhsd(q), _bhsd(k), _bhsd(v), causal, scale,
+                            128, 128)
+    out, lse = ca.flash_attention_fwd(*(torch.from_numpy(x) for x in
+                                        (q, k, v)), causal=causal,
+                                      scale=scale)
+    np.testing.assert_allclose(
+        out.float().numpy(),
+        np.swapaxes(np.asarray(j_out), 1, 2).astype(np.float32),
+        atol=F16_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[:, :, 0],
+                               atol=ATOL, rtol=0)
+
+
+def test_float16_takes_the_flash_route():
+    """attention_bshd sends float16 at D=64/128 to the kernel's wrapper
+    (which runs the plain version on CPU tensors), not to a refused
+    shape's route."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv_f16(40, 64, seed=43))
+    assert ca.supported(q, k, v, causal=True, backward=True)
+    before = ca.plain_calls
+    out = attention_bshd(q, k, v, causal=True)
+    assert ca.plain_calls == before + 1 and out.dtype == torch.float16

@@ -266,3 +266,58 @@ def test_check_bwd_refuses_grids_over_2_31_blocks(side):
     lse = torch.zeros(1, small)
     with pytest.raises(ValueError, match=r"2\^31 - 1 blocks"):
         cab._check_bwd(q, k, v, out, lse, do, causal=False)
+
+
+# ------------------------------------------------------------- float16
+# The plain version rounds p and ds to float16 as the Pallas kernels round
+# them to the input type (pallas_attention.py:204, 252, 258); gradients of
+# size up to ~6 round to float16 within half an ulp (2^-9 at 4-8), and the
+# two round p and ds after float sums in another order. F16_ATOL = 4e-3
+# (about one float16 ulp at 4).
+F16_ATOL = 4e-3
+
+
+@pytest.mark.parametrize("s,causal", [(128, True), (256, False)])
+def test_float16_matches_pallas_bwd_interpret(s, causal):
+    q, k, v, do = (x.astype(np.float16) for x in _inputs(s, seed=50 + s))
+    scale = 1.0 / np.sqrt(D)
+    jq, jk, jv, jdo = (_bhsd(x) for x in (q, k, v, do))
+    j_out, j_lse = _mha_fwd(jq, jk, jv, causal, scale, 128, 128)
+    jdq, jdk, jdv = _mha_bwd(jq, jk, jv, j_out, j_lse, jdo, causal, scale,
+                             128, 128)
+    got = cab.flash_attention_bwd(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.from_numpy(_bshd(j_out).copy()),
+        torch.from_numpy(np.asarray(j_lse)[:, :, 0].copy()),
+        torch.from_numpy(do), causal=causal, scale=scale)
+    for name, a, want in zip(("dq", "dk", "dv"), got, (jdq, jdk, jdv)):
+        assert a.dtype == torch.float16
+        np.testing.assert_allclose(a.float().numpy(),
+                                   _bshd(want).astype(np.float32),
+                                   atol=F16_ATOL, rtol=F16_ATOL,
+                                   err_msg=name)
+
+
+def test_float16_overflow_reaches_every_gradient():
+    """A float16 cotangent that overflowed (a loss scaled past float16's
+    range leaves inf in dO) gives non-finite dq, dk and dv, in the plain
+    version as in the reference's Pallas backward: nothing clamps it, so
+    dynamic loss scaling sees the overflow (the kernels: chip_smoke.py's
+    overflow case)."""
+    s = 128
+    q, k, v, do = (x.astype(np.float16) for x in _inputs(s, seed=60))
+    with np.errstate(over="ignore"):     # the overflow is the point
+        do = (do.astype(np.float32) * 3e4).astype(np.float16)
+    assert not np.isfinite(do).all()
+    scale = 1.0 / np.sqrt(D)
+    jq, jk, jv, jdo = (_bhsd(x) for x in (q, k, v, do))
+    j_out, j_lse = _mha_fwd(jq, jk, jv, True, scale, 128, 128)
+    jgrads = _mha_bwd(jq, jk, jv, j_out, j_lse, jdo, True, scale, 128, 128)
+    got = cab.flash_attention_bwd(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.from_numpy(_bshd(j_out).copy()),
+        torch.from_numpy(np.asarray(j_lse)[:, :, 0].copy()),
+        torch.from_numpy(do), causal=True, scale=scale)
+    for name, a, j in zip(("dq", "dk", "dv"), got, jgrads):
+        assert not torch.isfinite(a).all(), name
+        assert not np.isfinite(np.asarray(j)).all(), name

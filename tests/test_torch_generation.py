@@ -265,10 +265,11 @@ def test_decoder_refuses_pools_of_another_type(kv_dtype, pools, ok):
 
 
 def test_unported_features_raise():
-    """What the port still leaves out raises, naming its ROADMAP item: the
-    fp16 GradScaler. The stacked decoder, the prefix cache, speculative
-    decoding and int8 pools no longer raise; an unknown recompute policy
-    raises the reference's ValueError."""
+    """What the port still leaves out raises, naming its ROADMAP item:
+    buffer donation. The stacked decoder, the prefix cache, speculative
+    decoding, int8 pools and the fp16 GradScaler no longer raise; an
+    unknown recompute policy raises the reference's ValueError."""
+    from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
     _, tm = make_pair()
@@ -278,8 +279,9 @@ def test_unported_features_raise():
     with pytest.raises(ValueError, match="recompute must be"):
         gpt_tiny(stacked=True, recompute="sometimes")
     opt = AdamW(learning_rate=1e-3, parameters=tm.named_parameters())
-    with pytest.raises(NotImplementedError, match="GradScaler"):
-        TrainStep(tm, lambda out, y: out.mean(), opt, scaler=object())
+    TrainStep(tm, lambda out, y: out.mean(), opt, scaler=GradScaler())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        TrainStep(tm, lambda out, y: out.mean(), opt, donate=True)
     srv = GenerationServer(tm, device="cpu", prefix_cache=True,
                            draft_model=tm, spec_k=2, start=False)
     assert srv.prefix is not None and srv.spec_k == 2

@@ -26,7 +26,7 @@ from paddle_tpu.models import gpt_tiny as j_gpt_tiny
 from paddle_tpu.nn import clip as jclip
 from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu_torch import convert
-from paddle_tpu_torch.amp import auto_cast
+from paddle_tpu_torch.amp import GradScaler, auto_cast
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
                                      gpt_tiny)
@@ -467,13 +467,14 @@ def test_auto_cast_rule():
 def test_unported_options_raise():
     m = GPTForCausalLM(gpt_tiny(), device="cpu")
     opt = AdamW(learning_rate=1e-4)
-    with pytest.raises(NotImplementedError, match="GradScaler"):
-        TrainStep(m, lambda o, y: o.sum(), opt, scaler=object())
+    # the GradScaler and dropout are ported now (tests/test_torch_grad_
+    # scaler.py, tests/test_torch_dropout.py): they build and run
+    TrainStep(m, lambda o, y: o.sum(), opt, scaler=GradScaler())
     with pytest.raises(NotImplementedError, match="donation"):
         TrainStep(m, lambda o, y: o.sum(), opt, donate=True)
     md = GPTForCausalLM(gpt_tiny(dropout=0.1), device="cpu")
     ids = torch.from_numpy(_ids())
-    with pytest.raises(NotImplementedError, match="dropout"):
-        md(ids)
+    train_out = md(ids)
     md.eval()
-    assert md(ids).shape == (2, SEQ, 256)
+    assert md(ids).shape == train_out.shape == (2, SEQ, 256)
+    assert not torch.equal(md(ids), train_out)
