@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe]
+                  recipe,families]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -85,6 +85,27 @@ Phases, each failing loudly (exit code 1, no result line):
               against the same-batch run; and a 4-layer run stopped,
               saved (model, optimizer, scaler, generator), rebuilt, loaded
               and resumed, bit for bit against an uninterrupted one.
+11. families — bench.py's other configurations through
+              paddle_tpu_torch.bench's own functions (short windows):
+              GPT-2 small, medium and large at bench.py's batch and length
+              (launches a step: L or 2L forward, L dq and dk/dv, no plain
+              call; the counted FLOPs agree with the hand formula);
+              BERT-base MLM+NSP at b=32 s=512 on the bidirectional flash
+              kernels (12 launches of each a step, no plain or dense call,
+              a profile of one step), a 4-layer parity (float32 kernels
+              against plain versions; O2 against the plain path's floor),
+              a padding mask (the dense path, 12 calls a step, no flash
+              launch) and dropout 0.1 with recompute (one seed bit for bit;
+              recompute's gradients against stored activations'); ERNIE
+              base fine-tuning with task types and a padding mask, and
+              ernie_3_0_10b's forward in bf16 at full width and depth (48
+              flash launches, finite outputs); ResNet-50 at b=128, 224²,
+              NHWC, O2 (its BatchNorm statistics move), and a resnet18
+              step on the card against the same step on the CPU (its
+              update, float32 with a TF32 control, and float64).
+              The kernels phase times the three flash kernels at these
+              configurations' shapes (bidirectional D=64 and D=128, causal
+              D=64).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -112,7 +133,7 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
               "torch.float32": 67e12}
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
-              "serving", "train", "stacked", "recipe")
+              "serving", "train", "stacked", "recipe", "families")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -729,6 +750,17 @@ def _parent_paged(parent_dir):
     return call
 
 
+# (B, S, H, D, causal) of bench.py's other configurations: bert (b=32
+# s=512, 12 heads of 64, bidirectional), small (b=8 s=512, 12 of 64),
+# medium (b=16 s=512, 16 of 64), large (b=8 s=1024, 20 of 64), and
+# ERNIE-10B's forward (b=4 s=512, 32 of 128); the first four train, so the
+# backward kernels are held at them too
+FAMILY_FLASH_SHAPES = ((32, 512, 12, 64, False), (8, 512, 12, 64, True),
+                       (16, 512, 16, 64, True), (8, 1024, 20, 64, True),
+                       (4, 512, 32, 128, False))
+FAMILY_TRAIN_SHAPES = FAMILY_FLASH_SHAPES[:4]
+
+
 def phase_kernels(state):
     import torch
     seed = state["seed"]
@@ -880,6 +912,20 @@ def phase_kernels(state):
              _bwd_case(2, 40, 16, 128, f16, True, seed + 62),
              _bwd_case(2, 1000, 16, 64, f16, True, seed + 63),
              _bwd_case(2, 300, 16, 128, f16, False, seed + 64, sk=520)]
+    # bench.py's other configurations (the families phase): BERT-base's
+    # bidirectional D=64, GPT-2 small's, medium's and large's causal D=64,
+    # and (the forward only) ERNIE-10B's bidirectional D=128
+    log("kernels: flash_fwd, flash_bwd_dq, flash_bwd_dkv at bench.py's "
+        "other shapes (bf16)")
+    state["flash_family_rows"] = [
+        _flash_case(b, s, h, d, torch.bfloat16, causal, seed + 70 + i,
+                    report=True)
+        for i, (b, s, h, d, causal) in enumerate(FAMILY_FLASH_SHAPES)]
+    rows += state["flash_family_rows"]
+    state["bwd_family_rows"] = [
+        _bwd_case(b, s, h, d, torch.bfloat16, causal, seed + 80 + i)
+        for i, (b, s, h, d, causal) in enumerate(FAMILY_TRAIN_SHAPES)]
+    brow += state["bwd_family_rows"]
     for row in brow:
         check_bwd(row)
     state["bwd_rows"] = brow
@@ -1277,6 +1323,8 @@ def phase_model(state):
 PROFILE_GROUPS = (
     ("port kernels", ("flash_fwd", "dq_wgmma", "dkv_wgmma", "dq_f32",
                       "dkv_f32", "paged_attention")),
+    ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
     ("matmuls", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("copies and casts", ("copy",)),
@@ -2660,25 +2708,12 @@ def _recipe_dropout(state, ids) -> dict:
     return out
 
 
-class _TokenDataset:
-    """bench.py's TokenDataset (``bench.py:380-389``): sample i is
-    ``RandomState(i).randint(0, vocab, (seq,))``."""
-
-    def __init__(self, n, vocab, seq):
-        self.n, self.vocab, self.seq = n, vocab, seq
-
-    def __len__(self):
-        return self.n
-
-    def __getitem__(self, i):
-        import numpy as np
-        return np.random.RandomState(i).randint(
-            0, self.vocab, (self.seq,)).astype("int64")
-
-
 def _loader(n_batches, vocab, seq):
+    """bench.py's token dataset (``paddle_tpu_torch.bench.TokenDataset``)
+    through io.DataLoader."""
+    from paddle_tpu_torch.bench import TokenDataset
     from paddle_tpu_torch.io import DataLoader
-    return DataLoader(_TokenDataset(n_batches * TRAIN_BATCH, vocab, seq),
+    return DataLoader(TokenDataset(n_batches * TRAIN_BATCH, vocab, seq),
                       batch_size=TRAIN_BATCH, shuffle=False,
                       num_workers=PIPELINE_WORKERS, drop_last=True)
 
@@ -2855,6 +2890,511 @@ def phase_recipe(state):
     state["recipe"] = out
 
 
+# ------------------------------------------------ bench.py's other configs
+# the families phase drives paddle_tpu_torch.bench's own functions, a short
+# window each: K steps timed after a warm-up window of K and one counted step
+FAMILY_STEPS = 4
+FAMILY_GPT = ("small", "medium", "large")
+BERT_PARITY_LAYERS = 4
+# recompute against stored activations, float32, dropout 0.1: the same
+# masks, so the gradients differ only by float32 sums in another order
+RECOMPUTE_GRAD_RTOL = 1e-6
+ERNIE_10B_BATCH = 4
+ENCODER_SEQ = 512
+RESNET_CHECK_BATCH, RESNET_CHECK_HW = 8, 112
+# resnet18, one Momentum step on the card against the CPU on 8 images of
+# 112² (_resnet_card_vs_cpu). Loss and statistics set from the CPU's own
+# float32 step against its float64 step (1.4e-7; 8.2e-7 of their
+# largest). The update's L2 (H100 80GB HBM3, 700 W): the card's float32
+# against the CPU's read 5.6e-3 and the TF32-on control 9.0e-2, so the
+# limit sits between them, 3.6x above the one and 4.5x under the other;
+# float64 against float64 read 8.4e-15 and float32 against float64 (the
+# CPU's) 2.2e-3, so the float64 limit sits far from both
+RESNET_LOSS_RTOL = 1e-5
+RESNET_STATS_RTOL = 1e-4
+RESNET_UPDATE_RTOL = 2e-2
+RESNET_UPDATE_F64_RTOL = 1e-9
+
+
+def _bench(*argv):
+    """``paddle_tpu_torch.bench.run`` on ``argv`` with the counts set to 0
+    just before and read just after: the details and the counts."""
+    from paddle_tpu_torch import bench
+    args = bench.build_parser().parse_args(
+        list(argv) + ["--steps", str(FAMILY_STEPS), "--windows", "1"])
+    _reset_counts()
+    out = bench.run(args)
+    return out, _read_counts()
+
+
+def _release():
+    """Give the allocator's cache back once the caller dropped a model."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _family_gpt(config) -> dict:
+    """bench.py's GPT-2 config at its batch and length, full depth."""
+    out, counts = _bench("--config", config)
+    cfg, rec = out["config"], out["record"]
+    L = cfg.num_layers
+    fwd = 2 * L if cfg.stacked and cfg.recompute in ("full", "dots") else L
+    _require_launches(f"families {config}", counts,
+                      {"flash_fwd": fwd, "flash_bwd_dq": L,
+                       "flash_bwd_dkv": L}, out["steps_run"])
+    row = {"config": config, "metric": rec["metric"],
+           "batch": out["batch"], "seq": out["seq"],
+           "params": out["params"], "stacked": cfg.stacked,
+           "recompute": cfg.recompute if cfg.stacked else None,
+           "tokens_per_s": out["tokens_per_s"], "step_ms": out["step_ms"],
+           "mfu": out["mfu"], "vs_baseline": rec["vs_baseline"],
+           "peak_memory_gb": out["peak_gb"], "final_loss": out["final_loss"],
+           "cost_model": rec["cost_model"], "steps_run": out["steps_run"],
+           **counts}
+    log(f"families: {config} " + json.dumps(row))
+    require(math.isfinite(out["final_loss"]),
+            f"families {config}: non-finite loss")
+    require(rec["cost_model"]["agrees"],
+            f"families {config}: counted FLOPs disagree with the hand "
+            f"formula: {rec['cost_model']['ratios']}")
+    del out
+    _release()
+    return row
+
+
+def _family_bert() -> dict:
+    """bench.py --config bert: BERT-base MLM+NSP at b=32 s=512, O2, on the
+    bidirectional flash kernels (12 launches of each a step, no plain or
+    dense call); then one more step under the profiler."""
+    import torch
+    out, counts = _bench("--config", "bert")
+    cfg, rec = out["config"], out["record"]
+    L = cfg.num_layers
+    _require_launches("families bert", counts,
+                      {"flash_fwd": L, "flash_bwd_dq": L,
+                       "flash_bwd_dkv": L}, out["steps_run"])
+    require(counts["dense_calls"] == 0,
+            f"families bert: {counts['dense_calls']} dense attention calls")
+    prof = device_profile(lambda: (out["one_step"](),
+                                   torch.cuda.synchronize()), 1)
+    row = {"config": "bert", "metric": rec["metric"],
+           "batch": out["batch"], "seq": out["seq"],
+           "params": out["params"], "tokens_per_s": out["tokens_per_s"],
+           "step_ms": out["step_ms"], "mfu": out["mfu"],
+           "vs_baseline": rec["vs_baseline"],
+           "peak_memory_gb": out["peak_gb"], "final_loss": out["final_loss"],
+           "cost_model": rec["cost_model"], "steps_run": out["steps_run"],
+           "device_busy_share_of_step": prof["device_busy_ms_per_step"]
+           / out["step_ms"], "step_profile": prof, **counts}
+    log("families: bert " + json.dumps({k: v for k, v in row.items()
+                                        if k != "step_profile"}))
+    log("families: bert step profile " + json.dumps(prof))
+    require(math.isfinite(out["final_loss"]), "families bert: non-finite "
+                                              "loss")
+    require(rec["cost_model"]["agrees"],
+            f"families bert: counted FLOPs disagree with the hand formula: "
+            f"{rec['cost_model']['ratios']}")
+    del out
+    _release()
+    return row
+
+
+def _bert_batch(b, s, vocab, seed, lengths=None):
+    """ids, MLM labels (dense ids), NSP labels and, with ``lengths``, token
+    types and the additive padding mask ``[b, 1, 1, s]`` (-1e4 past each
+    row's length)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, vocab, (b, s))).cuda()
+    nsp = torch.from_numpy(rng.randint(0, 2, (b,))).cuda()
+    if lengths is None:
+        return ids, nsp
+    mask = torch.zeros(b, 1, 1, s, device="cuda")
+    for i, n in enumerate(lengths):
+        mask[i, ..., n:] = -1e4
+    return ids, nsp, torch.zeros_like(ids), mask
+
+
+def _bert_parts(cfg, base, use_kernels, amp_level=None, lr=TRAIN_LR):
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         BertPretrainingCriterion)
+    from paddle_tpu_torch.models.bert import BertSelfAttention
+    from paddle_tpu_torch.optimizer import AdamW
+    model = BertForPretraining(cfg, device="cuda", dtype=torch.float32)
+    if base is not None:
+        model.load_state_dict(base)
+    for mod in model.modules():
+        if isinstance(mod, BertSelfAttention):
+            mod.use_kernels = use_kernels
+    crit = BertPretrainingCriterion(ignore_index=-1000)
+    opt = AdamW(learning_rate=lr, parameters=model.named_parameters())
+    step = TrainStep(model, lambda out, y, nsp: crit(out, y, nsp), opt,
+                     amp_level=amp_level)
+    return model, step
+
+
+def _bert_run(cfg, base, batch, use_kernels, amp_level=None, steps=2,
+              n_inputs=1):
+    """``steps`` AdamW steps of BertForPretraining from ``base``'s weights:
+    losses, parameters after, each step's gradients."""
+    model, step = _bert_parts(cfg, base, use_kernels, amp_level)
+    grads = [{} for _ in range(steps)]
+    done = []
+    for n, p in model.named_parameters():
+        p.register_post_accumulate_grad_hook(
+            lambda t, n=n: grads[len(done)].__setitem__(
+                n, t.grad.detach().clone()))
+    losses = []
+    for _ in range(steps):
+        losses.append(float(step(*batch, n_inputs=n_inputs)))
+        done.append(1)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, step
+    _release()
+    return losses, params, grads
+
+
+def _grad_rel(ga, gb) -> float:
+    """max over steps and parameters of max|a - b| / max|b|."""
+    worst = 0.0
+    for a, b in zip(ga, gb):
+        for n in b:
+            require(n in a, f"{n} got no gradient")
+            worst = max(worst, max_abs_err(a[n], b[n]) / max(
+                float(b[n].abs().max()), 1e-30))
+    return worst
+
+
+def _l2(a, b) -> float:
+    import torch
+    return float(torch.sqrt(sum(((a[n] - b[n]).double() ** 2).sum()
+                                for n in b)))
+
+
+def _bert_parity(seed) -> dict:
+    """BERT-base cut to 4 layers at b=32 s=512: float32 through the flash
+    kernels against their plain versions (the train phase's limits), and
+    O2 by the rounding-floor rule."""
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    import torch
+    cfg = bert_base(num_layers=BERT_PARITY_LAYERS, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    base = BertForPretraining(cfg, device="cuda", seed=seed).state_dict()
+    ids, nsp = _bert_batch(32, ENCODER_SEQ, cfg.vocab_size, seed)
+    batch = (ids, ids, nsp)
+    kl, kp, kg = _bert_run(cfg, base, batch, True)
+    pl, pp, pg = _bert_run(cfg, base, batch, False)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
+    grad_rel = _grad_rel(kg, pg)
+    ko = _bert_run(cfg, base, batch, True, "O2")
+    po = _bert_run(cfg, base, batch, False, "O2")
+    o2 = {"loss_kernel": max(abs(a - b) for a, b in zip(ko[0], pl)),
+          "loss_plain": max(abs(a - b) for a, b in zip(po[0], pl)),
+          "params_l2_kernel": _l2(ko[1], pp),
+          "params_l2_plain": _l2(po[1], pp)}
+    out = {"layers": BERT_PARITY_LAYERS, "batch": 32, "seq": ENCODER_SEQ,
+           "f32_losses": {"kernels": kl, "plain": pl},
+           "f32_loss_rel": loss_rel, "f32_grad_rel_max": grad_rel, "o2": o2}
+    log("families: bert parity " + json.dumps(out))
+    require(loss_rel <= TRAIN_F32_LOSS_RTOL,
+            f"bert parity: float32 losses differ by {loss_rel:.2e}")
+    require(grad_rel <= TRAIN_F32_GRAD_RTOL,
+            f"bert parity: float32 gradients differ by {grad_rel:.2e} of "
+            f"their largest")
+    for what in ("loss", "params_l2"):
+        k, p = o2[f"{what}_kernel"], o2[f"{what}_plain"]
+        require(k <= BF16_FLOOR_FACTOR * p,
+                f"bert parity: O2 {what} {k:.3e} from float32, beyond "
+                f"{BF16_FLOOR_FACTOR} x the plain path's {p:.3e}")
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bert_masked(seed) -> dict:
+    """BERT-base at b=32 s=512 with a padding mask (ragged lengths in one
+    batch), O2: the reference's dense path, 12 calls a step, no flash
+    launch."""
+    import numpy as np
+    from paddle_tpu_torch.models import bert_base
+    cfg = bert_base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    lengths = np.random.RandomState(seed).randint(64, ENCODER_SEQ + 1, 32)
+    lengths[0] = ENCODER_SEQ
+    ids, nsp, tt, mask = _bert_batch(32, ENCODER_SEQ, cfg.vocab_size, seed,
+                                     lengths)
+    model, step = _bert_parts(cfg, None, True, "O2")
+    batch = (ids, tt, mask, ids, nsp)
+    step(*batch, n_inputs=3)
+    _reset_counts()
+    wall, loss = _timed_window(lambda: step.run_steps(
+        FAMILY_STEPS, *batch, n_inputs=3), FAMILY_STEPS)
+    counts = _read_counts()
+    out = {"lengths": [int(x) for x in lengths[:8]] + ["..."],
+           "step_ms": wall / FAMILY_STEPS * 1e3, "loss": float(loss),
+           **counts}
+    log("families: bert padded " + json.dumps(out))
+    require(math.isfinite(out["loss"]), "bert padded: non-finite loss")
+    require(counts["dense_calls"] == cfg.num_layers * FAMILY_STEPS,
+            f"bert padded: {counts['dense_calls']} dense calls in "
+            f"{FAMILY_STEPS} steps, not {cfg.num_layers} a step")
+    require(all(v == 0 for v in counts["launches"].values()),
+            f"bert padded: flash launches {counts['launches']}")
+    del model, step
+    _release()
+    return out
+
+
+def _bert_dropout_recompute(seed) -> dict:
+    """BERT-base cut to 4 layers, float32, dropout 0.1 (the dense path):
+    two runs from one generator seed bit for bit; recompute=True against
+    False from one seed, the gradients within RECOMPUTE_GRAD_RTOL of each
+    parameter's largest (the masks replay in the recompute)."""
+    from paddle_tpu_torch.framework import random as random_mod
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    runs = {}
+    for tag, rc in (("stored", False), ("stored_again", False),
+                    ("recompute", True)):
+        cfg = bert_base(num_layers=BERT_PARITY_LAYERS, recompute=rc,
+                        hidden_dropout_prob=RECIPE_DROPOUT,
+                        attention_probs_dropout_prob=RECIPE_DROPOUT)
+        base = BertForPretraining(cfg, device="cuda",
+                                  seed=seed).state_dict()
+        ids, nsp = _bert_batch(8, ENCODER_SEQ, cfg.vocab_size, seed)
+        random_mod.seed(seed + 7)
+        runs[tag] = _bert_run(cfg, base, (ids, ids, nsp), True)
+    (sl, sp, sg), (al, ap, ag) = runs["stored"], runs["stored_again"]
+    repeat = sl == al and all(
+        bool((sg[i][n] == ag[i][n]).all()) for i in range(2) for n in sg[i])
+    rl, rp, rg = runs["recompute"]
+    grad_rel = _grad_rel(rg, sg)
+    out = {"losses": {k: v[0] for k, v in runs.items()},
+           "bit_for_bit_repeat": repeat,
+           "recompute_grad_rel_max": grad_rel}
+    log("families: bert dropout+recompute " + json.dumps(out))
+    require(repeat, "bert dropout: one seed did not repeat bit for bit")
+    require(grad_rel <= RECOMPUTE_GRAD_RTOL,
+            f"bert dropout: recompute's gradients differ by {grad_rel:.2e} "
+            f"of their largest")
+    return out
+
+
+def _ernie(seed) -> dict:
+    """ernie_base sequence classification at b=32 s=512 with task types and
+    a padding mask (O2, a few steps); then ernie_3_0_10b's forward under
+    no_grad in bf16 at full width and depth, b=4 s=512, built on the card
+    in bf16."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         ErnieModel, ernie_3_0_10b,
+                                         ernie_base)
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = ernie_base(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    model = ErnieForSequenceClassification(cfg, device="cuda", seed=seed)
+    step = TrainStep(model, lambda o, y: cross_entropy(o, y),
+                     AdamW(learning_rate=TRAIN_LR,
+                           parameters=model.named_parameters()),
+                     amp_level="O2")
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(64, ENCODER_SEQ + 1, 32)
+    ids, _, tt, mask = _bert_batch(32, ENCODER_SEQ, cfg.vocab_size, seed,
+                                   lengths)
+    task = torch.from_numpy(rng.randint(0, 16, (32, ENCODER_SEQ))).cuda()
+    y = torch.from_numpy(rng.randint(0, 2, (32,))).cuda()
+    batch = (ids, tt, task, mask, y)
+    step(*batch, n_inputs=4)
+    wall, loss = _timed_window(lambda: step.run_steps(
+        FAMILY_STEPS, *batch, n_inputs=4), FAMILY_STEPS)
+    base = {"step_ms": wall / FAMILY_STEPS * 1e3, "loss": float(loss)}
+    require(math.isfinite(base["loss"]), "ernie_base: non-finite loss")
+    del model, step
+    _release()
+
+    big = ernie_3_0_10b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ErnieModel(big, device="cuda", dtype=torch.bfloat16, seed=seed)
+    model.eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.from_numpy(rng.randint(0, big.vocab_size,
+                                       (ERNIE_10B_BATCH, ENCODER_SEQ))).cuda()
+    with torch.no_grad():
+        model(ids)                                # warm-up
+        _reset_counts()
+        h, pooled = model(ids)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        fwd_ms = device_ms(lambda: model(ids), iters=3, warmup=0)
+    out = {"ernie_base": base,
+           "ernie_3_0_10b": {"params": model.num_params(),
+                             "batch": ERNIE_10B_BATCH, "seq": ENCODER_SEQ,
+                             "build_s": build_s, "forward_ms": fwd_ms,
+                             "peak_memory_gb":
+                                 torch.cuda.max_memory_allocated() / 1e9,
+                             **counts}}
+    log("families: ernie " + json.dumps(out))
+    require(bool(torch.isfinite(h.float()).all())
+            and bool(torch.isfinite(pooled.float()).all()),
+            "ernie_3_0_10b: non-finite output")
+    _require_launches("ernie_3_0_10b forward", counts,
+                      {"flash_fwd": big.num_layers}, 1)
+    del model, h, pooled
+    _release()
+    return out
+
+
+def _resnet_step(seed, init, x, y, device, dtype):
+    """One Momentum(0.1, 0.9) step of resnet18 (NHWC) from ``init`` on
+    ``device`` in ``dtype``: the loss, each parameter's update and the
+    BatchNorm statistics after it, in float64 on the CPU."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    # .to() takes the statistics along (the layer keeps them float32)
+    model = resnet18(data_format="NHWC", device=device, seed=seed).to(dtype)
+    model.load_state_dict(init)
+    step = TrainStep(model, lambda o, t: cross_entropy(o, t),
+                     Momentum(learning_rate=0.1, momentum=0.9,
+                              parameters=model.named_parameters()))
+    loss = float(step(x.to(device, dtype), y.to(device)))
+    update = {k: p.detach().cpu().double() - init[k].double()
+              for k, p in model.named_parameters()}
+    stats = {k: b.detach().cpu().double() for k, b in model.named_buffers()}
+    return loss, update, stats
+
+
+def _l2_rel(a, b) -> float:
+    """||a − b|| / ||b|| over every tensor of the dicts together."""
+    return math.sqrt(sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+                     / sum(float((b[k] ** 2).sum()) for k in b))
+
+
+def _resnet_card_vs_cpu(seed) -> dict:
+    """resnet18 (NHWC): one Momentum(0.1, 0.9) step on the card against the
+    same step on the CPU from the same weights and images. float32 with
+    TF32 off (cuDNN's default would round convolutions to TF32): the loss
+    within RESNET_LOSS_RTOL, each BatchNorm statistic within
+    RESNET_STATS_RTOL of its largest, and the step's update (the
+    parameters' change, ``lr`` times the gradient) within
+    RESNET_UPDATE_RTOL in L2 over the model; the same step with TF32 on
+    is the control, and must read above that limit. float64 on both: the
+    update within RESNET_UPDATE_F64_RTOL, which the float32 step's own
+    distance from float64 must exceed. Not each parameter alone: at random
+    weights the training-mode backward amplifies rounding through the
+    batch statistics and the ReLUs, so float32 fixes this update only to
+    a few 1e-3 (RESNET_UPDATE_RTOL's comment)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.vision.models import resnet18
+    require(not torch.backends.cudnn.allow_tf32,
+            "resnet18 check: TF32 must be off for cuDNN")
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(RESNET_CHECK_BATCH, RESNET_CHECK_HW,
+                                   RESNET_CHECK_HW, 3).astype("float32"))
+    y = torch.from_numpy(rng.randint(0, 1000, (RESNET_CHECK_BATCH,)))
+    init = {k: v.clone() for k, v in resnet18(
+        data_format="NHWC", device="cpu", seed=seed).state_dict().items()}
+    f32, f64 = torch.float32, torch.float64
+    runs = {"cpu": _resnet_step(seed, init, x, y, "cpu", f32),
+            "card": _resnet_step(seed, init, x, y, "cuda", f32),
+            "cpu_f64": _resnet_step(seed, init, x, y, "cpu", f64),
+            "card_f64": _resnet_step(seed, init, x, y, "cuda", f64)}
+    with bench.tf32(True):
+        runs["card_tf32"] = _resnet_step(seed, init, x, y, "cuda", f32)
+    (lc, uc, sc), (lg, ug, sg) = runs["cpu"], runs["card"]
+    stats = [k for k in sc if k.endswith(("._mean", "._variance"))]
+    out = {"batch": RESNET_CHECK_BATCH, "hw": RESNET_CHECK_HW,
+           "loss_cpu": lc, "loss_card": lg, "loss_rel": abs(lg - lc) / lc,
+           "stats_rel_max": max(max_abs_err(sg[k], sc[k])
+                                / float(sc[k].abs().max()) for k in stats),
+           "update_l2_rel": _l2_rel(ug, uc),
+           "control_tf32_update_l2_rel": _l2_rel(runs["card_tf32"][1], uc),
+           "update_l2_rel_f64": _l2_rel(runs["card_f64"][1],
+                                        runs["cpu_f64"][1]),
+           "control_f32_vs_f64_update_l2_rel": _l2_rel(
+               uc, runs["cpu_f64"][1])}
+    log("families: resnet18 card vs cpu " + json.dumps(out))
+    require(out["loss_rel"] <= RESNET_LOSS_RTOL,
+            f"resnet18: losses differ by {out['loss_rel']:.2e}")
+    require(out["stats_rel_max"] <= RESNET_STATS_RTOL,
+            f"resnet18: BatchNorm statistics differ by "
+            f"{out['stats_rel_max']:.2e} of their largest")
+    require(out["update_l2_rel"] <= RESNET_UPDATE_RTOL
+            < out["control_tf32_update_l2_rel"],
+            f"resnet18: float32 updates differ by {out['update_l2_rel']:.2e} "
+            f"in L2 (TF32 control {out['control_tf32_update_l2_rel']:.2e}, "
+            f"limit {RESNET_UPDATE_RTOL:.0e} between them)")
+    require(out["update_l2_rel_f64"] <= RESNET_UPDATE_F64_RTOL
+            < out["control_f32_vs_f64_update_l2_rel"],
+            f"resnet18: float64 updates differ by "
+            f"{out['update_l2_rel_f64']:.2e} in L2 (float32's own distance "
+            f"{out['control_f32_vs_f64_update_l2_rel']:.2e}, limit "
+            f"{RESNET_UPDATE_F64_RTOL:.0e} between them)")
+    return out
+
+
+def _family_resnet() -> dict:
+    """bench.py --config resnet50: b=128, 224², NHWC (channels-last), O2,
+    Momentum(0.1, 0.9); the BatchNorm statistics must move."""
+    import torch
+    out, _ = _bench("--config", "resnet50")
+    rec, model = out["record"], out["model"]
+    moved = float(model.bn1._mean.abs().max())
+    prof = device_profile(lambda: (out["one_step"](),
+                                   torch.cuda.synchronize()), 1)
+    row = {"config": "resnet50", "metric": rec["metric"],
+           "batch": out["batch"], "params": out["params"],
+           "images_per_s": out["images_per_s"], "step_ms": out["step_ms"],
+           "mfu": out["mfu"], "vs_baseline": rec["vs_baseline"],
+           "cost_model": rec["cost_model"],
+           "peak_memory_gb": out["peak_gb"], "final_loss": out["final_loss"],
+           "bn1_mean_max_abs": moved,
+           "device_busy_share_of_step": prof["device_busy_ms_per_step"]
+           / out["step_ms"], "step_profile": prof}
+    log("families: resnet50 " + json.dumps({k: v for k, v in row.items()
+                                            if k != "step_profile"}))
+    log("families: resnet50 step profile " + json.dumps(prof))
+    require(math.isfinite(out["final_loss"]), "resnet50: non-finite loss")
+    require(moved > 0, "resnet50: BatchNorm's running mean did not move")
+    require(next(model.parameters()).dtype == torch.float32
+            and model.bn1._mean.dtype == torch.float32,
+            "resnet50: master weights or statistics are not float32")
+    del out, model
+    _release()
+    return row
+
+
+def phase_families(state):
+    """bench.py's other configurations through paddle_tpu_torch.bench's own
+    functions: GPT-2 small, medium and large at their batch and length,
+    BERT-base pretraining on the bidirectional flash kernels (and its
+    parity, padding-mask and dropout+recompute runs), ERNIE (base training,
+    the 10B forward) and ResNet-50 (and resnet18 against the CPU)."""
+    import torch
+    state.pop("model", None)
+    torch.cuda.empty_cache()
+    seed = state["seed"]
+    out = {"gpt": [_family_gpt(c) for c in FAMILY_GPT],
+           "bert": _family_bert(), "bert_parity": _bert_parity(seed),
+           "bert_padded": _bert_masked(seed),
+           "bert_dropout_recompute": _bert_dropout_recompute(seed),
+           "ernie": _ernie(seed), "resnet50": _family_resnet(),
+           "resnet18_card_vs_cpu": _resnet_card_vs_cpu(seed)}
+    state["families"] = out
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -2865,7 +3405,10 @@ def kernels_line(state) -> dict:
     training windows (per-layer, stacked, and the recipe phase's input
     pipeline window). The float16 variants of the three flash kernels are
     entries of their own (``*_f16``), with the recipe phase's float16
-    training window's launches and their times at the training shape."""
+    training window's launches and their times at the training shape.
+    The families phase's bf16 runs (the GPT-2 sizes, BERT-base, the
+    ERNIE-10B forward) count in the bf16 entries, and each flash entry
+    lists its times at those configurations' shapes (``family_shapes``)."""
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
@@ -2877,13 +3420,18 @@ def kernels_line(state) -> dict:
                 for t in st["train"][p]["turns"]] + \
         [st["train_long"]["launches"], state["recipe"]["pipeline"]["launches"]]
     fp16 = state["recipe"]["fp16"]["launches"]
+    fam = state["families"]
+    fam_train = [r["launches"] for r in fam["gpt"]] + \
+        [fam["bert"]["launches"]]
+    fam_fwd = sum(t["flash_fwd"] for t in fam_train) + \
+        fam["ernie"]["ernie_3_0_10b"]["launches"]["flash_fwd"]
     out = []
     for name, mod, row, launches, by in (
             ("flash_fwd", ca, state["flash_main"],
              eng["flash_fwd"] + serving["launches"]["flash_fwd"]
              + train["flash_fwd"]
              + sum(r["launches"]["flash_fwd"] for r in st_serve.values())
-             + sum(t["flash_fwd"] for t in st_train), None),
+             + sum(t["flash_fwd"] for t in st_train) + fam_fwd, None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
              + st_serve["bfloat16"]["launches"]["paged_attention"],
@@ -2918,12 +3466,19 @@ def kernels_line(state) -> dict:
                           "long_shape_library_ms": long_row["library_ms"],
                           "long_shape_plain_ms": long_row["plain_ms"],
                           "long_shape_bound_ms": long_row["bound_ms"],
-                          "long_shape_max_abs_err": long_row["max_abs_err"]})
+                          "long_shape_max_abs_err": long_row["max_abs_err"],
+                          "family_shapes": [
+                              {k: r[k] for k in ("case", "ms", "bound_ms",
+                                                 "bound_by", "plain_ms",
+                                                 "library_ms", "max_abs_err",
+                                                 "row_err", "tflops")}
+                              for r in state["flash_family_rows"]]})
         out.append(entry)
     row, long_row = state["bwd_main"], state["bwd_long"]
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
-        launches = train[name] + sum(t[name] for t in st_train)
+        launches = train[name] + sum(t[name] for t in st_train) + \
+            sum(t[name] for t in fam_train)
         out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
                     "replaces": cab.REPLACES[name], "launches": launches,
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
@@ -2948,7 +3503,19 @@ def kernels_line(state) -> dict:
                     "long_shape_plain_ms": long_row["plain_ms"],
                     "long_shape_library_bwd_ms": long_row["library_bwd_ms"],
                     "long_shape_max_abs_err": max(
-                        long_row[f"{g}_max_abs_err"] for g in grads)})
+                        long_row[f"{g}_max_abs_err"] for g in grads),
+                    "family_shapes": [
+                        {"case": r["case"], "ms": r[f"{name}_ms"],
+                         "bound_ms": r[f"{name}_bound_ms"],
+                         "bound_by": r[f"{name}_bound_by"],
+                         "plain_ms": r["plain_ms"],
+                         "library_bwd_ms": r["library_bwd_ms"],
+                         "library_ms": r["library_ms"],
+                         "max_abs_err": max(r[f"{g}_max_abs_err"]
+                                            for g in grads),
+                         "grad_err": max(r[f"{g}_grad_err"] for g in grads),
+                         "tflops": r[f"{name}_tflops"]}
+                        for r in state["bwd_family_rows"]]})
     row, long_row = state["flash_f16_train"], state["flash_f16_long"]
     out.append({"name": "flash_fwd_f16", "route": "cuda",
                 "source": ca.SOURCE, "replaces": ca.REPLACES,
@@ -3030,7 +3597,7 @@ def main(argv=None) -> int:
            "model": phase_model,
            "engine": phase_engine, "serving": phase_serving,
            "train": phase_train, "stacked": phase_stacked,
-           "recipe": phase_recipe}
+           "recipe": phase_recipe, "families": phase_families}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -3049,10 +3616,10 @@ def main(argv=None) -> int:
     summary = {k: state[k] for k in ("smi", "build_s", "tiny", "model_check",
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
-                                     "recipe", "total_s")
+                                     "recipe", "families", "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
-                                "stacked", "recipe")):
+                                "stacked", "recipe", "families")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

@@ -20,10 +20,14 @@ under the reference's names (``_OP_NAMES``): ``embedding``,
 ``getitem``, ``add``, ``layer_norm``, ``linear``, ``reshape``,
 ``scaled_dot_product_attention`` (the port's function of that name and
 ``attention_bshd``), ``gelu``,
-``matmul``, ``cross_entropy`` and ``gpt_stacked_decoder`` (the stacked
+``matmul``, ``cross_entropy``, ``gpt_stacked_decoder`` (the stacked
 decoder, one op in the reference as here: O2 casts its input and its
 stacked parameters once, O1 casts nothing, and its body runs with the rule
-suspended); every other torch call passes through unchanged. Nested
+suspended), and for the convolutional models ``conv2d`` (white),
+``batch_norm`` (black: float32 in and out, its affine parameters and
+statistics included, at either level, as the reference's O2 keeps them),
+``relu``, ``max_pool2d`` and ``adaptive_avg_pool2d``; every other torch
+call passes through unchanged. Nested
 ``auto_cast`` blocks replace the state, as the reference's do, rather than
 stacking casts.
 """
@@ -63,7 +67,10 @@ def _op_names() -> dict:
     if _OP_NAMES is None:
         from ..models.gpt import gpt_stacked_decoder
         from ..nn.functional.attention import scaled_dot_product_attention
+        from ..nn.functional.conv import conv2d
         from ..nn.functional.loss import cross_entropy
+        from ..nn.functional.norm import batch_norm
+        from ..nn.functional.pooling import adaptive_avg_pool2d, max_pool2d
         from ..ops.flash_attention import attention_bshd
         T = torch.Tensor
         names = {
@@ -81,6 +88,9 @@ def _op_names() -> dict:
             T.__matmul__: "matmul",
             cross_entropy: "cross_entropy",
             gpt_stacked_decoder: "gpt_stacked_decoder",
+            conv2d: "conv2d", batch_norm: "batch_norm", F.relu: "relu",
+            max_pool2d: "max_pool2d",
+            adaptive_avg_pool2d: "adaptive_avg_pool2d",
         }
         _OP_NAMES = names
     return _OP_NAMES

@@ -8,7 +8,13 @@
   (JAX parameter names, e.g. ``gpt.layers.0.attn.qkv_proj.weight``) into a
   port model whose ``state_dict`` keys are those same names. Paddle's
   ``Linear`` stores its weight ``[in, out]`` and torch's ``[out, in]``, so
-  the 2-D weights of ``nn.Linear`` modules are transposed, and only those.
+  the 2-D weights of ``nn.Linear`` modules are transposed, and only those:
+  the reference's Linear, ColumnParallelLinear and RowParallelLinear (GPT,
+  BERT, ERNIE, ResNet's classifier) are ``nn.Linear`` in the port; its
+  VocabParallelEmbedding (an ``nn.Embedding``), the raw position,
+  token-type and task-type tables and the convolutions' OIHW weights keep
+  their layout. Buffers are part of ``state_dict``: BatchNorm's ``_mean``
+  and ``_variance`` cross under the reference's names.
 - ``load_jax_optimizer_state(optimizer, model, state, step_count)`` carries
   training state across: the JAX optimizer's accumulators (AdamW's
   ``moment1``/``moment2``), keyed ``f"{parameter name}_{accumulator}"`` as

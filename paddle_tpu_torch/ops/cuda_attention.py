@@ -32,7 +32,11 @@ what the kernel does not take; only CPU tensors take the plain version
 alone, whether the kernel takes a call: the callers
 (``ops/flash_attention.py``) send what it refuses to the plain version.
 ``launches`` counts kernel launches, ``plain_calls`` calls of the plain
-version (both plain module-level integers).
+version (both plain module-level integers), and ``flops`` the operations
+of the launched kernels' two matrix products, ``4·B·H·Sq·Sk·D`` a launch
+over the whole score matrix (a causal launch skips the tiles its mask
+empties): a FLOP counter over torch's ops (``bench.py``'s cost check)
+cannot see a kernel called through ``ctypes``.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ REPLACES = "paddle_tpu/ops/pallas_attention.py:135"
 
 launches = 0
 plain_calls = 0
+flops = 0.0
 
 
 def mha_fwd_reference(q, k, v, causal=True, scale=None):
@@ -172,7 +177,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
     lse [B*H, Sq] float32)``. CUDA tensors launch ``csrc/flash_fwd.cu`` on
     the current stream (no synchronisation); CPU tensors take
     :func:`mha_fwd_reference`."""
-    global launches
+    global launches, flops
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -200,4 +205,5 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
             stream)
     _build.check(err, "flash_fwd")
     launches += 1
+    flops += 4.0 * b * h * sq * sk * d
     return out, lse

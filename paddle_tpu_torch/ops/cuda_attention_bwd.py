@@ -35,7 +35,11 @@ Kernels: ``csrc/flash_bwd.cu``, the port of the two TPU kernels of
 what they do not take; only CPU tensors take the plain version
 ``mha_bwd_reference``. ``launches`` counts each kernel's launches,
 ``plain_calls`` the plain version's calls (it stands for both kernels), as
-plain module-level dictionaries keyed by kernel name.
+plain module-level dictionaries keyed by kernel name, and ``flops`` the
+operations of the launched kernels' matrix products over the whole score
+matrix (dq three products, ``6·B·H·Sq·Sk·D``; dk/dv four, ``8·B·H·Sq·Sk·D``;
+a causal launch skips the tiles its mask empties), which a FLOP counter
+over torch's ops cannot see.
 """
 from __future__ import annotations
 
@@ -57,6 +61,9 @@ REPLACES = {"flash_bwd_dq": "paddle_tpu/ops/pallas_attention.py:288",
 
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)
+flops = dict.fromkeys(KERNELS, 0.0)
+# the products of each kernel (s, dp, dq; s, dp, dv, dk)
+_PRODUCTS = {"flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 
 
 def _delta(out, do, lse_ct):
@@ -178,4 +185,6 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
                                    stream)
         _build.check(err, "flash_bwd_dkv")
         launches["flash_bwd_dkv"] += 1
+    for name, n in _PRODUCTS.items():
+        flops[name] += 2.0 * n * b * h * sq * sk * d
     return dq, dk, dv

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``paddle_tpu_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or anything of ``paddle_tpu``, and
-importing the whole package pulls in neither."""
+``chip_smoke.py``) imports ``jax``, anything of ``paddle_tpu``, the repo's
+root ``bench.py`` or ``tools/``, and importing the whole package pulls in
+none of them."""
 import ast
 import subprocess
 import sys
@@ -11,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "bench", "tools")
 
 
 def _forbidden(module: str) -> bool:
@@ -40,7 +41,11 @@ def test_package_has_modules_to_scan():
     for mod in ("serving/generation/prefix_cache.py",
                 "serving/generation/spec_decode.py",
                 "serving/generation/engine.py", "ops/paged_attention.py",
-                "ops/cuda_paged_attention.py"):
+                "ops/cuda_paged_attention.py", "bench.py",
+                "models/bert.py", "models/ernie.py",
+                "vision/models/resnet.py", "nn/layer/conv.py",
+                "nn/layer/norm.py", "nn/layer/pooling.py",
+                "distributed/fleet/utils.py"):
         assert f"paddle_tpu_torch/{mod}" in scanned
 
 
