@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe,families]
+                  recipe,families,inference]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -106,6 +106,27 @@ Phases, each failing loudly (exit code 1, no result line):
               The kernels phase times the three flash kernels at these
               configurations' shapes (bidirectional D=64 and D=128, causal
               D=64).
+12. inference — single-model inference as the reference's README shows
+              it: ERNIE-base (12 layers, hidden 768, 12 heads of 64, dropout
+              0, weights from --seed) saved with jit.save (torch.export,
+              batch and sequence dynamic) in float32, in bf16 after
+              amp.decorate, and from a CPU copy; a fresh process loads each
+              through inference.Predictor, runs b=8 s=128 (12 flash launches
+              a forward, no plain call; float32 within 1e-4 x std of the
+              eager plain path, bf16 within 1.5x the bf16 plain path's
+              distance from it) and times Predictor.run (p50/p99, QPS,
+              device ms); ResNet-50 b=8 224 through the Predictor against
+              the eager model. Then InferenceServer (max batch 16, buckets
+              128/256/512, pipeline depth 2) over each precision: warmup,
+              512 single-row requests of 16-512 tokens from 4 client
+              threads (12 flash launches a batch, fewer batches than
+              requests, responses in order, each within the limits of
+              Predictor.run and of the eager plain path on that request
+              alone, padded to its bucket) and a profiled window of 128
+              more (the device's busy share). The kernels phase holds the
+              flash forward against its plain version, and times it, at
+              these shapes in float32 and in bf16: B=8 S=128 and B=16 at
+              S=128, 256, 512.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -133,7 +154,8 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
               "torch.float32": 67e12}
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
-              "serving", "train", "stacked", "recipe", "families")
+              "serving", "train", "stacked", "recipe", "families",
+              "inference")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -930,6 +952,21 @@ def phase_kernels(state):
         check_bwd(row)
     state["bwd_rows"] = brow
     state["bwd_main"] = brow[0]      # the training shape, bf16
+    # the inference phase's shapes (ERNIE-base: bidirectional, 12 heads of
+    # 64), in float32 and in bf16: the Predictor's b=8 s=128, then the
+    # server's full batch B=16 at each bucket
+    log("kernels: flash_fwd at the inference phase's shapes")
+    infer_shapes = [(INFER_BATCH, INFER_SEQ)] + [
+        (SERVER_MAX_BATCH, s) for s in SERVER_BUCKETS]
+    state["flash_f32_infer_rows"] = [
+        _flash_case(b, s, 12, 64, torch.float32, False, seed + 90 + i,
+                    report=True)
+        for i, (b, s) in enumerate(infer_shapes)]
+    state["flash_bf16_infer_rows"] = [
+        _flash_case(b, s, 12, 64, torch.bfloat16, False, seed + 95 + i,
+                    report=True)
+        for i, (b, s) in enumerate(infer_shapes)]
+    rows += state["flash_f32_infer_rows"] + state["flash_bf16_infer_rows"]
     state["bwd_overflow"] = _bwd_overflow_f16(seed + 65)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "kernels.json").write_text(json.dumps(
@@ -3395,6 +3432,344 @@ def phase_families(state):
     state["families"] = out
 
 
+INFER_BATCH, INFER_SEQ = 8, 128     # bench_inference's ERNIE-base shape
+INFER_ITERS = 50                    # Predictor.run calls timed a precision
+RESNET_BATCH, RESNET_SIZE = 8, 224  # bench_inference's ResNet-50 shape
+SERVER_REQUESTS, SERVER_CLIENTS = 512, 4
+SERVER_MAX_BATCH, SERVER_BUCKETS = 16, (128, 256, 512)
+SERVER_MIN_LEN = 16
+PROFILE_REQUESTS = 128              # the profiled window of server batches
+
+# The child process that loads the saved artifacts (nothing of the process
+# that exported them), with the numerics this script runs under: TF32 off
+# for matmuls and cuDNN, no reduced-precision bf16 reductions.
+_PREDICTOR_CHILD = r"""
+import json, sys
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+from paddle_tpu_torch import inference
+from paddle_tpu_torch.bench_inference import bench_predictor
+from paddle_tpu_torch.ops import cuda_attention as ca
+out = {}
+for job in json.loads(sys.argv[1]):
+    feeds = [np.load(job["feed"])]
+    pred = inference.create_predictor(inference.Config(job["prefix"]))
+    launches, plain = ca.launches, ca.plain_calls
+    np.save(job["out"], pred.run(feeds)[0])
+    row = {"device": str(pred.device),
+           "launches_per_run": ca.launches - launches,
+           "plain_calls_per_run": ca.plain_calls - plain}
+    if job["iters"]:
+        row.update(bench_predictor(pred, feeds, job["iters"]))
+    out[job["tag"]] = row
+    del pred
+    torch.cuda.empty_cache()
+print("PREDICTOR_CHILD " + json.dumps(out), flush=True)
+"""
+
+
+def _dist(a, ref) -> float:
+    """max |a - ref| / std(ref), the model checks' measure."""
+    import torch
+    a, ref = torch.as_tensor(a).float(), torch.as_tensor(ref).float()
+    return max_abs_err(a, ref) / float(ref.std())
+
+
+def _use_kernels(model, on: bool) -> None:
+    """The flash kernels (on) or their plain versions in every attention of
+    an encoder (``BertSelfAttention.use_kernels``)."""
+    for m in model.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = on
+
+
+def _predictor_child(jobs) -> dict:
+    """Load and run the artifacts of ``jobs`` in a fresh process."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _PREDICTOR_CHILD,
+                           json.dumps(jobs)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"inference: the predictor process failed:\n{proc.stdout[-3000:]}"
+            f"\n{proc.stderr[-6000:]}")
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("PREDICTOR_CHILD "))
+    return json.loads(line[len("PREDICTOR_CHILD "):])
+
+
+def _serve_clients(srv, reqs, clients):
+    """Submit ``reqs`` from ``clients`` threads (request i from client
+    i % clients, each client in its own order, without waiting) and wait
+    for every response. Returns the outputs in request order, the order in
+    which the futures resolved and the wall seconds."""
+    import itertools
+    import threading
+    done_order = {}
+    tick = itertools.count()
+    futs = [None] * len(reqs)
+    errors = []
+
+    def client(c):
+        try:
+            for i in range(c, len(reqs), clients):
+                f = srv.submit([reqs[i]])
+                f.add_done_callback(
+                    lambda _, i=i: done_order.__setitem__(i, next(tick)))
+                futs[i] = f
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    require(not errors, f"inference: a client failed: {errors[:1]}")
+    outs = [f.result(timeout=300)[0] for f in futs]
+    return outs, done_order, time.perf_counter() - t0
+
+
+def _server_run(pred, reqs, name, layers) -> tuple:
+    """InferenceServer over ``pred`` (max batch 16, buckets 128/256/512,
+    pipeline depth 2): warmup, then ``reqs`` from SERVER_CLIENTS clients
+    with the counts set to 0 just before and read just after; then a
+    profiled window of PROFILE_REQUESTS more. Returns the outputs, the
+    record and the server's policy."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import serving
+    srv = serving.InferenceServer(
+        pred, max_batch_size=SERVER_MAX_BATCH, seq_buckets=SERVER_BUCKETS,
+        pipeline_depth=2, queue_capacity=len(reqs), name=name,
+        ready_requires_warmup=True)
+    require(not srv.ready, f"{name}: ready before warmup")
+    t0 = time.perf_counter()
+    fresh = srv.warmup()
+    warm_s = time.perf_counter() - t0
+    require(srv.ready and fresh == len(srv.bucket_specs()),
+            f"{name}: warmup ran {fresh} of {len(srv.bucket_specs())} "
+            f"signatures")
+    _reset_counts()
+    outs, done_order, wall = _serve_clients(srv, reqs, SERVER_CLIENTS)
+    counts = _read_counts()
+    snap = srv.metrics.snapshot()
+    c = snap["counters"]
+    require(c["completed"] == len(reqs) and c["failed"] == 0
+            and c["timed_out"] == 0 and c["rejected"] == 0,
+            f"{name}: counters {c}")
+    require(0 < c["batches"] < len(reqs), f"{name}: {c['batches']} batches "
+            f"for {len(reqs)} requests")
+    _require_launches(name, counts, {"flash_fwd": layers}, c["batches"])
+    # order: a client's requests of one bucket resolve in the order it
+    # submitted them (the batcher is FIFO within a signature and the
+    # completion stage FIFO over batches)
+    for cl in range(SERVER_CLIENTS):
+        for b in SERVER_BUCKETS:
+            mine = [i for i in range(cl, len(reqs), SERVER_CLIENTS)
+                    if srv.policy.bucket_seq(reqs[i].shape[1]) == b]
+            ticks = [done_order[i] for i in mine]
+            require(ticks == sorted(ticks), f"{name}: client {cl} bucket "
+                    f"{b}: responses out of submission order")
+    rng = np.random.RandomState(1)
+    extra = [reqs[i] for i in rng.randint(0, len(reqs), PROFILE_REQUESTS)]
+    prof = device_profile(lambda: _serve_clients(srv, extra, 1), 1)
+    torch.cuda.synchronize()
+    record = {"warmup_signatures": [[s.batch, s.seq]
+                                    for s in srv.bucket_specs()],
+              "warmup_s": warm_s, "requests": len(reqs),
+              "clients": SERVER_CLIENTS, "wall_s": wall,
+              "qps": len(reqs) / wall, "batches": c["batches"],
+              "mean_rows_per_batch": len(reqs) / c["batches"],
+              "batch_size_hist": snap["batch_size_hist"],
+              "latency_ms": snap["latency_ms"],
+              "stage_ms": snap["stage_ms"],
+              "padding_waste_ratio": snap["padding"]["waste_ratio"],
+              "launches": counts["launches"]["flash_fwd"],
+              "plain_calls": counts["plain_calls"]["flash_fwd"],
+              "profile": {k: prof[k] for k in (
+                  "wall_ms_per_step", "device_busy_ms_per_step",
+                  "device_busy_share", "device_ms_by_group",
+                  "kernels_per_step", "top")}}
+    srv.shutdown()
+    return outs, record, srv.policy
+
+
+def phase_inference(state):
+    """Single-model inference as the reference's users run it: ERNIE-base
+    saved with jit.save (float32, and bf16 after amp.decorate), loaded by
+    inference.Predictor in a fresh process and served by InferenceServer;
+    ResNet-50 through the Predictor."""
+    import copy
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp, inference, jit
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         ernie_base)
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import resnet50
+    seed = state["seed"]
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_inference_"))
+    try:
+        cfg = ernie_base(hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+        layers = cfg.num_layers
+        model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                               device="cuda",
+                                               seed=seed).eval()
+        rng = np.random.RandomState(seed)
+        ids = rng.randint(1, cfg.vocab_size,
+                          (INFER_BATCH, INFER_SEQ)).astype(np.int64)
+        np.save(work / "ids.npy", ids)
+        spec = [InputSpec([None, None], "int64", "input_ids")]
+        x = torch.from_numpy(ids).cuda()
+        with torch.no_grad():
+            _use_kernels(model, False)
+            ref32 = model(x).float().cpu()
+            _use_kernels(model, True)
+        t0 = time.perf_counter()
+        jit.save(model, str(work / "ernie_f32"), input_spec=spec)
+        save_s = time.perf_counter() - t0
+        cpu_model = copy.deepcopy(model).cpu()
+        jit.save(cpu_model, str(work / "ernie_cpu"), input_spec=spec)
+        del cpu_model
+        bf = amp.decorate(copy.deepcopy(model), dtype="bfloat16")
+        with torch.no_grad():
+            _use_kernels(bf, False)
+            plain_bf16 = bf(x).float().cpu()
+            _use_kernels(bf, True)
+        jit.save(bf, str(work / "ernie_bf16"), input_spec=spec)
+        rn = resnet50(device="cuda", seed=seed).eval()
+        img = rng.randn(RESNET_BATCH, 3, RESNET_SIZE,
+                        RESNET_SIZE).astype(np.float32)
+        np.save(work / "img.npy", img)
+        with torch.no_grad():
+            ref_rn = rn(torch.from_numpy(img).cuda()).float().cpu()
+        jit.save(rn, str(work / "resnet50"),
+                 input_spec=[InputSpec([None, 3, RESNET_SIZE, RESNET_SIZE],
+                                       "float32", "image")])
+        del rn
+        _release()
+
+        jobs = [{"tag": tag, "prefix": str(work / tag),
+                 "feed": str(work / feed), "out": str(work / f"{tag}.npy"),
+                 "iters": iters}
+                for tag, feed, iters in (
+                    ("ernie_f32", "ids.npy", INFER_ITERS),
+                    ("ernie_bf16", "ids.npy", INFER_ITERS),
+                    ("ernie_cpu", "ids.npy", 0),
+                    ("resnet50", "img.npy", INFER_ITERS))]
+        t0 = time.perf_counter()
+        child = _predictor_child(jobs)
+        child_s = time.perf_counter() - t0
+        got = {j["tag"]: np.load(j["out"]) for j in jobs}
+        d32 = _dist(got["ernie_f32"], ref32)
+        dcpu = _dist(got["ernie_cpu"], ref32)
+        floor = _dist(plain_bf16, ref32)
+        dbf = _dist(got["ernie_bf16"], ref32)
+        drn = _dist(got["resnet50"], ref_rn)
+        checks = {"f32_kernel_vs_plain": d32, "cpu_saved_vs_plain": dcpu,
+                  "bf16_kernel_vs_f32_plain": dbf,
+                  "bf16_plain_vs_f32_plain": floor,
+                  "resnet50_vs_eager": drn}
+        log("inference: predictor checks (max |a - b| / std) "
+            + json.dumps(checks))
+        for tag in ("ernie_f32", "ernie_bf16", "ernie_cpu"):
+            row = child[tag]
+            require(row["device"].startswith("cuda"),
+                    f"inference: {tag} ran on {row['device']}")
+            require(row["launches_per_run"] == layers
+                    and row["plain_calls_per_run"] == 0,
+                    f"inference: {tag}: {row['launches_per_run']} flash "
+                    f"launches and {row['plain_calls_per_run']} plain calls "
+                    f"a forward, not {layers} and 0")
+        require(d32 <= F32_MODEL_LIMIT, f"inference: float32 predictor "
+                f"{d32:.2e} from the plain path (limit {F32_MODEL_LIMIT})")
+        require(dcpu <= F32_MODEL_LIMIT, f"inference: the CPU-saved artifact "
+                f"on the card {dcpu:.2e} from the plain path")
+        require(0 < floor and dbf <= BF16_FLOOR_FACTOR * floor,
+                f"inference: bf16 predictor {dbf:.2e} from float32, beyond "
+                f"{BF16_FLOOR_FACTOR} x the bf16 plain path's {floor:.2e}")
+        require(drn <= F32_MODEL_LIMIT, f"inference: ResNet-50 predictor "
+                f"{drn:.2e} from the eager model")
+
+        # the server: 512 single-row requests of 16-512 tokens
+        lens = rng.randint(SERVER_MIN_LEN, SERVER_BUCKETS[-1] + 1,
+                           SERVER_REQUESTS)
+        reqs = [rng.randint(1, cfg.vocab_size, (1, n)).astype(np.int64)
+                for n in lens]
+        server, alone32 = {}, None
+        for prec in ("float32", "bfloat16"):
+            tag = "ernie_f32" if prec == "float32" else "ernie_bf16"
+            pred = inference.create_predictor(
+                inference.Config(str(work / tag)))
+            # host time a forward at b=8 s=128 (the enqueue rate of 50
+            # back-to-back calls: the host's when it is slower than the
+            # card, the card's otherwise): the exported program against
+            # the eager model it came from
+            eager = model if prec == "float32" else bf
+            with torch.no_grad():
+                dispatch = {"exported": host_us(lambda: pred._artifact(x)),
+                            "eager": host_us(lambda: eager(x))}
+            outs, record, policy = _server_run(pred, reqs,
+                                               f"smoke_{prec}", layers)
+            record["host_us_per_forward_b8_s128"] = dispatch
+            padded = [policy.pad_request_seq([r])[0] for r in reqs]
+            alone = np.concatenate([pred.run([p])[0] for p in padded])
+            outs = np.concatenate(outs)
+            # each request alone, padded to its bucket, on the eager
+            # model's plain path (no kernel)
+            with torch.no_grad():
+                _use_kernels(eager, False)
+                plain = np.concatenate([
+                    eager(torch.from_numpy(p).cuda()).float().cpu().numpy()
+                    for p in padded])
+                _use_kernels(eager, True)
+            if prec == "float32":
+                alone32 = alone
+                record["vs_predictor_alone"] = _dist(outs, alone)
+                record["vs_plain_alone"] = _dist(outs, plain)
+                for key in ("vs_predictor_alone", "vs_plain_alone"):
+                    require(record[key] <= F32_MODEL_LIMIT,
+                            f"inference: float32 server {key} "
+                            f"{record[key]:.2e}, beyond {F32_MODEL_LIMIT}")
+            else:
+                record["vs_f32_alone"] = _dist(outs, alone32)
+                record["floor_plain_vs_f32_alone"] = _dist(plain, alone32)
+                require(record["vs_f32_alone"] <= BF16_FLOOR_FACTOR
+                        * record["floor_plain_vs_f32_alone"],
+                        f"inference: bf16 server {record['vs_f32_alone']:.2e}"
+                        f" from float32, beyond {BF16_FLOOR_FACTOR} x the "
+                        f"plain path's "
+                        f"{record['floor_plain_vs_f32_alone']:.2e}")
+            log(f"inference: server {prec} " + json.dumps(record))
+            server[prec] = record
+            del pred
+            _release()
+        del model, bf
+        _release()
+        out = {"ernie_base": {"batch": INFER_BATCH, "seq": INFER_SEQ,
+                              "jit_save_s": save_s, "child_s": child_s,
+                              "checks": checks,
+                              "predictor": {k: child[k] for k in
+                                            ("ernie_f32", "ernie_bf16",
+                                             "ernie_cpu")}},
+               "resnet50": {"batch": RESNET_BATCH, "size": RESNET_SIZE,
+                            "predictor": child["resnet50"]},
+               "server": server}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    state["inference"] = out
+    log("inference: " + json.dumps(out))
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -3408,7 +3783,11 @@ def kernels_line(state) -> dict:
     training window's launches and their times at the training shape.
     The families phase's bf16 runs (the GPT-2 sizes, BERT-base, the
     ERNIE-10B forward) count in the bf16 entries, and each flash entry
-    lists its times at those configurations' shapes (``family_shapes``)."""
+    lists its times at those configurations' shapes (``family_shapes``).
+    The inference phase's bf16 server run counts in ``flash_fwd`` (its
+    times at the Predictor's shape and the server's: ``serving_shapes``),
+    its float32 server run in ``flash_fwd_f32``, the float32 forward's
+    entry, timed at the Predictor's shape and at the server's."""
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
@@ -3425,13 +3804,15 @@ def kernels_line(state) -> dict:
         [fam["bert"]["launches"]]
     fam_fwd = sum(t["flash_fwd"] for t in fam_train) + \
         fam["ernie"]["ernie_3_0_10b"]["launches"]["flash_fwd"]
+    infer = state["inference"]["server"]
     out = []
     for name, mod, row, launches, by in (
             ("flash_fwd", ca, state["flash_main"],
              eng["flash_fwd"] + serving["launches"]["flash_fwd"]
              + train["flash_fwd"]
              + sum(r["launches"]["flash_fwd"] for r in st_serve.values())
-             + sum(t["flash_fwd"] for t in st_train) + fam_fwd, None),
+             + sum(t["flash_fwd"] for t in st_train) + fam_fwd
+             + infer["bfloat16"]["launches"], None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
              + st_serve["bfloat16"]["launches"]["paged_attention"],
@@ -3472,8 +3853,31 @@ def kernels_line(state) -> dict:
                                                  "bound_by", "plain_ms",
                                                  "library_ms", "max_abs_err",
                                                  "row_err", "tflops")}
-                              for r in state["flash_family_rows"]]})
+                              for r in state["flash_family_rows"]],
+                          "serving_shapes": [
+                              {k: r[k] for k in ("case", "ms", "bound_ms",
+                                                 "bound_by", "plain_ms",
+                                                 "library_ms", "max_abs_err",
+                                                 "row_err", "tflops")}
+                              for r in state["flash_bf16_infer_rows"]]})
         out.append(entry)
+    # the float32 forward: the inference phase's float32 server run (the
+    # Predictor's default precision)
+    row, *served = state["flash_f32_infer_rows"]
+    out.append({"name": "flash_fwd_f32", "route": "cuda",
+                "source": ca.SOURCE, "replaces": ca.REPLACES,
+                "launches": infer["float32"]["launches"],
+                "max_abs_err": max(r["max_abs_err"] for r in
+                                   state["flash_f32_infer_rows"]),
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "tflops": row["tflops"], "shape": row["case"],
+                "serving_shapes": [
+                    {k: r[k] for k in ("case", "ms", "bound_ms", "bound_by",
+                                       "plain_ms", "library_ms",
+                                       "max_abs_err", "tflops")}
+                    for r in served]})
     row, long_row = state["bwd_main"], state["bwd_long"]
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
@@ -3597,7 +4001,8 @@ def main(argv=None) -> int:
            "model": phase_model,
            "engine": phase_engine, "serving": phase_serving,
            "train": phase_train, "stacked": phase_stacked,
-           "recipe": phase_recipe, "families": phase_families}
+           "recipe": phase_recipe, "families": phase_families,
+           "inference": phase_inference}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -3616,10 +4021,12 @@ def main(argv=None) -> int:
     summary = {k: state[k] for k in ("smi", "build_s", "tiny", "model_check",
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
-                                     "recipe", "families", "total_s")
+                                     "recipe", "families", "inference",
+                                     "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
-                                "stacked", "recipe", "families")):
+                                "stacked", "recipe", "families",
+                                "inference")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

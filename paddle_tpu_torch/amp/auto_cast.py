@@ -40,7 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
-__all__ = ["auto_cast", "amp_state", "WHITE_LIST", "BLACK_LIST"]
+__all__ = ["auto_cast", "amp_state", "decorate", "WHITE_LIST",
+           "BLACK_LIST"]
 
 # the reference's lists (paddle_tpu/amp/auto_cast.py:22-33)
 WHITE_LIST = {
@@ -156,3 +157,22 @@ def auto_cast(enable=True, level="O1", dtype="bfloat16"):
                 yield
     finally:
         _state.amp = prev
+
+
+def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
+             master_weight=None, save_dtype=None):
+    """O2 decoration (``paddle_tpu/amp/auto_cast.py:94``): cast every
+    floating parameter and buffer of each model to ``dtype`` ("bfloat16" or
+    "float16"), in place, as the reference's ``Layer.astype``. A model
+    decorated so and saved with ``jit.save`` serves in that dtype. Returns
+    the models (and ``optimizers`` when given), as the reference."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"amp dtype must be one of {sorted(_DTYPES)}, got "
+                         f"{dtype!r}")
+    single = not isinstance(models, (list, tuple))
+    model_list = [models] if single else list(models)
+    for m in model_list:
+        m.to(_DTYPES[dtype])
+    if optimizers is None:
+        return models if single else model_list
+    return (models if single else model_list), optimizers

@@ -1,5 +1,5 @@
-"""Typed flag registry: only the ``FLAGS_decode_*`` knobs the generation
-engine reads.
+"""Typed flag registry: the ``FLAGS_decode_*`` knobs the generation engine
+reads and the ``FLAGS_serving_*`` knobs of the dynamic-batching server.
 
 Counterpart of ``paddle_tpu/framework/flags.py`` (same surface:
 ``define_flag``/``flag_value``/``set_flags``, with a
@@ -116,3 +116,49 @@ define_flag("FLAGS_decode_kv_dtype", "",
             "in the paged kernel's row loads and in the plain gather). "
             "Auto pool sizing (FLAGS_decode_kv_pages=0) grants sub-f32 "
             "dtypes 2x pages. Read once at server construction")
+
+# Serving knobs (serving/server.py, the dynamic-batching layer), with the
+# reference's names and defaults (paddle_tpu/framework/flags.py:149-177, 243,
+# 271, 398).
+define_flag("FLAGS_serving_max_batch_size", 8,
+            "rows coalesced into one device batch before dispatch")
+define_flag("FLAGS_serving_max_wait_ms", 2.0,
+            "coalescing window: a batch dispatches when full or this "
+            "many ms after its oldest request, whichever first")
+define_flag("FLAGS_serving_queue_capacity", 64,
+            "bounded request queue; submit raises QueueFullError beyond "
+            "this (backpressure)")
+define_flag("FLAGS_serving_default_timeout_ms", 0.0,
+            "per-request deadline applied when submit() passes none "
+            "(0 = no deadline); expired requests are dropped unrun")
+define_flag("FLAGS_serving_pad_batch_pow2", True,
+            "pad coalesced batches up to power-of-two row buckets, so a "
+            "server runs a bounded set of batch shapes")
+define_flag("FLAGS_serving_capi_batching", False,
+            "route C-ABI predictors through a shared InferenceServer "
+            "(the C ABI waits for ROADMAP queue 1 item 5d)")
+define_flag("FLAGS_serving_latency_window", 2048,
+            "latency samples kept for the serving p50/p95/p99 metrics")
+define_flag("FLAGS_serving_pipeline_depth", 2,
+            "batches allowed in flight between dispatch and completion: "
+            "the worker assembles batch N+1 while batch N computes on "
+            "the device (0 = synchronous execute)")
+define_flag("FLAGS_serving_telemetry_port", -1,
+            "HTTP telemetry endpoint the InferenceServer attaches: -1 "
+            "disabled; any other value raises until the telemetry plane "
+            "is ported (ROADMAP queue 1 item 5b)")
+define_flag("FLAGS_serving_donate_inputs", True,
+            "accepted for the reference's surface and without effect: "
+            "torch has no buffer donation, so the port always behaves as "
+            "the reference does on its CPU backend, which does not "
+            "donate (paddle_tpu/inference/__init__.py:683)")
+define_flag("FLAGS_serving_mesh_mp", 1,
+            "tensor-parallel degree of one serving replica; above 1 "
+            "waits for ROADMAP queue 1 item 5c")
+define_flag("FLAGS_serving_warmup_from_manifest", False,
+            "pre-warm a constructed InferenceServer from a persisted "
+            "warmup manifest; the manifest waits for ROADMAP queue 1 "
+            "item 5a's compile cache, so True raises")
+define_flag("FLAGS_serving_ready_requires_warmup", False,
+            "gate InferenceServer.ready on warmup: the server reports "
+            "not-ready until warmup() completes (or mark_ready())")

@@ -1,4 +1,33 @@
-"""Serving layer of the port (this slice: the generation engine)."""
-from .request import DeadlineExceededError, QueueFullError, ServerClosedError
+"""Serving layer of the port (the counterpart of ``paddle_tpu/serving``).
 
-__all__ = ["DeadlineExceededError", "QueueFullError", "ServerClosedError"]
+- ``InferenceServer`` (``server.py``): dynamic-batching serving over one
+  ``inference.Predictor``: ``submit(feed) -> Future``, ``submit_many``,
+  ``serve_forever``, ``warmup``, ``ready``/``mark_ready``, graceful
+  ``shutdown(drain=True)``; a three-stage pipeline (staging, dispatch on a
+  CUDA stream, completion), ``FLAGS_serving_pipeline_depth`` batches in
+  flight.
+- ``DynamicBatcher`` (``batcher.py``): bounded queue with backpressure
+  (``QueueFullError``), deadlines (``DeadlineExceededError``),
+  max_batch_size/max_wait_ms coalescing by shape signature.
+- ``ShapeBucketPolicy`` / ``BucketSpec`` (``bucketing.py``): power-of-two
+  batch and sequence-length buckets with zero padding and unpad-on-fetch.
+- ``ServingMetrics`` (``metrics.py``): the reference's snapshot schema.
+- ``generation`` (subpackage): autoregressive decode serving
+  (``GenerationServer``) over a paged KV cache.
+
+Knobs: ``FLAGS_serving_*`` in ``framework/flags.py``. The serving fleet,
+the tenant scheduler and ``wrap_capi`` wait for ROADMAP queue 1 items 5b
+and 5d, the serving mesh for item 5c.
+"""
+from . import metrics  # noqa: F401  (the registry sub-namespace)
+from .batcher import DynamicBatcher
+from .bucketing import BucketSpec, ShapeBucketPolicy, next_pow2
+from .metrics import ServingMetrics
+from .request import (DeadlineExceededError, QueueFullError,
+                      QuotaExceededError, Request, ServerClosedError)
+from .server import InferenceServer
+
+__all__ = ["InferenceServer", "DynamicBatcher", "ShapeBucketPolicy",
+           "BucketSpec", "ServingMetrics", "Request", "QueueFullError",
+           "QuotaExceededError", "DeadlineExceededError",
+           "ServerClosedError", "next_pow2", "metrics"]

@@ -45,7 +45,13 @@ def test_package_has_modules_to_scan():
                 "models/bert.py", "models/ernie.py",
                 "vision/models/resnet.py", "nn/layer/conv.py",
                 "nn/layer/norm.py", "nn/layer/pooling.py",
-                "distributed/fleet/utils.py"):
+                "distributed/fleet/utils.py", "jit/api.py",
+                "framework/exporting.py", "framework/monitor.py",
+                "inference/__init__.py", "serving/server.py",
+                "serving/batcher.py", "serving/metrics.py",
+                "observability/registry.py", "observability/tracing.py",
+                "profiler/__init__.py", "static/__init__.py",
+                "bench_inference.py"):
         assert f"paddle_tpu_torch/{mod}" in scanned
 
 

@@ -100,25 +100,68 @@ def _k_bias(name, shape):
     return mask
 
 
-def _assert_matches(tag, port, ref, init=None, steps=0, lr=1e-4):
-    """Losses and every parameter within RTOL/ATOL, except the key slots
-    of the qkv bias: softmax is invariant to a shift of a row's scores, so
-    their exact gradient is zero and both packages hand Adam float32
-    rounding noise (~1e-9, against eps 1e-8), which Adam turns into updates
-    of up to ~lr/10 a step, in no agreed direction. Those slots are held to
-    what Adam allows: each package moves them by at most lr a step."""
+# Elements whose reference gradient is within float32 rounding of zero: the
+# two packages' float32 gradients of gpt_tiny differ by up to 6.1e-7 of
+# their tensor's largest |gradient| (CPU), so an element below
+# NEAR_ZERO_GRAD of it has no agreed sign, and Adam, which normalises the
+# gradient, moves it by up to lr a step in either direction. At most
+# MAX_EXCUSED_SHARE of a tensor may be excused so (read: under 0.1%).
+NEAR_ZERO_GRAD = 1e-5
+MAX_EXCUSED_SHARE = 0.01
+
+
+def _jax_grads(jm, loss):
+    """The reference's gradients of ``loss`` (a scalar computed by ``jm``
+    at its current parameters), by parameter name; ``jm``'s gradients are
+    cleared again, so a TrainStep run after it is unaffected."""
+    loss.backward()
+    grads = {n: np.asarray(p.grad._data) for n, p in jm.named_parameters()}
+    jm.clear_gradients()
+    return grads
+
+
+def _near_zero(grads, name):
+    """Elements of ``name`` whose reference gradient, at any step of
+    ``grads`` (one dict a step), is nonzero and within NEAR_ZERO_GRAD of
+    that step's largest |gradient| of the tensor."""
+    mask = False
+    for step in grads:
+        g = np.abs(step[name])
+        mask = mask | ((g > 0) & (g <= NEAR_ZERO_GRAD * g.max()))
+    return mask
+
+
+def _assert_matches(tag, port, ref, init=None, steps=0, lr=1e-4,
+                    grads=None):
+    """Losses and every parameter within RTOL/ATOL, except elements whose
+    update is Adam noise, which are held to what Adam allows: each package
+    moves them by at most lr a step.
+
+    - The key slots of the qkv bias: softmax is invariant to a shift of a
+      row's scores, so their exact gradient is zero and both packages hand
+      Adam float32 rounding noise (~1e-9, against eps 1e-8).
+    - With ``grads`` (the reference's gradients, one dict a step), every
+      element whose gradient is within float32 rounding of zero
+      (``_near_zero``); at most MAX_EXCUSED_SHARE of each tensor."""
     (lp, pp), (lr_, pr) = port, ref
     np.testing.assert_allclose(lp, lr_, rtol=RTOL, atol=ATOL,
                                err_msg=f"{tag}: losses")
     assert pp.keys() == pr.keys()
     for n in pr:
         kb = _k_bias(n, pr[n].shape)
-        np.testing.assert_allclose(pp[n][~kb], pr[n][~kb], rtol=RTOL,
-                                   atol=ATOL, err_msg=f"{tag}: {n}")
-        if kb.any():
+        excused = kb
+        if grads is not None:
+            near = _near_zero(grads, n) & ~kb
+            share = float(np.mean(near))
+            assert share <= MAX_EXCUSED_SHARE, (tag, n, share)
+            excused = kb | near
+        np.testing.assert_allclose(pp[n][~excused], pr[n][~excused],
+                                   rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{tag}: {n}")
+        if excused.any():
             assert init is not None, f"{tag}: {n} needs the initial values"
             for got in (pp[n], pr[n]):
-                moved = np.abs(got[kb] - init[n][kb]).max()
+                moved = np.abs(got[excused] - init[n][excused]).max()
                 assert moved <= steps * lr * (1 + 1e-3), (tag, n, moved)
 
 
