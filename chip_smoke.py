@@ -24,10 +24,14 @@ Phases, each failing loudly (exit code 1, no result line):
               kernels also at the long-context shape, B=2 S=8192, and in
               float16 at the training, serving and long shapes, with a
               float16 cotangent that overflowed, whose inf and NaN must
-              reach every gradient). With
-              ``--parent DIR`` the paged rows also time DIR's paged kernel
-              (another tree's csrc, e.g. the parent commit's) in turns
-              with this tree's: parent, this, this, parent.
+              reach every gradient). float32 rows also print the bound at
+              the float FMA rate (fma_bound_ms) and, where a redesign
+              replaced a kernel, its time before in the row's log line
+              (ms_before, PERF.md's figure, not measured in the run). With
+              ``--parent DIR`` the paged rows and the timed float32 flash
+              forward rows also time DIR's kernel (another tree's csrc,
+              e.g. the parent commit's) in turns with this tree's: parent,
+              this, this, parent.
 4. tiny     — gpt_tiny (head_dim 16, which no kernel takes) decodes and
               trains a step on the card through the default path: the
               callers route every attention to the plain versions
@@ -148,10 +152,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type.
+# float32 work on tensor cores is three TF32 products a product (3xTF32, the
+# float32 flash forward's arithmetic), so its peak is the TF32 rate over 3;
+# float32 rows also print the bound at the 67 TFLOP/s of float FMAs
+# (fma_bound_ms), the bound of the FMA kernel that came before.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
-              "torch.float32": 67e12}
+              "torch.float32": 495e12 / 3}
+FMA_FLOPS_F32 = 67e12
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
@@ -325,17 +334,32 @@ def phase_build(state):
             log(f"  ptxas: {line.strip()}")
 
 
-# the bf16 forward's times with the earlier mma.sync kernel (PERF.md's
-# kernel table; NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-FLASH_MS_BEFORE = {"flash_fwd B=8 S=2048 H=16 D=128 bfloat16 causal": 2.147}
+# times of the kernels a redesign replaced (PERF.md's kernel table, rows 1
+# and 1f; NVIDIA H100 80GB HBM3, 700 W), printed in the row's log line
+# beside this run's, never in the kernels line (not this run's numbers): the
+# bf16 forward's mma.sync kernel and the float32 forward's FMA kernel (the
+# D=128 float32 row read with --parent on the FMA kernel's tree)
+FLASH_MS_BEFORE = {
+    "flash_fwd B=8 S=2048 H=16 D=128 bfloat16 causal": 2.147,
+    "flash_fwd B=8 S=128 H=12 D=64 float32 full": 0.0343,
+    "flash_fwd B=16 S=128 H=12 D=64 float32 full": 0.0462,
+    "flash_fwd B=16 S=256 H=12 D=64 float32 full": 0.1621,
+    "flash_fwd B=16 S=512 H=12 D=64 float32 full": 0.6000,
+    "flash_fwd B=8 S=2048 H=16 D=128 float32 causal": 9.261}
 
 
 def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
-                separate=False, scale=None):
+                separate=False, scale=None, unaligned=False, parent=None,
+                ref64=False):
     """The forward kernel against ``mha_fwd_reference``; q/k/v as strided
     views of one [B, S, H, 3, D] tensor, as the GPT layer hands them to the
-    prefill, or (``separate``) as three contiguous tensors; ``scale``
-    defaults to 1/sqrt(D)."""
+    prefill, or (``separate``) as three contiguous tensors, or
+    (``unaligned``, float32 only) as views one element into their storage,
+    so no row is 16-byte aligned; ``scale`` defaults to 1/sqrt(D). With
+    ``report`` and the ``parent`` tree's forward (``--parent``), both are
+    timed in turns (parent, this tree, this tree, parent). ``ref64``
+    (float32) also reports the kernel's and the plain version's distance
+    from float64 attention (no gate reads it)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_attention as ca
@@ -343,6 +367,10 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
     if separate:
         q, k, v = (torch.randn(b, s, h, d, device="cuda",
                                generator=g).to(dtype) for _ in range(3))
+    elif unaligned:
+        n = b * s * h * d
+        q, k, v = (torch.randn(n + 1, device="cuda", generator=g).to(
+            dtype)[1:].view(b, s, h, d) for _ in range(3))
     else:
         qkv = torch.randn(b, s, h, 3, d, device="cuda", generator=g).to(
             dtype)
@@ -356,6 +384,7 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
     name = (f"flash_fwd B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
             f"{'causal' if causal else 'full'}"
             f"{' separate q/k/v' if separate else ''}"
+            f"{' unaligned' if unaligned else ''}"
             f"{f' scale={scale:g}' if custom_scale else ''}")
     err, rel = check_close(name, out, ref, dtype,
                            F16_ROW_LIMIT if dtype == torch.float16
@@ -369,10 +398,31 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
     bms, by = bound_ms(nbytes, flops, dtype)
     row = {"case": name, "max_abs_err": err, "row_err": rel,
            "lse_err": lerr, "bound_ms": bms, "bound_by": by}
+    if dtype == torch.float32:
+        row["fma_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                  flops / FMA_FLOPS_F32) * 1e3
+    if ref64:
+        out64, lse64 = _mha_f64(q, k, v, causal, scale)
+        row.update({"ref64_err": max_abs_err(out, out64),
+                    "plain_ref64_err": max_abs_err(ref, out64),
+                    "lse_ref64_err": max_abs_err(lse, lse64),
+                    "plain_lse_ref64_err": max_abs_err(ref_lse, lse64)})
+        del out64, lse64
     if report:
         def kern():
             ca.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-        row["ms"] = device_ms(kern)
+        if parent is not None:
+            def old():
+                parent(q, k, v, causal=causal, scale=scale)
+            got, got_lse = parent(q, k, v, causal=causal, scale=scale)
+            row["parent_max_abs_err"] = max_abs_err(got, ref)
+            row["parent_lse_err"] = max_abs_err(got_lse, ref_lse)
+            p1, c1, c2, p2 = (device_ms(f) for f in (old, kern, kern, old))
+            row["ms"], row["ms_turns"], row["parent_ms"] = c1, [c1, c2], \
+                [p1, p2]
+            row["faster_than_parent"] = max(c1, c2) < min(p1, p2)
+        else:
+            row["ms"] = device_ms(kern)
         row["host_us"] = host_us(kern)
         row["plain_ms"] = device_ms(lambda: ca.mha_fwd_reference(
             q, k, v, causal=causal, scale=scale), iters=5)
@@ -385,6 +435,62 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
             row["ms_before"] = FLASH_MS_BEFORE[name]
     log("  " + json.dumps(row))
     return row
+
+
+def _flash_nan_case(d, seed):
+    """float32, causal, B=2 S=300 H=8: one key element of one (batch, head)
+    set to 0/0 on the card (the card's NaN, 0x7fffffff). The kernel's out
+    and lse must be NaN in exactly the entries where the plain version's
+    are (the rows at or after that key, in its batch and head) and agree
+    with it elsewhere at atol/rtol 2e-5 (lse 1e-3)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    b, s, h = 2, 300, 8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=g)
+               for _ in range(3))
+    zero = torch.zeros((), device="cuda")
+    k[1, 150, 3, 5] = zero / zero
+    out, lse = ca.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = ca.mha_fwd_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    name = f"flash_fwd B={b} S={s} H={h} D={d} float32 causal NaN key"
+    nan = ref.isnan()
+    require(bool(nan.any()), f"{name}: the plain version has no NaN")
+    require(torch.equal(out.isnan(), nan),
+            f"{name}: {int(out.isnan().sum())} NaN outputs, the plain "
+            f"version {int(nan.sum())}")
+    require(torch.equal(lse.isnan(), ref_lse.isnan()),
+            f"{name}: lse NaN rows differ from the plain version's")
+    err = max_abs_err(out[~nan], ref[~nan])
+    require(torch.allclose(out[~nan], ref[~nan], atol=2e-5, rtol=2e-5),
+            f"{name}: max abs err {err:.3e} beyond atol/rtol 2e-5")
+    fin = ~ref_lse.isnan()
+    lerr = max_abs_err(lse[fin], ref_lse[fin])
+    require(lerr <= 1e-3, f"{name}: lse max abs err {lerr:.3e}")
+    row = {"case": name,
+           "nan_bits": hex(int(k[1, 150, 3, 5].view(torch.int32))
+                           & 0xffffffff),
+           "nan_rows": int(ref_lse.isnan().sum()), "max_abs_err": err,
+           "lse_err": lerr}
+    log("  " + json.dumps(row))
+    return row
+
+
+def _mha_f64(q, k, v, causal, scale):
+    """Attention in float64 (out [B, Sq, H, D], lse [B*H, Sq]): the
+    yardstick of the float32 rows' own rounding."""
+    import torch
+    qd, kd, vd = (x.double().transpose(1, 2) for x in (q, k, v))
+    logits = qd @ kd.transpose(-1, -2) * scale
+    if causal:
+        sq, sk = logits.shape[-2:]
+        logits.masked_fill_(~torch.ones(sq, sk, dtype=torch.bool,
+                                        device=q.device).tril(sk - sq),
+                            -math.inf)
+    lse = torch.logsumexp(logits, -1)
+    out = torch.softmax(logits, -1) @ vd
+    return out.transpose(1, 2), lse.reshape(-1, logits.shape[-2])
 
 
 def grad_err(got, want) -> float:
@@ -719,35 +825,64 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
     return row
 
 
-def _parent_paged(parent_dir):
-    """The paged kernel of another tree (``--parent DIR``, e.g. the parent
+def _parent_lib(parent_dir, source):
+    """One kernel source of another tree (``--parent DIR``, e.g. the parent
     commit's ``paddle_tpu_torch/csrc`` unpacked with ``git archive``),
-    built into a library of its own and bound with that tree's entry point
-    (``pt_paged_attention`` without the workspace arguments), for timing in
-    turns with this tree's. Returns a callable with the wrapper's
-    signature."""
+    built into a library of its own, for timing in turns with this
+    tree's."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    csrc = Path(parent_dir).resolve() / "paddle_tpu_torch" / "csrc"
+    require((csrc / source).exists(), f"--parent: no {source} under {csrc}")
+    out_dir = _build.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"libparent_{Path(source).stem}.so"
+    t0 = time.perf_counter()
+    _build._run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                 str(csrc), str(csrc / source), "-o", str(so)])
+    log(f"kernels: parent tree's {source} ({csrc}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ctypes.CDLL(str(so))
+
+
+def _parent_flash(parent_dir):
+    """The parent tree's flash forward (``pt_flash_fwd``, whose C interface
+    is this tree's), as a callable with the wrapper's signature."""
     import ctypes
     import torch
     from paddle_tpu_torch.ops import _build
+    fn = _parent_lib(parent_dir, "flash_fwd.cu").pt_flash_fwd
+    fn.argtypes = _build._SIGNATURES["pt_flash_fwd"]
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v, *, causal, scale):
+        b, sq, h, d = q.shape
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b, h, sq, k.shape[1], d, *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], float(scale),
+                 int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)],
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"parent flash forward: CUDA error {err}")
+        return out, lse
+    return call
+
+
+def _parent_paged(parent_dir):
+    """The parent tree's paged kernel (``pt_paged_attention`` and its
+    workspace query, whose C interfaces are this tree's), as a callable
+    with the wrapper's signature."""
+    import torch
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.paged_attention import is_quantized_pool
-    csrc = Path(parent_dir).resolve() / "paddle_tpu_torch" / "csrc"
-    require((csrc / "paged_attention.cu").exists(),
-            f"--parent: no paged_attention.cu under {csrc}")
-    out_dir = _build.BUILD_DIR / "parent"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "libparent_paged.so"
-    t0 = time.perf_counter()
-    _build._run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-                 str(csrc), str(csrc / "paged_attention.cu"), "-o",
-                 str(so)])
-    log(f"kernels: parent tree's paged kernel ({csrc}) built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    fn = ctypes.CDLL(str(so)).pt_paged_attention
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = ([ptr] * 10 + [i32] * 7 + [i64] * 3
-                   + [ctypes.c_float, i32, i32, i32, ptr])
-    fn.restype = i32
+    lib = _parent_lib(parent_dir, "paged_attention.cu")
+    fn, floats = lib.pt_paged_attention, lib.pt_paged_workspace_floats
+    fn.argtypes = _build._SIGNATURES["pt_paged_attention"]
+    floats.argtypes, floats.restype = \
+        _build._RESTYPES["pt_paged_workspace_floats"]
     codes = _build.DTYPE_CODES
+    kinds = {"decode": 0, "chunked": 1}
 
     def call(q, kp, vp, tables, ctx, valid, positions, *, page_size, kind,
              scale):
@@ -758,14 +893,18 @@ def _parent_paged(parent_dir):
         tab, cl, pos = (t.to(torch.int32).contiguous()
                         for t in (tables, ctx, positions))
         val = valid.to(torch.bool).contiguous()
+        n_work = floats(b, s, h, d, page_size, tab.shape[1], kinds[kind],
+                        codes[str(q.dtype)])
+        work = torch.empty(max(n_work, 1), dtype=torch.float32,
+                           device=q.device)
         err = fn(q.data_ptr(), kv.data_ptr(), vv.data_ptr(),
                  ks.data_ptr() if ks is not None else None,
                  vs.data_ptr() if vs is not None else None, out.data_ptr(),
                  tab.data_ptr(), cl.data_ptr(), val.data_ptr(),
                  pos.data_ptr(), b, s, h, d, kv.shape[0], page_size,
                  tab.shape[1], q.stride(0), q.stride(1), q.stride(2),
-                 float(scale), {"decode": 0, "chunked": 1}[kind],
-                 codes[str(q.dtype)], codes[str(kv.dtype)],
+                 float(scale), kinds[kind], codes[str(q.dtype)],
+                 codes[str(kv.dtype)], work.data_ptr(), work.numel(),
                  torch.cuda.current_stream().cuda_stream)
         require(err == 0, f"parent paged kernel: CUDA error {err}")
         return out
@@ -787,15 +926,32 @@ def phase_kernels(state):
     import torch
     seed = state["seed"]
     rows = []
+    parent_flash = (_parent_flash(state["parent"]) if state.get("parent")
+                    else None)
     log(f"kernels: flash_fwd vs mha_fwd_reference (atol/rtol 2e-5 f32, "
         f"2e-2 bf16; bf16 row_err <= {BF16_ROW_LIMIT['flash_fwd']})")
     for dtype in (torch.bfloat16, torch.float32):
         for b in (1, 8):
             for s in (1, 17, 128, 1000, 2048):
-                rows.append(_flash_case(b, s, 16, 128, dtype, True,
-                                        seed + s + b, report=True))
+                rows.append(_flash_case(
+                    b, s, 16, 128, dtype, True, seed + s + b, report=True,
+                    parent=parent_flash if dtype == torch.float32 else None))
     rows.append(_flash_case(2, 300, 16, 64, torch.float32, False,
                             seed + 1))
+    # float32 at the training shape (the float32 parities'), the float32
+    # kernel's relabelled V order against a causal edge at D=64 (ragged,
+    # many tiles), rows that are not 16-byte aligned (the wrapper copies
+    # them for the kernel's 16-byte loads) and a NaN made on the card
+    state["flash_f32_train"] = _flash_case(
+        TRAIN_BATCH, TRAIN_SEQ, 16, 128, torch.float32, True, seed + 25,
+        report=True, parent=parent_flash, ref64=True)
+    rows.append(state["flash_f32_train"])
+    rows.append(_flash_case(2, 1000, 16, 64, torch.float32, True,
+                            seed + 23))
+    for d in (64, 128):
+        rows.append(_flash_case(2, 300, 8, d, torch.float32, True,
+                                seed + 24, unaligned=True))
+        rows.append(_flash_nan_case(d, seed + 26))
     rows.append(_flash_case(2, 77, 8, 64, torch.bfloat16, True,
                             seed + 2))
     # the training step's shape, and the bf16 kernel's tile edges (blocks of
@@ -919,7 +1075,10 @@ def phase_kernels(state):
             # 64)
             _bwd_case(2, 1000, 16, 64, torch.bfloat16, True, seed + 20),
             _bwd_case(2, 300, 16, 128, torch.bfloat16, False, seed + 21,
-                      sk=520)]
+                      sk=520),
+            # BERT-base's float32 shape (the families phase's parity)
+            _bwd_case(32, ENCODER_SEQ, 12, 64, torch.float32, False,
+                      seed + 24)]
     # the long-context training shape (stacked decoder, s=8192)
     state["bwd_long"] = _bwd_case(TRAIN_BATCH, LONG_SEQ, 16, 128,
                                   torch.bfloat16, True, seed + 23)
@@ -952,6 +1111,10 @@ def phase_kernels(state):
         check_bwd(row)
     state["bwd_rows"] = brow
     state["bwd_main"] = brow[0]      # the training shape, bf16
+    state["bwd_f32_main"] = brow[1]  # the training shape, float32
+    state["bwd_f32_bert"] = next(
+        r for r in brow if r["case"].startswith("flash_bwd B=32 S=512")
+        and r["dtype"] == str(torch.float32))
     # the inference phase's shapes (ERNIE-base: bidirectional, 12 heads of
     # 64), in float32 and in bf16: the Predictor's b=8 s=128, then the
     # server's full batch B=16 at each bucket
@@ -960,8 +1123,11 @@ def phase_kernels(state):
         (SERVER_MAX_BATCH, s) for s in SERVER_BUCKETS]
     state["flash_f32_infer_rows"] = [
         _flash_case(b, s, 12, 64, torch.float32, False, seed + 90 + i,
-                    report=True)
+                    report=True, parent=parent_flash, ref64=True)
         for i, (b, s) in enumerate(infer_shapes)]
+    state["flash_f32_main"] = next(
+        r for r in rows if r["case"].startswith("flash_fwd B=8 S=2048")
+        and "float32" in r["case"])
     state["flash_bf16_infer_rows"] = [
         _flash_case(b, s, 12, 64, torch.bfloat16, False, seed + 95 + i,
                     report=True)
@@ -1855,7 +2021,9 @@ def _train_parity(state, ids):
     cfg = gpt3_1p3b(num_layers=PARITY_LAYERS)
     base = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
                           seed=state["seed"]).state_dict()
-    runs = {"kernels_f32": _parity_run(cfg, base, ids, True, None),
+    kernels_f32, f32_launches = _counted(
+        lambda: _parity_run(cfg, base, ids, True, None))
+    runs = {"kernels_f32": kernels_f32,
             "plain_f32": _parity_run(cfg, base, ids, False, None)}
     (kl, kp, kg), (pl, pp, pg) = runs["kernels_f32"], runs["plain_f32"]
     names = list(pp)
@@ -1898,7 +2066,8 @@ def _train_parity(state, ids):
            "f32_loss_rel": loss_rel, "f32_grad_rel_max": grad_rel,
            "f32_param_max_abs_err": param_err,
            "f32_noise_elements": n_noise,
-           "f32_noise_max_abs_err": noise_err, "o2": o2}
+           "f32_noise_max_abs_err": noise_err, "o2": o2,
+           "f32_launches": f32_launches}
     log("train: parity " + json.dumps(out))
     require(loss_rel <= TRAIN_F32_LOSS_RTOL,
             f"train parity: float32 losses differ by {loss_rel:.2e}")
@@ -2203,12 +2372,14 @@ def _stacked_parity(state, ids):
     del flat
     rp = stack_layer_state(rp)
     rg = [stack_layer_state(g) for g in rg]
-    out, kept = {}, {}
+    out, kept, f32_launches = {}, {}, {}
     for policy in ("none", "full", "dots", "attn"):
         cfg = gpt3_1p3b(num_layers=PARITY_LAYERS, stacked=True,
                         recompute=policy)
         for use_kernels in (True, False):
-            losses, _, grads = _parity_run(cfg, base, ids, use_kernels, None)
+            (losses, _, grads), launches = _counted(
+                lambda: _parity_run(cfg, base, ids, use_kernels, None))
+            f32_launches = _add_launches(f32_launches, launches)
             loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, rl))
             grad_rel = 0.0
             for gs, gr in zip(grads, rg):
@@ -2250,6 +2421,7 @@ def _stacked_parity(state, ids):
           "loss_plain": max(abs(a - b) for a, b in zip(po[0], rl)),
           "params_l2_kernel": l2(ko[1], rp), "params_l2_plain": l2(po[1], rp)}
     out["o2_full"] = o2
+    out["f32_launches"] = f32_launches
     log("stacked: parity " + json.dumps(out))
     for what in ("loss", "params_l2"):
         k, p = o2[f"{what}_kernel"], o2[f"{what}_plain"]
@@ -2415,6 +2587,18 @@ def _read_counts() -> dict:
             "plain_calls": {"flash_fwd": ca.plain_calls,
                             **dict(cab.plain_calls)},
             "dense_calls": attn.dense_calls}
+
+
+def _counted(fn):
+    """``fn()`` with every count set to 0 just before it: its result and
+    the launches it made, by kernel."""
+    _reset_counts()
+    result = fn()
+    return result, _read_counts()["launches"]
+
+
+def _add_launches(total: dict, launches: dict) -> dict:
+    return {k: total.get(k, 0) + n for k, n in launches.items()}
 
 
 def _require_launches(tag, counts, per_step: dict, steps: int) -> None:
@@ -3125,7 +3309,8 @@ def _bert_parity(seed) -> dict:
     base = BertForPretraining(cfg, device="cuda", seed=seed).state_dict()
     ids, nsp = _bert_batch(32, ENCODER_SEQ, cfg.vocab_size, seed)
     batch = (ids, ids, nsp)
-    kl, kp, kg = _bert_run(cfg, base, batch, True)
+    (kl, kp, kg), f32_launches = _counted(
+        lambda: _bert_run(cfg, base, batch, True))
     pl, pp, pg = _bert_run(cfg, base, batch, False)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
     grad_rel = _grad_rel(kg, pg)
@@ -3137,7 +3322,8 @@ def _bert_parity(seed) -> dict:
           "params_l2_plain": _l2(po[1], pp)}
     out = {"layers": BERT_PARITY_LAYERS, "batch": 32, "seq": ENCODER_SEQ,
            "f32_losses": {"kernels": kl, "plain": pl},
-           "f32_loss_rel": loss_rel, "f32_grad_rel_max": grad_rel, "o2": o2}
+           "f32_loss_rel": loss_rel, "f32_grad_rel_max": grad_rel, "o2": o2,
+           "f32_launches": f32_launches}
     log("families: bert parity " + json.dumps(out))
     require(loss_rel <= TRAIN_F32_LOSS_RTOL,
             f"bert parity: float32 losses differ by {loss_rel:.2e}")
@@ -3457,7 +3643,7 @@ for job in json.loads(sys.argv[1]):
     feeds = [np.load(job["feed"])]
     pred = inference.create_predictor(inference.Config(job["prefix"]))
     launches, plain = ca.launches, ca.plain_calls
-    np.save(job["out"], pred.run(feeds)[0])
+    np.save(job["out"], np.asarray(pred.run(feeds)[0], np.float32))
     row = {"device": str(pred.device),
            "launches_per_run": ca.launches - launches,
            "plain_calls_per_run": ca.plain_calls - plain}
@@ -3471,9 +3657,12 @@ print("PREDICTOR_CHILD " + json.dumps(out), flush=True)
 
 
 def _dist(a, ref) -> float:
-    """max |a - ref| / std(ref), the model checks' measure."""
+    """max |a - ref| / std(ref), the model checks' measure. A numpy operand
+    may be bfloat16 (``ml_dtypes``, as a bf16 Predictor hands it out)."""
+    import numpy as np
     import torch
-    a, ref = torch.as_tensor(a).float(), torch.as_tensor(ref).float()
+    a, ref = (x.float() if torch.is_tensor(x) else
+              torch.from_numpy(np.asarray(x, np.float32)) for x in (a, ref))
     return max_abs_err(a, ref) / float(ref.std())
 
 
@@ -3787,7 +3976,11 @@ def kernels_line(state) -> dict:
     The inference phase's bf16 server run counts in ``flash_fwd`` (its
     times at the Predictor's shape and the server's: ``serving_shapes``),
     its float32 server run in ``flash_fwd_f32``, the float32 forward's
-    entry, timed at the Predictor's shape and at the server's."""
+    entry, timed at the Predictor's shape and at the server's (with the
+    float32 training parities' launches: the train, stacked and BERT
+    parity runs through the kernels). The float32 backward kernels are
+    ``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32``, with those parities'
+    launches, timed at the training shape and at BERT-base's."""
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
@@ -3861,23 +4054,59 @@ def kernels_line(state) -> dict:
                                                  "row_err", "tflops")}
                               for r in state["flash_bf16_infer_rows"]]})
         out.append(entry)
-    # the float32 forward: the inference phase's float32 server run (the
-    # Predictor's default precision)
+    # the float32 kernels: the inference phase's float32 server run (the
+    # Predictor's default precision) and the float32 training parities
+    f32_train = {}
+    for parity in (state["train"]["parity"], st["parity"],
+                   fam["bert_parity"]):
+        f32_train = _add_launches(f32_train, parity["f32_launches"])
+    f32_keys = ("case", "ms", "parent_ms", "bound_ms",
+                "bound_by", "fma_bound_ms", "plain_ms", "library_ms",
+                "max_abs_err", "lse_err", "ref64_err", "plain_ref64_err",
+                "tflops")
     row, *served = state["flash_f32_infer_rows"]
     out.append({"name": "flash_fwd_f32", "route": "cuda",
                 "source": ca.SOURCE, "replaces": ca.REPLACES,
-                "launches": infer["float32"]["launches"],
+                "launches": infer["float32"]["launches"]
+                + f32_train["flash_fwd"],
+                "launches_by_path": {
+                    "inference_server": infer["float32"]["launches"],
+                    "training_parities": f32_train["flash_fwd"]},
                 "max_abs_err": max(r["max_abs_err"] for r in
                                    state["flash_f32_infer_rows"]),
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "bound_by": row["bound_by"],
+                "fma_bound_ms": row["fma_bound_ms"],
+                "library_ms": row["library_ms"],
                 "tflops": row["tflops"], "shape": row["case"],
-                "serving_shapes": [
-                    {k: r[k] for k in ("case", "ms", "bound_ms", "bound_by",
-                                       "plain_ms", "library_ms",
-                                       "max_abs_err", "tflops")}
-                    for r in served]})
+                "serving_shapes": [{k: r[k] for k in f32_keys if k in r}
+                                   for r in served],
+                "causal_d128_shapes": [
+                    {k: r[k] for k in f32_keys if k in r}
+                    for r in (state["flash_f32_main"],
+                              state["flash_f32_train"])]})
+    for name, grads in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
+        entry = {"name": f"{name}_f32", "route": "cuda",
+                 "source": cab.SOURCE, "replaces": cab.REPLACES[name],
+                 "launches": f32_train[name]}
+        for prefix, r in (("", state["bwd_f32_main"]),
+                          ("bert_shape_", state["bwd_f32_bert"])):
+            entry.update({
+                f"{prefix}shape": r["case"],
+                f"{prefix}max_abs_err": max(r[f"{g}_max_abs_err"]
+                                            for g in grads),
+                f"{prefix}ms": r[f"{name}_ms"],
+                f"{prefix}tflops": r[f"{name}_tflops"],
+                # one plain call computes dq, dk and dv together
+                f"{prefix}plain_ms": r["plain_ms"],
+                f"{prefix}bound_ms": r[f"{name}_bound_ms"],
+                f"{prefix}bound_by": r[f"{name}_bound_by"],
+                f"{prefix}library_ms": r["library_ms"],
+                f"{prefix}library_bwd_ms": r["library_bwd_ms"],
+                f"{prefix}delta_ms": r["delta_ms"]})
+        out.append(entry)
     row, long_row = state["bwd_main"], state["bwd_long"]
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
@@ -3966,7 +4195,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a tree holding another paddle_tpu_torch/csrc "
                          "(e.g. the parent commit, unpacked with git "
-                         "archive): its paged kernel is timed in turns with "
+                         "archive): its paged kernel and its flash forward "
+                         "(the timed float32 rows) are timed in turns with "
                          "this tree's in the kernels phase")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]

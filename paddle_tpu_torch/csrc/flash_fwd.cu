@@ -16,7 +16,9 @@
 // What bounds it on the H100: at prefill and training widths (S up to 2048,
 // D=128) the work is 4*S^2*D/2 flops per (batch, head) against 4*S*D elements
 // moved, so it is bound by operations: in bf16 and f16 only wgmma reaches the
-// tensor cores' dense rate, and only if the loads hide behind it.
+// tensor cores' dense rate, and only if the loads hide behind it; in float32
+// the tensor cores take TF32, and float32 accuracy costs three TF32 products
+// per product (495 / 3 TFLOP/s, against 67 for float FMAs).
 //
 // What the design does about it: bf16 and f16 inputs take the
 // warp-specialised kernel below (one template over the element type: the
@@ -26,12 +28,11 @@
 // wgmma (the second straight from the V tile as TMA wrote it), the softmax in
 // registers, the mask only on tiles that need one, and the heaviest causal
 // blocks first (the Hopper pieces live in hopper.cuh). float32 inputs take a
-// float-FMA kernel (exact float32, held to the 67 TFLOP/s float rate): each
-// block keeps a 64-row query tile and one 64-row key/value tile in shared
-// memory (padded rows, so column reads hit distinct banks), and every thread
-// owns a 4x4 score tile and a 4x(D/16) output tile in registers. Both stop
-// causal blocks at the diagonal and mask ragged sequence lengths at the edge,
-// so any S runs (the TPU's multiple-of-128 gate does not carry over).
+// tensor-core kernel in 3xTF32 (the next section): both products on mma.sync
+// with each operand split into TF32 hi + lo parts, the softmax in registers,
+// K/V tiles in a two-stage cp.async ring. Both stop causal blocks at the
+// diagonal and mask ragged sequence lengths at the edge, so any S runs (the
+// TPU's multiple-of-128 gate does not carry over).
 #include <algorithm>
 
 #include "common.cuh"
@@ -39,190 +40,393 @@
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // key rows per tile
-constexpr int kThreads = 256; // 16 x 16 threads
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ----------------------------------------------------------- float32 path
+// float32 on tensor cores (flash_fwd_tf32_kernel). The TPU runs float32
+// operands as three bf16 passes on its matrix unit; the card's counterpart is
+// 3xTF32, as CUTLASS's OpMultiplyAddFastF32: each float x is split into
+// hi = tf32(x) and lo = tf32(x - hi) (round to nearest even; the remainder
+// exact before its rounding), and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// small terms first, accumulated in float. The dropped a_lo b_lo is ~2^-22
+// of the product, next to float32's own rounding; one TF32 product alone
+// keeps ~2^-11 and fails the float32 limits. The rounding is
+// cvt.rn.tf32.f32, one instruction on sm_90 (the split is the kernel's
+// largest cost after the products), and a NaN stays NaN through it, so a
+// NaN reaches the rows it reaches in the reference. Integer rounding on
+// the float's bits (add 0x1000, clear 13 bits) would carry the card's NaN
+// 0x7fffffff into the sign (-0) and drop it; guarding that with selects
+// costs ~40%, and cvt.rna.tf32.f32 compiles to about four instructions.
+//
+// A block owns kRows query rows of one (batch, head): four warps, each
+// running mma.sync m16n8k8 (tf32 in, float accumulators) for kTiles tiles
+// of 16 rows over the whole key range, so that every K or V fragment it
+// loads and splits feeds kTiles row tiles. K and V stream in tiles of kKeys
+// keys through a two-stage ring in shared memory filled by 16-byte cp.async
+// copies (every row of q, k and v 16-byte aligned: the wrapper copies a view
+// that is not), so tile n + 1's loads run under tile n's products. The
+// scores and the online softmax stay in registers (a row's max and sum are
+// two quad shuffles: a row of the m16n8 accumulator belongs to the four
+// threads of a quad).
+// Accumulation. The tensor cores truncate the sum they write back, so every
+// product added to an accumulator costs up to an ulp of it: an output
+// accumulated over the whole key range read several times float32's own
+// rounding against a float64 reference, and failed the training parity's
+// float32 limits. So no chain is long: each 8-dim step of Q K^T sums its
+// three products from zero and joins the scores in one rounded FADD, and
+// each key tile's P V sums from zero and joins the output in one rounded
+// FFMA with the rescale; both together put the kernel at the float FMA
+// kernel's distance from float64 (chip_smoke.py's ref64_err). The softmax
+// keeps s scale, its max and lse in natural units, as the reference (a
+// log2-domain max puts one rounding more into lse).
+// Fragment order. The accumulator gives a thread score columns (2t, 2t+1) of
+// each 8-key step, the A operand wants columns (t, t+4): the P V product
+// relabels its keys instead (logical k-index t is key 2t, t + 4 is key 2t+1),
+// so P goes from the score registers to the A operand as it is, and V is read
+// at keys 2t and 2t+1. Q K^T relabels its head dims the same way, so a Q or K
+// fragment is one 8-byte load of dims (2t, 2t+1).
+// Shared-memory strides: Q and K rows D + 8 floats, so the 8-byte loads of a
+// half-warp (rows g, dims 2t) hit 32 distinct banks; V rows D + 4, so the
+// relabelled loads (keys 2t or 2t+1, dim g) do too. Both keep rows 16-byte
+// aligned for cp.async.
+// Q is split per fragment as it is read from shared memory.
+// Sizes, chosen on the card: at D=64 two row tiles a warp (128-row blocks)
+// were faster than one row tile with Q's hi/lo fragments kept in registers
+// from S=256 on, and a little slower at S=128; 32-key tiles hold the scores
+// of two row tiles in registers without spilling (64-key tiles spilled) and
+// keep a block at ~71 KB of shared memory (~101 KB at D=128, one row tile:
+// two spilled there and were slower), so two blocks fit an SM at both head
+// dims. The Q K^T step loop stays rolled: unrolled, its per-step sums
+// spilled.
+constexpr int kF32Threads = 128;  // four warps
 
 template <int D>
-constexpr size_t flash_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1) +
-                  3 * kBQ);
+struct F32Tile {
+  static constexpr int kTiles = D == 64 ? 2 : 1;   // 16-row tiles a warp
+  static constexpr int kRows = 4 * 16 * kTiles;    // query rows a block
+  static constexpr int kKeys = 32;                 // keys per K/V tile
+  static constexpr int kQStride = D + 8;
+  static constexpr int kKStride = D + 8;
+  static constexpr int kVStride = D + 4;
+  static constexpr int kQFloats = kRows * kQStride;
+  static constexpr int kKFloats = kKeys * kKStride;
+  static constexpr int kVFloats = kKeys * kVStride;
+  static constexpr int kStages = 2;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kQFloats + kStages * (kKFloats + kVFloats));
+};
+
+// x rounded to TF32 (10 mantissa bits, the low 13 bits zero), to nearest
+// even; an inf or NaN stays one
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+  uint32_t r;
+  asm("cvt.rn.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int H, int Sq, int Sk,
-                     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                     int64_t v_sh, float scale, int causal) {
-  constexpr int DP = D + 1;    // padded float row stride of the Q/K tiles
-  constexpr int SP = kBK + 1;  // padded row stride of the score tile
-  constexpr int DJ = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [kBQ][DP]
-  float* Ks = Qs + kBQ * DP;    // [kBK][DP]
-  float* Vs = Ks + kBK * DP;    // [kBK][D]
-  float* Ss = Vs + kBK * D;     // [kBQ][SP] scores, then probabilities
-  float* m_s = Ss + kBQ * SP;   // [kBQ] running max
-  float* l_s = m_s + kBQ;       // [kBQ] running denominator
-  float* a_s = l_s + kBQ;       // [kBQ] this tile's rescale factor
+// x = hi + lo, both TF32 (hi rounded to nearest, lo the exact remainder
+// rounded the same way)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rn(x);
+  lo = tf32_rn(x - __uint_as_float(hi));
+}
+
+// d += a b: a 16x8 tf32 (row), b 8x8 tf32 (col), d 16x8 float
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32 for kTiles row tiles of a against one split b: the two
+// small terms first, then hi hi
+template <int kTiles>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[kTiles][4],
+                                           const uint32_t (&ah)[kTiles][4],
+                                           const uint32_t (&al)[kTiles][4],
+                                           float b0, float b1) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b0, bh[0], bl[0]);
+  split_tf32(b1, bh[1], bl[1]);
+#pragma unroll
+  for (int r = 0; r < kTiles; ++r) {
+    mma_tf32(d[r], al[r], bh[0], bh[1]);
+    mma_tf32(d[r], ah[r], bl[0], bl[1]);
+    mma_tf32(d[r], ah[r], bh[0], bh[1]);
+  }
+}
+
+// A fragment of Q for head dims 8kk..8kk+7 (relabelled: dims 2t, 2t+1 of
+// rows g and g + 8) from a tile whose row g is `row`
+template <int kStride>
+__device__ __forceinline__ void q_fragment(const float* row, int kk, int t,
+                                           uint32_t (&ah)[4],
+                                           uint32_t (&al)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(row + kk * 8 + 2 * t);
+  const float2 x1 =
+      *reinterpret_cast<const float2*>(row + 8 * kStride + kk * 8 + 2 * t);
+  split_tf32(x0.x, ah[0], al[0]);
+  split_tf32(x1.x, ah[1], al[1]);
+  split_tf32(x0.y, ah[2], al[2]);
+  split_tf32(x1.y, ah[3], al[3]);
+}
+
+// rows row0 .. row0 + kRows - 1 of a [S, D] float matrix (row r at
+// src + r * stride) into shared memory rows of kStride floats; rows at or
+// past n_rows are zero-filled (and not read). One pass of the block copies
+// kPass rows; the passes stay a loop (unrolled, their addresses would be
+// hoisted out of the tile loop and held in registers, which spills).
+template <int D, int kRows, int kStride>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int64_t stride, int row0,
+                                          int n_rows, int tid) {
+  constexpr int kPerRow = D / 4;  // 16-byte copies per row
+  constexpr int kPass = kF32Threads / kPerRow;
+  static_assert(kF32Threads % kPerRow == 0 && kRows % kPass == 0,
+                "whole rows a pass, whole passes a tile");
+  const int c = (tid % kPerRow) * 4;
+  int r = tid / kPerRow;
+  const float* from = src + (int64_t)(row0 + r) * stride + c;
+  uint32_t to = hopper::smem_u32(dst + r * kStride + c);
+#pragma unroll 1
+  for (; r < kRows; r += kPass) {
+    const bool ok = row0 + r < n_rows;
+    pt::cp_async16(to, ok ? from : src, ok);
+    from += kPass * stride;
+    to += kPass * kStride * sizeof(float);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 2)
+    flash_fwd_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out,
+                          float* __restrict__ lse, int H, int Sq, int Sk,
+                          int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                          int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                          int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                          float scale, int causal) {
+  using L = F32Tile<D>;
+  constexpr int kT = L::kTiles;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kN = kKeys / 8;  // 8-key steps of a tile
+  constexpr int kDK = D / 8;     // 8-dim steps of a row
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;                       // [kRows][kQStride]
+  float* Ks = Qs + L::kQFloats;               // [stage][kKeys][kKStride]
+  float* Vs = Ks + L::kStages * L::kKFloats;  // [stage][kKeys][kVStride]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.y * kBQ;
+  // causal blocks with the most key tiles first
+  const int qblock = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qblock * L::kRows;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wrow = q0 + warp * 16 * kT;  // the warp's first query row
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const int k_end = causal ? min(q0 + L::kRows, Sk) : Sk;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  auto load_kv = [&](int n) {
+    const int s = n % L::kStages;
+    load_rows<D, kKeys, L::kKStride>(Ks + s * L::kKFloats, kb, k_ss,
+                                     n * kKeys, Sk, tid);
+    load_rows<D, kKeys, L::kVStride>(Vs + s * L::kVFloats, vb, v_ss,
+                                     n * kKeys, Sk, tid);
+  };
+  load_rows<D, L::kRows, L::kQStride>(Qs, q + b * q_sb + h * q_sh, q_ss,
+                                      q0, Sq, tid);
+  load_kv(0);
+  pt::cp_async_commit();  // Q and tile 0
+  if (n_tiles > 1) load_kv(1);
+  pt::cp_async_commit();  // tile 1 (or nothing)
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int s = q0 + r;
-    Qs[r * DP + d] = s < Sq ? pt::to_float(qb[s * q_ss + d]) : 0.f;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = pt::kNegInf;
-    l_s[tid] = 0.f;
-  }
-
-  float acc[4][DJ];
+  // row g of the warp's first row tile in the Q tile
+  const float* qrow = Qs + (warp * 16 * kT + g) * L::kQStride;
+  float o[kDK][kT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kDK; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  // causal: only key tiles at or below the diagonal of this query tile
-  const int q_hi = min(q0 + kBQ, Sq);
-  const int k_end = causal ? min(q_hi, Sk) : Sk;
-  const int n_tiles = (k_end + kBK - 1) / kBK;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const int s = k0 + r;
-      const bool ok = s < Sk;
-      Ks[r * DP + d] = ok ? pt::to_float(kb[s * k_ss + d]) : 0.f;
-      Vs[r * D + d] = ok ? pt::to_float(vb[s * v_ss + d]) : 0.f;
+    for (int r = 0; r < kT; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][r][e] = 0.f;
+  // running max and (this thread's columns only) sum of rows g, g + 8 of
+  // each row tile
+  float m[kT][2], l[kT][2];
+#pragma unroll
+  for (int r = 0; r < kT; ++r)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[r][i] = pt::kNegInf;
+      l[r][i] = 0.f;
     }
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int k0 = n * kKeys;
+    const float* Kt = Ks + (n % L::kStages) * L::kKFloats;
+    const float* Vt = Vs + (n % L::kStages) * L::kVFloats;
+    pt::cp_async_wait<1>();  // every group but the newest: tile n is here
     __syncthreads();
-
-    // scores for rows ty*4+i, columns tx+16*j
-    float sc[4][4];
+    // a warp whose rows all lie above this causal tile has nothing in it
+    if (!(causal && k0 > wrow + 16 * kT - 1)) {
+      // S = Q K^T (raw scores; rows g and g + 8, keys 8j + 2t + {0, 1})
+      float sc[kN][kT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kN; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+        for (int r = 0; r < kT; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + d];
+          for (int e = 0; e < 4; ++e) sc[j][r][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < kDK; ++kk) {
+        uint32_t ah[kT][4], al[kT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
+        for (int r = 0; r < kT; ++r)
+          q_fragment<L::kQStride>(qrow + 16 * r * L::kQStride, kk, t, ah[r],
+                                  al[r]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < kN; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              Kt + (8 * j + g) * L::kKStride + kk * 8 + 2 * t);
+          float st[kT][4] = {};
+          mma_3xtf32<kT>(st, ah, al, kv.x, kv.y);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
+          for (int r = 0; r < kT; ++r)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+            for (int e = 0; e < 4; ++e) sc[j][r][e] += st[r][e];
+        }
+      }
+      // online softmax: scores, max and lse in natural units (s scale, as
+      // the reference), p = 2^(s log2 e - m log2 e) in one FFMA; only
+      // tiles that reach past Sk or above the warp's first row build a
+      // mask
+      const bool edge = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > wrow);
+      float alpha[kT][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = k0 + c;
-        float s = sc[i][j] * scale;
-        if (kpos >= Sk || (causal && kpos > q0 + r)) s = pt::kNegInf;
-        Ss[r * SP + c] = s;
+      for (int r = 0; r < kT; ++r) {
+        float mx[2] = {m[r][0], m[r][1]};
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[j][r][e] * scale;
+            if (edge) {
+              const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+              const int qpos = wrow + 16 * r + g + 8 * (e >> 1);
+              if (kpos >= Sk || (causal && kpos > qpos)) x = pt::kNegInf;
+            }
+            sc[j][r][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(pt::kFullMask, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(pt::kFullMask, mx[i], 2));
+          alpha[r][i] = hopper::exp2_approx((m[r][i] - mx[i]) * kLog2e);
+          m[r][i] = mx[i];
+          l[r][i] *= alpha[r][i];
+        }
+        const float ml[2] = {m[r][0] * kLog2e, m[r][1] * kLog2e};
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[j][r][e] =
+                hopper::exp2_approx(fmaf(sc[j][r][e], kLog2e, -ml[e >> 1]));
+            l[r][e >> 1] += sc[j][r][e];
+          }
+      }
+      // O = O alpha + P V: keys 8j..8j+7 relabelled (k-index t is key 2t,
+      // t + 4 is key 2t + 1), so the A fragment is the score registers in
+      // place. Each output column block sums this tile's products in
+      // registers of its own and joins O in one rounded FFMA: the tensor
+      // cores truncate what they add to an accumulator, so O itself is
+      // never one.
+      uint32_t ph[kN][kT][4], pl[kN][kT][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int r = 0; r < kT; ++r) {
+          split_tf32(sc[j][r][0], ph[j][r][0], pl[j][r][0]);
+          split_tf32(sc[j][r][2], ph[j][r][1], pl[j][r][1]);
+          split_tf32(sc[j][r][1], ph[j][r][2], pl[j][r][2]);
+          split_tf32(sc[j][r][3], ph[j][r][3], pl[j][r][3]);
+        }
+      const float* v0 = Vt + 2 * t * L::kVStride + g;
+#pragma unroll
+      for (int dn = 0; dn < kDK; ++dn) {
+        float pv[kT][4] = {};
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+          mma_3xtf32<kT>(pv, ph[j], pl[j], v0[8 * j * L::kVStride + dn * 8],
+                         v0[(8 * j + 1) * L::kVStride + dn * 8]);
+#pragma unroll
+        for (int r = 0; r < kT; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[dn][r][e] = fmaf(o[dn][r][e], alpha[r][e >> 1], pv[r][e]);
       }
     }
-    __syncthreads();
-
-    // online softmax: each warp owns kBQ/8 rows, a lane two columns
-#pragma unroll
-    for (int rr = 0; rr < kBQ / 8; ++rr) {
-      const int r = warp * (kBQ / 8) + rr;
-      const float s0 = Ss[r * SP + lane];
-      const float s1 = Ss[r * SP + lane + 32];
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, pt::warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      const float psum = pt::warp_sum(p0 + p1);
-      Ss[r * SP + lane] = p0;
-      Ss[r * SP + lane + 32] = p1;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + psum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty * 4 + i) * SP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[c * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
+    __syncthreads();  // every warp is done with this stage
+    if (n + 2 < n_tiles) load_kv(n + 2);
+    pt::cp_async_commit();
   }
-  __syncthreads();
 
+  // out = o / l, lse = m + log(l), rows g and g + 8 of each row tile
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int s = q0 + r;
-    if (s >= Sq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    T* orow = out + (((int64_t)b * Sq + s) * H + h) * D;
+  for (int r = 0; r < kT; ++r)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      orow[tx + 16 * j] = pt::from_float<T>(acc[i][j] / l);
-    if (tx == 0) lse[(int64_t)bh * Sq + s] = m_s[r] + logf(l);
-  }
+    for (int i = 0; i < 2; ++i) {
+      float lr = l[r][i];
+      lr += __shfl_xor_sync(pt::kFullMask, lr, 1);
+      lr += __shfl_xor_sync(pt::kFullMask, lr, 2);
+      const int s = wrow + 16 * r + g + 8 * i;
+      if (s >= Sq) continue;
+      // l clamped at 1e-30, a NaN l kept (fmaxf would drop it from lse)
+      const float lc = lr < 1e-30f ? 1e-30f : lr;
+      if (t == 0) lse[(int64_t)bh * Sq + s] = m[r][i] + logf(lc);
+      float* orow = out + (((int64_t)b * Sq + s) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kDK; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(o[j][r][2 * i] / lc, o[j][r][2 * i + 1] / lc);
+    }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int H, int Sq, int Sk, int64_t q_sb,
-                   int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                   int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                   float scale, int causal, cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<D>();
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        void* out, float* lse, int B, int H, int Sq, int Sk,
+                        int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                        int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                        int64_t v_sh, float scale, int causal,
+                        cudaStream_t stream) {
+  // the 16-byte copies need every row of q, k and v 16-byte aligned
+  for (const void* p : {q, k, v})
+    if ((uintptr_t)p % 16) return cudaErrorInvalidValue;
+  for (int64_t st : {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh})
+    if (st % 4) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_tf32_kernel<D>;
+  const size_t smem = F32Tile<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, H, Sq, Sk, q_sb,
-      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal);
+  constexpr int kRows = F32Tile<D>::kRows;
+  dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, Sq, Sk,
+      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal);
   return cudaGetLastError();
 }
 
@@ -271,9 +475,6 @@ constexpr int kTurnBarrier = 3;
 constexpr int kScores = kBN / 2;  // score accumulators per thread
 // K/V bytes that one group of heads may keep in the 50 MB L2
 constexpr int64_t kL2Budget = 24ll << 20;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
 // shared memory of one block: Q [D/64][kBM][64], then kStages K tiles and
 // kStages V tiles [D/64][kBN][64] (every box 1024-byte aligned), then the
 // barriers
@@ -652,8 +853,9 @@ extern "C" const char* pt_error_string(int err) {
 }
 
 // C entry point bound with ctypes (ops/_build.py). Returns cudaGetLastError()
-// after the launch (0 = launched); a shape it does not take returns
-// cudaErrorInvalidValue without launching.
+// after the launch (0 = launched); a shape it does not take, and float32
+// rows that are not 16-byte aligned, return cudaErrorInvalidValue without
+// launching.
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, float* lse, int B, int H, int Sq,
                             int Sk, int D, int64_t q_sb, int64_t q_ss,
@@ -665,9 +867,9 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
 #define PT_FLASH_ARGS                                                     \
   q, k, v, out, lse, B, H, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,    \
       v_sb, v_ss, v_sh, scale, causal, st
-  if (dtype == pt::kFloat32 && D == 64) return launch<float, 64>(PT_FLASH_ARGS);
+  if (dtype == pt::kFloat32 && D == 64) return launch_tf32<64>(PT_FLASH_ARGS);
   if (dtype == pt::kFloat32 && D == 128)
-    return launch<float, 128>(PT_FLASH_ARGS);
+    return launch_tf32<128>(PT_FLASH_ARGS);
   if (dtype == pt::kBFloat16 && D == 64)
     return launch_wgmma<__nv_bfloat16, 64>(PT_FLASH_ARGS);
   if (dtype == pt::kBFloat16 && D == 128)

@@ -15,9 +15,10 @@ layer's staging buffers are), runs the program, enqueues the outputs' copy
 into pinned host tensors and records a CUDA event, and returns before the
 card finishes; ``_PendingBatch.block`` waits on that event and
 ``fetch_many`` slices the host outputs per request. ``run`` is the same,
-synchronously. Outputs cross to numpy; numpy has no bfloat16, so a bf16
-output comes back as float32 (the reference hands out ``ml_dtypes``
-bfloat16 arrays).
+synchronously. Outputs cross to numpy. numpy has no bfloat16 of its own:
+a bf16 output comes back as an ``ml_dtypes`` bfloat16 array of the same
+bits, as the reference hands it out, or as float32 where ``ml_dtypes``
+does not import.
 
 Left out, each raising ``NotImplementedError`` that names its ROADMAP
 queue 1 item: ``Config.set_precision(Half | Bfloat16)``, which the
@@ -34,6 +35,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+try:
+    import ml_dtypes
+except ImportError:
+    ml_dtypes = None
 
 from ..framework.device import resolve_device
 from ..framework.exporting import SUFFIX, load_artifact
@@ -181,10 +187,12 @@ class Config:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
+    t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
+        if ml_dtypes is None:
+            return t.float().numpy()
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 class Tensor:

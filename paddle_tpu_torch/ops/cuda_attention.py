@@ -11,7 +11,8 @@ Kernel: ``csrc/flash_fwd.cu``, the port of the TPU kernel
 - What bounds it on the H100: at prefill and training widths it is bound
   by operations (``4*S^2*D/2`` flops per head against ``4*S*D`` elements
   moved); in bf16 and float16 only ``wgmma`` reaches the tensor cores'
-  dense rate.
+  dense rate; in float32 the tensor cores take TF32, three products for
+  each float32 product (495 / 3 TFLOP/s, against 67 for float FMAs).
 - What its design does about it: bf16 and float16 (one template over the
   element type) run a warp-specialised Hopper
   kernel. A producer warpgroup loads Q once and K/V tiles of 128 keys by
@@ -21,10 +22,16 @@ Kernel: ``csrc/flash_fwd.cu``, the port of the TPU kernel
   O += P V with ``wgmma`` (P from registers, V read MN-major from its TMA
   tile) and the online softmax in registers. Only tiles on the causal
   diagonal or the ragged end build a mask, and the heaviest causal blocks
-  start first. float32 uses float FMAs over 64x64 tiles in shared memory,
-  which keeps float32 exact. Causal tiles stop at the diagonal and ragged
-  edges are masked, so any ``S`` runs (``csrc/flash_fwd.cu`` has the
-  details, ``csrc/hopper.cuh`` the TMA, ``mbarrier`` and ``wgmma`` pieces).
+  start first. float32 runs both products on tensor cores in 3xTF32
+  (``mma.sync``; each operand split into TF32 hi + lo parts, three
+  products, float accumulators: float32 accuracy, where one TF32 product
+  would keep ~11 bits), blocks of 128 query rows at D=64 and 64 at
+  D=128, 32-key K/V tiles in a two-stage ``cp.async`` ring (16-byte
+  copies: a float32 view whose rows are not 16-byte aligned is copied
+  first) and the softmax in registers. Causal tiles stop at the
+  diagonal and ragged edges are masked, so any ``S`` runs
+  (``csrc/flash_fwd.cu`` has the details, ``csrc/hopper.cuh`` the TMA,
+  ``mbarrier`` and ``wgmma`` pieces).
 
 ``flash_attention_fwd`` launches the kernel for CUDA tensors and raises on
 what the kernel does not take; only CPU tensors take the plain version
@@ -171,6 +178,15 @@ def supported(q, k, v, causal=True, backward=False) -> bool:
     return _refusal(q, k, v, causal, backward=backward) is None
 
 
+def _rows_aligned(t):
+    """``t``, or a contiguous copy when its rows are not 16-byte aligned
+    (pointer or b/s/h strides): the float32 kernel loads rows with 16-byte
+    ``cp.async`` copies."""
+    if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def flash_attention_fwd(q, k, v, causal=True, scale=None):
     """Flash-attention forward over ``[B, S, H, D]`` tensors (any strides
     with a contiguous last dim). Returns ``(out [B, Sq, H, D],
@@ -192,6 +208,8 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return out, lse
+    if q.dtype == torch.float32:
+        q, k, v = (_rows_aligned(t) for t in (q, k, v))
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

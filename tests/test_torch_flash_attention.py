@@ -258,3 +258,194 @@ def test_float16_takes_the_flash_route():
     before = ca.plain_calls
     out = attention_bshd(q, k, v, causal=True)
     assert ca.plain_calls == before + 1 and out.dtype == torch.float16
+
+
+# ---------------------------------------- the float32 kernel's arithmetic
+# The float32 kernel (csrc/flash_fwd.cu, flash_fwd_tf32_kernel) runs both
+# products on tensor cores in 3xTF32: each operand x is split into
+# hi = tf32(x) and lo = tf32(x - hi), rounded to nearest even (the
+# kernel's cvt.rn.tf32.f32; an inf or NaN stays one), and every 8-wide
+# step of a product sums a_lo b_hi, a_hi b_lo, then a_hi b_hi from zero
+# (the products of two TF32 values are exact in float32) and joins its
+# accumulator in one float add. The softmax is the online one over key
+# tiles of 32 keys, with s scale, its max and lse in natural units and
+# p = 2^(s log2 e - m log2 e); the running max ignores a NaN score, as
+# fmaxf does. The emulation below repeats that maths in
+# torch on the CPU (nothing on the main path uses it; the tensor cores'
+# truncating sum inside a step is not modelled) and is held at the kernels
+# phase's float32 limits: atol/rtol 2e-5 on out, 1e-3 on lse. A single
+# TF32 product (hi hi only) keeps ~11 bits and must fail the same limit, or
+# the limit could not tell float32 from TF32.
+LOG2E = 1.4426950408889634
+F32_TOL, LSE_TOL = 2e-5, 1e-3
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest even, on the int32
+    view: add just under half of the 13 dropped bits' range plus the kept
+    last bit, clear them; an inf or NaN stays as it is."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0xFFF + ((bits >> 13) & 1)) & -0x2000).view(
+        torch.float32)
+    return torch.where(x.isfinite(), rounded, x)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mma(a, b, three=True):
+    """a @ b in 8-wide steps, each step's products as the kernel issues them
+    (a_lo b_hi, a_hi b_lo, then a_hi b_hi; ``three=False``: a_hi b_hi alone)
+    summed from zero, the steps accumulated in float32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        step = ah[..., ks] @ bh[..., ks, :]
+        if three:
+            step = (al[..., ks] @ bh[..., ks, :] + ah[..., ks] @ bl[..., ks, :]
+                    + step)
+        acc = acc + step
+    return acc
+
+
+def _kernel_emulation(q, k, v, causal, scale, three=True):
+    """The float32 kernel's maths on [B, S, H, D] float32 tensors: returns
+    (out [B, Sq, H, D], lse [B*H, Sq]). Every row runs every key tile; a
+    tile the kernel skips (above a causal block's diagonal) is all masked
+    for its rows, so it leaves m, l and o exactly as they were."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    keys = 32
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    m = torch.full((b, h, sq), -1e30)
+    l = torch.zeros(b, h, sq)
+    o = torch.zeros(b, h, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, keys):
+        k1 = min(k0 + keys, sk)
+        s = _mma(qt, kt[:, :, k0:k1].transpose(-1, -2), three) * scale
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k1) > rows, -1e30)
+        m_new = torch.fmax(m, s.masked_fill(s.isnan(), -1e30).amax(-1))
+        alpha = torch.exp2((m - m_new) * LOG2E)
+        p = torch.exp2(s * LOG2E - (m_new * LOG2E)[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + _mma(p, vt[:, :, k0:k1], three)
+        m = m_new
+    lc = l.clamp(min=1e-30)
+    out = (o / lc[..., None]).transpose(1, 2)
+    lse = m + torch.log(lc)
+    return out, lse.reshape(b * h, sq)
+
+
+def test_tf32_rounds_to_nearest_even():
+    one = 1.0
+    x = torch.tensor([one + 2.0 ** -11, -(one + 2.0 ** -11),
+                      one + 2.0 ** -11 + 2.0 ** -23,
+                      one + 2.0 ** -11 - 2.0 ** -23, one + 3 * 2.0 ** -11,
+                      0.0, -0.0], dtype=torch.float32)
+    want = torch.tensor([one, -one, one + 2.0 ** -10, one,
+                         one + 4 * 2.0 ** -11, 0.0, -0.0])
+    assert torch.equal(_tf32(x), want)
+    # a NaN stays NaN (the card's 0x7fffffff, its negative, the CPU's quiet
+    # NaN; added to, 0x7fffffff would carry into the sign bit and round to
+    # -0), an inf stays inf
+    special = torch.tensor([0x7FFFFFFF, -1, 0x7FC00000, 0x7F800000,
+                            -0x800000], dtype=torch.int32).view(torch.float32)
+    hi, lo = _split(special)
+    assert torch.equal(hi.isnan(), special.isnan())
+    assert torch.equal(hi.isinf(), special.isinf())
+    assert bool(lo.isnan().all())
+    # hi + lo keeps ~22 bits: within 2^-22 of x, relative
+    rng = np.random.RandomState(7)
+    y = torch.from_numpy((rng.randn(4096) * 10.0 ** rng.uniform(
+        -6, 6, 4096)).astype(np.float32))
+    hi, lo = _split(y)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
+    rel = ((hi.double() + lo.double() - y.double()).abs()
+           / y.double().abs()).max()
+    assert rel <= 2.0 ** -22
+    assert ((hi.double() - y.double()).abs() / y.double().abs()).max() \
+        > 2.0 ** -13
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32_kernel_arithmetic_matches_pallas_interpret(d, causal):
+    s = 256
+    q, k, v = _qkv_d(s, d, seed=61 + d + causal)
+    scale = 1.0 / np.sqrt(d)
+    j_out, j_lse = _mha_fwd(_bhsd(q), _bhsd(k), _bhsd(v), causal, scale,
+                            128, 128)
+    out, lse = _kernel_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal, scale)
+    np.testing.assert_allclose(out.numpy(),
+                               np.swapaxes(np.asarray(j_out), 1, 2),
+                               atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[:, :, 0],
+                               atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("s", [77, 300])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32_kernel_arithmetic_matches_references_ragged(s, d, causal):
+    """Ragged S (a partial last key tile, and at S=300 several tiles and
+    query blocks): against ``_mha_reference`` and the port's plain
+    version."""
+    q, k, v = _qkv_d(s, d, seed=67 + s + d + causal)
+    scale = 1.0 / np.sqrt(d)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = _kernel_emulation(qt, kt, vt, causal, scale)
+    j = np.swapaxes(np.asarray(_mha_reference(
+        _bhsd(q), _bhsd(k), _bhsd(v), causal, scale)), 1, 2)
+    np.testing.assert_allclose(out.numpy(), j, atol=F32_TOL, rtol=F32_TOL)
+    p_out, p_lse = ca.mha_fwd_reference(qt, kt, vt, causal=causal,
+                                        scale=scale)
+    torch.testing.assert_close(out, p_out, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(lse, p_lse, atol=LSE_TOL, rtol=0)
+
+
+def test_single_tf32_product_fails_the_float32_limit():
+    """The control: at D=64 S=512 three products pass the float32 limit
+    and one (hi hi) does not."""
+    s, d = 512, 64
+    q, k, v = _qkv_d(s, d, seed=71)
+    scale = 1.0 / np.sqrt(d)
+    want = np.swapaxes(np.asarray(_mha_reference(
+        _bhsd(q), _bhsd(k), _bhsd(v), False, scale)), 1, 2)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    three, _ = _kernel_emulation(qt, kt, vt, False, scale)
+    one, _ = _kernel_emulation(qt, kt, vt, False, scale, three=False)
+    np.testing.assert_allclose(three.numpy(), want, atol=F32_TOL,
+                               rtol=F32_TOL)
+    assert not np.allclose(one.numpy(), want, atol=F32_TOL, rtol=F32_TOL), \
+        "one TF32 product passes the float32 limit at D=64 S=512"
+
+
+@pytest.mark.parametrize("nan_bits", [0x7FFFFFFF, -1, 0x7FC00000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tf32_kernel_arithmetic_propagates_nan(d, nan_bits):
+    """A NaN in one key element (the card's 0x7fffffff, its negative, the
+    CPU's quiet NaN): the emulation's out and lse are NaN in exactly the
+    entries where the plain version's are (the causal rows at or after that
+    key, in its batch and head) and agree with it elsewhere at the float32
+    limits."""
+    s = 100
+    q, k, v = (torch.from_numpy(x) for x in _qkv_d(s, d, seed=73 + d))
+    k = k.clone()
+    k.view(torch.int32)[0, 40, 1, 3] = nan_bits
+    scale = 1.0 / np.sqrt(d)
+    out, lse = _kernel_emulation(q, k, v, True, scale)
+    p_out, p_lse = ca.mha_fwd_reference(q, k, v, causal=True, scale=scale)
+    nan = p_out.isnan()
+    assert int(p_lse.isnan().sum()) == s - 40
+    assert torch.equal(out.isnan(), nan)
+    assert torch.equal(lse.isnan(), p_lse.isnan())
+    torch.testing.assert_close(out[~nan], p_out[~nan], atol=F32_TOL,
+                               rtol=F32_TOL)
+    fin = ~p_lse.isnan()
+    torch.testing.assert_close(lse[fin], p_lse[fin], atol=LSE_TOL, rtol=0)

@@ -17,6 +17,7 @@ import os
 import subprocess
 import sys
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -256,8 +257,8 @@ class TestFlashOperator:
 class TestPrecisionAndRefusals:
     def test_bf16_model_saved_after_decorate(self, tmp_path):
         """``amp.decorate`` then ``jit.save``: the program runs in bf16 and
-        hands float32 numpy outputs (numpy has no bfloat16), bit for bit
-        the eager bf16 model's."""
+        hands ``ml_dtypes`` bfloat16 outputs, bit for bit the eager bf16
+        model's; without ``ml_dtypes`` the same values as float32."""
         _, pm = ernie_pair()
         amp.decorate(pm, dtype="bfloat16")
         assert all(p.dtype == torch.bfloat16 for p in pm.parameters())
@@ -267,8 +268,40 @@ class TestPrecisionAndRefusals:
         out = pp.run([ids])[0]
         with torch.no_grad():
             eager = pm(torch.from_numpy(ids)).float().numpy()
+        assert out.dtype == ml_dtypes.bfloat16
+        np.testing.assert_array_equal(out.astype(np.float32), eager)
+
+    def test_bf16_outputs_are_float32_without_ml_dtypes(self, tmp_path,
+                                                         monkeypatch):
+        _, pm = ernie_pair()
+        amp.decorate(pm, dtype="bfloat16")
+        pp = port_predictor(pm, str(tmp_path / "p"), [None, None], "int64",
+                            "ids")
+        ids = _ids((2, 16), 6)
+        want = pp.run([ids])[0].astype(np.float32)
+        monkeypatch.setattr(inference, "ml_dtypes", None)
+        out = pp.run([ids])[0]
         assert out.dtype == np.float32
-        np.testing.assert_array_equal(out, eager)
+        np.testing.assert_array_equal(out, want)
+
+    def test_bf16_outputs_have_the_reference_dtype(self, tmp_path):
+        """The same converted ``ernie_tiny`` decorated to bf16 in both
+        packages, saved and run through each Predictor: the outputs' numpy
+        dtype is the reference's (``np.asarray`` of a jax bf16 array, an
+        ``ml_dtypes`` bfloat16 array), the values within BF16_ATOL."""
+        jm, pm = ernie_pair()
+        paddle.amp.decorate(jm, level="O2", dtype="bfloat16")
+        amp.decorate(pm, level="O2", dtype="bfloat16")
+        ids = _ids((2, 16), 6)
+        ref = jax_predictor(jm, str(tmp_path / "j"), [2, 16], "int64",
+                            "ids").run([ids])[0]
+        out = port_predictor(pm, str(tmp_path / "p"), [None, None], "int64",
+                             "ids").run([ids])[0]
+        assert ref.dtype == ml_dtypes.bfloat16
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        np.testing.assert_allclose(out.astype(np.float32),
+                                   ref.astype(np.float32), rtol=0,
+                                   atol=BF16_ATOL)
 
     def test_decorate_matches_reference(self, tmp_path):
         """``amp.decorate`` against the reference's on the same converted
@@ -291,7 +324,7 @@ class TestPrecisionAndRefusals:
         ref = jax_predictor(jm, str(tmp_path / "j"), [2, 16], "int64",
                             "ids").run([ids])[0].astype(np.float32)
         out = port_predictor(pm, str(tmp_path / "p"), [None, None], "int64",
-                             "ids").run([ids])[0]
+                             "ids").run([ids])[0].astype(np.float32)
         assert np.abs(ref32).max() < 1
         np.testing.assert_allclose(out, ref, rtol=0, atol=BF16_ATOL)
         assert np.abs(out - ref32).max() <= \
