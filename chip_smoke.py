@@ -28,10 +28,18 @@ Phases, each failing loudly (exit code 1, no result line):
               the float FMA rate (fma_bound_ms) and, where a redesign
               replaced a kernel, its time before in the row's log line
               (ms_before, PERF.md's figure, not measured in the run). With
-              ``--parent DIR`` the paged rows and the timed float32 flash
-              forward rows also time DIR's kernel (another tree's csrc,
+              ``--parent DIR`` the paged rows, the timed float32 flash
+              forward rows and the float32 backward rows at the training
+              and BERT shapes also time DIR's kernels (another tree's csrc,
               e.g. the parent commit's) in turns with this tree's: parent,
-              this, this, parent.
+              this, this, parent. The float32 backward rows cover a causal
+              edge at D=64, a K/V length other than Q's, an lse cotangent,
+              rows off 16-byte alignment and a NaN made on the card in dO
+              (NaN exactly where the plain version has it); the training
+              row also prints the kernels' and the plain version's
+              distance from a float64 backward (ref64_err). The build
+              phase prints every kernel's registers and spills and fails
+              if a float32 backward kernel spills.
 4. tiny     — gpt_tiny (head_dim 16, which no kernel takes) decodes and
               trains a step on the card through the default path: the
               callers route every attention to the plain versions
@@ -332,6 +340,63 @@ def phase_build(state):
         if any(s in line for s in ("registers", "spill", "Compiling entry",
                                    "(C75")):
             log(f"  ptxas: {line.strip()}")
+    # the float32 backward kernels (3xTF32 on mma.sync) must not spill
+    kernels = _ptxas_kernels(_build.build_log())
+    state["ptxas_f32_bwd"] = {name: kernels[name] for name in kernels
+                              if "dq_tf32" in name or "dkv_tf32" in name}
+    if not _build.build_log():
+        log("build: the library was built before this process; no ptxas "
+            "lines to read")
+        return
+    require(len(state["ptxas_f32_bwd"]) == 4,
+            f"build: expected dq_tf32_kernel and dkv_tf32_kernel at D 64 and "
+            f"128 in ptxas' log, found {sorted(state['ptxas_f32_bwd'])}")
+    for name, info in state["ptxas_f32_bwd"].items():
+        log(f"build: {name}: {info['registers']} registers, spill stores "
+            f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
+        require(info["spill_stores"] == 0 and info["spill_loads"] == 0,
+                f"build: {name} spills ({info})")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's identifier and template arguments from its mangled name,
+    e.g. ``dq_tf32_kernelILi64E`` (each identifier in it follows its length
+    in digits)."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):
+            n = int(digits[i:])
+            ident = mangled[m.end():m.end() + n]
+            if n and ident.endswith("_kernel") and ident.isidentifier():
+                args = re.match(r"I[^E]*E", mangled[m.end() + n:])
+                return ident + (args.group() if args else "")
+    return mangled
+
+
+def _ptxas_kernels(build_log: str) -> dict:
+    """ptxas' -v lines per entry function: {name: {registers, spill_stores,
+    spill_loads}} (the name as :func:`_kernel_name` gives it)."""
+    import re
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            out[name] = {"registers": None, "spill_stores": None,
+                         "spill_loads": None}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 # times of the kernels a redesign replaced (PERF.md's kernel table, rows 1
@@ -525,19 +590,31 @@ def kernel_device_ms(fn, names, iters: int = 10) -> dict:
     return out
 
 
-def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
+def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None,
+              unaligned=False, parent=None, ref64=False):
     """The backward kernels against ``mha_bwd_reference`` (p and ds rounded
     to the input type, as the kernels and the TPU reference round them) on
     the forward kernel's out and lse, q/k/v as views of one fused
     [B, S, H, 3, D] tensor; with ``sk`` (full attention only) k/v of that
-    length as views of one fused [B, Sk, H, 2, D] tensor beside q. Returns
-    the row; the limits are checked by :func:`check_bwd`."""
+    length as views of one fused [B, Sk, H, 2, D] tensor beside q; with
+    ``unaligned`` (float32) q, k, v and dO as views one element into their
+    storage, so no row is 16-byte aligned. With ``parent`` (``--parent``,
+    float32) the parent tree's two kernels and this tree's are timed in
+    turns (parent, this, this, parent) on the same inputs; ``ref64`` also
+    reports the kernels' and the plain version's distance from a float64
+    backward (no gate reads it). Returns the row; the limits are checked by
+    :func:`check_bwd`."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if sk is None:
+    if unaligned:
+        n = b * s * h * d
+        q, k, v = (torch.randn(n + 1, device="cuda", generator=g).to(
+            dtype)[1:].view(b, s, h, d) for _ in range(3))
+        sk = s
+    elif sk is None:
         sk = s
         qkv = torch.randn(b, s, h, 3, d, device="cuda", generator=g).to(
             dtype)
@@ -547,7 +624,11 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
         kv = torch.randn(b, sk, h, 2, d, device="cuda", generator=g).to(
             dtype)
         k, v = kv.unbind(3)
-    do = torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype)
+    if unaligned:
+        do = torch.randn(b * s * h * d + 1, device="cuda", generator=g).to(
+            dtype)[1:].view(b, s, h, d)
+    else:
+        do = torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype)
     ct = (0.1 * torch.randn(b * h, s, device="cuda", generator=g)
           if lse_ct else None)
     scale = 1.0 / math.sqrt(d)
@@ -559,7 +640,7 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
                                  scale=scale, lse_ct=ct)
     name = (f"flash_bwd B={b} S={s}{f' Sk={sk}' if sk != s else ''} H={h} "
             f"D={d} {str(dtype)[6:]} {'causal' if causal else 'full'}"
-            f"{' lse_ct' if lse_ct else ''}")
+            f"{' lse_ct' if lse_ct else ''}{' unaligned' if unaligned else ''}")
     row = {"case": name, "dtype": str(dtype)}
     for gname, x, y in zip(("dq", "dk", "dv"), got, want):
         require(bool(torch.isfinite(x.float()).all()),
@@ -571,6 +652,13 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
                                     scale=scale, lse_ct=ct)
     row["repeatable"] = all(bool(torch.equal(x, y))
                             for x, y in zip(got, again))
+    if ref64:
+        want64 = _mha_bwd_f64(q, k, v, do, causal, scale, ct)
+        row["ref64_err"] = max(max_abs_err(x, y)
+                               for x, y in zip(got, want64))
+        row["plain_ref64_err"] = max(max_abs_err(x, y)
+                                     for x, y in zip(want, want64))
+        del want64
     elt = torch.empty((), dtype=dtype).element_size()
     pairs = s * (s + 1) // 2 if causal else s * sk
     # q, dO, k, v once each, lse and delta; outputs dq, or dk and dv
@@ -588,6 +676,27 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
                                 scale=scale, lse_ct=ct)
     ms = kernel_device_ms(bwd, ("dq_", "dkv_"))
     row["flash_bwd_dq_ms"], row["flash_bwd_dkv_ms"] = ms["dq_"], ms["dkv_"]
+    if parent is not None:
+        # each kernel through its C entry point (the wrapper's delta made
+        # once), the parent tree's and this tree's in turns
+        from paddle_tpu_torch.ops import _build
+        delta = cab._delta(out, do, ct)
+        this, _ = _bwd_entries(_build.load_library(), q, k, v, do, lse,
+                               delta, causal, scale)
+        old, got_old = _bwd_entries(parent, q, k, v, do, lse, delta, causal,
+                                    scale)
+        for kname, mine in this.items():
+            theirs = old[kname]
+            p1, c1, c2, p2 = (device_ms(f) for f in (theirs, mine, mine,
+                                                     theirs))
+            row[f"{kname}_ms_turns"] = [c1, c2]
+            row[f"{kname}_parent_ms"] = [p1, p2]
+            row[f"{kname}_faster_than_parent"] = max(c1, c2) < min(p1, p2)
+        torch.cuda.synchronize()
+        row["parent_max_abs_err"] = max(max_abs_err(x, y)
+                                        for x, y in zip(got_old, want))
+    if name in BWD_MS_BEFORE:
+        row["ms_before"] = BWD_MS_BEFORE[name]
     for kname in flops:
         row[f"{kname}_tflops"] = flops[kname] / (row[f"{kname}_ms"] * 1e-3) \
             / 1e12
@@ -608,7 +717,9 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
     # and its backward alone
     qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
                   for x in (q, k, v))
-    dot = do.transpose(1, 2)
+    # (an unaligned dO is copied for the library: its backward faults on
+    # one)
+    dot = (do.clone() if unaligned else do).transpose(1, 2)
 
     def sdpa_fwd_bwd():
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -621,6 +732,117 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None):
         o_lib, (qt, kt, vt), dot, retain_graph=True))
     log("  " + json.dumps(row))
     return row
+
+
+def _bwd_entries(lib, q, k, v, do, lse, delta, causal, scale):
+    """The two backward kernels of ``lib`` (this tree's library or
+    ``--parent``'s, whose C interface is this tree's) as calls of their C
+    entry points on these inputs: ``({kernel name: call}, (dq, dk, dv))``,
+    the outputs allocated once and written by each call. Each call launches
+    one kernel and nothing else, so CUDA events time it alone; the launches
+    do not count in the wrapper's ``launches``."""
+    import torch
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    b, sq, h, d = q.shape
+    dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format)
+                  for x in (q, k, v))
+    strides = cab._strides(q, k, v, do)
+    tail = (b, h, sq, k.shape[1], d, strides, float(scale),
+            int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)])
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+
+    def dq_call():
+        err = lib.pt_flash_bwd_dq(*ins, dq.data_ptr(), *tail,
+                                  torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"pt_flash_bwd_dq: CUDA error {err}")
+
+    def dkv_call():
+        err = lib.pt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail,
+                                   torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"pt_flash_bwd_dkv: CUDA error {err}")
+    dq_call()
+    dkv_call()
+    return {"flash_bwd_dq": dq_call, "flash_bwd_dkv": dkv_call}, (dq, dk, dv)
+
+
+def _mha_bwd_f64(q, k, v, do, causal, scale, lse_ct=None):
+    """The attention backward in float64 from q, k, v and dO ([B, S, H, D];
+    with ``lse_ct``, δ less the lse cotangent): the yardstick of the float32
+    rows' own rounding. Returns (dq, dk, dv) as [B, S, H, D] float64."""
+    import torch
+    qd, kd, vd, dod = (x.double().transpose(1, 2) for x in (q, k, v, do))
+    logits = qd @ kd.transpose(-1, -2) * scale
+    if causal:
+        sq, sk = logits.shape[-2:]
+        logits.masked_fill_(~torch.ones(sq, sk, dtype=torch.bool,
+                                        device=q.device).tril(sk - sq),
+                            -math.inf)
+    p = torch.softmax(logits, -1)
+    del logits
+    dp = dod @ vd.transpose(-1, -2)
+    delta = (p * dp).sum(-1, keepdim=True)
+    if lse_ct is not None:
+        delta = delta - lse_ct.double().reshape(delta.shape)
+    dv = p.transpose(-1, -2) @ dod
+    ds = p * (dp - delta) * scale
+    del p, dp
+    return ((ds @ kd).transpose(1, 2), (ds.transpose(-1, -2) @ qd).transpose(
+        1, 2), dv.transpose(1, 2))
+
+
+def _bwd_nan_case(d, seed):
+    """float32, full attention, B=2 S=300 H=8: one element of dO set to 0/0
+    on the card (the card's NaN). The kernels' dq, dk and dv must be NaN in
+    exactly the entries where ``mha_bwd_reference``'s are (that query's dq
+    row, every dk row of its batch and head, and that dim of every dv row
+    there: δ of the row is NaN, and 0 times NaN is NaN) and agree with it
+    elsewhere within the float32 limit. Full attention: under a causal mask
+    the plain version multiplies the masked p (0) by the NaN too, which
+    the kernels, skipping tiles their mask empties, and the reference's
+    vjp do not."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    b, s, h = 2, 300, 8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g)
+                   for _ in range(4))
+    zero = torch.zeros((), device="cuda")
+    do[1, 150, 3, 5] = zero / zero
+    out, lse = ca.flash_attention_fwd(q, k, v, causal=False)
+    got = cab.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+    want = cab.mha_bwd_reference(q, k, v, out, lse, do, causal=False)
+    torch.cuda.synchronize()
+    name = f"flash_bwd B={b} S={s} H={h} D={d} float32 full NaN in dO"
+    row = {"case": name,
+           "nan_bits": hex(int(do[1, 150, 3, 5].view(torch.int32))
+                           & 0xffffffff)}
+    for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+        nan = y.isnan()
+        require(bool(nan.any()), f"{name}: the plain {gname} has no NaN")
+        require(torch.equal(x.isnan(), nan),
+                f"{name}: {gname} {int(x.isnan().sum())} NaN, the plain "
+                f"version {int(nan.sum())}")
+        err = max_abs_err(x[~nan], y[~nan])
+        lim = BWD_F32_TOL * (1.0 + float(y[~nan].abs().max()))
+        require(err <= lim, f"{name}: {gname} max abs err {err:.3e} beyond "
+                            f"{lim:.3e}")
+        row[f"{gname}_nan"] = int(nan.sum())
+        row[f"{gname}_max_abs_err"] = err
+    log("  " + json.dumps(row))
+    return row
+
+
+# the float32 backward pair's times before its redesign (PERF.md rows 2f
+# and 3f, the FMA kernels; NVIDIA H100 80GB HBM3, 700 W), printed in the
+# row's log line beside this run's, never in the kernels line
+BWD_MS_BEFORE = {
+    "flash_bwd B=2 S=2048 H=16 D=128 float32 causal": {
+        "flash_bwd_dq": 3.1165, "flash_bwd_dkv": 3.2834},
+    "flash_bwd B=32 S=512 H=12 D=64 float32 full": {
+        "flash_bwd_dq": 1.7118, "flash_bwd_dkv": 2.0621}}
 
 
 # backward kernels against mha_bwd_reference, set from the first readings
@@ -869,6 +1091,20 @@ def _parent_flash(parent_dir):
     return call
 
 
+def _parent_flash_bwd(parent_dir):
+    """The parent tree's backward pair (``pt_flash_bwd_dq`` and
+    ``pt_flash_bwd_dkv``, whose C interfaces are this tree's), as a library
+    with its entry points bound."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    lib = _parent_lib(parent_dir, "flash_bwd.cu")
+    for name in ("pt_flash_bwd_dq", "pt_flash_bwd_dkv"):
+        fn = getattr(lib, name)
+        fn.argtypes = _build._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _parent_paged(parent_dir):
     """The parent tree's paged kernel (``pt_paged_attention`` and its
     workspace query, whose C interfaces are this tree's), as a callable
@@ -1061,8 +1297,11 @@ def phase_kernels(state):
     log(f"kernels: flash_bwd_dq, flash_bwd_dkv vs mha_bwd_reference (bf16 "
         f"grad_err <= {BWD_BF16_GRAD_LIMIT}; f32 max abs err <= "
         f"{BWD_F32_TOL} x (1 + max |plain|); two launches bit for bit)")
+    parent_bwd = (_parent_flash_bwd(state["parent"]) if state.get("parent")
+                  else None)
     brow = [_bwd_case(2, 2048, 16, 128, torch.bfloat16, True, seed + 6),
-            _bwd_case(2, 2048, 16, 128, torch.float32, True, seed + 7),
+            _bwd_case(2, 2048, 16, 128, torch.float32, True, seed + 7,
+                      parent=parent_bwd, ref64=True),
             _bwd_case(8, 1000, 16, 128, torch.bfloat16, True, seed + 8),
             _bwd_case(2, 40, 16, 128, torch.bfloat16, True, seed + 9),
             _bwd_case(2, 40, 4, 64, torch.float32, True, seed + 9),
@@ -1078,7 +1317,22 @@ def phase_kernels(state):
                       sk=520),
             # BERT-base's float32 shape (the families phase's parity)
             _bwd_case(32, ENCODER_SEQ, 12, 64, torch.float32, False,
-                      seed + 24)]
+                      seed + 24, parent=parent_bwd),
+            # the float32 kernels' edges: D=64 causal over many ragged
+            # tiles, a K/V length other than Q's, an lse cotangent, rows
+            # that are not 16-byte aligned (the wrapper copies them)
+            _bwd_case(2, 1000, 16, 64, torch.float32, True, seed + 25),
+            _bwd_case(2, 300, 16, 128, torch.float32, False, seed + 26,
+                      sk=520),
+            _bwd_case(2, 256, 16, 128, torch.float32, True, seed + 27,
+                      lse_ct=True),
+            _bwd_case(2, 300, 8, 64, torch.float32, True, seed + 28,
+                      unaligned=True),
+            _bwd_case(2, 300, 8, 128, torch.float32, True, seed + 29,
+                      unaligned=True)]
+    # a NaN made on the card in dO reaches the plain version's entries
+    state["bwd_nan_rows"] = [_bwd_nan_case(d, seed + 30 + d)
+                             for d in (64, 128)]
     # the long-context training shape (stacked decoder, s=8192)
     state["bwd_long"] = _bwd_case(TRAIN_BATCH, LONG_SEQ, 16, 128,
                                   torch.bfloat16, True, seed + 23)
@@ -1138,6 +1392,7 @@ def phase_kernels(state):
     (OUT_DIR / "kernels.json").write_text(json.dumps(
         {"card": state.get("smi"), "flash_fwd": rows,
          "paged_attention": prow, "flash_bwd": brow,
+         "flash_bwd_nan": state["bwd_nan_rows"],
          "flash_bwd_f16_overflow": state["bwd_overflow"]}, indent=1))
 
 
@@ -1524,8 +1779,8 @@ def phase_model(state):
 
 # kernel-name groups of a step's device time, first match wins
 PROFILE_GROUPS = (
-    ("port kernels", ("flash_fwd", "dq_wgmma", "dkv_wgmma", "dq_f32",
-                      "dkv_f32", "paged_attention")),
+    ("port kernels", ("flash_fwd", "dq_wgmma", "dkv_wgmma", "dq_tf32",
+                      "dkv_tf32", "paged_attention")),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
     ("matmuls", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -3980,7 +4235,9 @@ def kernels_line(state) -> dict:
     float32 training parities' launches: the train, stacked and BERT
     parity runs through the kernels). The float32 backward kernels are
     ``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32``, with those parities'
-    launches, timed at the training shape and at BERT-base's."""
+    launches, timed at the training shape and at BERT-base's, with
+    ``ms_before``: the parent tree's kernel timed in turns with this one in
+    this run (``--parent``; null without it)."""
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_attention_bwd as cab
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
@@ -4105,7 +4362,17 @@ def kernels_line(state) -> dict:
                 f"{prefix}bound_by": r[f"{name}_bound_by"],
                 f"{prefix}library_ms": r["library_ms"],
                 f"{prefix}library_bwd_ms": r["library_bwd_ms"],
-                f"{prefix}delta_ms": r["delta_ms"]})
+                f"{prefix}delta_ms": r["delta_ms"],
+                # the parent tree's kernel timed in turns with this one
+                # (--parent), else null
+                f"{prefix}ms_before": (
+                    statistics.mean(r[f"{name}_parent_ms"])
+                    if f"{name}_parent_ms" in r else None)})
+            for key in ("ms_turns", "parent_ms"):
+                if f"{name}_{key}" in r:
+                    entry[f"{prefix}{key}"] = r[f"{name}_{key}"]
+        for key in ("ref64_err", "plain_ref64_err"):
+            entry[key] = state["bwd_f32_main"][key]
         out.append(entry)
     row, long_row = state["bwd_main"], state["bwd_long"]
     for name, grads in (("flash_bwd_dq", ("dq",)),
@@ -4195,9 +4462,11 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a tree holding another paddle_tpu_torch/csrc "
                          "(e.g. the parent commit, unpacked with git "
-                         "archive): its paged kernel and its flash forward "
-                         "(the timed float32 rows) are timed in turns with "
-                         "this tree's in the kernels phase")
+                         "archive): its paged kernel, its flash forward "
+                         "(the timed float32 rows) and its float32 "
+                         "backward pair (the training and BERT shapes) are "
+                         "timed in turns with this tree's in the kernels "
+                         "phase")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)

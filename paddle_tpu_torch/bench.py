@@ -40,8 +40,8 @@ warm-up window.
   reads about twice it, and ``mfu`` (``bench.py``'s) is half the counted
   rate's.
 - Not ported: the TPU autotune of the flash block sizes
-  (``flash_attention.pretune``; ROADMAP queue 2a item 3), the backend probe
-  and its skip record, and ``BENCH_PEAK_FLOPS``. Without a CUDA device the
+  (``flash_attention.pretune``; ROADMAP queue 2a, the tuning tables), the
+  backend probe and its skip record, and ``BENCH_PEAK_FLOPS``. Without a CUDA device the
   bench raises; ``--smoke`` runs ``gpt_tiny`` on the CPU, because the
   caller asked for it, and its numbers are the CPU's (``vs_baseline`` is
   1.0 there, as in ``bench.py``).

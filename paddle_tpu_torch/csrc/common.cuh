@@ -80,6 +80,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// x, hidden from the compiler: a value cheap to recompute (a kernel
+// parameter, an index) passed through it inside a loop is recomputed there
+// instead of being hoisted out and held in a register for the whole loop
+template <typename T>
+__device__ __forceinline__ T opaque(T x) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "a 32- or 64-bit value");
+  if constexpr (sizeof(T) == 8) {
+    asm volatile("" : "+l"(x));
+  } else {
+    asm volatile("" : "+r"(x));
+  }
+  return x;
+}
+
 // dtype codes shared with the Python wrappers (ops/_build.py)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2, kFloat16 = 3 };
 

@@ -61,8 +61,11 @@
 // them), the heaviest causal blocks start first inside head groups whose
 // streamed tensors fit in L2, and the epilogue stages each warpgroup's rows
 // in its own freed rows of shared memory for 16-byte stores. float32 inputs
-// take float-FMA kernels (exact float32, held to the 67 TFLOP/s float rate)
-// over 64x64 tiles in shared memory, as the forward's float32 path. Causal
+// take two tensor-core kernels in 3xTF32 (mma.sync with each operand split
+// into TF32 hi + lo parts, three products: float32 accuracy at up to 495 / 3
+// TFLOP/s, where float FMAs reach 67; tf32.cuh), with the same split of the
+// work: blocks of 64 rows, the other side's tiles of 32 rows in a two-stage
+// cp.async ring, p and ds in registers (the float32 section below). Causal
 // tiles stop at the diagonal and ragged sequence lengths are masked at the
 // edge, so every S the forward takes has a backward (the TPU's
 // multiple-of-128 gate and its XLA crossover below S = 1024 do not carry
@@ -71,6 +74,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -91,270 +95,446 @@ struct BwdArgs {
   int causal;
 };
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, const BwdArgs& a) {
-  return qpos < a.Sq && kpos < a.Sk && (!a.causal || kpos <= qpos);
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------- float32 path
-constexpr int kRows = 64;      // rows a block owns (queries, or keys)
-constexpr int kTile = 64;      // rows of a streamed tile
-constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 score tile
-
+// float32 runs both kernels on tensor cores in 3xTF32 (mma.sync m16n8k8,
+// each operand split into TF32 hi + lo, three products: tf32.cuh); a warp
+// owns 16 of its block's rows.
+// - dq_tf32_kernel: a block owns kRows query rows of one (batch, head).
+//   Its Q and dO stay in shared memory; K and V stream in tiles of kDqTile
+//   keys through a two-stage cp.async ring, so tile n + 1's loads run under
+//   tile n's products. Per tile a warp computes S = Q K^T and dP = dO V^T
+//   (head dims relabelled), builds P and dS in registers (s scale and lse
+//   in natural units, p = 2^(s scale log2 e - lse log2 e), 0 where the mask
+//   hides the key; dS = p (dP - delta) scale in place of dP) and adds dS K
+//   to dQ, dS's registers fed to the A operand as they are (keys
+//   relabelled) and K read at keys 2t, 2t + 1.
+// - dkv_tf32_kernel, its transpose: a block owns kRows key rows; its K
+//   and V stay, Q and dO tiles of kDkvTile queries stream with their lse
+//   and delta. Per tile S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in
+//   registers (lse and delta indexed by the column, the query), then
+//   dV += P^T dO and dK += dS^T Q, P^T's split fragments dead before dS^T's
+//   are split.
+// Accumulation (tf32.cuh's rule: no long chain of tensor-core sums): each
+// 8-wide step of a score product sums its three products from zero and
+// joins the scores in one FADD; each streamed tile's gradient product sums
+// its tile / 8 steps from zero, one 8-column n-tile of the output at a time
+// (the n-tiles outside the k-steps, so the sum is four registers and the
+// accumulators are not doubled), and joins dQ, dV or dK in one FADD.
+// Shared memory: the fixed side (Q and dO in dq, K and V in dk/dv) and dq's
+// V tile are read one way, as A fragments or as the B operand of a score
+// product (rows g, dims 2t: 8-byte loads), in rows of D + 8 floats, which
+// that read takes from 32 distinct banks. K in dq, and Q and dO in dk/dv,
+// are also the B operand of a gradient product (rows 2t, dim g: 4-byte
+// loads), which D + 4 serves and D + 8 does not: those tiles are
+// XOR-swizzled rows of D floats (tf32::swz), conflict-free both ways.
+// Causal blocks stop at the diagonal (a warp skips a tile its mask empties)
+// and start heaviest first (dq's last query blocks, dk/dv's first key
+// blocks); only tiles that touch the diagonal or a ragged end build a mask.
+// Rows past S load as zeros. Every row of q, k, v and dO must be 16-byte
+// aligned (the wrapper copies a view that is not; the launchers refuse one).
+// Sizes, chosen on the card (PERF.md): the kernels wait on latency more
+// than they issue, so warps an SM count most. At D = 128 a block of eight
+// warps (~205 KB of shared memory) beat four (one block an SM either way)
+// and two blocks of four over 16-row tiles; dk/dv's dK and dV (128 floats a
+// thread) then leave no register to spare, and a D split across two warps
+// (64 each, half sums exchanged through shared memory) ran slower than
+// this. At D = 64 dk/dv takes 64-query tiles (each split K/V fragment feeds
+// eight steps), dq 32-key tiles (three blocks an SM).
+// The fixed side is split per fragment as it is read, as the forward splits
+// Q: split once a block into hi and lo planes, it doubled its shared memory
+// (64-row blocks at D = 128) and its loads, and ran slower (PERF.md).
 template <int D>
-constexpr size_t dq_f32_smem() {
-  // Q, dO, K, V tiles [64][D + 1], dS [64][65], lse and delta [64]
-  return sizeof(float) *
-         (size_t)(4 * kRows * (D + 1) + kRows * (kTile + 1) + 2 * kRows);
-}
+struct F32Bwd {
+  static constexpr int kPad = D + 8;  // stride of one-way rows
+  static constexpr int kStages = 2;   // ring depth
+  static constexpr int kWarps = D == 128 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // rows a block owns
+  static constexpr int kDqTile = 32;                // keys of dq's tile
+  static constexpr int kDkvTile = D == 64 ? 64 : 32;  // queries of dk/dv's
+  // dq: Q and dO, then per stage K (swizzled) and V
+  static constexpr size_t kDqBytes =
+      sizeof(float) * (2 * kRows * kPad + kStages * kDqTile * (D + kPad));
+  // dk/dv: K and V, then per stage Q and dO (swizzled), lse and delta
+  static constexpr size_t kDkvBytes =
+      sizeof(float) * (2 * kRows * kPad + kStages * kDkvTile * (2 * D + 2));
+  static_assert(kDqBytes <= 232448 && kDkvBytes <= 232448,
+                "a block's shared memory");
+};
 
-template <int D>
-constexpr size_t dkv_f32_smem() {
-  // K, V, Q, dO tiles [64][D + 1], P and dS [64][65], lse and delta [64]
-  return sizeof(float) *
-         (size_t)(4 * kRows * (D + 1) + 2 * kRows * (kTile + 1) + 2 * kTile);
-}
+// where a thread's reads of a swizzled tile lie: rows 8j + g at dims
+// 8kk + 2t (sg: the XOR of row g), rows 8j + 2t and 8j + 2t + 1 at dims
+// 8m + g (s0, s1: the XORs of those rows)
+struct SwizzledReads {
+  int g, sg, s0, s1;
+  __device__ __forceinline__ SwizzledReads(int g_, int t)
+      : g(g_), sg(tf32::swz(g_)), s0(tf32::swz(2 * t)),
+        s1(tf32::swz(2 * t + 1)) {}
+};
 
-// rows [r0, r0 + 64) of a [S, D] float slice into a [64][D + 1] tile, zeros
-// past S
-template <int D>
-__device__ __forceinline__ void load_f32(const float* __restrict__ g,
-                                         int64_t ss, int r0, int S,
-                                         float* tile, int tid) {
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    tile[r * (D + 1) + d] = r0 + r < S ? g[(r0 + r) * ss + d] : 0.f;
+// acc += X M over one streamed tile: X its score-layout A fragments (hi,
+// lo; columns relabelled), M the tile's swizzled [kN * 8][D] rows, read at
+// rows 2t and 2t + 1 of each 8-row step (r0: row 2t of the first). Each
+// 8-column n-tile of the output sums its kN steps from zero and joins acc
+// in one FADD. A warp sync after every eight n-tiles keeps ptxas from
+// hoisting the later n-tiles' loads above the earlier products: with dk/dv's
+// two accumulators at D = 128 that hoisting spilled.
+template <int D, int kN>
+__device__ __forceinline__ void grad_product(float (&acc)[D / 8][4],
+                                             const uint32_t (&xh)[kN][4],
+                                             const uint32_t (&xl)[kN][4],
+                                             const float* r0,
+                                             const SwizzledReads& rd) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const float* r = r0 + 32 * (dn >> 2);
+    const int c0 = ((8 * (dn & 3)) ^ rd.s0) + rd.g;
+    const int c1 = D + ((8 * (dn & 3)) ^ rd.s1) + rd.g;
+    float sum[4] = {};
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      tf32::mma_3xtf32(sum, xh[j], xl[j], r[8 * j * D + c0],
+                       r[8 * j * D + c1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] += sum[e];
+    if (dn % 8 == 7) __syncwarp();
   }
 }
 
+// dQ = dS K for kRows query rows of one (batch, head)
 template <int D>
-__global__ void __launch_bounds__(kThreads) dq_f32_kernel(BwdArgs a) {
-  constexpr int DP = D + 1;     // padded row stride: column reads hit
-  constexpr int SP = kTile + 1;  // distinct banks
-  constexpr int DJ = D / 16;     // dq columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Os = Qs + kRows * DP;
-  float* Ks = Os + kRows * DP;
-  float* Vs = Ks + kTile * DP;
-  float* Ss = Vs + kTile * DP;   // dS of this tile
-  float* lse_s = Ss + kRows * SP;
-  float* dl_s = lse_s + kRows;
+__global__ void __launch_bounds__(F32Bwd<D>::kThreads)
+    dq_tf32_kernel(BwdArgs a) {
+  using L = F32Bwd<D>;
+  constexpr int kTile = L::kDqTile;
+  constexpr int kTwoWay = kTile * D;        // a K tile, swizzled
+  constexpr int kOneWay = kTile * L::kPad;  // a V tile
+  constexpr int kN = kTile / 8;             // 8-key steps of a tile
+  constexpr int kDK = D / 8;                // 8-dim steps of a row
+  constexpr int kFixed = L::kRows * L::kPad;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;                   // [kRows][kPad]
+  float* Os = Qs + kFixed;                // [kRows][kPad]
+  float* Ks = Os + kFixed;                // [stage][kTile][D], swizzled
+  float* Vs = Ks + L::kStages * kTwoWay;  // [stage][kTile][kPad]
 
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.y * kRows;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* ob =
-      static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh;
-
-  load_f32<D>(qb, a.q_ss, q0, a.Sq, Qs, tid);
-  load_f32<D>(ob, a.o_ss, q0, a.Sq, Os, tid);
-  if (tid < kRows) {
-    const bool ok = q0 + tid < a.Sq;
-    lse_s[tid] = ok ? a.lse[(int64_t)bh * a.Sq + q0 + tid] : 0.f;
-    dl_s[tid] = ok ? a.delta[(int64_t)bh * a.Sq + q0 + tid] : 0.f;
-  }
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int q_hi = min(q0 + kRows, a.Sq);
-  const int k_end = a.causal ? min(q_hi, a.Sk) : a.Sk;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  // causal blocks with the most key tiles first
+  const int qblock = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qblock * L::kRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wrow = q0 + warp * 16;  // the warp's first query row
+  const int k_end = a.causal ? min(q0 + L::kRows, a.Sk) : a.Sk;
   const int n_tiles = (k_end + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_f32<D>(kb, a.k_ss, k0, a.Sk, Ks, tid);
-    load_f32<D>(vb, a.v_ss, k0, a.Sk, Vs, tid);
-    __syncthreads();
-    // scores and dP for rows ty*4+i, keys tx+16*j
-    float sc[4][4], dp[4][4];
+
+  // (the head's K and V pointers recomputed at each load: see dk/dv's)
+  auto load_kv = [&](int n) {
+    const int s = n % L::kStages;
+    const int bo = pt::opaque(b), ho = pt::opaque(h);
+    const float* kb =
+        static_cast<const float*>(a.k) + bo * a.k_sb + ho * a.k_sh;
+    const float* vb =
+        static_cast<const float*>(a.v) + bo * a.v_sb + ho * a.v_sh;
+    tf32::load_rows_swizzled<D, kTile, L::kThreads>(
+        Ks + s * kTwoWay, kb, a.k_ss, n * kTile, a.Sk, tid);
+    tf32::load_rows<D, kTile, L::kPad, L::kThreads>(
+        Vs + s * kOneWay, vb, a.v_ss, n * kTile, a.Sk, tid);
+  };
+  tf32::load_rows<D, L::kRows, L::kPad, L::kThreads>(
+      Qs, static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss,
+      q0, a.Sq, tid);
+  tf32::load_rows<D, L::kRows, L::kPad, L::kThreads>(
+      Os, static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh,
+      a.o_ss, q0, a.Sq, tid);
+  pt::cp_async_commit();  // Q and dO
+  load_kv(0);
+  pt::cp_async_commit();  // tile 0
+  if (n_tiles > 1) load_kv(1);
+  pt::cp_async_commit();  // tile 1 (or nothing)
+
+  // lse (log2 units) and delta of rows wrow + g and wrow + g + 8; rows past
+  // Sq read zeros, so their dS is 0 (and they are not stored)
+  float lse2[2], dl[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * DP + d];
-        ov[i] = Os[(ty * 4 + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DP + d];
-        vv[j] = Vs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = visible(q0 + r, k0 + c, a)
-                            ? expf(sc[i][j] * a.scale - lse_s[r])
-                            : 0.f;
-        Ss[r * SP + c] = p * (dp[i][j] - dl_s[r]) * a.scale;
-      }
-    }
-    __syncthreads();
-    // dq += dS K for rows ty*4+i, columns tx+16*j
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ss[(ty * 4 + i) * SP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float kv = Ks[c * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
-      }
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int r = wrow + g + 8 * i;
+    const bool ok = r < a.Sq;
+    lse2[i] = ok ? a.lse[(int64_t)bh * a.Sq + r] * kLog2e : 0.f;
+    dl[i] = ok ? a.delta[(int64_t)bh * a.Sq + r] : 0.f;
   }
+  const SwizzledReads rd(g, t);
+  const int row = (warp * 16 + g) * L::kPad;  // row g of the warp's rows
+  float acc[kDK][4];
+#pragma unroll
+  for (int j = 0; j < kDK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int k0 = n * kTile;
+    const float* Kt = Ks + (n % L::kStages) * kTwoWay;
+    const float* Vt = Vs + (n % L::kStages) * kOneWay;
+    pt::cp_async_wait<1>();  // every group but the newest: tile n is here
+    __syncthreads();
+    // a warp whose rows all lie above this causal tile has nothing in it
+    if (!(a.causal && k0 > wrow + 15)) {
+      // S = Q K^T and dP = dO V^T (rows g and g + 8, keys 8j + 2t + {0, 1})
+      float sc[kN][4], dp[kN][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < kDK; ++kk) {
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        tf32::a_fragment<L::kPad>(Qs + row, kk, t, qh, ql);
+        tf32::a_fragment<L::kPad>(Os + row, kk, t, oh, ol);
+        const int kc = ((8 * kk) ^ rd.sg) + 2 * t;
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          const float2 kv =
+              *reinterpret_cast<const float2*>(Kt + (8 * j + g) * D + kc);
+          const float2 vv = *reinterpret_cast<const float2*>(
+              Vt + (8 * j + g) * L::kPad + 8 * kk + 2 * t);
+          float s4[4] = {}, p4[4] = {};
+          tf32::mma_3xtf32(s4, qh, ql, kv.x, kv.y);
+          tf32::mma_3xtf32(p4, oh, ol, vv.x, vv.y);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[j][e] += s4[e];
+            dp[j][e] += p4[e];
+          }
+        }
+      }
+      // dS in place of dP; the mask only on tiles that reach past Sk or
+      // above the warp's first row
+      const bool edge =
+          k0 + kTile > a.Sk || (a.causal && k0 + kTile - 1 > wrow);
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = hopper::exp2_approx(
+              fmaf(sc[j][e] * a.scale, kLog2e, -lse2[i]));
+          if (edge) {
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            if (kpos >= a.Sk || (a.causal && kpos > wrow + g + 8 * i))
+              p = 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - dl[i]) * a.scale;
+        }
+      // dQ += dS K
+      uint32_t sh[kN][4], sl[kN][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j) tf32::score_fragment(dp[j], sh[j], sl[j]);
+      grad_product<D, kN>(acc, sh, sl, Kt + 2 * t * D, rd);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (n + 2 < n_tiles) load_kv(n + 2);
+    pt::cp_async_commit();
+  }
+
   float* dq = static_cast<float*>(a.dq);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int s = wrow + g + 8 * i;
     if (s >= a.Sq) continue;
-    float* row = dq + (((int64_t)b * a.Sq + s) * a.H + h) * D;
+    float* out = dq + (((int64_t)b * a.Sq + s) * a.H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < kDK; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
   }
 }
 
+// dK = dS^T Q and dV = P^T dO for kRows key rows of one (batch, head)
 template <int D>
-__global__ void __launch_bounds__(kThreads) dkv_f32_kernel(BwdArgs a) {
-  constexpr int DP = D + 1;
-  constexpr int SP = kTile + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kRows * DP;
-  float* Qs = Vs + kRows * DP;
-  float* Os = Qs + kTile * DP;
-  float* Ps = Os + kTile * DP;   // p^T of this tile: [key][query]
-  float* Ds = Ps + kRows * SP;   // ds^T
-  float* lse_s = Ds + kRows * SP;
-  float* dl_s = lse_s + kTile;
+__global__ void __launch_bounds__(F32Bwd<D>::kThreads)
+    dkv_tf32_kernel(BwdArgs a) {
+  using L = F32Bwd<D>;
+  constexpr int kTile = L::kDkvTile;
+  constexpr int kTwoWay = kTile * D;  // a Q or dO tile, swizzled
+  constexpr int kN = kTile / 8;       // 8-query steps of a tile
+  constexpr int kDK = D / 8;          // 8-dim steps of a row
+  constexpr int kFixed = L::kRows * L::kPad;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Ks = smem_f32;                   // [kRows][kPad]
+  float* Vs = Ks + kFixed;                // [kRows][kPad]
+  float* Qs = Vs + kFixed;                // [stage][kTile][D], swizzled
+  float* Os = Qs + L::kStages * kTwoWay;  // [stage][kTile][D], swizzled
+  float* Ls = Os + L::kStages * kTwoWay;  // [stage][kTile] lse
+  float* Ds = Ls + L::kStages * kTile;    // [stage][kTile] delta
 
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.y * kRows;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* ob =
-      static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh;
-
-  load_f32<D>(kb, a.k_ss, k0, a.Sk, Ks, tid);
-  load_f32<D>(vb, a.v_ss, k0, a.Sk, Vs, tid);
-  float dk[4][DJ], dv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  // causal: query tiles from the one holding query k0 (tiles are aligned)
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  // y runs in order: under a causal mask the first key blocks, which see
+  // the most queries, start first
+  const int k0 = blockIdx.y * L::kRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wkey = k0 + warp * 16;  // the warp's first key
+  // causal: query tiles from the one holding key k0 (tiles are aligned).
+  // What the loop reads once a tile (the tile count, the head's pointers,
+  // the thread's lse slot) is recomputed there through pt::opaque: held
+  // across the loop beside dK and dV it spilled.
   const int qt0 = a.causal ? k0 / kTile : 0;
-  const int n_tiles = (a.Sq + kTile - 1) / kTile;
-  for (int qt = qt0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_f32<D>(qb, a.q_ss, q0, a.Sq, Qs, tid);
-    load_f32<D>(ob, a.o_ss, q0, a.Sq, Os, tid);
-    if (tid < kTile) {
-      const bool ok = q0 + tid < a.Sq;
-      lse_s[tid] = ok ? a.lse[(int64_t)bh * a.Sq + q0 + tid] : 0.f;
-      dl_s[tid] = ok ? a.delta[(int64_t)bh * a.Sq + q0 + tid] : 0.f;
+  auto n_tiles = [&] {
+    return (a.Sq + kTile - 1) / kTile -
+           (a.causal ? pt::opaque(k0) / kTile : 0);
+  };
+  auto load_q = [&](int n) {
+    const int s = n % L::kStages;
+    const int q0 = (qt0 + n) * kTile;
+    const int bho = pt::opaque(static_cast<int>(blockIdx.x));
+    const int bo = bho / a.H, ho = bho - bo * a.H;
+    const float* qb =
+        static_cast<const float*>(a.q) + bo * a.q_sb + ho * a.q_sh;
+    const float* ob =
+        static_cast<const float*>(a.dout) + bo * a.o_sb + ho * a.o_sh;
+    tf32::load_rows_swizzled<D, kTile, L::kThreads>(
+        Qs + s * kTwoWay, qb, a.q_ss, q0, a.Sq, tid);
+    tf32::load_rows_swizzled<D, kTile, L::kThreads>(
+        Os + s * kTwoWay, ob, a.o_ss, q0, a.Sq, tid);
+    const int tq = pt::opaque(tid);
+    if (tq < 2 * kTile) {  // the tile's lse, then its delta
+      const int i = tq % kTile;
+      const bool ok = q0 + i < a.Sq;
+      const float* src = (tq < kTile ? a.lse : a.delta) +
+                         (int64_t)bho * a.Sq + (ok ? q0 + i : 0);
+      pt::cp_async4(hopper::smem_u32((tq < kTile ? Ls : Ds) + s * kTile + i),
+                    src, ok);
     }
+  };
+  tf32::load_rows<D, L::kRows, L::kPad, L::kThreads>(
+      Ks, static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh, a.k_ss,
+      k0, a.Sk, tid);
+  tf32::load_rows<D, L::kRows, L::kPad, L::kThreads>(
+      Vs, static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh, a.v_ss,
+      k0, a.Sk, tid);
+  pt::cp_async_commit();  // K and V
+  load_q(0);
+  pt::cp_async_commit();  // tile 0
+  if (n_tiles() > 1) load_q(1);
+  pt::cp_async_commit();  // tile 1 (or nothing)
+
+  const SwizzledReads rd(g, t);
+  const int row = (warp * 16 + g) * L::kPad;  // row g of the warp's keys
+  float dk[kDK][4], dv[kDK][4];
+#pragma unroll
+  for (int j = 0; j < kDK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int n = 0; n < n_tiles(); ++n) {
+    const int q0 = (qt0 + n) * kTile;
+    const int s = n % L::kStages;
+    const float* Qt = Qs + s * kTwoWay;
+    const float* Ot = Os + s * kTwoWay;
+    pt::cp_async_wait<1>();
     __syncthreads();
-    // s^T and dP^T for keys ty*4+i, queries tx+16*j
-    float sc[4][4], dp[4][4];
+    // a warp whose keys all lie after this causal tile's queries has
+    // nothing in it
+    if (!(a.causal && wkey > q0 + kTile - 1)) {
+      // S^T = K Q^T and dP^T = V dO^T (keys g and g + 8, queries
+      // 8j + 2t + {0, 1})
+      float st[kN][4], dpt[kN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kN; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < kDK; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        tf32::a_fragment<L::kPad>(Ks + row, kk, t, kh, kl);
+        tf32::a_fragment<L::kPad>(Vs + row, kk, t, vh, vl);
+        const int qc = ((8 * kk) ^ rd.sg) + 2 * t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(ty * 4 + i) * DP + d];
-        vv[i] = Vs[(ty * 4 + i) * DP + d];
-      }
+        for (int j = 0; j < kN; ++j) {
+          const float2 qv =
+              *reinterpret_cast<const float2*>(Qt + (8 * j + g) * D + qc);
+          const float2 ov =
+              *reinterpret_cast<const float2*>(Ot + (8 * j + g) * D + qc);
+          float s4[4] = {}, p4[4] = {};
+          tf32::mma_3xtf32(s4, kh, kl, qv.x, qv.y);
+          tf32::mma_3xtf32(p4, vh, vl, ov.x, ov.y);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * DP + d];
-        ov[j] = Os[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] += s4[e];
+            dpt[j][e] += p4[e];
+          }
         }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = visible(q0 + c, k0 + r, a)
-                            ? expf(sc[i][j] * a.scale - lse_s[c])
-                            : 0.f;
-        Ps[r * SP + c] = p;
-        Ds[r * SP + c] = p * (dp[i][j] - dl_s[c]) * a.scale;
       }
-    }
-    __syncthreads();
-    // dv += p^T dO, dk += ds^T Q for keys ty*4+i, columns tx+16*j
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float pv[4], dsv[4];
+      // P^T in place of S^T, dS^T in place of dP^T; the mask where the tile
+      // holds queries past Sq, keys past Sk or pairs above the diagonal (a
+      // query before the warp's last key)
+      const bool edge = q0 + kTile > a.Sq || wkey + 16 > a.Sk ||
+                        (a.causal && q0 < wkey + 15);
+      const float* lt = Ls + s * kTile + 2 * t;
+      const float* dlt = Ds + s * kTile + 2 * t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[(ty * 4 + i) * SP + c];
-        dsv[i] = Ds[(ty * 4 + i) * SP + c];
-      }
+      for (int j = 0; j < kN; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lt + 8 * j);
+        const float2 d = *reinterpret_cast<const float2*>(dlt + 8 * j);
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float ov = Os[c * DP + tx + 16 * j];
-        const float qv = Qs[c * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv[i][j] = fmaf(pv[i], ov, dv[i][j]);
-          dk[i][j] = fmaf(dsv[i], qv, dk[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = e & 1;
+          float p = hopper::exp2_approx(fmaf(
+              st[j][e] * a.scale, kLog2e, -(c ? l.y : l.x) * kLog2e));
+          if (edge) {
+            const int qpos = q0 + 8 * j + 2 * t + c;
+            const int kpos = wkey + g + 8 * (e >> 1);
+            if (qpos >= a.Sq || kpos >= a.Sk || (a.causal && kpos > qpos))
+              p = 0.f;
+          }
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - (c ? d.y : d.x)) * a.scale;
         }
       }
+      // dV += P^T dO, then dK += dS^T Q (P^T's split fragments are dead
+      // before dS^T's are split)
+      uint32_t xh[kN][4], xl[kN][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j) tf32::score_fragment(st[j], xh[j], xl[j]);
+      grad_product<D, kN>(dv, xh, xl, Ot + 2 * t * D, rd);
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        tf32::score_fragment(dpt[j], xh[j], xl[j]);
+      grad_product<D, kN>(dk, xh, xl, Qt + 2 * t * D, rd);
     }
+    __syncthreads();  // every warp is done with this stage
+    if (n + 2 < n_tiles()) load_q(n + 2);
+    pt::cp_async_commit();
   }
+
   float* dkp = static_cast<float*>(a.dk);
   float* dvp = static_cast<float*>(a.dv);
+  const int bho = pt::opaque(static_cast<int>(blockIdx.x));  // as load_q
+  const int bo = bho / a.H, ho = bho - bo * a.H;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int s = wkey + g + 8 * i;
     if (s >= a.Sk) continue;
-    const int64_t off = (((int64_t)b * a.Sk + s) * a.H + h) * D;
+    const int64_t off =
+        (((int64_t)bo * a.Sk + s) * a.H + ho) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dkp[off + tx + 16 * j] = dk[i][j];
-      dvp[off + tx + 16 * j] = dv[i][j];
+    for (int j = 0; j < kDK; ++j) {
+      *reinterpret_cast<float2*>(dkp + off + 8 * j) =
+          make_float2(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<float2*>(dvp + off + 8 * j) =
+          make_float2(dv[j][2 * i], dv[j][2 * i + 1]);
     }
   }
 }
@@ -379,7 +559,6 @@ constexpr uint32_t kRowBytes = 128;  // one row of a 64-column box
 constexpr int kAcc = kBN / 2;        // score accumulators per thread
 // streamed bytes that one group of heads may keep in the 50 MB L2
 constexpr int64_t kL2Budget = 24ll << 20;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // shared memory of the dq kernel: the block's Q and dO [D/64][kBM][64], then
 // kStages K tiles and kStages V tiles [D/64][kBN][64] (every box 1024-byte
@@ -1024,16 +1203,39 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// a float32 kernel on a (B * H, row blocks) grid; every row of q, k, v and
+// dO must be 16-byte aligned (pointer and b/s/h strides), as the kernels
+// load rows with 16-byte copies
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int B, int rows,
-                   int block_rows, int threads, const BwdArgs& a,
-                   cudaStream_t stream) {
+cudaError_t launch_tf32(Kernel kernel, size_t smem, int threads, int B,
+                        int rows, int block_rows, const BwdArgs& a,
+                        cudaStream_t stream) {
+  for (const void* p : {a.q, a.k, a.v, a.dout})
+    if ((uintptr_t)p % 16) return cudaErrorInvalidValue;
+  for (int64_t st : {a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
+                     a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh})
+    if (st % 4) return cudaErrorInvalidValue;
+  const int blocks = (rows + block_rows - 1) / block_rows;
+  if (blocks > 65535) return cudaErrorInvalidValue;  // the grid's y limit
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * a.H, (rows + block_rows - 1) / block_rows);
-  kernel<<<grid, threads, smem, stream>>>(a);
+  kernel<<<dim3(B * a.H, blocks), threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_tf32(const BwdArgs& a, int B, cudaStream_t stream) {
+  using L = F32Bwd<D>;
+  return launch_tf32(dq_tf32_kernel<D>, L::kDqBytes, L::kThreads, B, a.Sq,
+                     L::kRows, a, stream);
+}
+
+template <int D>
+cudaError_t launch_dkv_tf32(const BwdArgs& a, int B, cudaStream_t stream) {
+  using L = F32Bwd<D>;
+  return launch_tf32(dkv_tf32_kernel<D>, L::kDkvBytes, L::kThreads, B, a.Sk,
+                     L::kRows, a, stream);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v,
@@ -1088,11 +1290,9 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                               H, Sq, Sk, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kFloat32 && D == 64)
-    return launch(dq_f32_kernel<64>, dq_f32_smem<64>(), B, Sq, kRows,
-                  kThreads, a, st);
+    return launch_dq_tf32<64>(a, B, st);
   if (dtype == pt::kFloat32 && D == 128)
-    return launch(dq_f32_kernel<128>, dq_f32_smem<128>(), B, Sq, kRows,
-                  kThreads, a, st);
+    return launch_dq_tf32<128>(a, B, st);
   if (dtype == pt::kBFloat16 && D == 64)
     return launch_dq_wgmma<__nv_bfloat16, 64>(a, B, st);
   if (dtype == pt::kBFloat16 && D == 128)
@@ -1114,11 +1314,9 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                               Sq, Sk, strides, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kFloat32 && D == 64)
-    return launch(dkv_f32_kernel<64>, dkv_f32_smem<64>(), B, Sk, kRows,
-                  kThreads, a, st);
+    return launch_dkv_tf32<64>(a, B, st);
   if (dtype == pt::kFloat32 && D == 128)
-    return launch(dkv_f32_kernel<128>, dkv_f32_smem<128>(), B, Sk, kRows,
-                  kThreads, a, st);
+    return launch_dkv_tf32<128>(a, B, st);
   if (dtype == pt::kBFloat16 && D == 64)
     return launch_dkv_wgmma<__nv_bfloat16, 64>(a, B, st);
   if (dtype == pt::kBFloat16 && D == 128)

@@ -37,6 +37,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -44,20 +45,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // ----------------------------------------------------------- float32 path
-// float32 on tensor cores (flash_fwd_tf32_kernel). The TPU runs float32
-// operands as three bf16 passes on its matrix unit; the card's counterpart is
-// 3xTF32, as CUTLASS's OpMultiplyAddFastF32: each float x is split into
-// hi = tf32(x) and lo = tf32(x - hi) (round to nearest even; the remainder
-// exact before its rounding), and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi,
-// small terms first, accumulated in float. The dropped a_lo b_lo is ~2^-22
-// of the product, next to float32's own rounding; one TF32 product alone
-// keeps ~2^-11 and fails the float32 limits. The rounding is
-// cvt.rn.tf32.f32, one instruction on sm_90 (the split is the kernel's
-// largest cost after the products), and a NaN stays NaN through it, so a
-// NaN reaches the rows it reaches in the reference. Integer rounding on
-// the float's bits (add 0x1000, clear 13 bits) would carry the card's NaN
-// 0x7fffffff into the sign (-0) and drop it; guarding that with selects
-// costs ~40%, and cvt.rna.tf32.f32 compiles to about four instructions.
+// float32 on tensor cores (flash_fwd_tf32_kernel) in 3xTF32: the split,
+// the products, the fragment order and why no chain of tensor-core sums is
+// long are in tf32.cuh.
 //
 // A block owns kRows query rows of one (batch, head): four warps, each
 // running mma.sync m16n8k8 (tf32 in, float accumulators) for kTiles tiles
@@ -117,90 +107,6 @@ struct F32Tile {
       sizeof(float) * (kQFloats + kStages * (kKFloats + kVFloats));
 };
 
-// x rounded to TF32 (10 mantissa bits, the low 13 bits zero), to nearest
-// even; an inf or NaN stays one
-__device__ __forceinline__ uint32_t tf32_rn(float x) {
-  uint32_t r;
-  asm("cvt.rn.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 (hi rounded to nearest, lo the exact remainder
-// rounded the same way)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rn(x);
-  lo = tf32_rn(x - __uint_as_float(hi));
-}
-
-// d += a b: a 16x8 tf32 (row), b 8x8 tf32 (col), d 16x8 float
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32 for kTiles row tiles of a against one split b: the two
-// small terms first, then hi hi
-template <int kTiles>
-__device__ __forceinline__ void mma_3xtf32(float (&d)[kTiles][4],
-                                           const uint32_t (&ah)[kTiles][4],
-                                           const uint32_t (&al)[kTiles][4],
-                                           float b0, float b1) {
-  uint32_t bh[2], bl[2];
-  split_tf32(b0, bh[0], bl[0]);
-  split_tf32(b1, bh[1], bl[1]);
-#pragma unroll
-  for (int r = 0; r < kTiles; ++r) {
-    mma_tf32(d[r], al[r], bh[0], bh[1]);
-    mma_tf32(d[r], ah[r], bl[0], bl[1]);
-    mma_tf32(d[r], ah[r], bh[0], bh[1]);
-  }
-}
-
-// A fragment of Q for head dims 8kk..8kk+7 (relabelled: dims 2t, 2t+1 of
-// rows g and g + 8) from a tile whose row g is `row`
-template <int kStride>
-__device__ __forceinline__ void q_fragment(const float* row, int kk, int t,
-                                           uint32_t (&ah)[4],
-                                           uint32_t (&al)[4]) {
-  const float2 x0 = *reinterpret_cast<const float2*>(row + kk * 8 + 2 * t);
-  const float2 x1 =
-      *reinterpret_cast<const float2*>(row + 8 * kStride + kk * 8 + 2 * t);
-  split_tf32(x0.x, ah[0], al[0]);
-  split_tf32(x1.x, ah[1], al[1]);
-  split_tf32(x0.y, ah[2], al[2]);
-  split_tf32(x1.y, ah[3], al[3]);
-}
-
-// rows row0 .. row0 + kRows - 1 of a [S, D] float matrix (row r at
-// src + r * stride) into shared memory rows of kStride floats; rows at or
-// past n_rows are zero-filled (and not read). One pass of the block copies
-// kPass rows; the passes stay a loop (unrolled, their addresses would be
-// hoisted out of the tile loop and held in registers, which spills).
-template <int D, int kRows, int kStride>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t stride, int row0,
-                                          int n_rows, int tid) {
-  constexpr int kPerRow = D / 4;  // 16-byte copies per row
-  constexpr int kPass = kF32Threads / kPerRow;
-  static_assert(kF32Threads % kPerRow == 0 && kRows % kPass == 0,
-                "whole rows a pass, whole passes a tile");
-  const int c = (tid % kPerRow) * 4;
-  int r = tid / kPerRow;
-  const float* from = src + (int64_t)(row0 + r) * stride + c;
-  uint32_t to = hopper::smem_u32(dst + r * kStride + c);
-#pragma unroll 1
-  for (; r < kRows; r += kPass) {
-    const bool ok = row0 + r < n_rows;
-    pt::cp_async16(to, ok ? from : src, ok);
-    from += kPass * stride;
-    to += kPass * kStride * sizeof(float);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kF32Threads, 2)
     flash_fwd_tf32_kernel(const float* __restrict__ q,
@@ -240,13 +146,13 @@ __global__ void __launch_bounds__(kF32Threads, 2)
 
   auto load_kv = [&](int n) {
     const int s = n % L::kStages;
-    load_rows<D, kKeys, L::kKStride>(Ks + s * L::kKFloats, kb, k_ss,
-                                     n * kKeys, Sk, tid);
-    load_rows<D, kKeys, L::kVStride>(Vs + s * L::kVFloats, vb, v_ss,
-                                     n * kKeys, Sk, tid);
+    tf32::load_rows<D, kKeys, L::kKStride, kF32Threads>(
+        Ks + s * L::kKFloats, kb, k_ss, n * kKeys, Sk, tid);
+    tf32::load_rows<D, kKeys, L::kVStride, kF32Threads>(
+        Vs + s * L::kVFloats, vb, v_ss, n * kKeys, Sk, tid);
   };
-  load_rows<D, L::kRows, L::kQStride>(Qs, q + b * q_sb + h * q_sh, q_ss,
-                                      q0, Sq, tid);
+  tf32::load_rows<D, L::kRows, L::kQStride, kF32Threads>(
+      Qs, q + b * q_sb + h * q_sh, q_ss, q0, Sq, tid);
   load_kv(0);
   pt::cp_async_commit();  // Q and tile 0
   if (n_tiles > 1) load_kv(1);
@@ -293,14 +199,14 @@ __global__ void __launch_bounds__(kF32Threads, 2)
         uint32_t ah[kT][4], al[kT][4];
 #pragma unroll
         for (int r = 0; r < kT; ++r)
-          q_fragment<L::kQStride>(qrow + 16 * r * L::kQStride, kk, t, ah[r],
-                                  al[r]);
+          tf32::a_fragment<L::kQStride>(qrow + 16 * r * L::kQStride, kk, t,
+                                        ah[r], al[r]);
 #pragma unroll
         for (int j = 0; j < kN; ++j) {
           const float2 kv = *reinterpret_cast<const float2*>(
               Kt + (8 * j + g) * L::kKStride + kk * 8 + 2 * t);
           float st[kT][4] = {};
-          mma_3xtf32<kT>(st, ah, al, kv.x, kv.y);
+          tf32::mma_3xtf32<kT>(st, ah, al, kv.x, kv.y);
 #pragma unroll
           for (int r = 0; r < kT; ++r)
 #pragma unroll
@@ -357,20 +263,17 @@ __global__ void __launch_bounds__(kF32Threads, 2)
 #pragma unroll
       for (int j = 0; j < kN; ++j)
 #pragma unroll
-        for (int r = 0; r < kT; ++r) {
-          split_tf32(sc[j][r][0], ph[j][r][0], pl[j][r][0]);
-          split_tf32(sc[j][r][2], ph[j][r][1], pl[j][r][1]);
-          split_tf32(sc[j][r][1], ph[j][r][2], pl[j][r][2]);
-          split_tf32(sc[j][r][3], ph[j][r][3], pl[j][r][3]);
-        }
+        for (int r = 0; r < kT; ++r)
+          tf32::score_fragment(sc[j][r], ph[j][r], pl[j][r]);
       const float* v0 = Vt + 2 * t * L::kVStride + g;
 #pragma unroll
       for (int dn = 0; dn < kDK; ++dn) {
         float pv[kT][4] = {};
 #pragma unroll
         for (int j = 0; j < kN; ++j)
-          mma_3xtf32<kT>(pv, ph[j], pl[j], v0[8 * j * L::kVStride + dn * 8],
-                         v0[(8 * j + 1) * L::kVStride + dn * 8]);
+          tf32::mma_3xtf32<kT>(pv, ph[j], pl[j],
+                               v0[8 * j * L::kVStride + dn * 8],
+                               v0[(8 * j + 1) * L::kVStride + dn * 8]);
 #pragma unroll
         for (int r = 0; r < kT; ++r)
 #pragma unroll

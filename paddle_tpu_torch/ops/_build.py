@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "tf32.cuh")
 # -Xptxas=-v: registers, shared memory and spills per kernel, kept in
 # build_log() for whoever needs to read them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -27,9 +27,17 @@ Kernels: ``csrc/flash_bwd.cu``, the port of the two TPU kernels of
   ``wgmma`` straight from the tiles TMA wrote, the transposed operands read
   through the descriptors' transpose bit (no transposed copy), p and ds
   built in registers as the next product's operand. The tensor maps are
-  encoded per call; a map the driver refuses raises. float32 keeps exact
-  float FMAs. Two kernels, as the TPU, so no float atomics and bit-for-bit
-  repeatable gradients; ``csrc/flash_bwd.cu`` has the details.
+  encoded per call; a map the driver refuses raises. float32 runs every
+  product on tensor cores in 3xTF32 (``mma.sync``; each operand split into
+  TF32 hi + lo parts, three products, float accumulators joined one short
+  sum at a time: float32 accuracy, where one TF32 product would keep ~11
+  bits): blocks of 64 rows (128 at head_dim 128), the other side's tiles
+  of 32 rows (dk/dv's of 64 at head_dim 64) in a two-stage ``cp.async``
+  ring (16-byte copies: a float32 view whose rows are not 16-byte aligned
+  is copied first), p and ds in registers. Two kernels, as
+  the TPU, so no float atomics and bit-for-bit repeatable gradients;
+  ``csrc/flash_bwd.cu`` has the details, ``csrc/tf32.cuh`` the 3xTF32
+  pieces.
 
 ``flash_attention_bwd`` launches both kernels for CUDA tensors and raises on
 what they do not take; only CPU tensors take the plain version
@@ -49,7 +57,7 @@ import math
 import torch
 
 from . import _build
-from .cuda_attention import HALF_DTYPES, NEG_INF, _check
+from .cuda_attention import HALF_DTYPES, NEG_INF, _check, _rows_aligned
 
 __all__ = ["flash_attention_bwd", "mha_bwd_reference", "KERNELS",
            "REPLACES", "SOURCE"]
@@ -171,20 +179,33 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
     if b * h * sq == 0:
         return dq, dk.zero_(), dv.zero_()
     lib = _build.load_library()
-    strides = _strides(q, k, v, do)
-    tail = (b, h, sq, sk, d, strides, float(scale), int(bool(causal)),
-            _build.DTYPE_CODES[str(q.dtype)])
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.pt_flash_bwd_dq(*ins, dq.data_ptr(), *tail, stream)
-        _build.check(err, "flash_bwd_dq")
-        launches["flash_bwd_dq"] += 1
-        err = lib.pt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail,
-                                   stream)
-        _build.check(err, "flash_bwd_dkv")
-        launches["flash_bwd_dkv"] += 1
+        _launch(lib, stream, q, k, v, do, lse, delta, dq, dk, dv, causal,
+                scale)
     for name, n in _PRODUCTS.items():
         flops[name] += 2.0 * n * b * h * sq * sk * d
     return dq, dk, dv
+
+
+def _launch(lib, stream, q, k, v, do, lse, delta, dq, dk, dv, causal,
+            scale):
+    """Launch the two kernels of ``lib`` on ``stream`` (dq, then dk/dv) and
+    count them. float32 rows that are not 16-byte aligned are copied first:
+    the float32 kernels load rows with 16-byte ``cp.async`` copies, and the
+    C entry points refuse such a view."""
+    if q.dtype == torch.float32:
+        q, k, v, do = (_rows_aligned(t) for t in (q, k, v, do))
+    b, sq, h, d = q.shape
+    strides = _strides(q, k, v, do)
+    tail = (b, h, sq, k.shape[1], d, strides, float(scale),
+            int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)])
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    err = lib.pt_flash_bwd_dq(*ins, dq.data_ptr(), *tail, stream)
+    _build.check(err, "flash_bwd_dq")
+    launches["flash_bwd_dq"] += 1
+    err = lib.pt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail,
+                               stream)
+    _build.check(err, "flash_bwd_dkv")
+    launches["flash_bwd_dkv"] += 1

@@ -321,3 +321,296 @@ def test_float16_overflow_reaches_every_gradient():
     for name, a, j in zip(("dq", "dk", "dv"), got, jgrads):
         assert not torch.isfinite(a).all(), name
         assert not np.isfinite(np.asarray(j)).all(), name
+
+
+# ---------------------------------------- the float32 kernels' arithmetic
+# The float32 kernels (csrc/flash_bwd.cu, dq_tf32_kernel and
+# dkv_tf32_kernel) run every product on tensor cores in 3xTF32, as the
+# forward does (the TF32 helpers are the forward tests'): each operand split
+# into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest even, every
+# 8-wide step of a product summing a_lo b_hi, a_hi b_lo, then a_hi b_hi from
+# zero. dq streams K/V tiles of DQ_TILE keys past its query rows: per tile
+# S = Q K^T and dP = dO V^T (8-dim steps joined into the scores one float add
+# at a time), p = 2^(s scale log2 e - lse log2 e) (one rounding, the
+# kernels' FFMA; 0 where masked), ds = p (dp - delta) scale, and the tile's
+# dS K summed from zero joins dQ in one float add. dk/dv is its transpose
+# over Q/dO tiles of DKV_TILE queries: S^T, dP^T, then P^T dO and dS^T Q,
+# each tile's sum joined to dV and dK in one add. The emulation repeats that
+# maths in torch on the CPU (the tensor cores' truncating sum inside a step
+# is not modelled; every tile runs, since a tile the kernels skip is all
+# masked and adds exact zeros) and is held at the kernels phase's float32
+# limit, max abs err <= 2e-5 x (1 + max |reference|), against the reference's
+# Pallas backward in interpret mode and the port's plain version. A single
+# TF32 product (hi hi only) must fail the same limit.
+from test_torch_flash_attention import LOG2E, _mma  # noqa: E402
+
+# the float32 kernels' tiles (csrc/flash_bwd.cu, F32Bwd): keys of dq's
+# streamed tile and queries of dk/dv's, by head dim
+DQ_TILE = {64: 32, 128: 32}
+DKV_TILE = {64: 64, 128: 32}
+F32_TOL = 2e-5
+
+
+def _p_ds(s, dp, lse, delta, scale, mask):
+    """p and ds of a tile as the kernels build them from raw scores ``s``
+    and ``dp`` (lse and delta broadcast against them)."""
+    x = s * scale
+    l2 = lse * LOG2E
+    p = torch.exp2((x.double() * LOG2E - l2.double()).float())
+    p = torch.where(mask, p, torch.zeros(()))
+    return p, p * (dp - delta) * scale
+
+
+def _bwd_emulation(q, k, v, do, lse, delta, causal, scale, three=True):
+    """The two float32 kernels' maths on [B, S, H, D] float32 tensors (lse
+    and delta [B*H, Sq], delta already less any lse cotangent): returns
+    (dq, dk, dv) as [B, S, H, D]."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    lse, delta = (x.reshape(b, h, sq) for x in (lse, delta))
+    qpos, kpos = torch.arange(sq), torch.arange(sk)
+    dq = torch.zeros(b, h, sq, d)
+    for k0 in range(0, sk, DQ_TILE[d]):
+        k1 = min(k0 + DQ_TILE[d], sk)
+        ks, vs = kt[:, :, k0:k1], vt[:, :, k0:k1]
+        s = _mma(qt, ks.transpose(-1, -2), three)
+        dp = _mma(dot, vs.transpose(-1, -2), three)
+        mask = (kpos[k0:k1][None, :] <= qpos[:, None] if causal
+                else torch.ones(sq, k1 - k0, dtype=torch.bool))
+        _, ds = _p_ds(s, dp, lse[..., None], delta[..., None], scale, mask)
+        dq = dq + _mma(ds, ks, three)
+    dk = torch.zeros(b, h, sk, d)
+    dv = torch.zeros(b, h, sk, d)
+    for q0 in range(0, sq, DKV_TILE[d]):
+        q1 = min(q0 + DKV_TILE[d], sq)
+        qs, dos = qt[:, :, q0:q1], dot[:, :, q0:q1]
+        st = _mma(kt, qs.transpose(-1, -2), three)
+        dpt = _mma(vt, dos.transpose(-1, -2), three)
+        mask = (kpos[:, None] <= qpos[q0:q1][None, :] if causal
+                else torch.ones(sk, q1 - q0, dtype=torch.bool))
+        p, ds = _p_ds(st, dpt, lse[:, :, None, q0:q1],
+                      delta[:, :, None, q0:q1], scale, mask)
+        dv = dv + _mma(p, dos, three)
+        dk = dk + _mma(ds, qs, three)
+    return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
+
+
+def _emulate(q, k, v, do, causal, scale, lse_ct=None, three=True):
+    """The forward's plain out and lse (what the kernels read), the
+    wrapper's delta, and the emulated (dq, dk, dv); numpy in, torch out."""
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    from paddle_tpu_torch.ops.cuda_attention import mha_fwd_reference
+    out, lse = mha_fwd_reference(tq, tk, tv, causal=causal, scale=scale)
+    ct = None if lse_ct is None else torch.from_numpy(lse_ct)
+    delta = cab._delta(out, tdo, ct)
+    grads = _bwd_emulation(tq, tk, tv, tdo, lse, delta, causal, scale,
+                           three)
+    return (tq, tk, tv, tdo, out, lse, ct), grads
+
+
+def _within_limit(got, want, name):
+    want = np.asarray(want, dtype=np.float64)
+    err = np.abs(np.asarray(got, dtype=np.float64) - want).max()
+    lim = F32_TOL * (1.0 + np.abs(want).max())
+    assert err <= lim, f"{name}: max abs err {err:.3e} beyond {lim:.3e}"
+
+
+def _inputs_d(sq, d, seed, sk=None, b=B):
+    """q, dO [b, Sq, H, d] and k, v [b, Sk, H, d] float32."""
+    rng = np.random.RandomState(seed)
+    sk = sq if sk is None else sk
+    q, k, v, do = (rng.randn(b, n, H, d).astype(np.float32)
+                   for n in (sq, sk, sk, sq))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32_bwd_arithmetic_matches_pallas_interpret(d, causal):
+    """jax.vjp of the reference's ``mha`` (its Pallas forward and backward
+    in interpret mode) against the emulation and the plain version."""
+    s = 256
+    q, k, v, do = _inputs_d(s, d, seed=81 + d + causal)
+    scale = 1.0 / np.sqrt(d)
+    _, vjp = jax.vjp(lambda a, b_, c: mha(a, b_, c, causal, scale, 128,
+                                          128), *(_bhsd(x) for x in (q, k, v)))
+    want = vjp(_bhsd(do))
+    (tq, tk, tv, tdo, out, lse, _), got = _emulate(q, k, v, do, causal,
+                                                   scale)
+    plain = cab.mha_bwd_reference(tq, tk, tv, out, lse, tdo, causal=causal,
+                                  scale=scale)
+    for name, a, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
+        _within_limit(a.numpy(), _bshd(w), name)
+        _within_limit(a.numpy(), pl.numpy(), name + " (plain)")
+
+
+def test_tf32_bwd_arithmetic_with_lse_cotangent():
+    """delta less an lse cotangent (batch 1, where the reference's fold-in
+    broadcasts): the reference's ``_mha_bwd`` in interpret mode."""
+    s, d = 128, 64
+    q, k, v, do = _inputs_d(s, d, seed=87, b=1)
+    ct = np.random.RandomState(88).randn(H, s).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = (_bhsd(x) for x in (q, k, v, do))
+    j_out, j_lse = _mha_fwd(jq, jk, jv, True, scale, 128, 128)
+    want = _mha_bwd(jq, jk, jv, j_out, j_lse, jdo, True, scale, 128, 128,
+                    lse_ct=jnp.asarray(ct.reshape(1, H, s)))
+    (tq, tk, tv, tdo, out, lse, tct), got = _emulate(q, k, v, do, True,
+                                                     scale, lse_ct=ct)
+    plain = cab.mha_bwd_reference(tq, tk, tv, out, lse, tdo, causal=True,
+                                  scale=scale, lse_ct=tct)
+    for name, a, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
+        _within_limit(a.numpy(), _bshd(w), name)
+        _within_limit(a.numpy(), pl.numpy(), name + " (plain)")
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(77, 77, True), (300, 300, True),
+                                          (300, 300, False),
+                                          (100, 300, False),
+                                          (129, 65, False)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tf32_bwd_arithmetic_matches_references_ragged(sq, sk, causal, d):
+    """Ragged S (partial last tiles on both kernels' sides, several tiles
+    and blocks) and full attention over a K/V length other than Q's:
+    against jax.vjp of ``_mha_reference`` and the port's plain version."""
+    q, k, v, do = _inputs_d(sq, d, seed=89 + sq + sk + d + causal, sk=sk)
+    scale = 1.0 / np.sqrt(d)
+    _, vjp = jax.vjp(lambda a, b_, c: _mha_reference(a, b_, c, causal,
+                                                     scale),
+                     *(_bhsd(x) for x in (q, k, v)))
+    want = vjp(_bhsd(do))
+    (tq, tk, tv, tdo, out, lse, _), got = _emulate(q, k, v, do, causal,
+                                                   scale)
+    plain = cab.mha_bwd_reference(tq, tk, tv, out, lse, tdo, causal=causal,
+                                  scale=scale)
+    for name, a, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
+        assert a.shape == pl.shape
+        _within_limit(a.numpy(), _bshd(w), name)
+        _within_limit(a.numpy(), pl.numpy(), name + " (plain)")
+
+
+def test_single_tf32_product_fails_the_float32_backward_limit():
+    """The control: at D=64 S=512 three products pass the float32 limit
+    and one (hi hi) does not."""
+    s, d = 512, 64
+    q, k, v, do = _inputs_d(s, d, seed=97)
+    scale = 1.0 / np.sqrt(d)
+    _, vjp = jax.vjp(lambda a, b_, c: _mha_reference(a, b_, c, False,
+                                                     scale),
+                     *(_bhsd(x) for x in (q, k, v)))
+    want = [_bshd(w) for w in vjp(_bhsd(do))]
+    _, three = _emulate(q, k, v, do, False, scale)
+    _, one = _emulate(q, k, v, do, False, scale, three=False)
+    for name, a, w in zip(("dq", "dk", "dv"), three, want):
+        _within_limit(a.numpy(), w, name)
+    failed = []
+    for name, a, w in zip(("dq", "dk", "dv"), one, want):
+        try:
+            _within_limit(a.numpy(), w, name)
+        except AssertionError:
+            failed.append(name)
+    assert failed, "one TF32 product passes the float32 limit at D=64 S=512"
+
+
+@pytest.mark.parametrize("nan_bits", [0x7FFFFFFF, 0x7FC00000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tf32_bwd_arithmetic_propagates_nan_in_do(d, nan_bits):
+    """A NaN in one element of dO (the card's 0x7fffffff, the CPU's quiet
+    NaN), full attention: the emulation's dq, dk and dv are NaN in exactly
+    the entries where the plain version's are (that query's dq row, every
+    dk row of its batch and head, that dim of every dv row there) and agree
+    with it elsewhere at the float32 limit. (Under a causal mask the plain
+    version multiplies the masked p, 0, by the NaN too, where the kernels
+    skip the tiles their mask empties.)"""
+    s = 100
+    q, k, v, do = _inputs_d(s, d, seed=99 + d)
+    do = do.copy()
+    do.view(np.int32)[0, 40, 1, 3] = nan_bits
+    scale = 1.0 / np.sqrt(d)
+    (tq, tk, tv, tdo, out, lse, _), got = _emulate(q, k, v, do, False,
+                                                   scale)
+    plain = cab.mha_bwd_reference(tq, tk, tv, out, lse, tdo, causal=False,
+                                  scale=scale)
+    expect = {"dq": d, "dk": s * d, "dv": s}
+    for name, a, pl in zip(("dq", "dk", "dv"), got, plain):
+        nan = pl.isnan()
+        assert int(nan.sum()) == expect[name], name
+        assert torch.equal(a.isnan(), nan), name
+        _within_limit(a[~nan].numpy(), pl[~nan].numpy(), name)
+
+
+# ------------------------------ float32 rows off 16-byte alignment
+# The float32 kernels load rows with 16-byte cp.async copies, and
+# pt_flash_bwd_dq / pt_flash_bwd_dkv refuse a float32 view whose rows are
+# not 16-byte aligned (cudaErrorInvalidValue). The wrapper's launch copies
+# such a view first; a stand-in for the library checks what reaches the C
+# entry points.
+
+class _EntryPoints:
+    """The two C entry points' alignment rule over their arguments (q, k,
+    v, dO first; the b/s/h strides of q, k, v and dO as an int64[12] five
+    places after the outputs), with what each call received."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _entry(self, name, args, n_ptrs):
+        strides = list(args[n_ptrs + 5])
+        ok = (all(p % 16 == 0 for p in args[:4])
+              and all(st % 4 == 0 for st in strides))
+        self.calls.append((name, ok))
+        return 0 if ok else 1          # cudaErrorInvalidValue
+
+    def pt_flash_bwd_dq(self, *args):
+        return self._entry("dq", args, 7)
+
+    def pt_flash_bwd_dkv(self, *args):
+        return self._entry("dkv", args, 8)
+
+
+def _launch_inputs(q, k, v, do):
+    b, s, h, d = q.shape
+    lse, delta = torch.zeros(b * h, s), torch.zeros(b * h, s)
+    outs = [torch.empty(b, s, h, d) for _ in range(3)]
+    return (q, k, v, do, lse, delta, *outs, True, 1.0 / np.sqrt(d))
+
+
+def _unaligned(b=2, s=8, h=2, d=64):
+    n = b * s * h * d
+    return [torch.zeros(n + 1)[1:].view(b, s, h, d) for _ in range(4)]
+
+
+def test_unaligned_float32_rows_are_copied_before_the_launch():
+    q, k, v, do = _unaligned()
+    assert all(t.data_ptr() % 16 for t in (q, k, v, do))
+    lib = _EntryPoints()
+    before = dict(cab.launches)
+    try:
+        cab._launch(lib, 0, *_launch_inputs(q, k, v, do))
+        assert all(cab.launches[n] == before[n] + 1 for n in cab.KERNELS)
+    finally:
+        cab.launches.update(before)
+    assert lib.calls == [("dq", True), ("dkv", True)]
+
+
+def test_the_entry_points_refuse_what_the_copy_fixes(monkeypatch):
+    """The control: without the copy the same view reaches the entry
+    point's refusal, and the wrapper raises."""
+    monkeypatch.setattr(cab, "_rows_aligned", lambda t: t)
+    lib = _EntryPoints()
+    before = dict(cab.launches)
+    try:
+        with pytest.raises(RuntimeError, match="flash_bwd_dq: CUDA error 1"):
+            cab._launch(lib, 0, *_launch_inputs(*_unaligned()))
+        assert cab.launches == before
+    finally:
+        cab.launches.update(before)
+    assert lib.calls == [("dq", False)]
+
+
+def test_aligned_fused_float32_views_are_not_copied():
+    q, k, v = torch.zeros(2, 8, 2, 3, 64).unbind(3)
+    do = torch.zeros(2, 8, 2, 64)
+    for t in (q, k, v, do):
+        assert cab._rows_aligned(t) is t
