@@ -37,9 +37,14 @@ Phases, each failing loudly (exit code 1, no result line):
               rows off 16-byte alignment and a NaN made on the card in dO
               (NaN exactly where the plain version has it); the training
               row also prints the kernels' and the plain version's
-              distance from a float64 backward (ref64_err). The build
-              phase prints every kernel's registers and spills and fails
-              if a float32 backward kernel spills.
+              distance from a float64 backward (ref64_err). The paged
+              rows in float32 (the decode and window kernels over float and
+              int8 pools, at the bf16 rows' shapes and edges) are launched
+              twice and compared bit for bit, and a NaN made on the card in
+              a key must be NaN in exactly the plain version's rows. The
+              build phase prints every kernel's registers and spills and
+              fails if a float32 backward kernel or a float32 paged kernel
+              spills.
 4. tiny     — gpt_tiny (head_dim 16, which no kernel takes) decodes and
               trains a step on the card through the default path: the
               callers route every attention to the plain versions
@@ -62,6 +67,12 @@ Phases, each failing loudly (exit code 1, no result line):
               hit the first's pages; launch counts by kind and pool type
               read around this run, and a profile of one speculative
               iteration (k draft decode steps and the verify window).
+              Greedy acceptance of the bf16 model and of a float32 copy
+              over their own and int8 pools, each run's paged launches by
+              kernel held against the decoders' calls, with its wall time
+              and iteration ms; then one profiled float32 decode step and
+              one verify window over float and int8 pools (the paged
+              kernels' device ms against the step's, the busy share).
 8. train    — GPT-3 1.3B training through TrainStep (AdamW with bf16
               moments, AMP O2, b=2, s=2048): the full model, 2 warm-up
               steps and a timed run_steps(10) around which the forward and
@@ -162,7 +173,8 @@ OUT_DIR = REPO / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type.
 # float32 work on tensor cores is three TF32 products a product (3xTF32, the
-# float32 flash forward's arithmetic), so its peak is the TF32 rate over 3;
+# float32 flash forward's arithmetic), so its peak is the TF32 rate over 3
+# (two over int8 pools in the paged rows, which count their work so);
 # float32 rows also print the bound at the 67 TFLOP/s of float FMAs
 # (fma_bound_ms), the bound of the FMA kernel that came before.
 HBM_BYTES_PER_S = 3.35e12
@@ -351,17 +363,52 @@ def phase_build(state):
     require(len(state["ptxas_f32_bwd"]) == 4,
             f"build: expected dq_tf32_kernel and dkv_tf32_kernel at D 64 and "
             f"128 in ptxas' log, found {sorted(state['ptxas_f32_bwd'])}")
-    for name, info in state["ptxas_f32_bwd"].items():
+    # the float32-query paged kernels: the 3xTF32 window kernel (float and
+    # int8 pools, D 64 and 128, 64-row and split blocks) and the decode and
+    # combine kernels' float instantiations
+    state["ptxas_f32_paged"] = {
+        name: kernels[name] for name in kernels
+        if "window_f32_kernel" in name or (
+            ("paged_attention_decode_kernel" in name
+             or "paged_attention_combine_kernel" in name)
+            and name.split("_kernel", 1)[1].startswith("If"))}
+    require(len(state["ptxas_f32_paged"]) == 14,
+            f"build: expected 8 float32 window, 4 float32 decode and 2 "
+            f"float32 combine instantiations in ptxas' log, found "
+            f"{sorted(state['ptxas_f32_paged'])}")
+    for name, info in {**state["ptxas_f32_bwd"],
+                       **state["ptxas_f32_paged"]}.items():
         log(f"build: {name}: {info['registers']} registers, spill stores "
             f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
         require(info["spill_stores"] == 0 and info["spill_loads"] == 0,
                 f"build: {name} spills ({info})")
 
 
+def _template_args(s: str) -> str:
+    """The mangled template-argument list at the start of ``s``
+    (``I...E``), or "": literals ``L<type><value>E``, named types
+    ``<length><name>`` and one-letter builtin types."""
+    if not s.startswith("I"):
+        return ""
+    i = 1
+    while i < len(s) and s[i] != "E":
+        if s[i] == "L":
+            i = s.index("E", i) + 1
+        elif s[i].isdigit():
+            j = i
+            while s[j].isdigit():
+                j += 1
+            i = j + int(s[i:j])
+        else:
+            i += 1
+    return s[:i + 1]
+
+
 def _kernel_name(mangled: str) -> str:
     """A kernel's identifier and template arguments from its mangled name,
-    e.g. ``dq_tf32_kernelILi64E`` (each identifier in it follows its length
-    in digits)."""
+    e.g. ``dq_tf32_kernelILi64EE`` or
+    ``paged_attention_window_f32_kernelIfLi128ELi4EE`` (each identifier in
+    it follows its length in digits)."""
     import re
     for m in re.finditer(r"\d+", mangled):
         digits = m.group()
@@ -369,8 +416,7 @@ def _kernel_name(mangled: str) -> str:
             n = int(digits[i:])
             ident = mangled[m.end():m.end() + n]
             if n and ident.endswith("_kernel") and ident.isidentifier():
-                args = re.match(r"I[^E]*E", mangled[m.end() + n:])
-                return ident + (args.group() if args else "")
+                return ident + _template_args(mangled[m.end() + n:])
     return mangled
 
 
@@ -973,10 +1019,11 @@ def _paged_inputs(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
 def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
                 report=False, kv="model", one_long=False, q_offset=False,
                 parent=None):
-    """The paged kernel against ``paged_attention_reference``; with
-    ``report`` its device time, host time and the plain version's time,
-    and, given the ``parent`` tree's kernel (``--parent``), both kernels
-    timed in turns (parent, this tree, this tree, parent)."""
+    """The paged kernel against ``paged_attention_reference``, launched
+    twice (float32 rows must agree bit for bit); with ``report`` its device
+    time, host time and the plain version's time, and, given the ``parent``
+    tree's kernel (``--parent``), both kernels timed in turns (parent, this
+    tree, this tree, parent)."""
     import torch
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     q, kp, vp, tables, ctx, valid, positions = _paged_inputs(
@@ -985,6 +1032,8 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
     scale = 1.0 / math.sqrt(d)
     kw = dict(page_size=page_size, kind=kind, scale=scale)
     out = cpa.paged_attention(q, kp, vp, tables, ctx, valid, positions, **kw)
+    again = cpa.paged_attention(q, kp, vp, tables, ctx, valid, positions,
+                                **kw)
     torch.cuda.synchronize()
     ref = cpa.paged_attention_reference(q, kp, vp, tables, ctx, valid,
                                         positions, **kw)
@@ -995,6 +1044,9 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
             + (" unaligned q" if q_offset else ""))
     err, rel = check_close(name, out, ref, dtype,
                            BF16_ROW_LIMIT["paged_attention"])
+    repeatable = torch.equal(out, again)
+    require(repeatable or dtype != torch.float32,
+            f"{name}: two launches differ")
     # the live context this call needs: per row of the batch, the longest
     # visible prefix among its window positions
     if kind == "decode":
@@ -1012,10 +1064,17 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
     nbytes = (2 * b * s * h * d * elt + 2 * kv_tokens * h * row_bytes
               + tables.numel() * 4 + ctx.numel() * 4 + 8 * b * s)
     flops = 4.0 * d * h * float(n_live.sum())
-    bms, by = bound_ms(nbytes, flops, dtype)
+    # float32 q over int8 pools: two TF32 products a product, not three
+    # (an int8 value has no low part), so its peak is the TF32 rate over 2
+    f32_int8 = dtype == torch.float32 and kv == "int8"
+    bms, by = bound_ms(nbytes, flops * (2 / 3 if f32_int8 else 1), dtype)
     row = {"case": name, "kernel": cpa.kernel_for(kind, dtype, s),
-           "max_abs_err": err, "row_err": rel, "bound_ms": bms,
-           "bound_by": by}
+           "max_abs_err": err, "row_err": rel, "repeatable": repeatable,
+           "bound_ms": bms, "bound_by": by}
+    if dtype == torch.float32:
+        # the bound of the FMA kernel that came before
+        row["fma_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                  flops / FMA_FLOPS_F32) * 1e3
     if report:
         def kern():
             cpa.paged_attention(q, kp, vp, tables, ctx, valid, positions,
@@ -1031,18 +1090,62 @@ def _paged_case(b, s, h, d, page_size, pages_per_seq, dtype, kind, seed,
             row["faster_than_parent"] = max(c1, c2) < min(p1, p2)
         else:
             row["ms"] = device_ms(kern)
-        if dtype == torch.bfloat16:
-            # the split kernels' own time and their combine kernel's
-            names = (("decode_kernel",) if row["kernel"] ==
-                     "paged_decode_split_bf16" else ("window_kernel",))
-            if kind == "decode" and s == 1 or s <= 16:
-                names += ("combine_kernel",)
-            row["kernel_ms_by_name"] = kernel_device_ms(kern, names)
+        # the split kernels' own time and their combine kernel's
+        names = (("decode_kernel",) if row["kernel"].startswith(
+            "paged_decode_split") else ("window_kernel",)
+            if dtype == torch.bfloat16 else ("window_f32_kernel",))
+        if kind == "decode" and s == 1 or s <= 16:
+            names += ("combine_kernel",)
+        row["kernel_ms_by_name"] = kernel_device_ms(kern, names)
         row["host_us"] = host_us(kern)
         row["plain_ms"] = device_ms(lambda: cpa.paged_attention_reference(
             q, kp, vp, tables, ctx, valid, positions, **kw), iters=5)
         row["library_ms"] = None
         row["ms_over_bound"] = row["ms"] / bms
+    log("  " + json.dumps(row))
+    return row
+
+
+def _paged_nan_case(kind, s, d, seed):
+    """float32 q and pools: one element of one key set to 0/0 on the card
+    (the card's NaN, 0x7fffffff), a key that one row sees at every live
+    position (decode: the row holding the table's whole context, so its
+    parts meet in the combine kernel; chunked: row 0). The kernel's output
+    must be NaN in exactly the entries where the plain version's is (that
+    row's positions, in the key's head) and agree with it elsewhere at
+    atol/rtol 2e-5."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    b, h, page_size, pps = 8, 16 if d == 128 else 4, 16, 128
+    q, kp, vp, tables, ctx, valid, positions = _paged_inputs(
+        b, s, h, d, page_size, pps, torch.float32, kind, seed)
+    # a token the row sees at every live position: half its context
+    r = b - 1 if kind == "decode" else 0
+    t = int(ctx[r]) // 2 if kind == "decode" else int(positions[r, 0]) // 2
+    slot = int(tables[r, t // page_size]) * page_size + t % page_size
+    zero = torch.zeros((), device="cuda")
+    kp.view(-1, h, d)[slot, h // 2, d // 3] = zero / zero
+    kw = dict(page_size=page_size, kind=kind, scale=1.0 / math.sqrt(d))
+    out = cpa.paged_attention(q, kp, vp, tables, ctx, valid, positions, **kw)
+    ref = cpa.paged_attention_reference(q, kp, vp, tables, ctx, valid,
+                                        positions, **kw)
+    torch.cuda.synchronize()
+    name = (f"paged_attention {kind} B={b} S={s} H={h} D={d} float32 "
+            f"NaN key")
+    nan = ref.isnan()
+    require(bool(nan.any()), f"{name}: the plain version has no NaN")
+    require(torch.equal(out.isnan(), nan),
+            f"{name}: {int(out.isnan().sum())} NaN outputs, the plain "
+            f"version {int(nan.sum())}")
+    err = max_abs_err(out[~nan], ref[~nan])
+    require(torch.allclose(out[~nan], ref[~nan], atol=INNER_F32_TOL,
+                           rtol=INNER_F32_TOL),
+            f"{name}: max abs err {err:.3e} beyond atol/rtol "
+            f"{INNER_F32_TOL}")
+    row = {"case": name, "kernel": cpa.kernel_for(kind, torch.float32, s),
+           "nan_bits": hex(int(kp.view(-1, h, d)[slot, h // 2, d // 3].view(
+               torch.int32)) & 0xffffffff),
+           "nan_rows": int(nan.any(-1).sum()), "max_abs_err": err}
     log("  " + json.dumps(row))
     return row
 
@@ -1259,24 +1362,29 @@ def phase_kernels(state):
                     8, s, 16, 128, 16, 128, dtype, "chunked",
                     seed + s + (13 if kv == "int8" else 0), report=True,
                     kv=kv, parent=parent))
-        # the bf16 kernels' edges: windows of one row, at and across the
-        # 16-row tile and the 64-row tiles (S=300: five, the last of 44
-        # rows); one row holding the table's whole 2048 context beside
-        # short ones (16 chunks of 128 tokens against one)
-        for s in (1, 16, 17, 64, 65):
-            prow.append(_paged_case(8, s, 16, 128, 16, 128, torch.bfloat16,
-                                    "chunked", seed + 30 + s, kv=kv))
-        prow.append(_paged_case(8, 1, 16, 128, 16, 128, torch.bfloat16,
-                                "decode", seed + 31, kv=kv, one_long=True))
-        # head_dim 64, and pages of 128 slots (the kernels resolve each
-        # token's page, so no page size is refused), float32 too
-        prow.append(_paged_case(5, 1, 4, 64, 4, 40, torch.bfloat16,
-                                "decode", seed + 5, kv=kv))
-        prow.append(_paged_case(5, 17, 4, 64, 16, 20, torch.bfloat16,
-                                "chunked", seed + 14, kv=kv))
-        # q rows off 16-byte alignment: the window kernel's scalar q loads
-        prow.append(_paged_case(4, 70, 16, 128, 16, 16, torch.bfloat16,
-                                "chunked", seed + 32, kv=kv, q_offset=True))
+        # the window and decode kernels' edges, in bf16 and float32:
+        # windows of one row, at and across the 16-row tile and the 64-row
+        # tiles (S=300: five, the last of 44 rows); one row holding the
+        # table's whole 2048 context beside short ones (16 or 32 chunks
+        # against one); head_dim 64; q rows off 16-byte alignment (the
+        # window kernels' scalar q loads)
+        for dtype in (torch.bfloat16, torch.float32):
+            for s in (1, 16, 17, 64, 65):
+                prow.append(_paged_case(8, s, 16, 128, 16, 128, dtype,
+                                        "chunked", seed + 30 + s, kv=kv))
+            prow.append(_paged_case(8, 1, 16, 128, 16, 128, dtype,
+                                    "decode", seed + 31, kv=kv,
+                                    one_long=True))
+            prow.append(_paged_case(5, 1, 4, 64, 4, 40, dtype, "decode",
+                                    seed + 5, kv=kv))
+            prow.append(_paged_case(5, 17, 4, 64, 16, 20, dtype, "chunked",
+                                    seed + 14, kv=kv))
+            for s in (5, 70):
+                prow.append(_paged_case(4, s, 16, 128, 16, 16, dtype,
+                                        "chunked", seed + 32, kv=kv,
+                                        q_offset=True))
+        # pages of 128 slots (the kernels resolve each token's page, so no
+        # page size is refused)
         for dtype in (torch.bfloat16, torch.float32):
             for kind, s in (("decode", 1), ("chunked", 65)):
                 prow.append(_paged_case(4, s, 16, 128, 128, 16, dtype, kind,
@@ -1286,13 +1394,26 @@ def phase_kernels(state):
     for dtype in (torch.bfloat16, torch.float32):
         prow.append(_paged_case(5, 5, 4, 64, 16, 20, dtype, "chunked",
                                 seed + 14, kv="int8"))
+    # a NaN made on the card in a key, through the decode kernel (and the
+    # combine kernel), a split window and a 64-row window
+    state["paged_nan_rows"] = [
+        _paged_nan_case(kind, s, d, seed + 45 + s + d)
+        for kind, s, d in (("decode", 1, 128), ("decode", 1, 64),
+                           ("chunked", 5, 128), ("chunked", 65, 128))]
     state["paged_rows"] = prow
-    state["paged_main"] = next(
-        r for r in prow if r["case"].startswith("paged_attention decode B=8")
-        and r["case"].endswith("bfloat16"))
-    state["paged_int8_main"] = next(
-        r for r in prow if r["case"].startswith("paged_attention decode B=8")
-        and r["case"].endswith("bfloat16 int8 pools"))
+
+    def main_row(kind, s, dtype, kv):
+        return next(r for r in prow if r["case"].startswith(
+            f"paged_attention {kind} B=8 S={s} ") and r["case"].endswith(
+                dtype + (" int8 pools" if kv == "int8" else "")))
+    state["paged_main"] = main_row("decode", 1, "bfloat16", "model")
+    state["paged_int8_main"] = main_row("decode", 1, "bfloat16", "int8")
+    # the float32 rows the kernels line reports: decode, and the S=5 and
+    # S=300 windows, over float and int8 pools
+    state["paged_f32_rows"] = {
+        kv: [main_row(kind, s, "float32", kv) for kind, s in
+             (("decode", 1), ("chunked", 5), ("chunked", 300))]
+        for kv in ("model", "int8")}
 
     log(f"kernels: flash_bwd_dq, flash_bwd_dkv vs mha_bwd_reference (bf16 "
         f"grad_err <= {BWD_BF16_GRAD_LIMIT}; f32 max abs err <= "
@@ -1391,7 +1512,8 @@ def phase_kernels(state):
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "kernels.json").write_text(json.dumps(
         {"card": state.get("smi"), "flash_fwd": rows,
-         "paged_attention": prow, "flash_bwd": brow,
+         "paged_attention": prow, "paged_nan": state["paged_nan_rows"],
+         "flash_bwd": brow,
          "flash_bwd_nan": state["bwd_nan_rows"],
          "flash_bwd_f16_overflow": state["bwd_overflow"]}, indent=1))
 
@@ -1615,13 +1737,22 @@ def _model_runs(model, m32, ids, lens, tables, kv, plan, extra,
     kernel = cpa.paged_attention
 
     def held(q, kp, vp, *args, **kw):
-        """The paged kernel, and its plain version on the same inputs."""
+        """The paged kernel, and its plain version on the same inputs (a
+        comparison: not counted in ``plain_calls``); the kernels launched,
+        by name."""
+        before = dict(cpa.launches_by_kernel)
         out = kernel(q, kp, vp, *args, **kw)
+        plain = cpa.plain_calls
         ref = cpa.paged_attention_reference(q, kp, vp, *args, **kw)
+        cpa.plain_calls = plain
         rec = inner.setdefault(str(q.dtype)[6:], {"calls": 0, "max_abs_err":
                                                   0.0, "row_err": 0.0,
-                                                  "allclose": True})
+                                                  "allclose": True,
+                                                  "launches_by_kernel": {}})
         rec["calls"] += 1
+        by = rec["launches_by_kernel"]
+        for name, n in _launch_delta(cpa.launches_by_kernel, before).items():
+            by[name] = by.get(name, 0) + n
         rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err(out, ref))
         rec["row_err"] = max(rec["row_err"], row_err(out, ref))
         rec["allclose"] &= bool(torch.allclose(
@@ -1641,6 +1772,7 @@ def _model_runs(model, m32, ids, lens, tables, kv, plan, extra,
                                 kv_dtype=kv, device="cuda")
             k, v = mdl.init_kv_pools(1 + b * pps, PAGE_SIZE, kv or None)
             outs = []
+            plain_before = cpa.plain_calls
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             last, k, v = dec.prefill(ids, lens, tables, k, v)
@@ -1659,6 +1791,10 @@ def _model_runs(model, m32, ids, lens, tables, kv, plan, extra,
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3 / len(plan)
             runs[label] = outs
+            if use_kernels:
+                # paged calls the kernel runs routed to the plain version
+                inner.setdefault("plain_calls", {})[label] = \
+                    cpa.plain_calls - plain_before
             log(f"{tag}: {kv or 'bf16/f32'} pools, {label:11s} prefill "
                 f"{prefill_ms:.1f} ms, step {step_ms:.2f} ms "
                 f"({'/'.join(plan)})")
@@ -1703,6 +1839,15 @@ def _model_check(runs, inner, vocab, what, f32_limit, tag="model"):
     require(inner.get("float32", {}).get("allclose", False),
             f"{tag}: {what}: float32 paged calls differ from the plain "
             f"version beyond atol/rtol {INNER_F32_TOL}: {inner}")
+    # every paged call of the kernel runs launched the kernel of its q type
+    require(not any(inner["plain_calls"].values()),
+            f"{tag}: {what}: paged calls of the kernel runs went to the plain "
+            f"version: {inner['plain_calls']}")
+    for dtype, suffix in (("bfloat16", "_bf16"), ("float32", "_f32")):
+        by = inner.get(dtype, {}).get("launches_by_kernel", {})
+        require(by and all(n.endswith(suffix) for n in by)
+                and sum(by.values()) == inner[dtype]["calls"],
+                f"{tag}: {what}: {dtype} paged launches by kernel {by}")
     require(inner.get("bfloat16", {}).get("row_err", 1.0)
             <= BF16_ROW_LIMIT["paged_attention"],
             f"{tag}: {what}: bf16 paged calls beyond row_err "
@@ -1733,6 +1878,7 @@ def phase_model(state):
     import numpy as np
     import torch
     from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     model = _model(state)
     cfg = model.config
     rng = np.random.RandomState(state["seed"])
@@ -1762,7 +1908,10 @@ def phase_model(state):
                                       "int8 pools", F32_INT8_MODEL_LIMIT),
                          plan=plan8)
     del runs8
+    before = dict(cpa.launches_by_kernel)
     lock = _lockstep_f32(m32, ids, lens, tables, plan8, extra, feed8)
+    check["int8"]["f32_lockstep_launches_by_kernel"] = _launch_delta(
+        cpa.launches_by_kernel, before)
     log("model: int8 pools: float32 in lockstep (the plain path reads the "
         "pools the kernel path wrote), max |kernel - plain| / std per step "
         + " ".join(f"{x:.2e}" for x in lock) + f" (limit {F32_MODEL_LIMIT})")
@@ -2033,13 +2182,25 @@ def _set_kv_dtype(value):
     return old
 
 
+def _launch_delta(now: dict, before: dict) -> dict:
+    """Launches by kernel since ``before`` (a copy of the same counter)."""
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n != before.get(k, 0)}
+
+
 def _greedy_acceptance(model, prompts, kv_dtype, name):
     """Greedy self-speculation over ``prompts`` (one wave, 64 new tokens
     each) with pools of ``kv_dtype`` ('' = the model's dtype): the
     acceptance rate and its counts. Read after the serving run's launch
     counts, to tell the rejections' causes apart: bf16 rounding between
     the decode and verify forwards against int8 quantization of the
-    draft's and the target's separately written K/V."""
+    draft's and the target's separately written K/V. The run's paged
+    launches by kernel are held against the decoders' calls (the layers
+    times the decode steps for the decode kernel of the model's type, and
+    times the chunked and verify calls for its window kernel), with no
+    plain call; its wall time and iteration ms are kept beside them."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     from paddle_tpu_torch.serving.generation import GenerationServer
     old = _set_kv_dtype(kv_dtype)
     try:
@@ -2049,17 +2210,95 @@ def _greedy_acceptance(model, prompts, kv_dtype, name):
                                start=False)
     finally:
         _set_kv_dtype(old)
+    before, plain = dict(cpa.launches_by_kernel), cpa.plain_calls
+    t0 = time.perf_counter()
     with srv:
         srv.start()
         futs = [srv.submit_generate(p, max_new_tokens=64, temperature=0.0)
                 for p in prompts]
         outs = [f.result(timeout=900) for f in futs]
-    require(all(len(t) == 64 for t in outs)
-            and srv.metrics_snapshot()["kv_leak_check"]["ok"],
+    wall = time.perf_counter() - t0
+    snap = srv.metrics_snapshot()
+    require(all(len(t) == 64 for t in outs) and snap["kv_leak_check"]["ok"],
             f"serving: acceptance probe {name} did not finish cleanly")
-    spec = srv.metrics_snapshot()["spec"]
-    return {k: spec[k] for k in ("greedy_acceptance_rate", "proposed",
-                                 "accepted") if k in spec}
+    by_kernel = _launch_delta(cpa.launches_by_kernel, before)
+    calls = {"target": dict(srv.decoder.calls),
+             "draft": dict(srv.draft.calls)}
+    layers = model.config.num_layers
+    dtype = next(model.parameters()).dtype
+    want = {}
+    for kind, n in (("decode", calls["target"]["decode"]
+                     + calls["draft"]["decode"]),
+                    ("chunked", calls["target"]["chunked"]
+                     + calls["target"]["verify"]
+                     + calls["draft"]["chunked"])):
+        key = cpa.kernel_for(kind, dtype, 1 if kind == "decode" else
+                             SPEC_K + 1)
+        want[key] = want.get(key, 0) + layers * n
+    require(calls["target"]["verify"] > 0 and calls["draft"]["decode"] > 0
+            and by_kernel == want and cpa.plain_calls == plain,
+            f"serving: {name}: paged launches by kernel {by_kernel}, want "
+            f"{want} from the decoders' calls {calls}; plain calls "
+            f"{cpa.plain_calls - plain}")
+    spec = snap["spec"]
+    out = {k: spec[k] for k in ("greedy_acceptance_rate", "proposed",
+                                "accepted") if k in spec}
+    out.update({"wall_s": wall, "iteration_ms": snap["step_ms"]["decode"],
+                "paged_launches_by_kernel": by_kernel,
+                "decoder_calls": calls})
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_steps(model, prompts, kv_dtype):
+    """One decode step and one verify window ([8, SPEC_K + 1]) of ``model``
+    over pools of ``kv_dtype`` ('' = the model's dtype), each profiled
+    (torch.profiler over 4 and 2 of them after a prefill of ``prompts``):
+    wall and device ms a step, the paged kernels' device ms and the
+    device's busy share."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving.generation import CachedDecoder
+    b = len(prompts)
+    pps = model.config.max_seq_len // PAGE_SIZE
+    tables = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+    lens = np.array([len(p) for p in prompts], np.int32)
+    ids = np.zeros((b, int(lens.max())), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    dec = CachedDecoder(model, max_batch=b, page_size=PAGE_SIZE,
+                        pages_per_seq=pps, kv_dtype=kv_dtype, device="cuda")
+    k, v = model.init_kv_pools(1 + b * pps, PAGE_SIZE, kv_dtype or None)
+    last, k, v = dec.prefill(ids, lens, tables, k, v)
+    live = np.ones(b, bool)
+    run = {"ctx": lens.copy(), "tok": last.argmax(-1).cpu().numpy()}
+
+    def decode_one():
+        ctx = run["ctx"]
+        logits, _, _ = dec.decode(run["tok"], ctx, live, ctx + 1, tables, k,
+                                  v)
+        run["tok"] = logits.argmax(-1).cpu().numpy()
+        run["ctx"] = ctx + 1
+
+    def verify_one():
+        ctx = run["ctx"]
+        window = np.repeat(run["tok"][:, None], SPEC_K + 1, 1)
+        logits, _, _ = dec.verify(window, ctx,
+                                  np.full(b, SPEC_K + 1, np.int32), tables,
+                                  k, v)
+        run["tok"] = logits[:, -1].argmax(-1).cpu().numpy()
+        run["ctx"] = ctx + SPEC_K + 1
+
+    out = {"decode_step": device_profile(decode_one, 4),
+           "verify_step": device_profile(verify_one, 2)}
+    for step in out.values():
+        busy = step["device_busy_ms_per_step"]
+        step["paged_share_of_device"] = (step["paged_attention_ms"] / busy
+                                         if busy else None)
+    del k, v, run, dec
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_serving(state):
@@ -2189,11 +2428,18 @@ def phase_serving(state):
             mdl, prompts[0::2], kv, f"accept-{mname}-{kv or mname}")
         for mname, mdl in (("bfloat16", model), ("float32", m32))
         for kv in ("", "int8")}
-    del m32
     for key in ("float32/float32", "float32/int8"):
         require(accept[key]["greedy_acceptance_rate"] >= GREEDY_ACCEPT_MIN,
                 f"serving: greedy spec acceptance {key} below "
                 f"{GREEDY_ACCEPT_MIN}: {accept}")
+    # the float32 copy's paged work, step by step: one decode step and one
+    # verify window over its own and int8 pools, profiled
+    out["float32_step_profile"] = {
+        kv or "float32": _profile_steps(m32, prompts[:MAX_BATCH], kv)
+        for kv in ("", "int8")}
+    log("serving: float32 step profiles " + json.dumps(
+        out["float32_step_profile"]))
+    del m32
     torch.cuda.empty_cache()
     state["serving"] = out
     log("serving: " + json.dumps(out))
@@ -4220,7 +4466,11 @@ def kernels_line(state) -> dict:
     and the stacked decoder's serving runs and training windows together;
     the paged kernel's over the engine's run and the stacked engine's run
     (bf16 pools) and, as its own entry, its int8 variant's over the serving
-    run and the stacked engine's int8 run; the backward kernels' over the
+    run and the stacked engine's int8 run; the float32-query paged kernels
+    (``paged_attention_f32``, and ``_f32_int8`` over int8 pools) over the
+    model phase's float32 kernel runs and the serving phase's float32 copy,
+    by kernel, timed at decode B=8 (the S=5 and S=300 windows in
+    ``window_shapes``); the backward kernels' over the
     training windows (per-layer, stacked, and the recipe phase's input
     pipeline window). The float16 variants of the three flash kernels are
     entries of their own (``*_f16``), with the recipe phase's float16
@@ -4311,6 +4561,46 @@ def kernels_line(state) -> dict:
                                                  "row_err", "tflops")}
                               for r in state["flash_bf16_infer_rows"]]})
         out.append(entry)
+    # the float32-query paged kernels (decode and window), over float and
+    # int8 pools: the model phase's float32 kernel runs (and its lockstep
+    # run over int8 pools) and the serving phase's float32 copy
+    check = state["model_check"]
+    accept = serving["greedy_acceptance_by_model_and_pools"]
+    f32_keys_paged = ("case", "kernel", "ms", "ms_turns", "parent_ms",
+                      "bound_ms", "bound_by", "fma_bound_ms", "plain_ms",
+                      "library_ms", "max_abs_err", "kernel_ms_by_name")
+    for name, kv, parts in (
+            ("paged_attention_f32", "model",
+             (check["paged_calls_vs_plain"]["float32"]["launches_by_kernel"],
+              accept["float32/float32"]["paged_launches_by_kernel"])),
+            ("paged_attention_f32_int8", "int8",
+             (check["int8"]["paged_calls_vs_plain"]["float32"][
+                 "launches_by_kernel"],
+              check["int8"]["f32_lockstep_launches_by_kernel"],
+              accept["float32/int8"]["paged_launches_by_kernel"]))):
+        by_kernel = {}
+        for part in parts:
+            for k, n in part.items():
+                by_kernel[k] = by_kernel.get(k, 0) + n
+        row, *windows = state["paged_f32_rows"][kv]
+        out.append({"name": name, "route": "cuda", "source": cpa.SOURCE,
+                    "replaces": cpa.REPLACES,
+                    "launches": sum(by_kernel.values()),
+                    "launches_by_kernel": by_kernel,
+                    "max_abs_err": max(r["max_abs_err"] for r in
+                                       state["paged_f32_rows"][kv]),
+                    "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"], "shape": row["case"],
+                    "kernel": row["kernel"],
+                    "ms_before": (statistics.mean(row["parent_ms"])
+                                  if "parent_ms" in row else None),
+                    **{k: row[k] for k in ("ms_turns", "parent_ms",
+                                           "kernel_ms_by_name",
+                                           "fma_bound_ms")
+                       if k in row},
+                    "window_shapes": [{k: r[k] for k in f32_keys_paged
+                                       if k in r} for r in windows]})
     # the float32 kernels: the inference phase's float32 server run (the
     # Predictor's default precision) and the float32 training parities
     f32_train = {}

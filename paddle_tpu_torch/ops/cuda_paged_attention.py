@@ -16,19 +16,28 @@ for float32, bfloat16 and int8 pools.
   tuple, whose maths follows the reference's float32 quantized branch
   (``:95-101, :139-144``).
 - What bounds it on the H100: the bytes of the live context (decode does
-  ``4*D`` flops per slot and head), so HBM bandwidth: ``2*D`` bytes per
-  slot and head in bf16, ``D + 4`` in int8.
+  ``4*D`` flops per slot and head), so HBM bandwidth: ``4*D`` bytes per
+  slot and head in float32, ``2*D`` in bf16, ``D + 4`` in int8; a long
+  float32 window is bound by its products (3xTF32: three TF32 products a
+  product).
 - What its design does about it (``KERNELS``; ``csrc/paged_attention.cu``
-  has the details): bf16 queries take a tensor-core window kernel (chunked
-  windows: K/V tiles of 64 tokens gathered through the table with
-  ``cp.async`` into a shared-memory ring, S = Q Kᵀ and O += P V on
-  ``mma.sync``, P as bf16 hi + lo, int8's K scale factored out of the dot
-  and its V scale folded into p) or a split-context decode kernel (each
-  row's context in chunks of 128 tokens, one block each); windows of at
-  most 16 rows split their context too, and a combine kernel merges the
-  parts' softmax states, kept in a float workspace that the wrapper
-  allocates. float32 queries take an FMA kernel that keeps float32 exact.
-  Every token resolves its own page, so any page size is taken.
+  has the details): windows (chunked, and decode calls of several rows a
+  sequence) take a tensor-core window kernel: K/V tiles gathered through
+  the table with ``cp.async`` into a shared-memory ring, S = Q Kᵀ and
+  O += P V on ``mma.sync``, int8's K scale factored out of the dot and its
+  V scale folded into p. bf16 queries run it in bf16 with P as bf16 hi +
+  lo; float32 queries in 3xTF32 (each float split into TF32 hi + lo, three
+  products, two over int8 pools, whose values are exact in TF32), each
+  8-dim score step and each tile's P V summed from zero and joined to its
+  float accumulator in one add. A decode step (one row a sequence) takes a
+  split-context decode kernel in exact float FMAs, for either q type: each
+  row's context in chunks (128 tokens; 64 over float pools), one block
+  each. Windows of at most 16 rows split their context too, and a combine
+  kernel merges the parts' softmax states, kept in a float workspace that
+  the wrapper allocates. Every token resolves its own page, so any page
+  size is taken. On the card ``chip_smoke.py`` holds every float32 call
+  against :func:`paged_attention_reference` at atol/rtol 2e-5, two
+  launches bit for bit, and a NaN key to the plain version's NaN rows.
 
 ``paged_attention`` launches the kernels for CUDA tensors and raises on
 what they do not take; only CPU tensors take the plain version
@@ -55,10 +64,11 @@ SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas_paged_attention.py:259"
 _KIND_CODES = {"decode": 0, "chunked": 1}
 
-# the CUDA kernel each call runs (csrc/paged_attention.cu): bf16 queries
-# take the tensor-core window kernel (chunked) or the split-context decode
-# kernel (decode); float32 queries the FMA kernel
-KERNELS = ("paged_window_bf16", "paged_decode_split_bf16", "paged_fma_f32")
+# the CUDA kernel each call runs (csrc/paged_attention.cu), by q's type: the
+# tensor-core window kernel (windows) or the split-context decode kernel
+# (one decode row a sequence)
+KERNELS = ("paged_window_bf16", "paged_decode_split_bf16",
+           "paged_window_f32", "paged_decode_split_f32")
 
 launches = 0
 launches_by = {}
@@ -70,9 +80,8 @@ def kernel_for(kind: str, dtype, s: int) -> str:
     """Which of ``KERNELS`` a call of ``kind`` with q of ``dtype`` and
     ``s`` window rows runs (a decode call of several rows per sequence is a
     window of the decode mask)."""
-    if dtype != torch.bfloat16:
-        return KERNELS[2]
-    return KERNELS[1] if kind == "decode" and s == 1 else KERNELS[0]
+    window, decode = KERNELS[:2] if dtype == torch.bfloat16 else KERNELS[2:]
+    return decode if kind == "decode" and s == 1 else window
 
 
 def paged_attention_reference(q, k_pool, v_pool, block_tables, ctx_len,

@@ -492,7 +492,7 @@ def _jax_kernel(c, k_pool, v_pool, kind, q):
         jnp.asarray(q), k_pool, v_pool, jnp.asarray(c["tables"]),
         jnp.asarray(c["ctx"]), jnp.asarray(c["valid"].astype(np.int32)),
         jnp.asarray(c["positions"]), page_size=PS, kind=kind,
-        scale=1.0 / np.sqrt(D))).astype(np.float32)
+        scale=1.0 / np.sqrt(q.shape[-1]))).astype(np.float32)
 
 
 def _pools_both(c, kv):
@@ -579,3 +579,350 @@ def test_emulations_match_the_plain_version(kv):
         for got in emulated:
             np.testing.assert_allclose(got.numpy(), want, atol=1e-5,
                                        rtol=1e-5)
+
+
+# ------------------------------ the float32-query kernels' arithmetic, emulated
+# float32 queries take two kernels of csrc/paged_attention.cu:
+# - the split-context decode kernel (one decode row a sequence) in exact
+#   float FMAs: a softmax state per chunk of the context (64 tokens over
+#   float pools, 128 over int8), in the exp2 domain, merged;
+# - the window kernel in 3xTF32 on the tensor cores: each float split into
+#   TF32 hi + lo (the flash forward tests' helpers), three products an
+#   8-wide step, small terms first, or two over int8 pools (an int8 value is
+#   exact in TF32: q_lo k + q_hi k, p_lo v + p_hi v); each 8-dim step of
+#   Q K^T summed from zero and joined to the score in one add, each context
+#   tile's P V summed from zero and joined to the output once, after the
+#   rescale; the scale after the dot and the max in natural units. Windows
+#   of at most 16 rows take 64-token tiles split among four warps of 16
+#   tokens, their states merged, and split the context into blocks of
+#   eight tiles whose partial states the combine kernel merges; longer
+#   windows take 32-token tiles, one warp over all of each.
+# The emulations (the tensor cores' truncating sum inside a step is not
+# modelled) are held at the kernels phase's float32 limit, atol/rtol 2e-5,
+# against the JAX kernel in interpret mode and the port's plain version,
+# over float and int8 pools, at D 64 and 128, with ragged contexts over
+# several tiles and chunks; one TF32 product alone must fail that limit.
+# Sizes: 4 rows (one dead) of 2 heads over 160-slot tables.
+from test_torch_flash_attention import _split  # noqa: E402
+
+F32_TOL = 2e-5
+F32_H, F32_P = 2, 20
+DEC_CHUNK = {"float": 64, "int8": 128}
+SPLIT_TOK, WIDE_TOK, WARPS, SPLIT_TILES = 64, 32, 4, 8
+
+
+def _case32(seed, d, kind, s):
+    """[4, s] rows of F32_H heads over F32_P pages a row: ragged contexts
+    over several 64-token tiles and decode chunks, a short row, one dead
+    row; chunked windows start mid-context (one partly valid)."""
+    rng = np.random.RandomState(seed)
+    b, p, h = 4, F32_P, F32_H
+    num_pages = 1 + b * p
+    kp = rng.randn(num_pages, PS, h, d).astype(np.float32)
+    vp = rng.randn(num_pages, PS, h, d).astype(np.float32)
+    q = rng.randn(b, s, h, d).astype(np.float32)
+    tables = (1 + rng.permutation(b * p)).reshape(b, p).astype(np.int32)
+    cap = PS * p
+    if kind == "decode":
+        ctx = np.array([cap, 75, 3, 0], np.int32)
+        valid = (ctx > 0)[:, None].repeat(s, 1)
+        positions = np.maximum(ctx - 1, 0)[:, None].repeat(s, 1)
+    else:
+        start = np.array([cap - s - 1, 70, 2, 0], np.int32)
+        seg = np.array([s, max(1, s - 3), max(1, s // 2), 0], np.int32)
+        offs = np.arange(s, dtype=np.int32)[None]
+        positions = start[:, None] + offs
+        valid = offs < seg[:, None]
+        ctx = (start + seg).astype(np.int32)
+    tables[2, 1:] = 0                           # trash-page tail
+    return dict(q=q, kp=kp, vp=vp, tables=tables, ctx=ctx,
+                valid=valid.astype(bool), positions=positions.astype(np.int32))
+
+
+def _pools32(c, kv):
+    """(torch K, torch V, jax K, jax V) over float or int8 pools."""
+    if kv == "int8":
+        n = c["kp"].shape[0] * PS
+        h, d = c["kp"].shape[2:]
+        out = []
+        for name in ("kp", "vp"):
+            qv, sc = jpa.quantize_kv_rows(jnp.asarray(c[name].reshape(n, h,
+                                                                      d)))
+            out.append((np.asarray(qv).reshape(-1, PS, h, d),
+                        np.asarray(sc).reshape(-1, PS, h)))
+        return _tt(out[0]), _tt(out[1]), _jt(out[0]), _jt(out[1])
+    return (torch.from_numpy(c["kp"].copy()), torch.from_numpy(c["vp"].copy()),
+            jnp.asarray(c["kp"]), jnp.asarray(c["vp"]))
+
+
+def _f32_ctx(c, k_pool, v_pool, kind):
+    t = _t(c)
+    k, ks = _raw_context(k_pool, t["tables"])
+    v, vs = _raw_context(v_pool, t["tables"])
+    s = c["q"].shape[1]
+    n = _n_live(t["ctx"], t["valid"], t["positions"], kind, s, k.shape[1])
+    return {"q": t["q"], "k": k, "ks": ks, "v": v, "vs": vs, "n": n,
+            "scale": 1.0 / np.sqrt(c["q"].shape[-1]),
+            "exact": tpa.is_quantized_pool(k_pool)}
+
+
+def _tc(a, b, products):
+    """a @ b on the tensor cores: 8-wide steps of the reduced index, each
+    step's products summed from zero (3: a_lo b_hi + a_hi b_lo + a_hi b_hi;
+    2: b exact in TF32, a_lo b + a_hi b; 1: a_hi b_hi alone), the steps
+    accumulated in float32."""
+    pad = -a.shape[-1] % 8
+    if pad:   # a partial last step: zero terms
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    (ah, al), (bh, bl) = _split(a), _split(b)
+
+    def steps(x, y):   # [steps, ..., M, N]: each step's products alone
+        xs = x.unflatten(-1, (-1, 8))
+        ys = y.unflatten(-2, (-1, 8))
+        return torch.einsum("...mkc,...kcn->k...mn", xs, ys)
+
+    if products == 3:
+        step = steps(al, bh) + steps(ah, bl) + steps(ah, bh)
+    elif products == 2:
+        step = steps(al, b) + steps(ah, b)
+    else:
+        step = steps(ah, bh)
+    acc = step[0]
+    for k in range(1, step.shape[0]):
+        acc = acc + step[k]
+    return acc
+
+
+def _f32_warp(ctx_, slices, products):
+    """One warp's online softmax over its token ``slices`` [(t0, t1)]:
+    (m natural, l, acc), [B, S, H] and [B, S, H, D]."""
+    q, k, v = (ctx_[x].transpose(1, 2) for x in ("q", "k", "v"))  # [B, H, .]
+    shape = ctx_["q"].shape
+    m = torch.full(shape[:3], -np.inf)
+    lsum = torch.zeros(shape[:3])
+    acc = torch.zeros(shape)
+    for t0, t1 in slices:
+        # the kernel zero-fills a tile's rows past the context: no scores
+        t1 = min(t1, k.shape[2])
+        if t0 >= t1:
+            continue
+        raw = _tc(q, k[:, :, t0:t1].transpose(-1, -2), products)  # [B,H,S,T]
+        x = raw.transpose(1, 2) * ctx_["scale"] * ctx_["ks"][:, None, :, t0:t1]
+        t = torch.arange(t0, t1)
+        x = torch.where(t < ctx_["n"][:, :, None, None], x,
+                        torch.tensor(-np.inf))
+        # fmaxf skips a NaN score; p takes it
+        m_new = torch.maximum(m, x.masked_fill(x.isnan(), -np.inf).amax(-1))
+        use = torch.where(m_new == -np.inf, 0.0, m_new)
+        alpha = torch.exp2((m - use) * LOG2E)
+        p = torch.exp2(x * LOG2E - (use * LOG2E)[..., None])
+        lsum = lsum * alpha + p.sum(-1)
+        pv = p * ctx_["vs"][:, None, :, t0:t1]
+        tile = _tc(pv.transpose(1, 2), v[:, :, t0:t1], products)
+        acc = acc * alpha[..., None] + tile.transpose(1, 2)
+        m = m_new
+    return m, lsum, acc
+
+
+def _f32_merge(states, log2=False):
+    """Merge softmax states (m, l, acc) with weights 2^((m - max m) log2 e)
+    (m already in log2 units with ``log2``), 0 for a state with no live
+    token: (max m, den, num)."""
+    ms = torch.stack([m for m, _, _ in states])
+    top = ms.amax(0)
+    scale = 1.0 if log2 else LOG2E
+    w = torch.where(top == -np.inf, 0.0, torch.exp2(
+        (ms - torch.where(top == -np.inf, 0.0, top)[None]) * scale))
+    den = sum(wi * l for wi, (_, l, _) in zip(w, states))
+    num = sum(wi[..., None] * a for wi, (_, _, a) in zip(w, states))
+    return top, den, num
+
+
+def _finish(den, num):
+    """den is 0 only for a row with no live token; a NaN den stays NaN."""
+    return torch.where(den[..., None] != 0, num / den[..., None],
+                       torch.zeros_like(num))
+
+
+def _emulate_f32_window(ctx_, products=None, block_tiles=SPLIT_TILES):
+    """The float32 window kernel: 16-row windows in split mode (64-token
+    tiles, four warps of 16 tokens, blocks of ``block_tiles`` tiles merged
+    as partials), longer windows over 32-token tiles, one warp each."""
+    products = products or (2 if ctx_["exact"] else 3)
+    kv_end = int(ctx_["n"].max())
+    if ctx_["q"].shape[1] > 16:
+        m, lsum, acc = _f32_warp(ctx_, [(t, t + WIDE_TOK) for t in
+                                        range(0, kv_end, WIDE_TOK)], products)
+        return _finish(lsum, acc)
+    n_tiles = -(-kv_end // SPLIT_TOK)
+    share = SPLIT_TOK // WARPS
+    parts = []
+    for tb in range(0, n_tiles, block_tiles):
+        starts = [t * SPLIT_TOK for t in range(tb, min(tb + block_tiles,
+                                                       n_tiles))]
+        parts.append(_f32_merge([_f32_warp(
+            ctx_, [(t0 + w * share, t0 + (w + 1) * share) for t0 in starts],
+            products) for w in range(WARPS)]))
+    if len(parts) == 1:
+        return _finish(*parts[0][1:])
+    # the combine kernel: the parts' m in log2 units
+    return _finish(*_f32_merge([(m * LOG2E, den, num)
+                                for m, den, num in parts], log2=True)[1:])
+
+
+def _emulate_f32_decode(ctx_, keep_empty=False):
+    """The decode kernel over float32 q: exact float sums (the order of the
+    dot products is not modelled), a state per chunk in the exp2 domain,
+    the K scale out of the dot and the V scale folded into p, merged. Chunks
+    past every row's context are merged too with ``keep_empty``."""
+    chunk = DEC_CHUNK["int8" if ctx_["exact"] else "float"]
+    t_cap = ctx_["k"].shape[1]
+    n = ctx_["n"]
+    end = t_cap if keep_empty else int(n.max())
+    states = []
+    for t0 in range(0, end, chunk):
+        t1 = min(t0 + chunk, t_cap)
+        s = torch.einsum("bshd,bthd->bsht", ctx_["q"], ctx_["k"][:, t0:t1])
+        s = s * (ctx_["scale"] * LOG2E) * ctx_["ks"][:, None, :, t0:t1]
+        t = torch.arange(t0, t1)
+        s = torch.where(t < n[:, :, None, None], s, torch.tensor(-np.inf))
+        m = s.masked_fill(s.isnan(), -np.inf).amax(-1)
+        p = torch.exp2(s - torch.where(m == -np.inf, 0.0, m)[..., None])
+        pv = p * ctx_["vs"][:, None, :, t0:t1]
+        states.append((m, p.sum(-1), torch.einsum(
+            "bsht,bthd->bshd", pv, ctx_["v"][:, t0:t1])))
+    return _finish(*_f32_merge(states, log2=True)[1:])
+
+
+def _check_f32(got, want, live):
+    np.testing.assert_allclose(got[live], want[live], atol=F32_TOL,
+                               rtol=F32_TOL)
+    assert np.all(got[~live] == 0.0)
+
+
+F32_WINDOWS = [("chunked", 5), ("chunked", 20), ("decode", 3)]
+
+
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,s", F32_WINDOWS)
+def test_f32_window_emulation_matches_jax_pallas_interpret(kv, d, kind, s):
+    """The 3xTF32 window kernel (split mode at S=5 and the [4, 3] decode
+    window, 64-row mode at S=20) against the reference's kernel."""
+    c = _case32(80 + s + d, d, kind, s)
+    kp, vp, jk, jv = _pools32(c, kv)
+    ctx_ = _f32_ctx(c, kp, vp, kind)
+    want = _jax_kernel(c, jk, jv, kind, c["q"])
+    live = _live(c, kind)
+    assert live.any() and (~live).any()
+    _check_f32(_emulate_f32_window(ctx_).numpy(), want, live)
+    # the rows span several tiles
+    assert int(ctx_["n"].max()) > 2 * SPLIT_TOK
+
+
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_decode_emulation_matches_jax_pallas_interpret(kv, d):
+    c = _case32(90 + d, d, "decode", 1)
+    kp, vp, jk, jv = _pools32(c, kv)
+    ctx_ = _f32_ctx(c, kp, vp, "decode")
+    want = _jax_kernel(c, jk, jv, "decode", c["q"])
+    live = _live(c, "decode")
+    _check_f32(_emulate_f32_decode(ctx_).numpy(), want, live)
+    # the long row spans two or three chunks, the short rows one
+    assert int(ctx_["n"].max()) > DEC_CHUNK[kv]
+
+
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_f32_emulations_match_the_plain_version(kv):
+    """Every float32 emulation against the port's plain version (float
+    softmax over dequantized K/V): the split window with blocks of one tile
+    (partials merged by the combine step) and of eight, the 64-row window,
+    the decode kernel."""
+    for kind, s in (("decode", 1), ("chunked", 7), ("chunked", 24),
+                    ("decode", 2)):
+        c = _case32(100 + s, 64, kind, s)
+        kp, vp = _pools32(c, kv)[:2]
+        ctx_ = _f32_ctx(c, kp, vp, kind)
+        t = _t(c)
+        want = cpa.paged_attention_reference(
+            t["q"], kp, vp, t["tables"], t["ctx"], t["valid"], t["positions"],
+            page_size=PS, kind=kind, scale=ctx_["scale"]).numpy()
+        got = [_emulate_f32_window(ctx_)]
+        if s <= 16:
+            got.append(_emulate_f32_window(ctx_, block_tiles=1))
+        if kind == "decode" and s == 1:
+            got.append(_emulate_f32_decode(ctx_))
+        for g in got:
+            np.testing.assert_allclose(g.numpy(), want, atol=F32_TOL,
+                                       rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_f32_split_merges_chunks_with_no_live_token(kv):
+    """Decode chunks and split-window blocks past a row's context hold
+    (-inf, 0, 0): merged in, they change nothing and make no NaN, also for
+    the dead row."""
+    c = _case32(110, 64, "decode", 1)
+    kp, vp = _pools32(c, kv)[:2]
+    ctx_ = _f32_ctx(c, kp, vp, "decode")
+    short = ctx_["n"][:, 0] < ctx_["k"].shape[1] - DEC_CHUNK[kv]
+    assert short.any()
+    got = _emulate_f32_decode(ctx_, keep_empty=True)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_array_equal(got.numpy(),
+                                  _emulate_f32_decode(ctx_).numpy())
+    # a block of one 64-token tile over the long row's last tile: the short
+    # rows' states there are empty
+    m, den, num = _f32_merge([_f32_warp(ctx_, [(t, t + 16)], 2)
+                              for t in range(128, 192, 16)])
+    assert bool((m[short] == -np.inf).all()) and bool((den[short] == 0).all())
+    assert bool((num[short] == 0).all())
+
+
+def test_single_tf32_product_fails_the_float32_limit():
+    """The control: the 64-row window at D=128 over float pools holds the
+    float32 limit with three products and fails it with one (hi hi)."""
+    c = _case32(120, 128, "chunked", 20)
+    kp, vp = _pools32(c, "float")[:2]
+    ctx_ = _f32_ctx(c, kp, vp, "chunked")
+    t = _t(c)
+    want = cpa.paged_attention_reference(
+        t["q"], kp, vp, t["tables"], t["ctx"], t["valid"], t["positions"],
+        page_size=PS, kind="chunked", scale=ctx_["scale"]).numpy()
+    np.testing.assert_allclose(_emulate_f32_window(ctx_).numpy(), want,
+                               atol=F32_TOL, rtol=F32_TOL)
+    one = _emulate_f32_window(ctx_, products=1).numpy()
+    assert not np.allclose(one, want, atol=F32_TOL, rtol=F32_TOL), \
+        "one TF32 product passes the float32 limit"
+
+
+@pytest.mark.parametrize("nan_bits", [0x7FFFFFFF, 0x7FC00000])
+@pytest.mark.parametrize("kind,s", [("decode", 1), ("chunked", 5),
+                                    ("chunked", 20)])
+def test_f32_nan_key_reaches_the_plain_versions_rows(kind, s, nan_bits):
+    """A NaN in one element of one key of row 0 (the card's 0x7fffffff,
+    the CPU's quiet NaN), at a token every position of row 0 sees: each
+    emulation is NaN in exactly the plain version's entries (row 0 in that
+    head) and agrees with it elsewhere at the float32 limit."""
+    c = _case32(130 + s, 64, kind, s)
+    tok = int(c["ctx"][0]) // 2 if kind == "decode" else \
+        int(c["positions"][0, 0]) // 2
+    page, off = c["tables"][0, tok // PS], tok % PS
+    c["kp"].view(np.int32)[page, off, 1, 5] = nan_bits
+    kp, vp = _pools32(c, "float")[:2]
+    ctx_ = _f32_ctx(c, kp, vp, kind)
+    t = _t(c)
+    want = cpa.paged_attention_reference(
+        t["q"], kp, vp, t["tables"], t["ctx"], t["valid"], t["positions"],
+        page_size=PS, kind=kind, scale=ctx_["scale"])
+    nan = want.isnan()
+    assert bool(nan[0, :, 1].all()) and not bool(nan[1:].any())
+    got = [_emulate_f32_window(ctx_)]
+    if kind == "decode":
+        got.append(_emulate_f32_decode(ctx_))
+    for g in got:
+        assert torch.equal(g.isnan(), nan)
+        torch.testing.assert_close(g[~nan], want[~nan], atol=F32_TOL,
+                                   rtol=F32_TOL)
