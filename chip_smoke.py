@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe,families,inference]
+                  recipe,families,inference,api]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -150,6 +150,26 @@ Phases, each failing loudly (exit code 1, no result line):
               flash forward against its plain version, and times it, at
               these shapes in float32 and in bf16: B=8 S=128 and B=16 at
               S=128, 256, 512.
+13. api     — the Paddle-shaped API (``import paddle_tpu_torch as paddle``):
+              the Paddle-style GPT script of
+              tests/test_torch_paddle_script.py (loaded by path; nn.Layer,
+              Embedding, LayerList, LayerNorm, Linear, GELU,
+              F.scaled_dot_product_attention, a tied LM head through
+              paddle.matmul, F.cross_entropy, AdamW with
+              ClipGradByGlobalNorm, paddle.save) at GPT-2 small's full
+              width and depth (hidden 768, 12 heads of 64, vocab 50304, 12
+              layers), B=8, S=1024, three steps from one set of weights:
+              float32 through the kernels against the plain route (the
+              train phase's limits on losses, every step's gradients and
+              the parameters), bf16 O2 (amp.decorate + auto_cast) against
+              the plain O2 path's rounding floor, 12 launches a step of
+              each flash kernel and no plain call in each precision, step
+              4 after a resume from the paddle.save files (a fresh model
+              and optimizer) bit for bit; ms a step, a profiled step of
+              each precision (the busy share), the host µs of paddle.add,
+              paddle.matmul and a Linear against torch's (on the card and
+              on the CPU), and the flash kernels at this shape beside SDPA
+              and their bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -184,7 +204,7 @@ FMA_FLOPS_F32 = 67e12
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
-              "inference")
+              "inference", "api")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -4460,6 +4480,279 @@ def phase_inference(state):
     log("inference: " + json.dumps(out))
 
 
+# ------------------------------------------- the Paddle-shaped API
+# GPT-2 small at full width and depth (paddle_tpu/models/gpt.py's gpt2_small,
+# bench.py's): hidden 768, 12 heads of 64, vocab 50304, 12 layers
+API_CFG = {"vocab": 50304, "hidden": 768, "heads": 12, "layers": 12,
+           "max_pos": 1024, "seq": 1024, "batch": 8, "lr": TRAIN_LR}
+API_STEPS = 3
+API_HOST_CALLS = 10_000
+SCRIPT = REPO / "tests" / "test_torch_paddle_script.py"
+
+
+def _script_module():
+    """The Paddle-style training script, loaded by path (it imports neither
+    JAX nor the JAX package at module level)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("paddle_script", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """Route the Paddle API's attention to the flash kernels' plain
+    versions, as the tiny phase routes a model with use_kernels=False: the
+    scaled_dot_product_attention functional calls attention_bshd with
+    use_kernels=False while the block runs."""
+    from paddle_tpu_torch.nn.functional import attention as attn
+    orig = attn.attention_bshd
+    attn.attention_bshd = lambda *a, **kw: orig(*a, **{**kw,
+                                                       "use_kernels": False})
+    try:
+        yield
+    finally:
+        attn.attention_bshd = orig
+
+
+def _api_run(script, paddle, init, batches, amp, plain, save_dir=None):
+    """The script's steps from ``init`` through the kernels (or their plain
+    versions): losses, each step's gradients and the parameters after, by
+    structured name, on the card; the launches by kernel (counts set to 0
+    just before); and the model and optimizer."""
+    import torch
+    grads = []
+
+    def on_grads(model):
+        grads.append({n: p.grad._data.detach().float().clone()
+                      for n, p in model.named_parameters()})
+    _reset_counts()
+    with _plain_attention() if plain else contextlib.nullcontext():
+        losses, model, opt = script.train_script(
+            paddle, API_CFG, API_STEPS, 0, batches, amp=amp, init=init,
+            on_grads=on_grads, save_dir=save_dir)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    params = {n: p._data.detach().float().clone()
+              for n, p in model.named_parameters()}
+    return {"losses": losses, "grads": grads, "params": params,
+            "counts": counts, "model": model, "opt": opt}
+
+
+def _api_host_us(paddle) -> dict:
+    """Host µs a call, over API_HOST_CALLS back-to-back calls: paddle.add
+    against torch.add on a [1024] float32 tensor on the card, paddle.matmul
+    against torch.matmul on [64, 64], and a Linear(1024, 1024) forward on
+    [8, 1024] against torch's F.linear on the same weights; then the three
+    pairs again on CPU tensors (``cpu_*``; matmul [16, 16], Linear(64, 64)
+    on [8, 64], so that the CPU's arithmetic stays small), where no device
+    queue can hide what the wrapper costs the host."""
+    out = _api_host_pairs(paddle, "gpu", "", 64, 1024)
+    out.update(_api_host_pairs(paddle, "cpu", "cpu_", 16, 64))
+    paddle.set_device("gpu")
+    out["calls"] = API_HOST_CALLS
+    return out
+
+
+def _api_host_pairs(paddle, device, prefix, mm, width) -> dict:
+    import torch
+    import torch.nn.functional as F
+    paddle.set_device(device)
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(API_HOST_CALLS):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / API_HOST_CALLS * 1e6
+    x = paddle.randn([1024])
+    xt = x._data
+    a = paddle.randn([mm, mm])
+    at = a._data
+    lin = paddle.nn.Linear(width, width)
+    h = paddle.randn([8, width])
+    w, b = lin.weight._data.t(), lin.bias._data
+    with torch.no_grad():
+        pairs = {"add_us": per_call(lambda: paddle.add(x, x)),
+                 "torch_add_us": per_call(lambda: torch.add(xt, xt)),
+                 "matmul_us": per_call(lambda: paddle.matmul(a, a)),
+                 "torch_matmul_us": per_call(lambda: torch.matmul(at, at)),
+                 "linear_us": per_call(lambda: lin(h)),
+                 "torch_linear_us": per_call(lambda: F.linear(h._data, w,
+                                                             b))}
+    return {prefix + k: v for k, v in pairs.items()}
+
+
+def phase_api(state):
+    """The Paddle-shaped API on the card: the Paddle-style GPT script
+    (tests/test_torch_paddle_script.py) at GPT-2 small's full width and
+    depth, B=8, S=1024, three AdamW steps from one set of weights made from
+    the seed: float32 through the kernels against the plain versions
+    (losses, every step's gradients, parameters), bf16 O2 against the plain
+    O2 path's rounding floor, 12 launches a step of each flash kernel and
+    no plain call, a resume from paddle.save files bit for bit, ms a step,
+    the card's busy share over one step, the host µs an op, and the flash
+    kernels at this shape beside SDPA."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    script = _script_module()
+    paddle.set_device("gpu")
+    rng = np.random.RandomState(state["seed"])
+    batches = [rng.randint(0, API_CFG["vocab"],
+                           (API_CFG["batch"], API_CFG["seq"] + 1))
+               for _ in range(API_STEPS + 1)]
+    paddle.seed(state["seed"])
+    base = script.build_model(paddle, API_CFG)
+    init = {n: t._data.detach().clone() for n, t in base.state_dict().items()}
+    n_params = sum(p.size for p in base.parameters())
+    del base
+    per_step = {"flash_fwd": API_CFG["layers"],
+                "flash_bwd_dq": API_CFG["layers"],
+                "flash_bwd_dkv": API_CFG["layers"]}
+    out = {"config": "gpt2_small (Paddle-style script)", "params": n_params,
+           "batch": API_CFG["batch"], "seq": API_CFG["seq"],
+           "steps": API_STEPS}
+    with tempfile.TemporaryDirectory() as tmp:
+        k32 = _api_run(script, paddle, init, batches, None, False, tmp)
+        _require_launches("api float32", k32["counts"], per_step, API_STEPS)
+        require(k32["counts"]["dense_calls"] == 0,
+                "api: the dense attention ran on the main path")
+        p32 = _api_run(script, paddle, init, batches, None, True)
+        require(sum(p32["counts"]["launches"].values()) == 0,
+                f"api: the plain path launched a kernel: {p32['counts']}")
+        # float32: kernels against plain versions (the train phase's limits)
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(k32["losses"], p32["losses"]))
+        grad_rel, noise = 0.0, {}
+        for i, (gk, gp) in enumerate(zip(k32["grads"], p32["grads"])):
+            for n, g in gp.items():
+                big = float(g.abs().max())
+                grad_rel = max(grad_rel, max_abs_err(gk[n], g) / max(
+                    big, 1e-30))
+                small = g.abs() <= TRAIN_F32_GRAD_RTOL * big
+                noise[n] = small if i == 0 else noise[n] | small
+        param_err = noise_err = 0.0
+        for n, p in p32["params"].items():
+            d = (k32["params"][n] - p).abs()
+            if bool((~noise[n]).any()):
+                param_err = max(param_err, float(d[~noise[n]].max()))
+            if bool(noise[n].any()):
+                noise_err = max(noise_err, float(d[noise[n]].max()))
+        out.update({"f32_losses": {"kernels": k32["losses"],
+                                   "plain": p32["losses"]},
+                    "f32_loss_rel": loss_rel, "f32_grad_rel_max": grad_rel,
+                    "f32_param_max_abs_err": param_err,
+                    "f32_noise_max_abs_err": noise_err,
+                    "f32_launches": k32["counts"]["launches"],
+                    "f32_plain_calls": k32["counts"]["plain_calls"]})
+        require(all(math.isfinite(x) for x in k32["losses"]),
+                f"api: non-finite float32 loss {k32['losses']}")
+        require(loss_rel <= TRAIN_F32_LOSS_RTOL,
+                f"api: float32 losses differ by {loss_rel:.2e}")
+        require(grad_rel <= TRAIN_F32_GRAD_RTOL,
+                f"api: float32 gradients differ by {grad_rel:.2e} of their "
+                f"largest")
+        require(param_err <= TRAIN_F32_PARAM_ATOL,
+                f"api: float32 parameters differ by {param_err:.2e}")
+        require(noise_err <= 2 * API_STEPS * TRAIN_LR * (1 + 1e-3),
+                f"api: noise-level elements differ by {noise_err:.2e}")
+        # resume: the saved state into a fresh model and optimizer, step 4
+        fresh = script.build_model(paddle, API_CFG)
+        fresh.set_state_dict(paddle.load(f"{tmp}/model.pdparams"))
+        fopt = script.make_optimizer(paddle, API_CFG, fresh)
+        fopt.set_state_dict(script.rename_optimizer_state(
+            paddle.load(f"{tmp}/opt.pdopt"), k32["model"], fresh))
+    loss_a = script.take_step(paddle, k32["model"], k32["opt"], batches[-1])
+    loss_b = script.take_step(paddle, fresh, fopt, batches[-1])
+    same = loss_a == loss_b and all(
+        torch.equal(p._data, q._data) for p, q in zip(
+            k32["model"].parameters(), fresh.parameters()))
+    out["resume"] = {"step4_loss": loss_a, "step4_loss_resumed": loss_b,
+                     "bit_for_bit": same}
+    require(same, f"api: step 4 after the resume differs ({loss_a} vs "
+                  f"{loss_b})")
+    del fresh, fopt, p32
+
+    def timed_steps(run, amp):
+        def window():
+            for b in batches[:API_STEPS]:
+                script.take_step(paddle, run["model"], run["opt"], b, amp)
+        wall, _ = _timed_window(window, API_STEPS)
+        return wall / API_STEPS * 1e3
+    out["f32_step_ms"] = timed_steps(k32, None)
+    out["f32_step_profile"] = device_profile(
+        lambda: (script.take_step(paddle, k32["model"], k32["opt"],
+                                   batches[0]), torch.cuda.synchronize()), 1)
+    out["f32_device_busy_share_of_step"] = \
+        out["f32_step_profile"]["device_busy_ms_per_step"] / \
+        out["f32_step_ms"]
+    del k32
+    torch.cuda.empty_cache()
+    # bf16 O2: the kernel path's distance from the float32 plain run against
+    # the plain O2 path's own
+    kb = _api_run(script, paddle, init, batches, "bfloat16", False)
+    _require_launches("api bf16 O2", kb["counts"], per_step, API_STEPS)
+    pb = _api_run(script, paddle, init, batches, "bfloat16", True)
+    ref32 = _api_run(script, paddle, init, batches, None, True)
+
+    def l2(a):
+        return float(torch.sqrt(sum(((a[n] - p).double() ** 2).sum()
+                                    for n, p in ref32["params"].items())))
+    o2 = {"losses_kernel": kb["losses"], "losses_plain": pb["losses"],
+          "loss_kernel": max(abs(a - b) for a, b in zip(kb["losses"],
+                                                        ref32["losses"])),
+          "loss_plain": max(abs(a - b) for a, b in zip(pb["losses"],
+                                                       ref32["losses"])),
+          "params_l2_kernel": l2(kb["params"]),
+          "params_l2_plain": l2(pb["params"]),
+          "launches": kb["counts"]["launches"],
+          "plain_calls": kb["counts"]["plain_calls"]}
+    out["o2"] = o2
+    for what in ("loss", "params_l2"):
+        k, p = o2[f"{what}_kernel"], o2[f"{what}_plain"]
+        require(k <= BF16_FLOOR_FACTOR * p,
+                f"api: O2 {what} {k:.3e} from float32, beyond "
+                f"{BF16_FLOOR_FACTOR} x the plain path's {p:.3e}")
+    del pb, ref32
+    torch.cuda.empty_cache()
+    out["bf16_step_ms"] = timed_steps(kb, "bfloat16")
+    out["bf16_step_profile"] = device_profile(
+        lambda: (script.take_step(paddle, kb["model"], kb["opt"],
+                                   batches[0], "bfloat16"),
+                 torch.cuda.synchronize()), 1)
+    out["bf16_device_busy_share_of_step"] = \
+        out["bf16_step_profile"]["device_busy_ms_per_step"] / \
+        out["bf16_step_ms"]
+    del kb
+    torch.cuda.empty_cache()
+    out["host"] = _api_host_us(paddle)
+    log("api: " + json.dumps({k: v for k, v in out.items()
+                              if not k.endswith("_step_profile")}))
+    for prec in ("f32", "bf16"):
+        log(f"api: {prec} step profile "
+            + json.dumps(out[f"{prec}_step_profile"]))
+    # the flash kernels at the script's shape, beside SDPA and the bound
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd = _flash_case(API_CFG["batch"], API_CFG["seq"], API_CFG["heads"],
+                          API_CFG["hidden"] // API_CFG["heads"], dtype, True,
+                          state["seed"] + 90, report=True)
+        bwd = _bwd_case(API_CFG["batch"], API_CFG["seq"], API_CFG["heads"],
+                        API_CFG["hidden"] // API_CFG["heads"], dtype, True,
+                        state["seed"] + 91)
+        check_bwd(bwd)
+        rows[str(dtype)[6:]] = {"fwd": fwd, "bwd": bwd}
+    out["kernel_rows"] = rows
+    state["api"] = out
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -4505,6 +4798,21 @@ def kernels_line(state) -> dict:
     fam_fwd = sum(t["flash_fwd"] for t in fam_train) + \
         fam["ernie"]["ernie_3_0_10b"]["launches"]["flash_fwd"]
     infer = state["inference"]["server"]
+    api = state["api"]
+    api_o2, api_f32 = api["o2"]["launches"], api["f32_launches"]
+
+    def api_row(dtype, part, kname=None):
+        """The flash kernel at the Paddle script's shape (the api phase)."""
+        r = api["kernel_rows"][dtype][part]
+        if kname is None:
+            keys = ("case", "ms", "bound_ms", "bound_by", "plain_ms",
+                    "library_ms", "max_abs_err")
+            return {k: r[k] for k in keys if k in r}
+        return {"case": r["case"], "ms": r[f"{kname}_ms"],
+                "bound_ms": r[f"{kname}_bound_ms"],
+                "bound_by": r[f"{kname}_bound_by"], "plain_ms": r["plain_ms"],
+                "library_ms": r["library_ms"],
+                "library_bwd_ms": r["library_bwd_ms"]}
     out = []
     for name, mod, row, launches, by in (
             ("flash_fwd", ca, state["flash_main"],
@@ -4512,7 +4820,7 @@ def kernels_line(state) -> dict:
              + train["flash_fwd"]
              + sum(r["launches"]["flash_fwd"] for r in st_serve.values())
              + sum(t["flash_fwd"] for t in st_train) + fam_fwd
-             + infer["bfloat16"]["launches"], None),
+             + infer["bfloat16"]["launches"] + api_o2["flash_fwd"], None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
              + st_serve["bfloat16"]["launches"]["paged_attention"],
@@ -4559,7 +4867,8 @@ def kernels_line(state) -> dict:
                                                  "bound_by", "plain_ms",
                                                  "library_ms", "max_abs_err",
                                                  "row_err", "tflops")}
-                              for r in state["flash_bf16_infer_rows"]]})
+                              for r in state["flash_bf16_infer_rows"]],
+                          "api_shape": api_row("bfloat16", "fwd")})
         out.append(entry)
     # the float32-query paged kernels (decode and window), over float and
     # int8 pools: the model phase's float32 kernel runs (and its lockstep
@@ -4615,10 +4924,12 @@ def kernels_line(state) -> dict:
     out.append({"name": "flash_fwd_f32", "route": "cuda",
                 "source": ca.SOURCE, "replaces": ca.REPLACES,
                 "launches": infer["float32"]["launches"]
-                + f32_train["flash_fwd"],
+                + f32_train["flash_fwd"] + api_f32["flash_fwd"],
                 "launches_by_path": {
                     "inference_server": infer["float32"]["launches"],
-                    "training_parities": f32_train["flash_fwd"]},
+                    "training_parities": f32_train["flash_fwd"],
+                    "paddle_api_script": api_f32["flash_fwd"]},
+                "api_shape": api_row("float32", "fwd"),
                 "max_abs_err": max(r["max_abs_err"] for r in
                                    state["flash_f32_infer_rows"]),
                 "ms": row["ms"],
@@ -4637,7 +4948,10 @@ def kernels_line(state) -> dict:
                         ("flash_bwd_dkv", ("dk", "dv"))):
         entry = {"name": f"{name}_f32", "route": "cuda",
                  "source": cab.SOURCE, "replaces": cab.REPLACES[name],
-                 "launches": f32_train[name]}
+                 "launches": f32_train[name] + api_f32[name],
+                 "launches_by_path": {"training_parities": f32_train[name],
+                                      "paddle_api_script": api_f32[name]},
+                 "api_shape": api_row("float32", "bwd", name)}
         for prefix, r in (("", state["bwd_f32_main"]),
                           ("bert_shape_", state["bwd_f32_bert"])):
             entry.update({
@@ -4668,7 +4982,7 @@ def kernels_line(state) -> dict:
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
         launches = train[name] + sum(t[name] for t in st_train) + \
-            sum(t[name] for t in fam_train)
+            sum(t[name] for t in fam_train) + api_o2[name]
         out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
                     "replaces": cab.REPLACES[name], "launches": launches,
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
@@ -4692,6 +5006,7 @@ def kernels_line(state) -> dict:
                     "long_shape_bound_ms": long_row[f"{name}_bound_ms"],
                     "long_shape_plain_ms": long_row["plain_ms"],
                     "long_shape_library_bwd_ms": long_row["library_bwd_ms"],
+                    "api_shape": api_row("bfloat16", "bwd", name),
                     "long_shape_max_abs_err": max(
                         long_row[f"{g}_max_abs_err"] for g in grads),
                     "family_shapes": [
@@ -4791,7 +5106,7 @@ def main(argv=None) -> int:
            "engine": phase_engine, "serving": phase_serving,
            "train": phase_train, "stacked": phase_stacked,
            "recipe": phase_recipe, "families": phase_families,
-           "inference": phase_inference}
+           "inference": phase_inference, "api": phase_api}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -4811,11 +5126,11 @@ def main(argv=None) -> int:
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
-                                     "total_s")
+                                     "api", "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",
-                                "inference")):
+                                "inference", "api")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

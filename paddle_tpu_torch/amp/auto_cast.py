@@ -117,9 +117,18 @@ def cast_dtype(name: str):
 
 
 def _cast(x, dtype):
-    if isinstance(x, torch.Tensor) and x.is_floating_point() and \
-            x.dtype not in (torch.float64, dtype):
-        return x.to(dtype)
+    if isinstance(x, torch.Tensor):
+        if x.is_floating_point() and x.dtype not in (torch.float64, dtype):
+            return x.to(dtype)
+        return x
+    t = getattr(x, "_data", None)
+    if isinstance(t, torch.Tensor) and t.is_floating_point() and \
+            t.dtype not in (torch.float64, dtype):
+        # a Paddle tensor (core/tensor.py) reaching a torch function: cast
+        # its data and keep it Paddle (and layer state if it was)
+        out = type(x)._wrap(t.to(dtype))
+        out._state = x._state
+        return out
     return x
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict
 
-__all__ = ["define_flag", "flag_value", "set_flags"]
+__all__ = ["define_flag", "flag_value", "set_flags", "get_flags"]
 
 
 class _Flag:
@@ -73,6 +73,19 @@ def flag_value(name: str):
 def set_flags(flags: Dict[str, Any]) -> None:
     for name, v in flags.items():
         _REGISTRY[_key(name)].set(v)
+
+
+def get_flags(flags) -> Dict[str, Any]:
+    """``paddle.get_flags``: ``{name: value}`` for a name or a list of
+    names (unknown names raise)."""
+    names = [flags] if isinstance(flags, str) else list(flags)
+    return {_key(n): _REGISTRY[_key(n)].value for n in names}
+
+
+# The Paddle API's eager checks (core/dispatch.py), with the reference's
+# name and default (paddle_tpu/framework/flags.py:122).
+define_flag("FLAGS_check_nan_inf", False,
+            "check outputs for nan/inf after every op")
 
 
 # Decode serving knobs (serving/generation/engine.py), with the reference's

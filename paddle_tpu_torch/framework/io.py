@@ -16,6 +16,10 @@ bool}``, so either package reads the other's files.
 - ``load`` returns CPU tensors (``return_numpy=True``: the arrays as
   stored). It also reads the reference's own files, whose bfloat16 arrays
   are ``ml_dtypes`` arrays (unpickling those needs ``ml_dtypes``).
+- The Paddle API's ``paddle.save`` takes Paddle tensors too (named by their
+  own ``name``, as the reference names them), so a ``Layer``'s or an
+  optimizer's ``state_dict`` saves as it is; ``paddle.load``
+  (:func:`load_paddle`) gives Paddle tensors on the current place.
 
 Only load files this program or the reference wrote: unpickling runs code.
 """
@@ -27,7 +31,7 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ["save", "load", "to_tensor"]
+__all__ = ["save", "load", "load_paddle", "to_tensor"]
 
 
 def to_tensor(arr) -> torch.Tensor:
@@ -41,6 +45,9 @@ def to_tensor(arr) -> torch.Tensor:
 
 
 def _pack(obj, name=""):
+    data = getattr(obj, "_data", None)
+    if isinstance(data, torch.Tensor):      # a Paddle tensor
+        return _pack(data, obj.name)
     if isinstance(obj, torch.Tensor):
         t = obj.detach().cpu()
         out = {"__tensor__": True, "name": name,
@@ -92,3 +99,25 @@ def load(path, **configs):
     with open(path, "rb") as f:
         obj = pickle.load(f)
     return _unpack(obj, return_numpy)
+
+
+def load_paddle(path, **configs):
+    """``paddle.load``: :func:`load`, each tensor a Paddle tensor on
+    :func:`framework.device.current_place` (``return_numpy=True``: the
+    arrays as stored)."""
+    from ..core.tensor import Tensor
+    from .device import current_device
+    obj = load(path, **configs)
+    if configs.get("return_numpy", False):
+        return obj
+    dev = current_device()
+
+    def conv(o):
+        if isinstance(o, torch.Tensor):
+            return Tensor._wrap(o.to(dev))
+        if isinstance(o, dict):
+            return {k: conv(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return type(o)(conv(v) for v in o)
+        return o
+    return conv(obj)

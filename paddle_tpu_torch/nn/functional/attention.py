@@ -24,7 +24,7 @@ from ...ops.cuda_attention import NEG_INF
 from ...ops.flash_attention import attention_bshd
 from .common import keep_mask
 
-__all__ = ["scaled_dot_product_attention", "sdpa_dense"]
+__all__ = ["scaled_dot_product_attention", "sdpa_dense", "flash_attention"]
 
 dense_calls = 0
 
@@ -87,3 +87,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         keep = keep_mask((b, h, sq, key.shape[1]), p, query.device)
     return sdpa_dense(query, key, value, attn_mask, is_causal, scale, keep,
                       p)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None):
+    """``paddle.nn.functional.flash_attention`` (the reference's
+    ``attention.py:88``): :func:`scaled_dot_product_attention` without a
+    mask; returns ``(out, None)`` (the softmax is never materialised)."""
+    return scaled_dot_product_attention(query, key, value, None, dropout,
+                                        causal, training), None

@@ -22,9 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import handle_torch_function, has_torch_function
 
+from ...core.dispatch import apply_op
 from .conv import check_format, from_nchw, to_nchw
 
-__all__ = ["batch_norm"]
+__all__ = ["batch_norm", "layer_norm"]
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
@@ -60,3 +61,19 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             kept = momentum * running_var
             running_var.copy_(kept + (moved - kept) * ((n - 1) / n))
     return from_nchw(y, nhwc)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
+               name=None):
+    """Normalise over the trailing ``normalized_shape`` axes by the mean and
+    biased variance (``paddle_tpu/nn/functional/norm.py:70-100``), then the
+    affine ``weight`` and ``bias``; behind :func:`core.dispatch.apply_op`
+    under the reference's name ``layer_norm`` (black-listed by AMP)."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    shape = [int(s) for s in normalized_shape]
+
+    def fn(a, w, b):
+        return F.layer_norm(a, shape, None if w is None else w.reshape(shape),
+                            None if b is None else b.reshape(shape), epsilon)
+    return apply_op("layer_norm", fn, x, weight, bias)

@@ -6,15 +6,17 @@ the model that owns the layer draws them from its seed
 (:meth:`Conv2D.reset_parameters`: the reference's KaimingUniform weight,
 ``U(±sqrt(6 / fan_in))``, and ``U(±1 / sqrt(fan_in))`` bias). Other
 ``weight_attr``/``bias_attr`` objects and padding modes wait for ROADMAP
-queue 1 item 5d."""
+queue 1 item 5d, part 2. A :class:`nn.Layer`: ``weight`` and ``bias``
+are Paddle parameters, and a torch tensor in gives a torch tensor out."""
 from __future__ import annotations
 
 import math
 
 import torch
-from torch import nn
 
+from ...core.tensor import Parameter
 from ..functional.conv import check_format, conv2d
+from .layers import Layer
 
 __all__ = ["Conv2D"]
 
@@ -24,7 +26,7 @@ def _pair(v):
                                                               for x in v)
 
 
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,
@@ -42,20 +44,21 @@ class Conv2D(nn.Module):
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.groups = groups
         self.data_format = data_format
-        self.weight = nn.Parameter(torch.empty(
+        self.weight = Parameter(torch.empty(
             (out_channels, in_channels // groups) + self.kernel_size,
             device=device, dtype=dtype))
-        self.bias = (None if bias_attr is False else nn.Parameter(
+        self.bias = (None if bias_attr is False else Parameter(
             torch.empty(out_channels, device=device, dtype=dtype)))
 
     @torch.no_grad()
     def reset_parameters(self, generator) -> None:
-        fan_in = self.weight[0].numel()
+        weight, bias = self._parameters["weight"], self._parameters.get("bias")
+        fan_in = weight[0].numel()
         limit = math.sqrt(6.0 / fan_in)
-        self.weight.uniform_(-limit, limit, generator=generator)
-        if self.bias is not None:
+        weight.uniform_(-limit, limit, generator=generator)
+        if bias is not None:
             bound = 1.0 / math.sqrt(fan_in)
-            self.bias.uniform_(-bound, bound, generator=generator)
+            bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x):
         return conv2d(x, self.weight, self.bias, self.stride, self.padding,

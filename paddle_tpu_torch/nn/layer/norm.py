@@ -5,19 +5,26 @@ the reference's names, ``_mean`` (zeros) and ``_variance`` (ones), and stay
 float32 whatever the layer's dtype, as the reference's; ``weight`` (ones)
 and ``bias`` (zeros) are its affine parameters. ``train()`` and ``eval()``
 pick batch or running statistics, as the reference's ``training`` flag;
-``use_global_stats`` overrides them."""
+``use_global_stats`` overrides them.
+
+``LayerNorm`` (``:85-103``): ``weight`` ones and ``bias`` zeros over
+``normalized_shape``. Both are :class:`nn.Layer` s; the other norm layers
+wait for ROADMAP queue 1 item 5d, part 2."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from ...core.tensor import Parameter
+from .. import initializer as I
 from ..functional.conv import check_format
-from ..functional.norm import batch_norm
+from ..functional.norm import batch_norm, layer_norm
+from ..initializer_utils import create_parameter_with_attr
+from .layers import Layer
 
-__all__ = ["BatchNorm2D"]
+__all__ = ["BatchNorm2D", "LayerNorm"]
 
 
-class BatchNorm2D(nn.Module):
+class BatchNorm2D(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None,
@@ -33,10 +40,10 @@ class BatchNorm2D(nn.Module):
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        self.weight = nn.Parameter(torch.ones(num_features, device=device,
-                                              dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(num_features, device=device,
-                                             dtype=dtype))
+        self.weight = Parameter(torch.ones(num_features, device=device,
+                                           dtype=dtype))
+        self.bias = Parameter(torch.zeros(num_features, device=device,
+                                          dtype=dtype))
         self.register_buffer("_mean", torch.zeros(
             num_features, device=device, dtype=torch.float32))
         self.register_buffer("_variance", torch.ones(
@@ -44,10 +51,10 @@ class BatchNorm2D(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
-        self.weight.fill_(1.0)
-        self.bias.zero_()
-        self._mean.zero_()
-        self._variance.fill_(1.0)
+        self._parameters["weight"].fill_(1.0)
+        self._parameters["bias"].zero_()
+        self._buffers["_mean"].zero_()
+        self._buffers["_variance"].fill_(1.0)
 
     def forward(self, input):  # noqa: A002 - the reference's argument name
         return batch_norm(input, self._mean, self._variance, self.weight,
@@ -59,3 +66,27 @@ class BatchNorm2D(nn.Module):
     def extra_repr(self) -> str:
         return (f"{self._num_features}, momentum={self._momentum}, "
                 f"epsilon={self._epsilon}, data_format={self._data_format}")
+
+
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = [int(s) for s in normalized_shape]
+        self._epsilon = epsilon
+        self.weight = create_parameter_with_attr(
+            self._normalized_shape, self._dtype, weight_attr, False,
+            default_initializer=I.Constant(1.0))
+        self.bias = create_parameter_with_attr(
+            self._normalized_shape, self._dtype, bias_attr, True,
+            default_initializer=I.Constant(0.0))
+
+    def forward(self, input):  # noqa: A002
+        return layer_norm(input, self._normalized_shape, self.weight,
+                          self.bias, self._epsilon)
+
+    def extra_repr(self) -> str:
+        return (f"normalized_shape={self._normalized_shape}, "
+                f"epsilon={self._epsilon}")

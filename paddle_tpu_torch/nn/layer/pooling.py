@@ -1,16 +1,16 @@
 """``MaxPool2D`` and ``AdaptiveAvgPool2D``: the port of the reference's
-(``paddle_tpu/nn/layer/pooling.py``), with ``data_format``."""
+(``paddle_tpu/nn/layer/pooling.py``), with ``data_format``, as
+:class:`nn.Layer` s."""
 from __future__ import annotations
-
-from torch import nn
 
 from ..functional.conv import check_format
 from ..functional.pooling import adaptive_avg_pool2d, max_pool2d
+from .layers import Layer
 
 __all__ = ["MaxPool2D", "AdaptiveAvgPool2D"]
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  data_format="NCHW", name=None):
         super().__init__()
@@ -25,7 +25,7 @@ class MaxPool2D(nn.Module):
                           self.ceil_mode, self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         check_format(data_format)

@@ -12,9 +12,13 @@ tensors, updating the parameters and their accumulators in place.
 Accumulators live on their parameter's device.
 
 A parameter's name (for ``apply_decay_param_fun`` and ``state_dict``) is
-its key in the model's ``named_parameters()``: the port's tensors carry no
-unique name of their own. ``parameters=`` takes tensors or ``(name,
-tensor)`` pairs; ``TrainStep`` names the model's parameters.
+the Paddle :class:`core.tensor.Parameter`'s ``name``, as in the reference,
+when ``parameters=`` holds Paddle parameters (``Layer.parameters()``);
+torch tensors carry no name of their own, so for them it is their key in
+the model's ``named_parameters()`` (``(name, tensor)`` pairs; ``TrainStep``
+names the model's parameters). A Paddle parameter's ``optimize_attr``
+learning-rate factor (``ParamAttr(learning_rate=)``) scales its step. The
+optimizer updates the torch tensors the parameters hold, in place.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..core.tensor import Tensor
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
@@ -55,12 +60,20 @@ class Optimizer:
         self._grad_clip = grad_clip
         self._l2_coeff = float(weight_decay or 0.0)
         self._names: Dict[int, str] = {}
+        self._lr_mult: Dict[int, float] = {}
         self._parameters = None
         if parameters is not None:
             self._parameters = []
             for i, item in enumerate(parameters):
                 name, p = item if isinstance(item, tuple) else \
                     (f"param_{i}", item)
+                if isinstance(p, Tensor):      # a Paddle parameter
+                    name = p.name
+                    mult = getattr(p, "optimize_attr", {}).get(
+                        "learning_rate", 1.0)
+                    p = p._data
+                    if mult != 1.0:
+                        self._lr_mult[id(p)] = float(mult)
                 self._parameters.append(p)
                 self._names[id(p)] = name
         # accumulator name -> id(param) -> tensor
@@ -128,11 +141,16 @@ class Optimizer:
         accumulator exactly as they were where it is True, without a host
         sync: each group's values are kept before its update and selected
         back after it, as the reference's ``where(found_inf, old, new)``."""
-        groups: Dict[float, list] = {}
+        groups: Dict[tuple, list] = {}
         for p, g in params_grads:
+            if isinstance(p, Tensor):
+                p = p._data
+            if isinstance(g, Tensor):
+                g = g._data
             if g is not None:
-                groups.setdefault(self._wd_for(p), []).append((p, g))
-        for wd, pairs in groups.items():
+                groups.setdefault((self._wd_for(p), self._lr_mult.get(
+                    id(p), 1.0)), []).append((p, g))
+        for (wd, mult), pairs in groups.items():
             start = 0
             while start < len(pairs):
                 end, n = start, 0
@@ -151,7 +169,8 @@ class Optimizer:
                          for an in self._accum_names}
                 touched = ps + [x for xs in state.values() for x in xs]
                 kept = None if skip is None else [x.clone() for x in touched]
-                self._update_rule(ps, gs, _f32(lr), t, _f32(wd), state)
+                self._update_rule(ps, gs, _f32(lr * mult), t, _f32(wd),
+                                  state)
                 if kept is not None:
                     for x, old in zip(touched, kept):
                         torch.where(skip, old, x, out=x)
@@ -198,8 +217,9 @@ class Optimizer:
             for an in self._accum_names:
                 key = f"{self._name(p)}_{an}"
                 if key in state_dict:
-                    self._set_accum(an, p, torch.as_tensor(
-                        state_dict[key]).to(p.device))
+                    v = state_dict[key]
+                    v = v._data if isinstance(v, Tensor) else v
+                    self._set_accum(an, p, torch.as_tensor(v).to(p.device))
         if "LR_Scheduler" in state_dict and isinstance(self._lr,
                                                        LRScheduler):
             self._lr.set_state_dict(state_dict["LR_Scheduler"])

