@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe,families,inference,api]
+                  recipe,families,inference,api,nn]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -170,6 +170,41 @@ Phases, each failing loudly (exit code 1, no result line):
               paddle.matmul and a Linear against torch's (on the card and
               on the CPU), and the flash kernels at this shape beside SDPA
               and their bound.
+14. nn      — the rest of paddle.nn: the Paddle-style text classifier of
+              tests/test_torch_paddle_encoder_script.py (loaded by path;
+              token and position Embedding, LayerNorm,
+              nn.TransformerEncoder of TransformerEncoderLayer(768, 12,
+              3072, dropout=0.1, activation="gelu", attn_dropout=0.0), a
+              pooler, a classifier with ParamAttr(regularizer=L2Decay),
+              CrossEntropyLoss(label_smoothing=0.1), AdamW with
+              ClipGradByGlobalNorm) at BERT-base's widths (12 layers, vocab
+              30528, 512 positions), B=32, S=512, three steps from one set
+              of weights: float32 through the kernels against the plain
+              route (the same dropout masks from the same seed; the train
+              phase's limits, the key projections' biases by Adam's
+              bound, the query projections' gradients at 3x the limit
+              and the parameters outside a band of 1e-3 of each tensor's
+              largest gradient: step 1's distance of each route from a
+              float64 run and the differences by band show why), bf16 O2 against the plain O2 path's rounding floor,
+              12 launches a step of each flash kernel, no plain and no
+              dense call in each precision; one evaluation forward under a
+              bool padding mask [B, 1, 1, S] on the dense route (12 dense
+              calls, no launch) against the plain route and the unmasked
+              flash forward; ms a step and a profiled step of each
+              precision (the busy share); the flash kernels at this shape
+              beside SDPA and their bound. Then the sweep: every layer
+              class the slice ported (convolutions, pools, norms,
+              paddings, the common layers, losses, RNNs and cells, the
+              transformer layers) and the functionals without a layer,
+              built at a small size with the same weights on the card and
+              on the CPU, forward and backward in float32 with TF32 off,
+              each held to 1e-5 of its largest value (1e-4 where the card
+              sums in another order over longer chains); a cached greedy
+              decode through TransformerDecoder.gen_cache at head_dim 64,
+              whose flash launches at Sq != Sk are each held against the
+              plain version, against the plain route and the CPU; beam
+              search over an LSTMCell, card against CPU. The worst error
+              per layer is printed on a line of its own.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -204,7 +239,7 @@ FMA_FLOPS_F32 = 67e12
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
-              "inference", "api")
+              "inference", "api", "nn")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -4490,14 +4525,19 @@ API_HOST_CALLS = 10_000
 SCRIPT = REPO / "tests" / "test_torch_paddle_script.py"
 
 
-def _script_module():
-    """The Paddle-style training script, loaded by path (it imports neither
-    JAX nor the JAX package at module level)."""
+def _load_script(path, name):
+    """A Paddle-style script, loaded by path (it imports neither JAX nor
+    the JAX package at module level)."""
     import importlib.util
-    spec = importlib.util.spec_from_file_location("paddle_script", SCRIPT)
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _script_module():
+    """The Paddle-style GPT training script."""
+    return _load_script(SCRIPT, "paddle_script")
 
 
 @contextlib.contextmanager
@@ -4753,6 +4793,829 @@ def phase_api(state):
     state["api"] = out
 
 
+# ------------------------------------------------- the rest of paddle.nn
+# BERT-base's widths (paddle_tpu/models/bert.py:42-52): hidden 768, 12
+# heads of 64, FFN 3072, vocab 30528, 512 positions, 12 layers; the
+# families phase's batch and length
+NN_CFG = {"vocab": 30528, "hidden": 768, "heads": 12, "layers": 12,
+          "max_pos": 512, "seq": 512, "batch": 32, "classes": 2,
+          "dropout": 0.1, "lr": TRAIN_LR}
+NN_STEPS = 3
+ENCODER_SCRIPT = REPO / "tests" / "test_torch_paddle_encoder_script.py"
+# the key projections' biases have an exact gradient of zero (softmax
+# ignores a shift of a row's scores): both routes hand Adam rounding noise
+# there, so they are held to Adam's bound (lr a step), as in the CPU test
+K_BIAS = ".self_attn.k_proj.bias"
+# The query projections' gradients are differences of large sums: with
+# near-uniform attention over 512 keys, dq = Σ p (dp - δ) k cancels to a
+# small residue, which magnifies the rounding of either route. At step 1
+# float32 on the plain route reads 1.26e-5 of their largest from float64
+# there (the median parameter 6.0e-7) and the 3xTF32 kernels 5.0e-5; the
+# two routes read 1.02e-4 apart over three steps (NVIDIA H100 80GB HBM3,
+# 700 W, seed 0), against 6e-5 at most for every other
+# parameter. They are held to 3x the train phase's limit; every other
+# gradient to the train phase's own. The phase reports both routes' step-1
+# distance from a float64 run on the plain route (``ref64``).
+Q_PROJ = ".self_attn.q_proj."
+Q_PROJ_GRAD_RTOL = 3 * 1e-4
+# Adam divides each element's update by its gradient's size, so an element
+# whose gradient is small against its tensor's largest turns a small
+# disagreement into a large relative one: the two routes' parameters read
+# 1.96e-6 apart at an element 2.2e-4 of its tensor's largest (a key
+# projection), 7.4e-7 at most outside 1e-3 of it, 2.9e-7 outside 3e-3
+# (the same run). The parameters are held to the train phase's 1e-6
+# outside that band of 1e-3, and to Adam's bound (2 lr a step) inside it.
+NN_NOISE_BAND = 1e-3
+# the sweep, card against CPU in float32 with TF32 off: max |card - cpu|
+# over a tensor / max |cpu|, for every output, input gradient and parameter
+# gradient. 1e-5 where the op sums as the CPU does; 1e-4 where it sums in
+# another order over longer chains: cuDNN's convolutions (their algorithm
+# is cuDNN's choice), the recurrent loops (a step's matmul feeds the
+# next), the transformer layers (3xTF32 flash kernels and chains of
+# matmuls) and the reductions of CTC and RNN-T
+SWEEP_LIMIT = 1e-5
+SWEEP_LOOSE = 1e-4
+
+
+def _nn_run(script, paddle, init, batches, amp, plain):
+    """The encoder script's steps from ``init`` through the kernels (or
+    their plain versions): losses, each step's gradients and the parameters
+    after, by structured name, on the card; the launches by kernel (counts
+    set to 0 just before); the model and optimizer."""
+    import torch
+    grads = []
+
+    def on_grads(model):
+        grads.append({n: p.grad._data.detach().float().clone()
+                      for n, p in model.named_parameters()})
+    _reset_counts()
+    with _plain_attention() if plain else contextlib.nullcontext():
+        losses, model, opt = script.train_script(
+            paddle, NN_CFG, NN_STEPS, 0, batches, amp=amp, init=init,
+            on_grads=on_grads)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    params = {n: p._data.detach().float().clone()
+              for n, p in model.named_parameters()}
+    return {"losses": losses, "grads": grads, "params": params,
+            "counts": counts, "model": model, "opt": opt}
+
+
+def _nn_f32_check(k32, p32, init) -> dict:
+    """float32 kernels against plain versions: the train phase's limits on
+    the losses, every step's gradients (of each parameter's largest) and
+    the parameters; elements whose gradient is rounding noise (and the key
+    projections' biases) by Adam's bound."""
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(k32["losses"], p32["losses"]))
+    grad_rel, noise, by_param = 0.0, {}, {}
+    for i, (gk, gp) in enumerate(zip(k32["grads"], p32["grads"])):
+        for n, g in gp.items():
+            if n.endswith(K_BIAS):
+                continue
+            big = float(g.abs().max())
+            rel = max_abs_err(gk[n], g) / max(big, 1e-30)
+            by_param[n] = max(by_param.get(n, 0.0), rel)
+            grad_rel = max(grad_rel, rel)
+            small = g.abs() <= NN_NOISE_BAND * big
+            noise[n] = small if i == 0 else noise[n] | small
+    worst = sorted(by_param.items(), key=lambda kv: -kv[1])[:6]
+    log("nn: float32 gradients, worst parameters: " + json.dumps(worst))
+    q_rel = max(v for n, v in by_param.items() if Q_PROJ in n)
+    grad_rel = max(v for n, v in by_param.items() if Q_PROJ not in n)
+    param_err = noise_err = kbias_moved = 0.0
+    p_by = {}
+    for n, p in p32["params"].items():
+        if n.endswith(K_BIAS):
+            for run in (k32, p32):
+                kbias_moved = max(kbias_moved, float(
+                    (run["params"][n] - init[n].float()).abs().max()))
+            continue
+        d = (k32["params"][n] - p).abs()
+        if bool((~noise[n]).any()):
+            dn = d.masked_fill(noise[n], 0)
+            i = int(dn.argmax())
+            g0 = p32["grads"][0][n].reshape(-1).abs()
+            p_by[n] = (float(dn.reshape(-1)[i]),
+                       float(g0[i] / g0.max()))
+            param_err = max(param_err, p_by[n][0])
+        if bool(noise[n].any()):
+            noise_err = max(noise_err, float(d[noise[n]].max()))
+    bands = {}
+    for band in (1e-4, 3e-4, 1e-3, 3e-3, 1e-2):
+        worst_band = 0.0
+        for n, p in p32["params"].items():
+            if n.endswith(K_BIAS):
+                continue
+            small = None
+            for gp in p32["grads"]:
+                g = gp[n].abs()
+                s = g <= band * float(g.max())
+                small = s if small is None else small | s
+            d = (k32["params"][n] - p).abs()
+            if bool((~small).any()):
+                worst_band = max(worst_band, float(d[~small].max()))
+        bands[str(band)] = worst_band
+    log("nn: float32 parameters' largest difference outside each band of "
+        "small gradients: " + json.dumps(bands))
+    p_worst = sorted(p_by.items(), key=lambda kv: -kv[1][0])[:6]
+    out = {"f32_losses": {"kernels": k32["losses"], "plain": p32["losses"]},
+           "f32_loss_rel": loss_rel, "f32_grad_rel_max": grad_rel,
+           "f32_q_proj_grad_rel_max": q_rel,
+           "f32_param_max_abs_err": param_err,
+           "f32_noise_max_abs_err": noise_err,
+           "f32_k_bias_moved": kbias_moved,
+           "f32_grad_rel_worst": worst,
+           "f32_param_worst_outside_band": p_worst,
+           "f32_param_max_outside_band": bands}
+    require(all(math.isfinite(x) for x in k32["losses"]),
+            f"nn: non-finite float32 loss {k32['losses']}")
+    require(loss_rel <= TRAIN_F32_LOSS_RTOL,
+            f"nn: float32 losses differ by {loss_rel:.2e}")
+    require(grad_rel <= TRAIN_F32_GRAD_RTOL,
+            f"nn: float32 gradients differ by {grad_rel:.2e} of their "
+            f"largest")
+    require(q_rel <= Q_PROJ_GRAD_RTOL,
+            f"nn: float32 query-projection gradients differ by {q_rel:.2e} "
+            f"of their largest")
+    require(param_err <= TRAIN_F32_PARAM_ATOL,
+            f"nn: float32 parameters differ by {param_err:.2e}")
+    bound = NN_STEPS * TRAIN_LR * (1 + 1e-3)
+    require(noise_err <= 2 * bound,
+            f"nn: noise-level elements differ by {noise_err:.2e}")
+    require(kbias_moved <= bound,
+            f"nn: a key bias moved {kbias_moved:.2e}, beyond Adam's bound")
+    return out
+
+
+def _nn_ref64(script, paddle, init, batch, runs) -> dict:
+    """Step 1's gradients on the plain route in float64 (the same dropout
+    masks), and each float32 route's distance from them: max |g - g64| /
+    max |g64| per parameter, the worst and the median (no limit reads
+    them)."""
+    import torch
+    paddle.seed(0)
+    model = script.build_model(paddle, NN_CFG)
+    model.set_state_dict(init)
+    model.to(dtype=torch.float64)
+    paddle.seed(0)
+    with _plain_attention():
+        script.loss_of(paddle, model, batch).backward()
+    g64 = {n: p.grad._data for n, p in model.named_parameters()}
+    out = {}
+    for tag, run in runs.items():
+        rel = {n: float((run["grads"][0][n].double() - g).abs().max()
+                        / g.abs().max()) for n, g in g64.items()
+               if not n.endswith(K_BIAS)}
+        vals = sorted(rel.values())
+        worst = max(rel, key=rel.get)
+        out[tag] = {"median": vals[len(vals) // 2], "worst": [worst,
+                                                             rel[worst]],
+                    "q_proj_max": max(v for n, v in rel.items()
+                                      if Q_PROJ in n)}
+    del model, g64
+    torch.cuda.empty_cache()
+    return out
+
+
+def _nn_masked_eval(script, paddle, model, batch, seed) -> dict:
+    """One evaluation forward under a bool padding mask [B, 1, 1, S]: the
+    dense route in every layer (12 calls, no flash launch), the same logits
+    as the plain route, the rows without padding as the unmasked forward
+    through the flash kernel, and padded ids that change nothing."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    seq, b = NN_CFG["seq"], NN_CFG["batch"]
+    lengths = rng.randint(seq // 8, seq, b)
+    lengths[:4] = seq
+    _reset_counts()
+    masked = script.eval_logits(paddle, model, batch, lengths)._data.clone()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    require(counts["dense_calls"] == NN_CFG["layers"],
+            f"nn: the masked forward made {counts['dense_calls']} dense "
+            f"calls, not {NN_CFG['layers']}")
+    require(sum(counts["launches"].values()) == 0,
+            f"nn: the masked forward launched {counts['launches']}")
+    with _plain_attention():
+        plain = script.eval_logits(paddle, model, batch, lengths)._data
+    same_plain = max_abs_err(masked, plain)
+    require(same_plain == 0.0, f"nn: masked forward differs from the plain "
+                               f"route by {same_plain:.2e}")
+    model.eval()
+    with paddle.no_grad():
+        unmasked = model(paddle.to_tensor(batch[0]))._data
+    model.train()
+    full_err = max_abs_err(masked[:4], unmasked[:4]) / float(
+        unmasked.float().std())
+    require(full_err <= F32_MODEL_LIMIT,
+            f"nn: unpadded rows differ from the flash forward by "
+            f"{full_err:.2e} x std")
+    noisy = batch[0].copy()
+    for i, n in enumerate(lengths):
+        noisy[i, n:] = (noisy[i, n:] + 11) % NN_CFG["vocab"]
+    moved = max_abs_err(script.eval_logits(paddle, model, (noisy, batch[1]),
+                                           lengths)._data, masked)
+    require(moved <= 1e-6, f"nn: padded ids moved the logits by {moved:.2e}")
+    return {"dense_calls": counts["dense_calls"],
+            "launches": counts["launches"], "vs_plain_route": same_plain,
+            "unpadded_rows_vs_flash_rel_std": full_err,
+            "padded_ids_moved": moved, "lengths_min": int(lengths.min())}
+
+
+def phase_nn(state):
+    """The rest of paddle.nn on the card: the Paddle-style encoder
+    classifier (tests/test_torch_paddle_encoder_script.py) at BERT-base's
+    widths, B=32, S=512, three AdamW steps from one set of weights made
+    from the seed: float32 through the kernels against the plain route
+    (dropout 0.1, the same masks from the same seed; the train phase's
+    limits), bf16 O2 against the plain O2 path's rounding floor, 12
+    launches a step of each flash kernel with no plain and no dense call;
+    a masked evaluation forward on the dense route; ms a step and a
+    profiled step of each precision; the flash kernels at this shape beside
+    SDPA and their bound; then the sweep of every layer class the slice
+    ported, card against CPU."""
+    import torch
+    import paddle_tpu_torch as paddle
+    script = _load_script(ENCODER_SCRIPT, "encoder_script")
+    paddle.set_device("gpu")
+    batches = script.batches_for(NN_CFG, state["seed"], NN_STEPS + 1)
+    paddle.seed(state["seed"])
+    base = script.build_model(paddle, NN_CFG)
+    init = {n: t._data.detach().clone() for n, t in base.state_dict().items()}
+    n_params = sum(p.size for p in base.parameters())
+    del base
+    per_step = {k: NN_CFG["layers"] for k in ("flash_fwd", "flash_bwd_dq",
+                                              "flash_bwd_dkv")}
+    out = {"config": "bert_base encoder classifier (Paddle-style script)",
+           "params": n_params, "batch": NN_CFG["batch"],
+           "seq": NN_CFG["seq"], "steps": NN_STEPS,
+           "dropout": NN_CFG["dropout"]}
+    k32 = _nn_run(script, paddle, init, batches, None, False)
+    _require_launches("nn float32", k32["counts"], per_step, NN_STEPS)
+    require(k32["counts"]["dense_calls"] == 0,
+            "nn: the dense attention ran on the main path")
+    p32 = _nn_run(script, paddle, init, batches, None, True)
+    require(sum(p32["counts"]["launches"].values()) == 0,
+            f"nn: the plain path launched a kernel: {p32['counts']}")
+    out.update(_nn_f32_check(k32, p32, init))
+    out["ref64"] = _nn_ref64(script, paddle, init, batches[0],
+                             {"kernels": k32, "plain": p32})
+    out["f32_launches"] = k32["counts"]["launches"]
+    out["f32_plain_calls"] = k32["counts"]["plain_calls"]
+    out["masked_eval"] = _nn_masked_eval(script, paddle, k32["model"],
+                                         batches[-1], state["seed"] + 1)
+    ref32 = {"losses": p32["losses"], "params": p32["params"]}
+    del p32
+
+    def timed_steps(run, amp):
+        # one step first: the float64 reference and the evaluation
+        # forwards left the allocator's cache in another shape
+        script.take_step(paddle, run["model"], run["opt"], batches[-1], amp)
+
+        def window():
+            for b in batches[:NN_STEPS]:
+                script.take_step(paddle, run["model"], run["opt"], b, amp)
+        wall, _ = _timed_window(window, NN_STEPS)
+        return wall / NN_STEPS * 1e3
+    out["f32_step_ms"] = timed_steps(k32, None)
+    out["f32_step_profile"] = device_profile(
+        lambda: (script.take_step(paddle, k32["model"], k32["opt"],
+                                  batches[0]), torch.cuda.synchronize()), 1)
+    del k32
+    torch.cuda.empty_cache()
+    kb = _nn_run(script, paddle, init, batches, "bfloat16", False)
+    _require_launches("nn bf16 O2", kb["counts"], per_step, NN_STEPS)
+    require(kb["counts"]["dense_calls"] == 0,
+            "nn: the dense attention ran on the O2 path")
+    pb = _nn_run(script, paddle, init, batches, "bfloat16", True)
+
+    def l2(a):
+        return float(torch.sqrt(sum(((a[n] - p).double() ** 2).sum()
+                                    for n, p in ref32["params"].items())))
+    o2 = {"losses_kernel": kb["losses"], "losses_plain": pb["losses"],
+          "loss_kernel": max(abs(a - b) for a, b in zip(kb["losses"],
+                                                        ref32["losses"])),
+          "loss_plain": max(abs(a - b) for a, b in zip(pb["losses"],
+                                                       ref32["losses"])),
+          "params_l2_kernel": l2(kb["params"]),
+          "params_l2_plain": l2(pb["params"]),
+          "launches": kb["counts"]["launches"],
+          "plain_calls": kb["counts"]["plain_calls"]}
+    out["o2"] = o2
+    for what in ("loss", "params_l2"):
+        k, p = o2[f"{what}_kernel"], o2[f"{what}_plain"]
+        require(k <= BF16_FLOOR_FACTOR * p,
+                f"nn: O2 {what} {k:.3e} from float32, beyond "
+                f"{BF16_FLOOR_FACTOR} x the plain path's {p:.3e}")
+    del pb, ref32
+    torch.cuda.empty_cache()
+    out["bf16_step_ms"] = timed_steps(kb, "bfloat16")
+    out["bf16_step_profile"] = device_profile(
+        lambda: (script.take_step(paddle, kb["model"], kb["opt"], batches[0],
+                                  "bfloat16"), torch.cuda.synchronize()), 1)
+    del kb
+    torch.cuda.empty_cache()
+    for prec in ("f32", "bf16"):
+        out[f"{prec}_device_busy_share_of_step"] = \
+            out[f"{prec}_step_profile"]["device_busy_ms_per_step"] / \
+            out[f"{prec}_step_ms"]
+    log("nn: " + json.dumps({k: v for k, v in out.items()
+                             if not k.endswith("_step_profile")}))
+    for prec in ("f32", "bf16"):
+        log(f"nn: {prec} step profile "
+            + json.dumps(out[f"{prec}_step_profile"]))
+    # the flash kernels at the script's shape (bidirectional, D=64)
+    rows = {}
+    d = NN_CFG["hidden"] // NN_CFG["heads"]
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd = _flash_case(NN_CFG["batch"], NN_CFG["seq"], NN_CFG["heads"], d,
+                          dtype, False, state["seed"] + 92, report=True)
+        bwd = _bwd_case(NN_CFG["batch"], NN_CFG["seq"], NN_CFG["heads"], d,
+                        dtype, False, state["seed"] + 93)
+        check_bwd(bwd)
+        rows[str(dtype)[6:]] = {"fwd": fwd, "bwd": bwd}
+    out["kernel_rows"] = rows
+    out["sweep"] = _nn_sweep(paddle, state["seed"])
+    paddle.set_device("gpu")
+    state["nn"] = out
+
+
+# ---------------------------------------------------- the card/CPU sweep
+def _sweep_rand(*shape, seed=0, lo=-1.0, hi=1.0):
+    import numpy as np
+    return np.random.RandomState(seed).uniform(lo, hi, shape).astype(
+        np.float32)
+
+
+def _sweep_flat(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _sweep_flat(o)]
+    return [] if out is None else [out]
+
+
+def _sweep_side(paddle, device, make, arrays, call, state, train):
+    """One side of a sweep case on ``device``: outputs, input gradients and
+    parameter gradients as float64 numpy arrays, and the layer's state."""
+    import numpy as np
+    paddle.set_device(device)
+    paddle.seed(0)
+    layer = make(paddle) if make is not None else None
+    if layer is not None:
+        if state is not None:
+            layer.set_state_dict(state)
+        layer.train() if train else layer.eval()
+    xs = [paddle.to_tensor(a, stop_gradient=not np.issubdtype(
+        a.dtype, np.floating)) for a in arrays]
+    outs = _sweep_flat(call(paddle, layer, *xs))
+    loss = None
+    for i, o in enumerate(outs):
+        if o.stop_gradient or not str(o.dtype).startswith("float"):
+            continue
+        w = paddle.to_tensor(_sweep_rand(*o.shape, seed=50 + i))
+        loss = (o * w).sum() if loss is None else loss + (o * w).sum()
+    if loss is not None:
+        loss.backward()
+    got = [(f"output {i}", o.numpy()) for i, o in enumerate(outs)]
+    got += [(f"grad of input {i}", x.grad.numpy())
+            for i, x in enumerate(xs) if x.grad is not None]
+    if layer is not None:
+        got += [(f"grad of {n}", p.grad.numpy())
+                for n, p in layer.named_parameters() if p.grad is not None]
+        state = {k: v.numpy() for k, v in layer.state_dict().items()}
+    return [(n, a.astype(np.float64) if np.issubdtype(a.dtype, np.floating)
+             else a) for n, a in got], state
+
+
+def _sweep_case(paddle, make, arrays, call, train=True):
+    """The case on the CPU (weights from the seed), then on the card from
+    the same weights: the worst of max |card - cpu| / max |cpu| over every
+    output and gradient."""
+    import numpy as np
+    want, state = _sweep_side(paddle, "cpu", make, arrays, call, None, train)
+    got, _ = _sweep_side(paddle, "gpu", make, arrays, call, state, train)
+    require([n for n, _ in got] == [n for n, _ in want],
+            "sweep: the card and the CPU gave different tensors")
+    worst = 0.0
+    for (name, a), (_, b) in zip(got, want):
+        require(a.shape == b.shape, f"sweep: {name}: shapes {a.shape} != "
+                                    f"{b.shape}")
+        if not np.issubdtype(b.dtype, np.floating):
+            require(bool((a == b).all()), "sweep: integer outputs differ")
+            continue
+        if b.size == 0:
+            continue
+        require(bool(np.isfinite(a).all() == np.isfinite(b).all()),
+                f"sweep: {name}: non-finite values on one side only")
+        if name.endswith("k_proj.bias"):
+            # its exact gradient is zero: both sides hold rounding noise
+            require(float(np.abs(a).max()) <= 1e-5 * max(
+                1.0, float(np.abs(b).max())), f"sweep: {name} is not noise")
+            continue
+        scale = max(float(np.abs(b).max()), 1e-30)
+        worst = max(worst, float(np.abs(a - b).max()) / scale)
+    return worst
+
+
+def _sweep_cases():
+    """``(name, make(P) -> layer or None, arrays, call(P, layer, *xs),
+    limit, train)``: every layer class the slice ported (and the
+    functionals without one), at small sizes."""
+    import numpy as np
+    r = _sweep_rand
+    x1, x2, x3 = r(2, 4, 9, seed=1), r(2, 4, 7, 8, seed=2), \
+        r(1, 2, 5, 6, 4, seed=3)
+    lab = np.array([0, 4, 1, 2, 3, 1], np.int64)
+    logits, a, b_, d = r(6, 5, seed=4, lo=-3, hi=3), r(6, 8, seed=5), \
+        r(6, 8, seed=6), r(6, 8, seed=7)
+    pm1 = np.where(r(6, seed=8) > 0, 1.0, -1.0).astype(np.float32)
+    probs = r(6, 5, seed=9, lo=0.05, hi=0.95)
+    binary = (r(6, 5, seed=10) > 0).astype(np.float32)
+
+    def fwd(P, layer, *xs):
+        return layer(*xs)
+
+    def fn(f):
+        return lambda P, layer, *xs: f(P.nn.functional, *xs)
+    L, S = SWEEP_LOOSE, SWEEP_LIMIT
+    cases = [
+        # convolutions
+        ("Conv1D", lambda P: P.nn.Conv1D(4, 6, 3, padding="SAME"), [x1],
+         fwd, L),
+        ("Conv2D", lambda P: P.nn.Conv2D(4, 6, 3, 2, 1, groups=2,
+                                         padding_mode="reflect"), [x2], fwd,
+         L),
+        ("Conv3D", lambda P: P.nn.Conv3D(2, 3, 2, padding=[1, 0, 1]), [x3],
+         fwd, L),
+        ("Conv1DTranspose", lambda P: P.nn.Conv1DTranspose(
+            4, 3, 3, 2, 1, output_padding=1), [x1], fwd, L),
+        ("Conv2DTranspose", lambda P: P.nn.Conv2DTranspose(
+            4, 6, 3, 2, "SAME", groups=2), [x2], fwd, L),
+        ("Conv3DTranspose", lambda P: P.nn.Conv3DTranspose(2, 3, 2, 2),
+         [x3], fwd, L),
+        # pools
+        ("MaxPool1D", lambda P: P.nn.MaxPool1D(3, 2, 1), [x1], fwd, S),
+        ("MaxPool2D", lambda P: P.nn.MaxPool2D(3, 2, [[0, 1], [1, 2]]), [x2],
+         fwd, S),
+        ("MaxPool3D", lambda P: P.nn.MaxPool3D(2, ceil_mode=True), [x3],
+         fwd, S),
+        ("AvgPool1D", lambda P: P.nn.AvgPool1D(3, 2, 1, exclusive=False),
+         [x1], fwd, S),
+        ("AvgPool2D", lambda P: P.nn.AvgPool2D(3, 2, "SAME"), [x2], fwd, S),
+        ("AvgPool3D", lambda P: P.nn.AvgPool3D(2, 1, 1), [x3], fwd, S),
+        ("AdaptiveAvgPool1D", lambda P: P.nn.AdaptiveAvgPool1D(4), [x1], fwd,
+         S),
+        ("AdaptiveAvgPool2D", lambda P: P.nn.AdaptiveAvgPool2D([3, 5]), [x2],
+         fwd, S),
+        ("AdaptiveAvgPool3D", lambda P: P.nn.AdaptiveAvgPool3D(2), [x3], fwd,
+         S),
+        ("AdaptiveMaxPool1D", lambda P: P.nn.AdaptiveMaxPool1D(
+            4, return_mask=True), [x1], fwd, S),
+        ("AdaptiveMaxPool2D", lambda P: P.nn.AdaptiveMaxPool2D(3), [x2], fwd,
+         S),
+        ("AdaptiveMaxPool3D", lambda P: P.nn.AdaptiveMaxPool3D(2), [x3], fwd,
+         S),
+        ("MaxUnPool1D", lambda P: P.nn.MaxUnPool1D(2), [x1],
+         lambda P, l, x: l(*P.nn.functional.max_pool1d(
+             x, 2, return_mask=True)), S),
+        ("MaxUnPool2D", lambda P: P.nn.MaxUnPool2D(2), [x2],
+         lambda P, l, x: l(*P.nn.functional.max_pool2d(
+             x, 2, return_mask=True)), S),
+        ("MaxUnPool3D", lambda P: P.nn.MaxUnPool3D(2), [x3],
+         lambda P, l, x: l(*P.nn.functional.max_pool3d(
+             x, 2, return_mask=True)), S),
+        # norms
+        ("BatchNorm", lambda P: P.nn.BatchNorm(4), [x2], fwd, S),
+        ("BatchNorm1D", lambda P: P.nn.BatchNorm1D(4), [x1], fwd, S),
+        ("BatchNorm2D", lambda P: P.nn.BatchNorm2D(4, data_format="NHWC"),
+         [x2.transpose(0, 2, 3, 1).copy()], fwd, S),
+        ("BatchNorm3D", lambda P: P.nn.BatchNorm3D(2), [x3], fwd, S),
+        ("SyncBatchNorm", lambda P: P.nn.SyncBatchNorm(4), [x2], fwd, S),
+        ("GroupNorm", lambda P: P.nn.GroupNorm(2, 4), [x2], fwd, S),
+        ("InstanceNorm1D", lambda P: P.nn.InstanceNorm1D(4), [x1], fwd, S),
+        ("InstanceNorm2D", lambda P: P.nn.InstanceNorm2D(4), [x2], fwd, S),
+        ("InstanceNorm3D", lambda P: P.nn.InstanceNorm3D(2), [x3], fwd, S),
+        ("LocalResponseNorm", lambda P: P.nn.LocalResponseNorm(3), [x2],
+         fwd, S),
+        ("SpectralNorm", lambda P: P.nn.SpectralNorm([4, 7], power_iters=2),
+         [r(4, 7, 3, seed=11)], fwd, S),
+        # paddings and the common layers
+        ("Pad1D", lambda P: P.nn.Pad1D([1, 2], mode="reflect"), [x1], fwd,
+         S),
+        ("Pad2D", lambda P: P.nn.Pad2D([1, 0, 2, 1], mode="circular"), [x2],
+         fwd, S),
+        ("Pad3D", lambda P: P.nn.Pad3D([1, 1, 0, 1, 2, 0],
+                                       mode="replicate"), [x3], fwd, S),
+        ("ZeroPad2D", lambda P: P.nn.ZeroPad2D([1, 1, 0, 2]), [x2], fwd, S),
+        ("Upsample", lambda P: P.nn.Upsample(scale_factor=2,
+                                             mode="bilinear"), [x2], fwd, S),
+        ("UpsamplingBilinear2D", lambda P: P.nn.UpsamplingBilinear2D(
+            size=[9, 11]), [x2], fwd, S),
+        ("UpsamplingNearest2D", lambda P: P.nn.UpsamplingNearest2D(
+            size=[9, 11]), [x2], fwd, S),
+        ("Bilinear", lambda P: P.nn.Bilinear(8, 8, 3), [a, b_], fwd, S),
+        ("PixelShuffle", lambda P: P.nn.PixelShuffle(2), [x2], fwd, S),
+        ("PixelUnshuffle", lambda P: P.nn.PixelUnshuffle(2),
+         [r(2, 2, 4, 6, seed=12)], fwd, S),
+        ("ChannelShuffle", lambda P: P.nn.ChannelShuffle(2), [x2], fwd, S),
+        ("CosineSimilarity", lambda P: P.nn.CosineSimilarity(), [a, b_],
+         fwd, S),
+        ("PairwiseDistance", lambda P: P.nn.PairwiseDistance(), [a, b_], fwd,
+         S),
+        ("Unfold", lambda P: P.nn.Unfold(3, 1, 1), [x2], fwd, S),
+        ("Fold", lambda P: P.nn.Fold([4, 5], 2), [r(2, 12, 12, seed=13)],
+         fwd, S),
+        ("Dropout2D", lambda P: P.nn.Dropout2D(0.5), [x2], fwd, S, False),
+        ("Dropout3D", lambda P: P.nn.Dropout3D(0.5), [x3], fwd, S, False),
+        ("AlphaDropout", lambda P: P.nn.AlphaDropout(0.5), [x2], fwd, S,
+         False),
+        # losses
+        ("CrossEntropyLoss", lambda P: P.nn.CrossEntropyLoss(
+            weight=P.to_tensor(r(5, seed=14, lo=0.5, hi=1.5)),
+            label_smoothing=0.1), [logits, lab], fwd, S),
+        ("MSELoss", lambda P: P.nn.MSELoss(), [a, b_], fwd, S),
+        ("L1Loss", lambda P: P.nn.L1Loss(), [a, b_], fwd, S),
+        ("NLLLoss", lambda P: P.nn.NLLLoss(), [logits, lab], fwd, S),
+        ("BCELoss", lambda P: P.nn.BCELoss(), [probs, binary], fwd, S),
+        ("BCEWithLogitsLoss", lambda P: P.nn.BCEWithLogitsLoss(),
+         [logits, binary], fwd, S),
+        ("KLDivLoss", lambda P: P.nn.KLDivLoss("batchmean"),
+         [logits, probs], fwd, S),
+        ("SmoothL1Loss", lambda P: P.nn.SmoothL1Loss(delta=0.5), [a, b_],
+         fwd, S),
+        ("MarginRankingLoss", lambda P: P.nn.MarginRankingLoss(0.1),
+         [a[:, 0].copy(), b_[:, 0].copy(), pm1], fwd, S),
+        ("HingeEmbeddingLoss", lambda P: P.nn.HingeEmbeddingLoss(),
+         [a[:, 0].copy(), pm1], fwd, S),
+        ("CosineEmbeddingLoss", lambda P: P.nn.CosineEmbeddingLoss(),
+         [a, b_, pm1], fwd, S),
+        ("TripletMarginLoss", lambda P: P.nn.TripletMarginLoss(),
+         [a, b_, d], fwd, S),
+        ("SoftMarginLoss", lambda P: P.nn.SoftMarginLoss(),
+         [a[:, 0].copy(), pm1], fwd, S),
+        ("MultiMarginLoss", lambda P: P.nn.MultiMarginLoss(), [logits, lab],
+         fwd, S),
+        ("MultiLabelSoftMarginLoss", lambda P:
+         P.nn.MultiLabelSoftMarginLoss(), [logits, binary], fwd, S),
+        ("TripletMarginWithDistanceLoss", lambda P:
+         P.nn.TripletMarginWithDistanceLoss(), [a, b_, d], fwd, S),
+        ("HSigmoidLoss", lambda P: P.nn.HSigmoidLoss(8, 7),
+         [a[:4].copy(), np.array([0, 3, 6, 2], np.int64)], fwd, S),
+        ("CTCLoss", lambda P: P.nn.CTCLoss(), [
+            r(10, 3, 5, seed=15), np.array([[1, 2, 2], [3, 1, 0], [4, 4, 1]],
+                                           np.int64),
+            np.array([10, 8, 9], np.int64), np.array([3, 2, 3], np.int64)],
+         fwd, L),
+        ("RNNTLoss", lambda P: P.nn.RNNTLoss(), [
+            r(2, 5, 4, 6, seed=16), np.array([[1, 2, 3], [4, 5, 0]],
+                                             np.int64),
+            np.array([5, 4], np.int64), np.array([3, 2], np.int64)], fwd, L),
+        # functionals without a layer of their own
+        ("F.interpolate_nearest_3d", None, [x3], fn(
+            lambda F, x: F.interpolate(x, scale_factor=2,
+                                       data_format="NCDHW")), S),
+        ("F.interpolate_bicubic_area", None, [x2], fn(
+            lambda F, x: (F.interpolate(x, size=[9, 11], mode="bicubic"),
+                          F.interpolate(x, size=[3, 5], mode="area"))), S),
+        ("F.grid_sample", None, [x2, r(2, 3, 4, 2, seed=17, lo=-1.2,
+                                       hi=1.2)],
+         fn(lambda F, x, g: F.grid_sample(x, g, padding_mode="border")), S),
+        ("F.affine_grid", None, [r(2, 2, 3, seed=18)],
+         fn(lambda F, t: F.affine_grid(t, [2, 3, 4, 5])), S),
+        ("F.one_hot_label_smooth", None, [lab], fn(
+            lambda F, y: F.label_smooth(F.one_hot(y, 5))), S),
+        ("F.sequence_mask_gather_tree", None, [
+            np.array([3, 0, 5], np.int64),
+            np.random.RandomState(19).randint(0, 9, (5, 2, 3)),
+            np.random.RandomState(20).randint(0, 3, (5, 2, 3))],
+         fn(lambda F, n, i, p: (F.sequence_mask(n), F.gather_tree(i, p))),
+         S),
+        ("F.temporal_shift", None, [r(4, 8, 3, 3, seed=21)],
+         fn(lambda F, x: F.temporal_shift(x, 2)), S),
+        ("F.normalize", None, [x2], fn(lambda F, x: F.normalize(x, p=3)), S),
+        ("F.sparse_attention", None, [r(1, 2, 4, 8, seed=22)] * 3, fn(
+            lambda F, q, k, v: F.sparse_attention(
+                q, k, v, _sweep_ids([0, 1, 3, 4, 6]),
+                _sweep_ids([0, 0, 1, 1, 3, 2]))), S),
+        ("F.losses", None, [logits, lab, probs, binary], fn(
+            lambda F, x, y, p, t: (
+                F.softmax_with_cross_entropy(x, y.unsqueeze(-1)),
+                F.cross_entropy(p, y, use_softmax=False, reduction="none"),
+                F.sigmoid_focal_loss(x, t), F.dice_loss(
+                    F.softmax(x), y.unsqueeze(-1)),
+                F.npair_loss(x, p, y), F.huber_loss(x, p),
+                F.log_loss(p, t), F.square_error_cost(x, p),
+                F.margin_cross_entropy(x.tanh(), y))), S),
+        # recurrent layers
+        ("SimpleRNN", lambda P: P.nn.SimpleRNN(4, 6), [r(3, 5, 4, seed=23)],
+         fwd, L),
+        ("LSTM", lambda P: P.nn.LSTM(4, 6, 2, "bidirect"),
+         [r(3, 5, 4, seed=23)], fwd, L),
+        ("GRU", lambda P: P.nn.GRU(4, 6, 2, "bidirect", time_major=True),
+         [r(5, 3, 4, seed=23)], fwd, L),
+        ("SimpleRNNCell", lambda P: P.nn.SimpleRNNCell(4, 6),
+         [r(3, 4, seed=24)], fwd, L),
+        ("LSTMCell", lambda P: P.nn.LSTMCell(4, 6), [r(3, 4, seed=24)], fwd,
+         L),
+        ("GRUCell", lambda P: P.nn.GRUCell(4, 6), [r(3, 4, seed=24)], fwd,
+         L),
+        ("RNN", lambda P: P.nn.RNN(P.nn.GRUCell(4, 6), is_reverse=True),
+         [r(3, 5, 4, seed=23)], fwd, L),
+        ("BiRNN", lambda P: P.nn.BiRNN(P.nn.LSTMCell(4, 6),
+                                       P.nn.SimpleRNNCell(4, 6)),
+         [r(3, 5, 4, seed=23)], fwd, L),
+        # transformer layers: head_dim 64, so the attention without a mask
+        # runs the flash kernels on the card (the cross-attention at
+        # Sq != Sk, forward and backward)
+        ("MultiHeadAttention", lambda P: P.nn.MultiHeadAttention(128, 2),
+         [r(2, 6, 128, seed=25), r(2, 10, 128, seed=26)],
+         lambda P, l, q, kv: l(q, kv, kv), L),
+        ("TransformerEncoderLayer", lambda P: P.nn.TransformerEncoderLayer(
+            128, 2, 256, dropout=0.0, activation="gelu"),
+         [r(2, 6, 128, seed=25)], fwd, L),
+        ("TransformerEncoder", lambda P: P.nn.TransformerEncoder(
+            P.nn.TransformerEncoderLayer(128, 2, 256, dropout=0.0,
+                                         normalize_before=True), 2,
+            P.nn.LayerNorm(128)), [r(2, 6, 128, seed=25)],
+         lambda P, l, x: l(x, _sweep_mask(P, 6)), L),
+        ("TransformerDecoderLayer", lambda P: P.nn.TransformerDecoderLayer(
+            128, 2, 256, dropout=0.0), [r(2, 6, 128, seed=25),
+                                        r(2, 10, 128, seed=26)], fwd, L),
+        ("TransformerDecoder", lambda P: P.nn.TransformerDecoder(
+            P.nn.TransformerDecoderLayer(128, 2, 256, dropout=0.0), 2),
+         [r(2, 6, 128, seed=25), r(2, 10, 128, seed=26)],
+         lambda P, l, t, m: l(
+             t, m, P.nn.Transformer.generate_square_subsequent_mask(6)), L),
+        ("Transformer", lambda P: P.nn.Transformer(128, 2, 1, 2, 256,
+                                                   dropout=0.0),
+         [r(2, 10, 128, seed=26), r(2, 6, 128, seed=25)], fwd, L),
+    ]
+    return [c if len(c) == 6 else c + (True,) for c in cases]
+
+
+def _sweep_ids(values):
+    """An int64 tensor on the current device."""
+    import numpy as np
+    from paddle_tpu_torch.core.tensor import to_tensor
+    return to_tensor(np.asarray(values, np.int64))
+
+
+def _sweep_mask(P, s):
+    import numpy as np
+    keep = np.ones((2, 1, 1, s), bool)
+    keep[1, ..., s - 2:] = False
+    return P.to_tensor(keep)
+
+
+def _sweep_greedy(paddle, model, src, steps):
+    """A cached greedy decode of ``steps`` positions through
+    ``TransformerDecoder.gen_cache`` (one query row a step against every
+    cached key, and against the memory): the outputs of every step and the
+    tokens."""
+    import numpy as np
+    emb = paddle.to_tensor(_sweep_rand(7, 128, seed=30))
+    proj = _sweep_rand(128, 7, seed=31)
+    model.eval()
+    with paddle.no_grad():
+        memory = model.encoder(paddle.to_tensor(src))
+        cache = model.decoder.gen_cache(memory)
+        tok = np.zeros((src.shape[0], 1), np.int64)
+        outs, toks = [], [tok]
+        for _ in range(steps):
+            x = paddle.nn.functional.embedding(paddle.to_tensor(toks[-1]),
+                                               emb)
+            y, cache = model.decoder(x, memory, cache=cache)
+            outs.append(y.numpy()[:, 0].astype(np.float64))
+            toks.append((outs[-1] @ proj).argmax(-1)[:, None])
+    return np.stack(outs), np.concatenate(toks, 1)
+
+
+def _sweep_decodes(paddle, seed) -> dict:
+    """The transformer's cached greedy decode (kernels on the card against
+    their plain versions there, and against the CPU; every flash launch at
+    Sq != Sk also held against the plain version on its own inputs) and
+    beam search over an LSTMCell (card against CPU)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import flash_attention as fa
+    src = _sweep_rand(2, 10, 128, seed=32)
+    paddle.set_device("cpu")
+    paddle.seed(seed)
+    cpu_model = paddle.nn.Transformer(128, 2, 1, 2, 256, dropout=0.0)
+    state = {k: v.numpy() for k, v in cpu_model.state_dict().items()}
+    cpu_out, cpu_toks = _sweep_greedy(paddle, cpu_model, src, 5)
+    paddle.set_device("gpu")
+    model = paddle.nn.Transformer(128, 2, 1, 2, 256, dropout=0.0)
+    model.set_state_dict(state)
+    orig, inner = fa.flash_attention_fwd, {"calls": 0, "max_abs_err": 0.0,
+                                           "shapes": set()}
+
+    def held(q, k, v, causal=True, scale=None):
+        out, lse = orig(q, k, v, causal=causal, scale=scale)
+        if q.shape[1] != k.shape[1]:
+            ref, _ = ca.mha_fwd_reference(q, k, v, causal=causal,
+                                          scale=scale)
+            inner["calls"] += 1
+            inner["max_abs_err"] = max(inner["max_abs_err"],
+                                       max_abs_err(out, ref))
+            inner["shapes"].add((q.shape[1], k.shape[1]))
+        return out, lse
+    fa.flash_attention_fwd = held
+    try:
+        _reset_counts()
+        card_out, card_toks = _sweep_greedy(paddle, model, src, 5)
+        launches = _read_counts()["launches"]["flash_fwd"]
+    finally:
+        fa.flash_attention_fwd = orig
+    with _plain_attention():
+        plain_out, plain_toks = _sweep_greedy(paddle, model, src, 5)
+    scale = float(np.abs(plain_out).max())
+    res = {"flash_launches": launches, "sq_ne_sk_calls": inner["calls"],
+           "sq_ne_sk_shapes": sorted(inner["shapes"]),
+           "sq_ne_sk_max_abs_err": inner["max_abs_err"],
+           "vs_plain": float(np.abs(card_out - plain_out).max()) / scale,
+           "vs_cpu": float(np.abs(card_out - cpu_out).max()) / scale}
+    require(launches > 0 and inner["calls"] > 0,
+            f"sweep: the cached decode launched no flash kernel at Sq != Sk "
+            f"({res})")
+    require(inner["max_abs_err"] <= 2e-5,
+            f"sweep: flash at Sq != Sk differs from the plain version by "
+            f"{inner['max_abs_err']:.2e}")
+    require(res["vs_plain"] <= SWEEP_LOOSE and res["vs_cpu"] <= SWEEP_LOOSE,
+            f"sweep: cached decode differs: {res}")
+    require(bool((card_toks == plain_toks).all() and
+                 (card_toks == cpu_toks).all()),
+            "sweep: cached greedy decode picked other tokens")
+    res["beam_search"] = _sweep_beam(paddle, seed)
+    return res
+
+
+def _sweep_beam(paddle, seed) -> float:
+    import numpy as np
+    ids, scores = {}, {}
+    state = None
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        paddle.seed(seed)
+        cell = paddle.nn.LSTMCell(4, 6)
+        emb = paddle.nn.Embedding(9, 4)
+        out = paddle.nn.Linear(6, 9)
+        if state is None:
+            state = [m.state_dict() for m in (cell, emb, out)]
+            state = [{k: v.numpy() for k, v in s.items()} for s in state]
+        for m, s in zip((cell, emb, out), state):
+            m.set_state_dict(s)
+        dec = paddle.nn.BeamSearchDecoder(cell, 0, 1, 3, emb, out)
+        ref = paddle.to_tensor(np.zeros((2, 4), np.float32))
+        i, sc = paddle.nn.dynamic_decode(
+            dec, inits=cell.get_initial_states(ref), max_step_num=6)
+        ids[dev], scores[dev] = i.numpy(), sc.numpy()
+    require(bool((ids["cpu"] == ids["gpu"]).all()),
+            "sweep: beam search picked other ids on the card")
+    err = float(np.abs(scores["cpu"] - scores["gpu"]).max())
+    require(err <= SWEEP_LIMIT * max(1.0, float(np.abs(scores["cpu"]).max())),
+            f"sweep: beam scores differ by {err:.2e}")
+    return err
+
+
+def _nn_sweep(paddle, seed) -> dict:
+    """Every layer class the slice ported, built once at a small size with
+    the same weights on the card and on the CPU, forward and backward in
+    float32 with TF32 off; the worst error per layer printed on a line of
+    its own."""
+    worst = {}
+    for name, make, arrays, call, limit, train in _sweep_cases():
+        err = _sweep_case(paddle, make, arrays, call, train)
+        worst[name] = err
+        require(err <= limit, f"sweep: {name} differs by {err:.2e} of its "
+                              f"largest, beyond {limit}")
+    decodes = _sweep_decodes(paddle, seed)
+    short = _sweep_short_windows(seed)
+    log("nn sweep: " + json.dumps({"worst_rel_err": worst,
+                                   "decodes": decodes,
+                                   "short_windows": short}))
+    return {"worst_rel_err": worst, "decodes": decodes,
+            "short_windows": short, "layers": len(worst)}
+
+
+def _sweep_short_windows(seed) -> list:
+    """The 16-bit backward kernels at query windows whose length is not a
+    multiple of 4 (a small MHA's, a short sequence's), which the wrapper
+    pads: against the plain version by the kernels phase's limits."""
+    import torch
+    rows = []
+    for b, s, h, d, dtype, causal, sk in (
+            (2, 6, 2, 64, torch.bfloat16, False, 10),
+            (2, 9, 2, 64, torch.bfloat16, True, None),
+            (3, 15, 4, 128, torch.float16, False, 40),
+            (2, 1, 3, 64, torch.bfloat16, False, 7)):
+        row = _bwd_case(b, s, h, d, dtype, causal, seed + 94, sk=sk)
+        check_bwd(row)
+        rows.append({k: row[k] for k in ("case", "dq_grad_err",
+                                         "dk_grad_err", "dv_grad_err")})
+    return rows
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -4771,7 +5634,11 @@ def kernels_line(state) -> dict:
     The families phase's bf16 runs (the GPT-2 sizes, BERT-base, the
     ERNIE-10B forward) count in the bf16 entries, and each flash entry
     lists its times at those configurations' shapes (``family_shapes``).
-    The inference phase's bf16 server run counts in ``flash_fwd`` (its
+    The api and nn phases' Paddle-style scripts count their bf16 O2 steps
+    in the bf16 entries and their float32 steps in the float32 ones, each
+    entry listing its times at the script's shape (``api_shape``,
+    ``nn_shape``). The inference phase's bf16 server run counts in
+    ``flash_fwd`` (its
     times at the Predictor's shape and the server's: ``serving_shapes``),
     its float32 server run in ``flash_fwd_f32``, the float32 forward's
     entry, timed at the Predictor's shape and at the server's (with the
@@ -4798,12 +5665,14 @@ def kernels_line(state) -> dict:
     fam_fwd = sum(t["flash_fwd"] for t in fam_train) + \
         fam["ernie"]["ernie_3_0_10b"]["launches"]["flash_fwd"]
     infer = state["inference"]["server"]
-    api = state["api"]
+    api, nn = state["api"], state["nn"]
     api_o2, api_f32 = api["o2"]["launches"], api["f32_launches"]
+    nn_o2, nn_f32 = nn["o2"]["launches"], nn["f32_launches"]
 
-    def api_row(dtype, part, kname=None):
-        """The flash kernel at the Paddle script's shape (the api phase)."""
-        r = api["kernel_rows"][dtype][part]
+    def api_row(dtype, part, kname=None, phase=api):
+        """The flash kernel at a Paddle script's shape (the api phase's, or
+        the nn phase's)."""
+        r = phase["kernel_rows"][dtype][part]
         if kname is None:
             keys = ("case", "ms", "bound_ms", "bound_by", "plain_ms",
                     "library_ms", "max_abs_err")
@@ -4820,7 +5689,8 @@ def kernels_line(state) -> dict:
              + train["flash_fwd"]
              + sum(r["launches"]["flash_fwd"] for r in st_serve.values())
              + sum(t["flash_fwd"] for t in st_train) + fam_fwd
-             + infer["bfloat16"]["launches"] + api_o2["flash_fwd"], None),
+             + infer["bfloat16"]["launches"] + api_o2["flash_fwd"]
+             + nn_o2["flash_fwd"], None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
              + st_serve["bfloat16"]["launches"]["paged_attention"],
@@ -4868,7 +5738,9 @@ def kernels_line(state) -> dict:
                                                  "library_ms", "max_abs_err",
                                                  "row_err", "tflops")}
                               for r in state["flash_bf16_infer_rows"]],
-                          "api_shape": api_row("bfloat16", "fwd")})
+                          "api_shape": api_row("bfloat16", "fwd"),
+                          "nn_shape": api_row("bfloat16", "fwd",
+                                              phase=nn)})
         out.append(entry)
     # the float32-query paged kernels (decode and window), over float and
     # int8 pools: the model phase's float32 kernel runs (and its lockstep
@@ -4924,12 +5796,15 @@ def kernels_line(state) -> dict:
     out.append({"name": "flash_fwd_f32", "route": "cuda",
                 "source": ca.SOURCE, "replaces": ca.REPLACES,
                 "launches": infer["float32"]["launches"]
-                + f32_train["flash_fwd"] + api_f32["flash_fwd"],
+                + f32_train["flash_fwd"] + api_f32["flash_fwd"]
+                + nn_f32["flash_fwd"],
                 "launches_by_path": {
                     "inference_server": infer["float32"]["launches"],
                     "training_parities": f32_train["flash_fwd"],
-                    "paddle_api_script": api_f32["flash_fwd"]},
+                    "paddle_api_script": api_f32["flash_fwd"],
+                    "paddle_nn_script": nn_f32["flash_fwd"]},
                 "api_shape": api_row("float32", "fwd"),
+                "nn_shape": api_row("float32", "fwd", phase=nn),
                 "max_abs_err": max(r["max_abs_err"] for r in
                                    state["flash_f32_infer_rows"]),
                 "ms": row["ms"],
@@ -4948,10 +5823,13 @@ def kernels_line(state) -> dict:
                         ("flash_bwd_dkv", ("dk", "dv"))):
         entry = {"name": f"{name}_f32", "route": "cuda",
                  "source": cab.SOURCE, "replaces": cab.REPLACES[name],
-                 "launches": f32_train[name] + api_f32[name],
+                 "launches": f32_train[name] + api_f32[name]
+                 + nn_f32[name],
                  "launches_by_path": {"training_parities": f32_train[name],
-                                      "paddle_api_script": api_f32[name]},
-                 "api_shape": api_row("float32", "bwd", name)}
+                                      "paddle_api_script": api_f32[name],
+                                      "paddle_nn_script": nn_f32[name]},
+                 "api_shape": api_row("float32", "bwd", name),
+                 "nn_shape": api_row("float32", "bwd", name, phase=nn)}
         for prefix, r in (("", state["bwd_f32_main"]),
                           ("bert_shape_", state["bwd_f32_bert"])):
             entry.update({
@@ -4982,7 +5860,7 @@ def kernels_line(state) -> dict:
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
         launches = train[name] + sum(t[name] for t in st_train) + \
-            sum(t[name] for t in fam_train) + api_o2[name]
+            sum(t[name] for t in fam_train) + api_o2[name] + nn_o2[name]
         out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
                     "replaces": cab.REPLACES[name], "launches": launches,
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
@@ -5007,6 +5885,7 @@ def kernels_line(state) -> dict:
                     "long_shape_plain_ms": long_row["plain_ms"],
                     "long_shape_library_bwd_ms": long_row["library_bwd_ms"],
                     "api_shape": api_row("bfloat16", "bwd", name),
+                    "nn_shape": api_row("bfloat16", "bwd", name, phase=nn),
                     "long_shape_max_abs_err": max(
                         long_row[f"{g}_max_abs_err"] for g in grads),
                     "family_shapes": [
@@ -5106,7 +5985,7 @@ def main(argv=None) -> int:
            "engine": phase_engine, "serving": phase_serving,
            "train": phase_train, "stacked": phase_stacked,
            "recipe": phase_recipe, "families": phase_families,
-           "inference": phase_inference, "api": phase_api}
+           "inference": phase_inference, "api": phase_api, "nn": phase_nn}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -5126,11 +6005,11 @@ def main(argv=None) -> int:
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
-                                     "api", "total_s")
+                                     "api", "nn", "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",
-                                "inference", "api")):
+                                "inference", "api", "nn")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

@@ -10,8 +10,8 @@ ported path is a hand-written CUDA C++ kernel under ``csrc/``, built with
 ``import paddle_tpu_torch as paddle`` gives the Paddle-shaped eager API: the
 :class:`Tensor` (a wrapper over ``torch.Tensor``, ``core/tensor.py`` says
 why), the ``paddle.tensor`` op surface (also Tensor methods), autograd over
-torch's, dtypes, places, ``nn.Layer`` and the layers a transformer script
-uses, the optimizers, ``amp``, ``save``/``load``.
+torch's, dtypes, places, ``nn.Layer`` and the ``paddle.nn`` layers and
+functionals, the optimizers with the regularizers, ``amp``, ``save``/``load``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (the
 Paddle API: ``paddle.set_device("cpu")``); without a CUDA device and without
@@ -34,12 +34,13 @@ from .framework.flags import get_flags, set_flags  # noqa: F401
 from .framework.random import get_rng_state, seed, set_rng_state  # noqa
 from .framework.io import load_paddle as load, save  # noqa: F401
 from .nn.initializer_utils import ParamAttr  # noqa: F401
+from .regularizer import L1Decay, L2Decay  # noqa: F401
 
 from .tensor import *  # noqa: F401,F403  (also patches the Tensor methods)
 from . import tensor  # noqa: F401
 
 from . import (amp, core, distributed, framework, inference, io,  # noqa
-               jit, nn, optimizer, profiler, static, vision)
+               jit, nn, optimizer, profiler, regularizer, static, vision)
 
 __version__ = "0.1.0"
 

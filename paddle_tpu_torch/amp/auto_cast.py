@@ -23,11 +23,13 @@ under the reference's names (``_OP_NAMES``): ``embedding``,
 ``matmul``, ``cross_entropy``, ``gpt_stacked_decoder`` (the stacked
 decoder, one op in the reference as here: O2 casts its input and its
 stacked parameters once, O1 casts nothing, and its body runs with the rule
-suspended), and for the convolutional models ``conv2d`` (white),
+suspended), and for the convolutional models the convolutions
+(``conv1d``, ``conv2d``, ``conv3d`` and their transposes; white),
 ``batch_norm`` (black: float32 in and out, its affine parameters and
-statistics included, at either level, as the reference's O2 keeps them),
-``relu``, ``max_pool2d`` and ``adaptive_avg_pool2d``; every other torch
-call passes through unchanged. Nested
+statistics included, at either level, as the reference's O2 keeps them)
+and ``relu``; every other torch call passes through unchanged. The Paddle
+API's other ops (the pools, the other norms, the losses, ...) cast in
+:func:`core.dispatch.apply_op` by their reference names. Nested
 ``auto_cast`` blocks replace the state, as the reference's do, rather than
 stacking casts.
 """
@@ -67,11 +69,10 @@ def _op_names() -> dict:
     global _OP_NAMES
     if _OP_NAMES is None:
         from ..models.gpt import gpt_stacked_decoder
+        from ..nn.functional import conv
         from ..nn.functional.attention import scaled_dot_product_attention
-        from ..nn.functional.conv import conv2d
         from ..nn.functional.loss import cross_entropy
         from ..nn.functional.norm import batch_norm
-        from ..nn.functional.pooling import adaptive_avg_pool2d, max_pool2d
         from ..ops.flash_attention import attention_bshd
         T = torch.Tensor
         names = {
@@ -89,10 +90,11 @@ def _op_names() -> dict:
             T.__matmul__: "matmul",
             cross_entropy: "cross_entropy",
             gpt_stacked_decoder: "gpt_stacked_decoder",
-            conv2d: "conv2d", batch_norm: "batch_norm", F.relu: "relu",
-            max_pool2d: "max_pool2d",
-            adaptive_avg_pool2d: "adaptive_avg_pool2d",
+            batch_norm: "batch_norm", F.relu: "relu",
         }
+        for n in (1, 2, 3):
+            for op in (f"conv{n}d", f"conv{n}d_transpose"):
+                names[getattr(conv, op)] = op
         _OP_NAMES = names
     return _OP_NAMES
 

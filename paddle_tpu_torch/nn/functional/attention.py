@@ -11,20 +11,28 @@ dense path is the reference's own route for a mask or dropout, not a shape a
 kernel refused: its calls count in ``dense_calls`` (a plain module-level
 integer), apart from the kernels' ``plain_calls``. Probability dropout
 inside the flash kernels would be a feature the reference lacks.
+
+``sparse_attention`` (the reference's ``:99-156``) is masked dense attention
+from a concrete CSR pattern: the pattern becomes an additive mask on the
+host and the call goes through :func:`sdpa_dense`, as the reference
+computes it densely.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.overrides import handle_torch_function, has_torch_function
 
+from ...core.dispatch import apply_op
 from ...ops.cuda_attention import NEG_INF
 from ...ops.flash_attention import attention_bshd
 from .common import keep_mask
 
-__all__ = ["scaled_dot_product_attention", "sdpa_dense", "flash_attention"]
+__all__ = ["scaled_dot_product_attention", "sdpa_dense", "flash_attention",
+           "sparse_attention"]
 
 dense_calls = 0
 
@@ -97,3 +105,52 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     mask; returns ``(out, None)`` (the softmax is never materialised)."""
     return scaled_dot_product_attention(query, key, value, None, dropout,
                                         causal, training), None
+
+
+def _csr_allowed(offsets, columns, s: int) -> np.ndarray:
+    """The dense ``[..., s, s]`` allow-mask of CSR rows (``offsets``
+    ``[..., s + 1]``, ``columns`` ``[..., nnz]``)."""
+    lead = offsets.shape[:-1]
+    offs = offsets.reshape(-1, offsets.shape[-1])
+    cols = columns.reshape(-1, columns.shape[-1])
+    out = np.zeros((offs.shape[0], s, s), bool)
+    for i in range(offs.shape[0]):
+        for r in range(s):
+            out[i, r, cols[i, offs[i, r]:offs[i, r + 1]]] = True
+    return out.reshape(lead + (s, s))
+
+
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """Attention of ``[B, H, S, D]`` tensors restricted to a CSR pattern
+    (``[B, H, S + 1]`` offsets and ``[B, H, nnz]`` columns, or one pattern
+    for all): positions outside it, and keys where ``key_padding_mask``
+    ``[B, S]`` is 0, get -1e30 before the softmax; ``attn_mask`` is added.
+    Returns ``[B, H, S, D]``."""
+    def host(t):
+        t = t._data if hasattr(t, "_data") else t
+        return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+
+    def fn(q, k, v, *extra):
+        s = q.shape[-2]
+        allowed = torch.as_tensor(_csr_allowed(
+            host(sparse_csr_offset), host(sparse_csr_columns), s),
+            device=q.device)
+        if allowed.dim() == 2:
+            allowed = allowed[None, None]
+        neg = torch.tensor(-1e30, dtype=torch.float32, device=q.device)
+        mask = torch.where(allowed, torch.zeros((), device=q.device), neg)
+        i = 0
+        if key_padding_mask is not None:
+            keep = extra[i].to(torch.bool)[:, None, None, :]
+            mask = torch.where(keep, mask, mask + neg)
+            i += 1
+        if attn_mask is not None:
+            mask = mask + extra[i].float()
+        out = sdpa_dense(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), mask)
+        return out.transpose(1, 2)
+    extra = tuple(t for t in (key_padding_mask, attn_mask) if t is not None)
+    return apply_op("sparse_attention", fn, query, key, value, *extra)

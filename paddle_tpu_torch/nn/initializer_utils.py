@@ -1,5 +1,7 @@
 """``ParamAttr`` and parameter construction: the port of
-``paddle_tpu/nn/initializer_utils.py``."""
+``paddle_tpu/nn/initializer_utils.py``. A ``regularizer``
+(``paddle_tpu_torch.regularizer``) rides on the parameter, where the
+optimizers read it."""
 from __future__ import annotations
 
 from ..core.tensor import Parameter
@@ -13,10 +15,6 @@ class ParamAttr:
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
                  regularizer=None, trainable=True, do_model_average=True,
                  need_clip=True):
-        if regularizer is not None:
-            raise NotImplementedError(
-                "regularizer objects are not ported yet (ROADMAP queue 1, "
-                "item 5d part 2)")
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
@@ -47,6 +45,7 @@ def create_parameter_with_attr(shape, dtype, attr=None, is_bias=False,
                 dtype_mod.to_torch_dtype(dtype or "float32"))
     p = Parameter(data, name=attr.name, trainable=attr.trainable)
     p.optimize_attr = {"learning_rate": attr.learning_rate}
+    p.regularizer = attr.regularizer
     p.need_clip = attr.need_clip
     p.is_bias = is_bias
     return p

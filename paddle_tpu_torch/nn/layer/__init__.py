@@ -1,15 +1,23 @@
 """Layers of the port (the GPT and BERT modules live in ``models/``)."""
 from .activation import *  # noqa: F401,F403
-from .activation import __all__ as _activations
-from .common import Dropout, Embedding, Flatten, Identity, Linear
+from .activation import __all__ as _activation
+from .common import *  # noqa: F401,F403
+from .common import __all__ as _common
 from .container import LayerDict, LayerList, ParameterList, Sequential
-from .conv import Conv2D
+from .conv import *  # noqa: F401,F403
+from .conv import __all__ as _conv
 from .layers import Layer
-from .loss import CrossEntropyLoss
-from .norm import BatchNorm2D, LayerNorm
-from .pooling import AdaptiveAvgPool2D, MaxPool2D
+from .loss import *  # noqa: F401,F403
+from .loss import __all__ as _loss
+from .norm import *  # noqa: F401,F403
+from .norm import __all__ as _norm
+from .pooling import *  # noqa: F401,F403
+from .pooling import __all__ as _pooling
+from .rnn import *  # noqa: F401,F403
+from .rnn import __all__ as _rnn
+from .transformer import *  # noqa: F401,F403
+from .transformer import __all__ as _transformer
 
-__all__ = ["Layer", "Dropout", "Conv2D", "BatchNorm2D", "MaxPool2D",
-           "AdaptiveAvgPool2D", "Identity", "Linear", "Embedding", "Flatten",
-           "Sequential", "LayerList", "LayerDict", "ParameterList",
-           "LayerNorm", "CrossEntropyLoss"] + list(_activations)
+__all__ = (["Layer", "Sequential", "LayerList", "LayerDict", "ParameterList"]
+           + list(_activation) + list(_common) + list(_conv) + list(_loss)
+           + list(_norm) + list(_pooling) + list(_rnn) + list(_transformer))

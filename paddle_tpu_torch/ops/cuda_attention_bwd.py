@@ -188,15 +188,47 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
     return dq, dk, dv
 
 
+def _pad_rows(t, n):
+    """``t`` ``[B, S, H, D]`` with zero rows appended up to S = n."""
+    return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n - t.shape[1]))
+
+
 def _launch(lib, stream, q, k, v, do, lse, delta, dq, dk, dv, causal,
             scale):
     """Launch the two kernels of ``lib`` on ``stream`` (dq, then dk/dv) and
     count them. float32 rows that are not 16-byte aligned are copied first:
     the float32 kernels load rows with 16-byte ``cp.async`` copies, and the
-    C entry points refuse such a view."""
+    C entry points refuse such a view.
+
+    The 16-bit dk/dv kernel loads each (batch, head)'s lse and δ rows by
+    1-D TMA from ``bh · Sq + q0``, a start that must be 16-byte aligned: Sq
+    a multiple of 4. Otherwise (and more than one (batch, head)) q and dO
+    (and, causal, k and v) get zero rows up to the next multiple of 4, lse
+    and δ zeros: a zero query row with a zero dO adds nothing to dk or dv,
+    and the real rows' causal windows never reach a padded key. The padded
+    gradients' real rows are copied out."""
     if q.dtype == torch.float32:
         q, k, v, do = (_rows_aligned(t) for t in (q, k, v, do))
     b, sq, h, d = q.shape
+    if q.dtype in HALF_DTYPES and sq % 4 and b * h > 1:
+        sp = sq + (-sq) % 4
+        q, do = _pad_rows(q, sp), _pad_rows(do, sp)
+        lse = torch.nn.functional.pad(lse.reshape(b * h, sq), (0, sp - sq))
+        delta = torch.nn.functional.pad(delta.reshape(b * h, sq),
+                                        (0, sp - sq))
+        dq_p = torch.empty_like(q)
+        if causal:
+            k, v = _pad_rows(k, sp), _pad_rows(v, sp)
+            dk_p, dv_p = torch.empty_like(k), torch.empty_like(v)
+        else:
+            dk_p, dv_p = dk, dv
+        _launch(lib, stream, q, k, v, do, lse, delta, dq_p, dk_p, dv_p,
+                causal, scale)
+        dq.copy_(dq_p[:, :sq])
+        if causal:
+            dk.copy_(dk_p[:, :sq])
+            dv.copy_(dv_p[:, :sq])
+        return
     strides = _strides(q, k, v, do)
     tail = (b, h, sq, k.shape[1], d, strides, float(scale),
             int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)])

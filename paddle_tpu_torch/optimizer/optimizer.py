@@ -17,8 +17,12 @@ when ``parameters=`` holds Paddle parameters (``Layer.parameters()``);
 torch tensors carry no name of their own, so for them it is their key in
 the model's ``named_parameters()`` (``(name, tensor)`` pairs; ``TrainStep``
 names the model's parameters). A Paddle parameter's ``optimize_attr``
-learning-rate factor (``ParamAttr(learning_rate=)``) scales its step. The
-optimizer updates the torch tensors the parameters hold, in place.
+learning-rate factor (``ParamAttr(learning_rate=)``) scales its step, and
+its ``regularizer`` (``ParamAttr(regularizer=)``) adds to its gradient
+before the update, ahead of the optimizer's ``weight_decay`` (a float, or
+an ``L1Decay``/``L2Decay`` object; AdamW takes either as its decoupled
+coefficient), as the reference. The optimizer updates the torch tensors the
+parameters hold, in place.
 """
 from __future__ import annotations
 
@@ -51,14 +55,14 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
-        if weight_decay is not None and \
-                not isinstance(weight_decay, (int, float)):
-            raise NotImplementedError(
-                "regularizer objects (L1Decay/L2Decay) are not ported yet "
-                "(ROADMAP queue 1 item 5d: the rest of the surface)")
         self._lr = learning_rate
         self._grad_clip = grad_clip
-        self._l2_coeff = float(weight_decay or 0.0)
+        if weight_decay is None or isinstance(weight_decay, (int, float)):
+            self._l2_coeff = float(weight_decay or 0.0)
+            self._wd_obj = None
+        else:                       # an L1Decay / L2Decay object
+            self._wd_obj = weight_decay
+            self._l2_coeff = float(getattr(weight_decay, "coeff", 0.0))
         self._names: Dict[int, str] = {}
         self._lr_mult: Dict[int, float] = {}
         self._parameters = None
@@ -125,6 +129,15 @@ class Optimizer:
         """Decoupled weight-decay coefficient of ``p`` (AdamW)."""
         return 0.0
 
+    def _regularizer_for(self, p):
+        """The regularizer of ``p``'s gradient, the reference's precedence
+        (``paddle_tpu/optimizer/optimizer.py:130-139``): the parameter's own
+        (``ParamAttr(regularizer=)``), else the optimizer's
+        ``weight_decay`` object, else None (a float ``weight_decay`` is
+        applied as L2 by :meth:`_apply`, outside AdamW)."""
+        own = getattr(getattr(p, "_paddle", None), "regularizer", None)
+        return own if own is not None else self._wd_obj
+
     def _update_rule(self, ps, gs, lr, t, wd, state) -> None:
         """Update the parameters ``ps`` in place from their grads ``gs``
         (each in its parameter's type) and the accumulator lists in
@@ -149,8 +162,9 @@ class Optimizer:
                 g = g._data
             if g is not None:
                 groups.setdefault((self._wd_for(p), self._lr_mult.get(
-                    id(p), 1.0)), []).append((p, g))
-        for (wd, mult), pairs in groups.items():
+                    id(p), 1.0), self._regularizer_for(p)), []).append(
+                        (p, g))
+        for (wd, mult, reg), pairs in groups.items():
             start = 0
             while start < len(pairs):
                 end, n = start, 0
@@ -163,7 +177,9 @@ class Optimizer:
                 ps = [p for p, _ in chunk]
                 gs = [g if g.dtype == p.dtype else g.to(p.dtype)
                       for p, g in chunk]
-                if self._l2_coeff and not self._decoupled_wd():
+                if reg is not None:
+                    gs = reg.apply_(gs, ps)
+                elif self._l2_coeff and not self._decoupled_wd():
                     gs = torch._foreach_add(gs, ps, alpha=self._l2_coeff)
                 state = {an: [self._get_accum(an, p) for p in ps]
                          for an in self._accum_names}
@@ -319,7 +335,8 @@ class AdamW(Adam):
                  moment_dtype="float32", name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, moment_dtype=moment_dtype)
-        self._wd = float(weight_decay)
+        # a regularizer object gives its coefficient to the decoupled decay
+        self._wd = float(getattr(weight_decay, "coeff", weight_decay))
         self._apply_decay_fn = apply_decay_param_fun
 
     def _decoupled_wd(self):

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``paddle_tpu_torch`` (nor
 ``chip_smoke.py``) imports ``jax``, anything of ``paddle_tpu``, the repo's
 root ``bench.py`` or ``tools/``, and importing the whole package pulls in
-none of them."""
+none of them. The Paddle-style scripts that ``chip_smoke.py`` loads by path
+import neither at module level (their tests do, inside functions)."""
 import ast
 import subprocess
 import sys
@@ -13,6 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "bench", "tools")
+SCRIPTS = [ROOT / "tests" / "test_torch_paddle_script.py",
+           ROOT / "tests" / "test_torch_paddle_encoder_script.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -75,3 +78,16 @@ def test_importing_the_package_loads_neither():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
+def test_scripts_import_neither_at_module_level(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                _forbidden(node.module or ""):
+            bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad} at module level"
