@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe,families,inference,api,nn]
+                  recipe,families,inference,api,nn,hapi]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -37,7 +37,14 @@ Phases, each failing loudly (exit code 1, no result line):
               rows off 16-byte alignment and a NaN made on the card in dO
               (NaN exactly where the plain version has it); the training
               row also prints the kernels' and the plain version's
-              distance from a float64 backward (ref64_err). The paged
+              distance from a float64 backward (ref64_err); each backward
+              kernel is timed alone through its C entry point, by CUDA
+              events, on the operands the wrapper hands it (torch.profiler
+              only names the kernels a call ran). The forward is also
+              timed at Sq != Sk, full attention (cached decode steps, one
+              query against 128 and 512 keys, and a cross-attention of 128
+              queries over 512, at the nn phase's widths, bf16) beside
+              SDPA and its bound. The paged
               rows in float32 (the decode and window kernels over float and
               int8 pools, at the bf16 rows' shapes and edges) are launched
               twice and compared bit for bit, and a NaN made on the card in
@@ -182,10 +189,11 @@ Phases, each failing loudly (exit code 1, no result line):
               of weights: float32 through the kernels against the plain
               route (the same dropout masks from the same seed; the train
               phase's limits, the key projections' biases by Adam's
-              bound, the query projections' gradients at 3x the limit
-              and the parameters outside a band of 1e-3 of each tensor's
-              largest gradient: step 1's distance of each route from a
-              float64 run and the differences by band show why), bf16 O2 against the plain O2 path's rounding floor,
+              bound and the parameters outside a band of 1e-3 of each
+              tensor's largest gradient; step 1's distance of each route
+              from a float64 run, the kernels' query projections within
+              1.5x the plain route's), bf16 O2 against the plain O2 path's
+              rounding floor,
               12 launches a step of each flash kernel, no plain and no
               dense call in each precision; one evaluation forward under a
               bool padding mask [B, 1, 1, S] on the dense route (12 dense
@@ -205,6 +213,24 @@ Phases, each failing loudly (exit code 1, no result line):
               plain version, against the plain route and the CPU; beam
               search over an LSTMCell, card against CPU. The worst error
               per layer is printed on a line of its own.
+15. hapi    — paddle.Model (tests/test_torch_api_hapi.py, loaded by path):
+              the nn phase's classifier at the same widths and shape in
+              paddle.Model, prepared with Lamb (a linear warm-up, no
+              decay on biases and norms), CrossEntropyLoss and Accuracy;
+              fit for one epoch of 6 batches with 2 evaluation batches and
+              the LRScheduler, ModelCheckpoint and EarlyStopping callbacks,
+              evaluate and predict, through the kernels and the plain
+              route in float32 (the train phase's limits on the losses
+              and the last step's gradients, the parameters within 1e-6
+              outside the noise band and LAMB's bound, 2 lr trust a step,
+              inside it) and under amp_configs="O2" (the rounding floor);
+              12 launches of each flash kernel a training step and 12
+              forward launches an evaluation step, no plain and no dense
+              call; the logged accuracy against the steps' logits;
+              Model.save then load into a fresh model, predict bit for
+              bit; ms a step and the busy share of each precision. Then
+              the optimizer sweep: each new optimizer three steps on a
+              small net, card against CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -239,7 +265,7 @@ FMA_FLOPS_F32 = 67e12
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
-              "inference", "api", "nn")
+              "inference", "api", "nn", "hapi")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -516,7 +542,7 @@ FLASH_MS_BEFORE = {
 
 def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
                 separate=False, scale=None, unaligned=False, parent=None,
-                ref64=False):
+                ref64=False, sk=None):
     """The forward kernel against ``mha_fwd_reference``; q/k/v as strided
     views of one [B, S, H, 3, D] tensor, as the GPT layer hands them to the
     prefill, or (``separate``) as three contiguous tensors, or
@@ -525,12 +551,20 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
     ``report`` and the ``parent`` tree's forward (``--parent``), both are
     timed in turns (parent, this tree, this tree, parent). ``ref64``
     (float32) also reports the kernel's and the plain version's distance
-    from float64 attention (no gate reads it)."""
+    from float64 attention (no gate reads it). ``sk`` (full attention
+    only): s queries against k/v of that length, as views of one
+    [B, Sk, H, 2, D] tensor beside q, as a cached decode step or a
+    cross-attention hands them."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_attention as ca
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if separate:
+    if sk is not None:
+        require(not causal, "Sq != Sk rows are full attention")
+        q = torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype)
+        k, v = torch.randn(b, sk, h, 2, d, device="cuda",
+                           generator=g).to(dtype).unbind(3)
+    elif separate:
         q, k, v = (torch.randn(b, s, h, d, device="cuda",
                                generator=g).to(dtype) for _ in range(3))
     elif unaligned:
@@ -547,8 +581,8 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
     out, lse = ca.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
     torch.cuda.synchronize()
     ref, ref_lse = ca.mha_fwd_reference(q, k, v, causal=causal, scale=scale)
-    name = (f"flash_fwd B={b} S={s} H={h} D={d} {str(dtype)[6:]} "
-            f"{'causal' if causal else 'full'}"
+    name = (f"flash_fwd B={b} S={s}{f' Sk={sk}' if sk else ''} H={h} D={d} "
+            f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
             f"{' separate q/k/v' if separate else ''}"
             f"{' unaligned' if unaligned else ''}"
             f"{f' scale={scale:g}' if custom_scale else ''}")
@@ -558,8 +592,10 @@ def _flash_case(b, s, h, d, dtype, causal, seed, report=False,
     lerr = max_abs_err(lse, ref_lse)
     require(lerr <= 1e-3, f"{name}: lse max abs err {lerr:.3e}")
     elt = torch.empty((), dtype=dtype).element_size()
-    pairs = s * (s + 1) // 2 if causal else s * s
-    nbytes = 4 * b * s * h * d * elt + b * h * s * 4
+    kv_len = s if sk is None else sk
+    pairs = s * (s + 1) // 2 if causal else s * kv_len
+    # q and out, k and v once each, and lse
+    nbytes = (2 * s + 2 * kv_len) * b * h * d * elt + b * h * s * 4
     flops = 4.0 * d * b * h * pairs
     bms, by = bound_ms(nbytes, flops, dtype)
     row = {"case": name, "max_abs_err": err, "row_err": rel,
@@ -675,9 +711,9 @@ def grad_err(got, want) -> float:
 def kernel_device_ms(fn, names, iters: int = 10) -> dict:
     """Device time per call of ``fn`` of the kernels whose names contain
     each of ``names`` (torch.profiler over ``iters`` calls after a
-    warm-up): the backward wrapper launches two kernels and a reduction,
-    so events around the call cannot tell the kernels apart. A trace that
-    misses a kernel's records is taken once more."""
+    warm-up): the paged wrapper's split kernels and their combine kernel,
+    which events around the call cannot tell apart. A trace that misses a
+    kernel's records is taken once more."""
     fn()
     for attempt in range(2):
         rows, _ = _profile_rows(fn, iters)
@@ -691,8 +727,46 @@ def kernel_device_ms(fn, names, iters: int = 10) -> dict:
     return out
 
 
+def _bwd_kernel_names(fn) -> list:
+    """The backward kernels (dq and dk/dv) that one profiled call of ``fn``
+    ran, by name (torch.profiler names them; CUDA events time them)."""
+    rows, _ = _profile_rows(fn, 1)
+    names = sorted({key for key, _, _ in rows
+                    if "dq_" in key or "dkv_" in key})
+    require(any("dq_" in n for n in names) and any("dkv_" in n
+                                                   for n in names),
+            f"the profiler saw no backward kernel: {names}")
+    return names
+
+
+def _bwd_operands(q, k, v, out, lse, do, ct, scale, causal):
+    """What the backward wrapper hands the two kernels, made once: ``((q,
+    k, v, dO, lse, δ), ck)``, in float32 K and V less their means with the
+    lse that keeps p (``ck`` the keys' mean, for dQ's lse-cotangent term,
+    else None); float32 rows copied to 16-byte alignment, and 16-bit query
+    windows padded to a multiple of 4 rows, as the wrapper does."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    if q.dtype != torch.float32:
+        delta = cab._delta(out, do, ct)
+        b, sq, h, _ = q.shape
+        if sq % 4 and b * h > 1:
+            sp = sq + (-sq) % 4
+            q, do = cab._pad_rows(q, sp), cab._pad_rows(do, sp)
+            lse, delta = (F.pad(x.reshape(b * h, sq), (0, sp - sq))
+                          for x in (lse, delta))
+            if causal:
+                k, v = cab._pad_rows(k, sp), cab._pad_rows(v, sp)
+        return (q, k, v, do, lse, delta), None
+    k, v, lse, delta, ck = cab._centered(q, k, v, out, lse, do, ct, scale)
+    q, k, v, do = (ca._rows_aligned(t) for t in (q, k, v, do))
+    return (q, k, v, do, lse, delta), ck
+
+
 def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None,
-              unaligned=False, parent=None, ref64=False):
+              unaligned=False, parent=None, ref64=False, name_kernels=False):
     """The backward kernels against ``mha_bwd_reference`` (p and ds rounded
     to the input type, as the kernels and the TPU reference round them) on
     the forward kernel's out and lse, q/k/v as views of one fused
@@ -703,8 +777,10 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None,
     float32) the parent tree's two kernels and this tree's are timed in
     turns (parent, this, this, parent) on the same inputs; ``ref64`` also
     reports the kernels' and the plain version's distance from a float64
-    backward (no gate reads it). Returns the row; the limits are checked by
-    :func:`check_bwd`."""
+    backward (no gate reads it). Each kernel is timed alone by CUDA events
+    (``flash_bwd_dq_ms``, ``flash_bwd_dkv_ms``); ``name_kernels`` also lists
+    the kernels a profiled call of the wrapper ran. Returns the row; the
+    limits are checked by :func:`check_bwd`."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_attention as ca
@@ -775,17 +851,25 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None,
     def bwd():
         cab.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                 scale=scale, lse_ct=ct)
-    ms = kernel_device_ms(bwd, ("dq_", "dkv_"))
-    row["flash_bwd_dq_ms"], row["flash_bwd_dkv_ms"] = ms["dq_"], ms["dkv_"]
+    # each kernel alone through its C entry point, on the operands the
+    # wrapper hands it (made once: δ, and in float32 K and V less their
+    # means), timed by CUDA events behind the device-side sleep
+    from paddle_tpu_torch.ops import _build
+    ops, ck = _bwd_operands(q, k, v, out, lse, do, ct, scale, causal)
+    this, _ = _bwd_entries(_build.load_library(), *ops, causal, scale)
+    for kname, call in this.items():
+        row[f"{kname}_ms"] = device_ms(call)
+    # the wrapper's own passes apart: δ alone, and in float32 the centring
+    # of K and V with its δ (which replaces δ alone)
+    row["delta_only_ms"] = device_ms(lambda: cab._delta(out, do, ct))
+    if dtype == torch.float32:
+        row["centering_ms"] = device_ms(lambda: cab._centered(
+            q, k, v, out, lse, do, ct, scale))
+    if name_kernels:
+        row["kernels_seen"] = _bwd_kernel_names(bwd)
     if parent is not None:
-        # each kernel through its C entry point (the wrapper's delta made
-        # once), the parent tree's and this tree's in turns
-        from paddle_tpu_torch.ops import _build
-        delta = cab._delta(out, do, ct)
-        this, _ = _bwd_entries(_build.load_library(), q, k, v, do, lse,
-                               delta, causal, scale)
-        old, got_old = _bwd_entries(parent, q, k, v, do, lse, delta, causal,
-                                    scale)
+        # the parent tree's kernels and this tree's in turns
+        old, got_old = _bwd_entries(parent, *ops, causal, scale)
         for kname, mine in this.items():
             theirs = old[kname]
             p1, c1, c2, p2 = (device_ms(f) for f in (theirs, mine, mine,
@@ -794,6 +878,8 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None,
             row[f"{kname}_parent_ms"] = [p1, p2]
             row[f"{kname}_faster_than_parent"] = max(c1, c2) < min(p1, p2)
         torch.cuda.synchronize()
+        if ck is not None and ct is not None:
+            cab._lse_ct_term(got_old[0], ct, ck, scale)
         row["parent_max_abs_err"] = max(max_abs_err(x, y)
                                         for x, y in zip(got_old, want))
     if name in BWD_MS_BEFORE:
@@ -802,8 +888,10 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None,
         row[f"{kname}_tflops"] = flops[kname] / (row[f"{kname}_ms"] * 1e-3) \
             / 1e12
     row["bwd_ms"] = device_ms(bwd)
-    # the wrapper's delta reduction (and its allocations) beside the kernels
-    row["delta_ms"] = row["bwd_ms"] - ms["dq_"] - ms["dkv_"]
+    # the wrapper's own work beside the kernels: δ, its allocations and, in
+    # float32, the centring of K and V
+    row["delta_ms"] = row["bwd_ms"] - row["flash_bwd_dq_ms"] - \
+        row["flash_bwd_dkv_ms"]
     row["host_us"] = host_us(bwd)
     row["plain_ms"] = device_ms(lambda: cab.mha_bwd_reference(
         q, k, v, out, lse, do, causal=causal, scale=scale, lse_ct=ct),
@@ -838,7 +926,8 @@ def _bwd_case(b, s, h, d, dtype, causal, seed, lse_ct=False, sk=None,
 def _bwd_entries(lib, q, k, v, do, lse, delta, causal, scale):
     """The two backward kernels of ``lib`` (this tree's library or
     ``--parent``'s, whose C interface is this tree's) as calls of their C
-    entry points on these inputs: ``({kernel name: call}, (dq, dk, dv))``,
+    entry points on these inputs (:func:`_bwd_operands`): ``({kernel
+    name: call}, (dq, dk, dv))``,
     the outputs allocated once and written by each call. Each call launches
     one kernel and nothing else, so CUDA events time it alone; the launches
     do not count in the wrapper's ``launches``."""
@@ -1314,6 +1403,9 @@ FAMILY_FLASH_SHAPES = ((32, 512, 12, 64, False), (8, 512, 12, 64, True),
                        (16, 512, 16, 64, True), (8, 1024, 20, 64, True),
                        (4, 512, 32, 128, False))
 FAMILY_TRAIN_SHAPES = FAMILY_FLASH_SHAPES[:4]
+# (Sq, Sk) of the forward's rows at Sq != Sk: cached decode steps against
+# 128 and 512 keys, a cross-attention of 128 queries over 512
+CROSS_SHAPES = ((1, 128), (1, 512), (128, 512))
 
 
 def phase_kernels(state):
@@ -1475,9 +1567,10 @@ def phase_kernels(state):
         f"{BWD_F32_TOL} x (1 + max |plain|); two launches bit for bit)")
     parent_bwd = (_parent_flash_bwd(state["parent"]) if state.get("parent")
                   else None)
-    brow = [_bwd_case(2, 2048, 16, 128, torch.bfloat16, True, seed + 6),
+    brow = [_bwd_case(2, 2048, 16, 128, torch.bfloat16, True, seed + 6,
+                      name_kernels=True),
             _bwd_case(2, 2048, 16, 128, torch.float32, True, seed + 7,
-                      parent=parent_bwd, ref64=True),
+                      parent=parent_bwd, ref64=True, name_kernels=True),
             _bwd_case(8, 1000, 16, 128, torch.bfloat16, True, seed + 8),
             _bwd_case(2, 40, 16, 128, torch.bfloat16, True, seed + 9),
             _bwd_case(2, 40, 4, 64, torch.float32, True, seed + 9),
@@ -1537,6 +1630,17 @@ def phase_kernels(state):
         _bwd_case(b, s, h, d, torch.bfloat16, causal, seed + 80 + i)
         for i, (b, s, h, d, causal) in enumerate(FAMILY_TRAIN_SHAPES)]
     brow += state["bwd_family_rows"]
+    # the forward at Sq != Sk, full attention, at the nn phase's widths:
+    # cached decode steps of nn.MultiHeadAttention.Cache (one query against
+    # 128 and 512 keys) and a TransformerDecoder's cross-attention (128
+    # queries against a 512-token memory)
+    log("kernels: flash_fwd at Sq != Sk (cached decode, cross-attention; "
+        "bf16)")
+    state["flash_cross_rows"] = [
+        _flash_case(NN_CFG["batch"], sq, NN_CFG["heads"], 64, torch.bfloat16,
+                    False, seed + 100 + i, report=True, sk=sk)
+        for i, (sq, sk) in enumerate(CROSS_SHAPES)]
+    rows += state["flash_cross_rows"]
     for row in brow:
         check_bwd(row)
     state["bwd_rows"] = brow
@@ -4808,16 +4912,15 @@ ENCODER_SCRIPT = REPO / "tests" / "test_torch_paddle_encoder_script.py"
 K_BIAS = ".self_attn.k_proj.bias"
 # The query projections' gradients are differences of large sums: with
 # near-uniform attention over 512 keys, dq = Σ p (dp - δ) k cancels to a
-# small residue, which magnifies the rounding of either route. At step 1
-# float32 on the plain route reads 1.26e-5 of their largest from float64
-# there (the median parameter 6.0e-7) and the 3xTF32 kernels 5.0e-5; the
-# two routes read 1.02e-4 apart over three steps (NVIDIA H100 80GB HBM3,
-# 700 W, seed 0), against 6e-5 at most for every other
-# parameter. They are held to 3x the train phase's limit; every other
-# gradient to the train phase's own. The phase reports both routes' step-1
-# distance from a float64 run on the plain route (``ref64``).
+# small residue of the keys' shared part. Before the float32 backward took
+# K and V less their means (cuda_attention_bwd._centered) the 3xTF32
+# kernels left them 5.0e-5 of their largest from float64 at step 1 (the
+# plain route 1.26e-5) and the routes read 1.02e-4 apart (NVIDIA H100 80GB
+# HBM3, 700 W, seed 0). They are held to the train phase's limit like
+# every other gradient, and the kernels' step-1 distance from a float64
+# run (``ref64``) to at most Q_PROJ_REF64_FACTOR x the plain route's.
 Q_PROJ = ".self_attn.q_proj."
-Q_PROJ_GRAD_RTOL = 3 * 1e-4
+Q_PROJ_REF64_FACTOR = 1.5
 # Adam divides each element's update by its gradient's size, so an element
 # whose gradient is small against its tensor's largest turns a small
 # disagreement into a large relative one: the two routes' parameters read
@@ -4882,7 +4985,6 @@ def _nn_f32_check(k32, p32, init) -> dict:
     worst = sorted(by_param.items(), key=lambda kv: -kv[1])[:6]
     log("nn: float32 gradients, worst parameters: " + json.dumps(worst))
     q_rel = max(v for n, v in by_param.items() if Q_PROJ in n)
-    grad_rel = max(v for n, v in by_param.items() if Q_PROJ not in n)
     param_err = noise_err = kbias_moved = 0.0
     p_by = {}
     for n, p in p32["params"].items():
@@ -4935,9 +5037,6 @@ def _nn_f32_check(k32, p32, init) -> dict:
     require(grad_rel <= TRAIN_F32_GRAD_RTOL,
             f"nn: float32 gradients differ by {grad_rel:.2e} of their "
             f"largest")
-    require(q_rel <= Q_PROJ_GRAD_RTOL,
-            f"nn: float32 query-projection gradients differ by {q_rel:.2e} "
-            f"of their largest")
     require(param_err <= TRAIN_F32_PARAM_ATOL,
             f"nn: float32 parameters differ by {param_err:.2e}")
     bound = NN_STEPS * TRAIN_LR * (1 + 1e-3)
@@ -5062,6 +5161,11 @@ def phase_nn(state):
     out.update(_nn_f32_check(k32, p32, init))
     out["ref64"] = _nn_ref64(script, paddle, init, batches[0],
                              {"kernels": k32, "plain": p32})
+    qk, qp = (out["ref64"][r]["q_proj_max"] for r in ("kernels", "plain"))
+    require(qk <= Q_PROJ_REF64_FACTOR * qp,
+            f"nn: the kernels' query-projection gradients read {qk:.2e} of "
+            f"their largest from float64, beyond {Q_PROJ_REF64_FACTOR} x the "
+            f"plain route's {qp:.2e}")
     out["f32_launches"] = k32["counts"]["launches"]
     out["f32_plain_calls"] = k32["counts"]["plain_calls"]
     out["masked_eval"] = _nn_masked_eval(script, paddle, k32["model"],
@@ -5616,6 +5720,433 @@ def _sweep_short_windows(seed) -> list:
                                          "dk_grad_err", "dv_grad_err")})
     return rows
 
+# ------------------------------------------- hapi: paddle.Model on the card
+HAPI_SCRIPT = REPO / "tests" / "test_torch_api_hapi.py"
+HAPI_TRAIN_BATCHES, HAPI_EVAL_BATCHES = 6, 2
+HAPI_WARMUP = 3        # steps of LAMB's linear learning-rate warm-up
+HAPI_TIMED_STEPS = 3
+# the optimizer sweep: three steps of each new optimizer on a small net,
+# card against CPU in float32 with TF32 off, each parameter within 1e-5 of
+# its tensor's largest wherever its gradient is farther from zero than
+# NN_NOISE_BAND of the largest (elsewhere the adaptive rules turn rounding
+# into updates of up to lr)
+HAPI_SWEEP_STEPS = 3
+HAPI_SWEEP_LIMIT = 1e-5
+HAPI_SWEEP_OPTS = (
+    ("LarsMomentum", lambda O, ps: O.LarsMomentum(
+        0.1, 0.9, lars_coeff=0.01, lars_weight_decay=0.01, parameters=ps)),
+    ("LarsMomentumOptimizer", lambda O, ps: O.LarsMomentumOptimizer(
+        0.05, 0.8, parameters=ps, epsilon=1e-6, rescale_grad=0.5)),
+    ("Adagrad", lambda O, ps: O.Adagrad(0.1, parameters=ps)),
+    ("Adadelta", lambda O, ps: O.Adadelta(1.0, rho=0.9, parameters=ps)),
+    ("Adamax", lambda O, ps: O.Adamax(0.02, parameters=ps)),
+    ("RMSProp", lambda O, ps: O.RMSProp(0.01, rho=0.9, momentum=0.5,
+                                        centered=True, parameters=ps)),
+    ("Lamb", lambda O, ps: O.Lamb(
+        0.01, lamb_weight_decay=0.05, parameters=ps,
+        exclude_from_weight_decay_fn=lambda p: len(p.shape) == 1)))
+
+
+@contextlib.contextmanager
+def _lamb_trust_log(entries):
+    """Record each LAMB update's learning rate and every tensor's trust
+    ratio (0-d tensors on the device, keyed by the torch tensor's id): an
+    element whose gradient is rounding noise moves by at most 2 lr trust a
+    step on either route, LAMB's bound."""
+    from paddle_tpu_torch.optimizer import optimizer as om
+    orig_trust, orig_rule = om._trust, om.Lamb._update_rule
+    made = []
+
+    def trust(*args):
+        made.append(orig_trust(*args))
+        return made[-1]
+
+    def rule(self, ps, gs, lr, t, wd, st):
+        made.clear()
+        orig_rule(self, ps, gs, lr, t, wd, st)
+        entries.append((lr, {id(p): x for p, x in zip(ps, made[-1])}))
+    om._trust, om.Lamb._update_rule = trust, rule
+    try:
+        yield
+    finally:
+        om._trust, om.Lamb._update_rule = orig_trust, orig_rule
+
+
+def _hapi_counts_at_eval(paddle):
+    """A callback keeping the counts as the first evaluation begins: the
+    training steps' launches."""
+    class CountsAtEval(paddle.callbacks.Callback):
+        train = None
+
+        def on_eval_begin(self, logs=None):
+            if self.train is None:
+                self.train = _read_counts()
+    return CountsAtEval()
+
+
+def _hapi_batches(data, n):
+    import numpy as np
+    b = NN_CFG["batch"]
+    return [(np.stack([data[j][0] for j in range(i * b, (i + 1) * b)]),
+             np.stack([data[j][1] for j in range(i * b, (i + 1) * b)]))
+            for i in range(n)]
+
+
+def _hapi_run(h, script, paddle, init, data, amp, plain, seed, tmp):
+    """``Model(classifier).prepare(Lamb, CrossEntropyLoss, Accuracy,
+    amp_configs=amp).fit`` from ``init`` for one epoch of the training
+    batches with the evaluation batches (the callbacks of
+    ``fit_run``), through the kernels or their plain versions (the same
+    dropout masks from ``seed``); then ``evaluate`` and ``predict``. Returns
+    the losses, the last step's gradients, each parameter's noise band
+    (gradient within NN_NOISE_BAND of the largest at any step), LAMB's
+    bound per parameter, the parameters, the counts of each part and the
+    accuracy the callbacks logged against the one recomputed from the
+    steps' logits."""
+    import numpy as np
+    import torch
+    train, evald = data
+    paddle.seed(seed)
+    model = h.make_model(paddle, script, NN_CFG, init=init, amp=amp,
+                         warmup=HAPI_WARMUP)
+    net, opt = model.network, model._optimizer
+    band, last = {}, {}
+
+    def step_seeing_grads():
+        for n, p in net.named_parameters():
+            g = p.grad._data.detach().float()
+            small = g.abs() <= NN_NOISE_BAND * g.abs().max()
+            band[n] = small if n not in band else band[n] | small
+            last[n] = g.clone()
+        type(opt).step(opt)
+    opt.step = step_seeing_grads
+    logits = []
+    hook = net.register_forward_post_hook(
+        lambda layer, inputs, out: logits.append(out._data.detach().clone())
+        if layer.training else None)
+    at_eval, trust = _hapi_counts_at_eval(paddle), []
+    _reset_counts()
+    with _plain_attention() if plain else contextlib.nullcontext(), \
+            _lamb_trust_log(trust):
+        hist, events, _ = h.fit_run(paddle, model, train, evald,
+                                    NN_CFG["batch"], str(tmp / "ckpt"),
+                                    extra=(at_eval,))
+    torch.cuda.synchronize()
+    fit_counts = _read_counts()
+    hook.remove()
+    del opt.step
+    files = sorted(p.name for p in (tmp / "ckpt").iterdir())
+    for f in (tmp / "ckpt").iterdir():
+        f.unlink()
+    # the accuracy the callbacks logged, step by step, against the one
+    # recomputed from the training steps' logits and the labels
+    logged = [e[-1]["acc"] for e in events if e[0] == "train_batch_end"]
+    total, count, recomputed = 0.0, 0, []
+    for out, (_, labels) in zip(logits, _hapi_batches(train, len(logits))):
+        top = out.topk(1, dim=-1).indices[:, 0].cpu().numpy()
+        total += float((top == labels).astype(np.float32).sum())
+        count += len(labels)
+        recomputed.append(total / count)
+    with _plain_attention() if plain else contextlib.nullcontext():
+        _reset_counts()
+        ev = model.evaluate(evald, batch_size=NN_CFG["batch"], verbose=0)
+        torch.cuda.synchronize()
+        eval_counts = _read_counts()
+        _reset_counts()
+        pred = model.predict(evald, batch_size=NN_CFG["batch"])
+        torch.cuda.synchronize()
+        pred_counts = _read_counts()
+    names = {id(p._data): n for n, p in net.named_parameters()}
+    bound = {}
+    for lr, per in trust:
+        for pid, x in per.items():
+            bound[names[pid]] = bound.get(names[pid], 0.0) + 2 * lr * float(
+                x)
+    return {"losses": hist["loss"], "eval_loss": hist.get("eval_loss"),
+            "events": [e[0] for e in events], "files": files,
+            "grads": last, "band": band, "lamb_bound": bound,
+            "params": {n: p._data.detach().float().clone()
+                       for n, p in net.named_parameters()},
+            "train_counts": at_eval.train, "fit_counts": fit_counts,
+            "eval_counts": eval_counts, "pred_counts": pred_counts,
+            "acc_logged": logged, "acc_recomputed": recomputed,
+            "evaluate": ev, "pred": pred, "model": model}
+
+
+def _hapi_require_counts(tag, run):
+    """12 launches a training step of each flash kernel, 12 forward
+    launches an evaluation step (fit's, evaluate's and predict's), no plain
+    and no dense call; the accuracy the callbacks logged is the steps'
+    logits'; ModelCheckpoint wrote its files."""
+    layers = NN_CFG["layers"]
+    n_train, n_eval = HAPI_TRAIN_BATCHES, HAPI_EVAL_BATCHES
+    _require_launches(f"hapi {tag} fit's training steps",
+                      run["train_counts"],
+                      {k: layers for k in ("flash_fwd", "flash_bwd_dq",
+                                           "flash_bwd_dkv")}, n_train)
+    want = {"fit_counts": {"flash_fwd": layers * (n_train + n_eval),
+                           "flash_bwd_dq": layers * n_train,
+                           "flash_bwd_dkv": layers * n_train},
+            "eval_counts": {"flash_fwd": layers * n_eval,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}}
+    want["pred_counts"] = want["eval_counts"]
+    for part, launches in want.items():
+        c = run[part]
+        require(c["launches"] == launches,
+                f"hapi {tag} {part}: launched {c['launches']}, not "
+                f"{launches}")
+        require(not any(c["plain_calls"].values()) and
+                c["dense_calls"] == 0,
+                f"hapi {tag} {part}: plain calls {c['plain_calls']}, "
+                f"dense calls {c['dense_calls']}")
+    require(run["acc_logged"] == run["acc_recomputed"] and
+            len(run["acc_logged"]) == n_train,
+            f"hapi {tag}: the logged accuracy {run['acc_logged']} is not the "
+            f"one of the steps' logits {run['acc_recomputed']}")
+    require(run["files"] == ["0.pdopt", "0.pdparams", "final.pdopt",
+                             "final.pdparams"],
+            f"hapi {tag}: ModelCheckpoint wrote {run['files']}")
+
+
+def _hapi_f32_check(k32, p32) -> dict:
+    """float32 kernels against plain versions: losses ≤ 1e-5 relative,
+    the last step's gradients ≤ 1e-4 of each parameter's largest (the key
+    projections' biases, whose gradient is rounding noise, aside), the
+    parameters ≤ 1e-6 outside the noise band and within LAMB's bound (2 lr
+    trust a step, the larger of the two routes') inside it."""
+    import torch
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(k32["losses"], p32["losses"]))
+    by_param = {n: max_abs_err(k32["grads"][n], g) / max(
+        float(g.abs().max()), 1e-30) for n, g in p32["grads"].items()
+        if not n.endswith(K_BIAS)}
+    grad_rel = max(by_param.values())
+    q_rel = max(v for n, v in by_param.items() if Q_PROJ in n)
+    param_err = band_ratio = 0.0
+    for n, p in p32["params"].items():
+        d = (k32["params"][n] - p).abs()
+        noise = k32["band"][n] | p32["band"][n]
+        if n.endswith(K_BIAS):           # all rounding noise
+            noise = torch.ones_like(noise)
+        bound = max(k32["lamb_bound"][n], p32["lamb_bound"][n]) * (1 + 1e-3)
+        if bool((~noise).any()):
+            param_err = max(param_err, float(d[~noise].max()))
+        if bool(noise.any()):
+            band_ratio = max(band_ratio, float(d[noise].max()) / bound)
+    out = {"f32_losses": {"kernels": k32["losses"], "plain": p32["losses"]},
+           "f32_loss_rel": loss_rel, "f32_last_grad_rel_max": grad_rel,
+           "f32_q_proj_last_grad_rel_max": q_rel,
+           "f32_grad_rel_worst": sorted(by_param.items(),
+                                        key=lambda kv: -kv[1])[:6],
+           "f32_param_max_abs_err_outside_band": param_err,
+           "f32_band_err_over_lamb_bound": band_ratio}
+    require(all(math.isfinite(x) for x in k32["losses"]),
+            f"hapi: non-finite float32 loss {k32['losses']}")
+    require(loss_rel <= TRAIN_F32_LOSS_RTOL,
+            f"hapi: float32 losses differ by {loss_rel:.2e}")
+    require(grad_rel <= TRAIN_F32_GRAD_RTOL,
+            f"hapi: float32 gradients differ by {grad_rel:.2e} of their "
+            f"largest")
+    require(param_err <= TRAIN_F32_PARAM_ATOL,
+            f"hapi: float32 parameters differ by {param_err:.2e} outside "
+            f"the noise band")
+    require(band_ratio <= 1.0,
+            f"hapi: noise-band elements differ by {band_ratio:.2f} x LAMB's "
+            f"bound")
+    return out
+
+
+def _hapi_timed(paddle, model, train, tag) -> dict:
+    """ms a ``train_batch`` over HAPI_TIMED_STEPS steps after one, and a
+    profiled step (the busy share)."""
+    import torch
+    batches = [(paddle.to_tensor(x), paddle.to_tensor(y))
+               for x, y in _hapi_batches(train, HAPI_TIMED_STEPS)]
+    model.train_batch(*batches[0])
+
+    def window():
+        for x, y in batches:
+            model.train_batch(x, y)
+    wall, _ = _timed_window(window, HAPI_TIMED_STEPS)
+    prof = device_profile(lambda: (model.train_batch(*batches[0]),
+                                   torch.cuda.synchronize()), 1)
+    ms = wall / HAPI_TIMED_STEPS * 1e3
+    return {f"{tag}_step_ms": ms, f"{tag}_step_profile": prof,
+            f"{tag}_device_busy_share_of_step":
+                prof["device_busy_ms_per_step"] / ms}
+
+
+def _hapi_sweep_net(paddle, device):
+    paddle.set_device(device)
+    paddle.seed(0)
+    nn = paddle.nn
+    return nn.Sequential(nn.Linear(32, 64), nn.GELU(), nn.LayerNorm(64),
+                         nn.Linear(64, 16))
+
+
+def _hapi_sweep_side(paddle, device, make_opt, init, x):
+    """HAPI_SWEEP_STEPS steps of ``make_opt``'s optimizer on ``device`` from
+    ``init``: the parameters after and each step's gradients, float64."""
+    import numpy as np
+    net = _hapi_sweep_net(paddle, device)
+    net.set_state_dict(init)
+    opt = make_opt(paddle.optimizer, net.parameters())
+    grads = []
+    for _ in range(HAPI_SWEEP_STEPS):
+        y = net(paddle.to_tensor(x))
+        (y * y).mean().backward()
+        grads.append({n: p.grad.numpy().astype(np.float64)
+                      for n, p in net.named_parameters()})
+        opt.step()
+        opt.clear_grad()
+    return ({n: p.numpy().astype(np.float64)
+             for n, p in net.state_dict().items()}, grads)
+
+
+def _hapi_optimizer_sweep(paddle, seed) -> dict:
+    """Each new optimizer (and LarsMomentumOptimizer) three steps on a
+    small net, card against CPU from the same weights: every parameter's
+    largest difference outside the noise band over its tensor's largest,
+    held to HAPI_SWEEP_LIMIT (the band's own reported)."""
+    import numpy as np
+    x = _sweep_rand(8, 32, seed=seed + 5)
+    init = {n: t.numpy() for n, t in
+            _hapi_sweep_net(paddle, "cpu").state_dict().items()}
+    out = {}
+    for name, make in HAPI_SWEEP_OPTS:
+        cpu, grads = _hapi_sweep_side(paddle, "cpu", make, init, x)
+        card, _ = _hapi_sweep_side(paddle, "gpu", make, init, x)
+        worst = in_band = 0.0
+        for n, p in cpu.items():
+            noise = np.zeros(p.shape, bool)
+            for g in grads:
+                noise |= np.abs(g[n]) <= NN_NOISE_BAND * np.abs(g[n]).max()
+            d = np.abs(card[n] - p) / np.abs(p).max()
+            if (~noise).any():
+                worst = max(worst, float(d[~noise].max()))
+            if noise.any():
+                in_band = max(in_band, float(d[noise].max()))
+        out[name] = {"rel_err": worst, "noise_band_rel_err": in_band}
+        require(worst <= HAPI_SWEEP_LIMIT,
+                f"hapi sweep: {name}'s parameters differ by {worst:.2e} of "
+                f"their largest, card against CPU")
+    paddle.set_device("gpu")
+    log("hapi sweep: " + json.dumps(out))
+    return out
+
+
+def phase_hapi(state):
+    """paddle.Model (hapi) on the card: the nn phase's encoder classifier
+    at BERT-base's widths, B=32, S=512, wrapped in ``paddle.Model`` and
+    prepared with LAMB (a linear warm-up, no decay on biases and norms),
+    CrossEntropyLoss and Accuracy; ``fit`` for one epoch of six batches
+    with two evaluation batches and the LRScheduler, ModelCheckpoint and
+    EarlyStopping callbacks, then ``evaluate`` and ``predict``, through the
+    kernels and their plain versions in float32 (TF32 off) and under
+    ``amp_configs="O2"``; ``Model.save`` then ``load`` into a fresh model;
+    ms a step and a profiled step of each precision; then the optimizer
+    sweep, card against CPU."""
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as paddle
+    script = _load_script(ENCODER_SCRIPT, "encoder_script")
+    h = _load_script(HAPI_SCRIPT, "hapi_script")
+    paddle.set_device("gpu")
+    seed = state["seed"]
+    data = (h.samples(paddle, NN_CFG, HAPI_TRAIN_BATCHES, seed + 1),
+            h.samples(paddle, NN_CFG, HAPI_EVAL_BATCHES, seed + 2))
+    paddle.seed(seed)
+    base = script.build_model(paddle, NN_CFG)
+    init = {n: t._data.detach().clone() for n, t in base.state_dict().items()}
+    del base
+    out = {"config": "bert_base encoder classifier through paddle.Model "
+                     "(Lamb, CrossEntropyLoss, Accuracy)",
+           "batch": NN_CFG["batch"], "seq": NN_CFG["seq"],
+           "train_batches": HAPI_TRAIN_BATCHES,
+           "eval_batches": HAPI_EVAL_BATCHES, "warmup": HAPI_WARMUP,
+           "lr": NN_CFG["lr"], "dropout": NN_CFG["dropout"]}
+    with tempfile.TemporaryDirectory() as td:
+        tmp = Path(td)
+        k32 = _hapi_run(h, script, paddle, init, data, None, False, seed,
+                        tmp)
+        _hapi_require_counts("float32", k32)
+        # save, then load into a model built from another seed
+        path = str(tmp / "saved")
+        k32["model"].save(path)
+        paddle.seed(seed + 7)
+        fresh = h.make_model(paddle, script, NN_CFG)
+        fresh.load(path)
+        again = fresh.predict(data[1], batch_size=NN_CFG["batch"])
+        require(len(again) == HAPI_EVAL_BATCHES and all(
+            torch.equal(a._data, b._data)
+            for a, b in zip(k32["pred"], again)),
+            "hapi: predict after Model.load differs from the saved model's")
+        del fresh, again
+        p32 = _hapi_run(h, script, paddle, init, data, None, True, seed,
+                        tmp)
+        require(not any(p32["fit_counts"]["launches"].values()),
+                f"hapi: the plain route launched {p32['fit_counts']}")
+        out.update(_hapi_f32_check(k32, p32))
+        out["f32_evaluate"] = {"kernels": k32["evaluate"],
+                               "plain": p32["evaluate"]}
+        f32_launches = _add_launches(
+            _add_launches(k32["fit_counts"]["launches"],
+                          k32["eval_counts"]["launches"]),
+            k32["pred_counts"]["launches"])
+        ref32 = {"losses": p32["losses"], "params": p32["params"]}
+        del p32
+        out.update(_hapi_timed(paddle, k32["model"], data[0], "f32"))
+        del k32
+        torch.cuda.empty_cache()
+        kb = _hapi_run(h, script, paddle, init, data, "O2", False, seed,
+                       tmp)
+        _hapi_require_counts("bf16 O2", kb)
+        pb = _hapi_run(h, script, paddle, init, data, "O2", True, seed, tmp)
+
+        def l2(params):
+            return float(torch.sqrt(sum(
+                ((params[n] - p).double() ** 2).sum()
+                for n, p in ref32["params"].items())))
+        o2 = {"losses_kernel": kb["losses"], "losses_plain": pb["losses"],
+              "loss_kernel": max(abs(a - b) for a, b in zip(
+                  kb["losses"], ref32["losses"])),
+              "loss_plain": max(abs(a - b) for a, b in zip(
+                  pb["losses"], ref32["losses"])),
+              "params_l2_kernel": l2(kb["params"]),
+              "params_l2_plain": l2(pb["params"])}
+        out["o2"] = o2
+        for what in ("loss", "params_l2"):
+            k, p = o2[f"{what}_kernel"], o2[f"{what}_plain"]
+            require(k <= BF16_FLOOR_FACTOR * p,
+                    f"hapi: O2 {what} {k:.3e} from float32, beyond "
+                    f"{BF16_FLOOR_FACTOR} x the plain path's {p:.3e}")
+        # O2 trains in bf16 and evaluates in float32 (no AMP outside the
+        # training forward, as the reference)
+        bf16_launches = kb["train_counts"]["launches"]
+        f32_launches = _add_launches(f32_launches, {
+            k: kb["fit_counts"]["launches"][k] - n
+            + kb["eval_counts"]["launches"][k]
+            + kb["pred_counts"]["launches"][k]
+            for k, n in bf16_launches.items()})
+        del pb, ref32
+        torch.cuda.empty_cache()
+        out.update(_hapi_timed(paddle, kb["model"], data[0], "bf16"))
+        del kb
+        torch.cuda.empty_cache()
+    out["launches"] = {"bf16": bf16_launches, "f32": f32_launches}
+    if "nn" in state:
+        out["nn_bare_loop_step_ms"] = {
+            prec: state["nn"][f"{prec}_step_ms"] for prec in ("f32", "bf16")}
+    out["sweep"] = _hapi_optimizer_sweep(paddle, seed)
+    log("hapi: " + json.dumps({k: v for k, v in out.items()
+                               if not k.endswith("_step_profile")}))
+    for prec in ("f32", "bf16"):
+        log(f"hapi: {prec} step profile "
+            + json.dumps(out[f"{prec}_step_profile"]))
+    state["hapi"] = out
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -5637,7 +6168,10 @@ def kernels_line(state) -> dict:
     The api and nn phases' Paddle-style scripts count their bf16 O2 steps
     in the bf16 entries and their float32 steps in the float32 ones, each
     entry listing its times at the script's shape (``api_shape``,
-    ``nn_shape``). The inference phase's bf16 server run counts in
+    ``nn_shape``); the hapi phase's ``Model.fit`` runs count the same way
+    (its O2 run's evaluations run in float32). ``flash_fwd`` also lists its
+    times at Sq != Sk (``cross_shapes``). The inference phase's bf16 server
+    run counts in
     ``flash_fwd`` (its
     times at the Predictor's shape and the server's: ``serving_shapes``),
     its float32 server run in ``flash_fwd_f32``, the float32 forward's
@@ -5668,6 +6202,8 @@ def kernels_line(state) -> dict:
     api, nn = state["api"], state["nn"]
     api_o2, api_f32 = api["o2"]["launches"], api["f32_launches"]
     nn_o2, nn_f32 = nn["o2"]["launches"], nn["f32_launches"]
+    hapi_b, hapi_f = state["hapi"]["launches"]["bf16"], \
+        state["hapi"]["launches"]["f32"]
 
     def api_row(dtype, part, kname=None, phase=api):
         """The flash kernel at a Paddle script's shape (the api phase's, or
@@ -5690,7 +6226,7 @@ def kernels_line(state) -> dict:
              + sum(r["launches"]["flash_fwd"] for r in st_serve.values())
              + sum(t["flash_fwd"] for t in st_train) + fam_fwd
              + infer["bfloat16"]["launches"] + api_o2["flash_fwd"]
-             + nn_o2["flash_fwd"], None),
+             + nn_o2["flash_fwd"] + hapi_b["flash_fwd"], None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
              + st_serve["bfloat16"]["launches"]["paged_attention"],
@@ -5740,7 +6276,13 @@ def kernels_line(state) -> dict:
                               for r in state["flash_bf16_infer_rows"]],
                           "api_shape": api_row("bfloat16", "fwd"),
                           "nn_shape": api_row("bfloat16", "fwd",
-                                              phase=nn)})
+                                              phase=nn),
+                          "cross_shapes": [
+                              {k: r[k] for k in ("case", "ms", "bound_ms",
+                                                 "bound_by", "plain_ms",
+                                                 "library_ms", "max_abs_err",
+                                                 "row_err", "tflops")}
+                              for r in state["flash_cross_rows"]]})
         out.append(entry)
     # the float32-query paged kernels (decode and window), over float and
     # int8 pools: the model phase's float32 kernel runs (and its lockstep
@@ -5797,12 +6339,13 @@ def kernels_line(state) -> dict:
                 "source": ca.SOURCE, "replaces": ca.REPLACES,
                 "launches": infer["float32"]["launches"]
                 + f32_train["flash_fwd"] + api_f32["flash_fwd"]
-                + nn_f32["flash_fwd"],
+                + nn_f32["flash_fwd"] + hapi_f["flash_fwd"],
                 "launches_by_path": {
                     "inference_server": infer["float32"]["launches"],
                     "training_parities": f32_train["flash_fwd"],
                     "paddle_api_script": api_f32["flash_fwd"],
-                    "paddle_nn_script": nn_f32["flash_fwd"]},
+                    "paddle_nn_script": nn_f32["flash_fwd"],
+                    "paddle_model_fit": hapi_f["flash_fwd"]},
                 "api_shape": api_row("float32", "fwd"),
                 "nn_shape": api_row("float32", "fwd", phase=nn),
                 "max_abs_err": max(r["max_abs_err"] for r in
@@ -5824,10 +6367,11 @@ def kernels_line(state) -> dict:
         entry = {"name": f"{name}_f32", "route": "cuda",
                  "source": cab.SOURCE, "replaces": cab.REPLACES[name],
                  "launches": f32_train[name] + api_f32[name]
-                 + nn_f32[name],
+                 + nn_f32[name] + hapi_f[name],
                  "launches_by_path": {"training_parities": f32_train[name],
                                       "paddle_api_script": api_f32[name],
-                                      "paddle_nn_script": nn_f32[name]},
+                                      "paddle_nn_script": nn_f32[name],
+                                      "paddle_model_fit": hapi_f[name]},
                  "api_shape": api_row("float32", "bwd", name),
                  "nn_shape": api_row("float32", "bwd", name, phase=nn)}
         for prefix, r in (("", state["bwd_f32_main"]),
@@ -5860,7 +6404,8 @@ def kernels_line(state) -> dict:
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
         launches = train[name] + sum(t[name] for t in st_train) + \
-            sum(t[name] for t in fam_train) + api_o2[name] + nn_o2[name]
+            sum(t[name] for t in fam_train) + api_o2[name] + nn_o2[name] \
+            + hapi_b[name]
         out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
                     "replaces": cab.REPLACES[name], "launches": launches,
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
@@ -5985,7 +6530,8 @@ def main(argv=None) -> int:
            "engine": phase_engine, "serving": phase_serving,
            "train": phase_train, "stacked": phase_stacked,
            "recipe": phase_recipe, "families": phase_families,
-           "inference": phase_inference, "api": phase_api, "nn": phase_nn}
+           "inference": phase_inference, "api": phase_api, "nn": phase_nn,
+           "hapi": phase_hapi}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -6005,11 +6551,11 @@ def main(argv=None) -> int:
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
-                                     "api", "nn", "total_s")
+                                     "api", "nn", "hapi", "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",
-                                "inference", "api", "nn")):
+                                "inference", "api", "nn", "hapi")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

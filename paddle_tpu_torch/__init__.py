@@ -11,7 +11,9 @@ ported path is a hand-written CUDA C++ kernel under ``csrc/``, built with
 :class:`Tensor` (a wrapper over ``torch.Tensor``, ``core/tensor.py`` says
 why), the ``paddle.tensor`` op surface (also Tensor methods), autograd over
 torch's, dtypes, places, ``nn.Layer`` and the ``paddle.nn`` layers and
-functionals, the optimizers with the regularizers, ``amp``, ``save``/``load``.
+functionals, the optimizers with the regularizers, ``amp``, ``save``/``load``,
+``autograd`` (``PyLayer``, the functional transforms), ``paddle.Model``
+(hapi) with its callbacks, ``metric``, ``linalg`` and ``device``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (the
 Paddle API: ``paddle.set_device("cpu")``); without a CUDA device and without
@@ -30,8 +32,12 @@ from .framework.device import (device_count, get_device,  # noqa: F401
                                is_compiled_with_cuda, is_compiled_with_rocm,
                                is_compiled_with_tpu, is_compiled_with_xpu,
                                set_device, synchronize)
-from .framework.flags import get_flags, set_flags  # noqa: F401
+from .framework.flags import flags_snapshot, get_flags, set_flags  # noqa
 from .framework.random import get_rng_state, seed, set_rng_state  # noqa
+from .framework.misc import (LazyGuard, batch, check_shape,  # noqa: F401
+                             disable_signal_handler, finfo, flops,
+                             get_cuda_rng_state, iinfo, set_cuda_rng_state,
+                             set_printoptions)
 from .framework.io import load_paddle as load, save  # noqa: F401
 from .nn.initializer_utils import ParamAttr  # noqa: F401
 from .regularizer import L1Decay, L2Decay  # noqa: F401
@@ -39,8 +45,11 @@ from .regularizer import L1Decay, L2Decay  # noqa: F401
 from .tensor import *  # noqa: F401,F403  (also patches the Tensor methods)
 from . import tensor  # noqa: F401
 
-from . import (amp, core, distributed, framework, inference, io,  # noqa
-               jit, nn, optimizer, profiler, regularizer, static, vision)
+from . import (amp, autograd, core, device, distributed,  # noqa: F401
+               framework, hapi, incubate, inference, io, jit, linalg, metric,
+               nn, optimizer, profiler, regularizer, static, vision)
+from .distributed import DataParallel  # noqa: F401
+from .hapi import Model, callbacks, summary  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -48,3 +57,15 @@ __version__ = "0.1.0"
 def in_dynamic_mode() -> bool:
     """The port runs eagerly only (``static`` holds ``InputSpec`` alone)."""
     return True
+
+
+def disable_static():
+    """Nothing to do: the port runs eagerly only."""
+
+
+def enable_static():
+    """The reference's static mode needs its static Program, which the port
+    does not have yet (ROADMAP queue 1, item 5d)."""
+    raise NotImplementedError(
+        "enable_static: the port has no static Program yet (ROADMAP queue "
+        "1, item 5d); it runs eagerly")

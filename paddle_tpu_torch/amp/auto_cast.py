@@ -170,6 +170,9 @@ def auto_cast(enable=True, level="O1", dtype="bfloat16"):
         _state.amp = prev
 
 
+amp_guard = auto_cast   # the reference's older name
+
+
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """O2 decoration (``paddle_tpu/amp/auto_cast.py:94``): cast every

@@ -132,6 +132,7 @@ def load_jax_optimizer_state(optimizer, model: nn.Module,
     does not match raises."""
     linear = _linear_weights(model)
     for name, p in model.named_parameters():
+        p = getattr(p, "_data", p)     # a Paddle Layer's torch tensor
         for an in optimizer._accum_names:
             key = f"{name}_{an}"
             if key not in state:
@@ -143,7 +144,9 @@ def load_jax_optimizer_state(optimizer, model: nn.Module,
                 raise ValueError(f"{key}: shape {tuple(t.shape)} does not "
                                  f"match the parameter's {tuple(p.shape)}")
             optimizer._set_accum(an, p, t.contiguous().to(p.device))
-    optimizer._bind(model.named_parameters())
+    # (a Paddle Layer's parameters keep their own names)
+    optimizer._bind((n, p) for n, p in model.named_parameters()
+                    if not hasattr(p, "_data"))
     optimizer._step_count = int(step_count)
     return optimizer
 

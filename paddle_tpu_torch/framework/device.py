@@ -41,11 +41,16 @@ def default_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# open LazyGuard blocks (framework/misc.py): while one is open, what would
+# go to the default device goes to ``meta`` (shapes only, no memory)
+_lazy_depth = 0
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` → :func:`default_device`; otherwise the given device,
-    which must exist."""
+    """``None`` → :func:`default_device` (``meta`` inside a
+    ``LazyGuard``); otherwise the given device, which must exist."""
     if device is None:
-        return default_device()
+        return torch.device("meta") if _lazy_depth else default_device()
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -120,6 +125,10 @@ def place_to_device(place) -> torch.device:
 
 
 def current_device() -> torch.device:
+    """The device of :func:`current_place` (``meta`` inside a
+    ``LazyGuard``)."""
+    if _lazy_depth:
+        return torch.device("meta")
     return place_to_device(current_place())
 
 

@@ -12,7 +12,8 @@ from __future__ import annotations
 import os
 from typing import Any, Dict
 
-__all__ = ["define_flag", "flag_value", "set_flags", "get_flags"]
+__all__ = ["define_flag", "flag_value", "set_flags", "get_flags",
+           "flags_snapshot"]
 
 
 class _Flag:
@@ -80,6 +81,14 @@ def get_flags(flags) -> Dict[str, Any]:
     names (unknown names raise)."""
     names = [flags] if isinstance(flags, str) else list(flags)
     return {_key(n): _REGISTRY[_key(n)].value for n in names}
+
+
+def flags_snapshot() -> Dict[str, Dict[str, Any]]:
+    """Every registered flag with its live value, default, type name and
+    help text, by name (``paddle_tpu/framework/flags.py:110``)."""
+    return {name: {"value": f.value, "default": f.default,
+                   "type": f.type_.__name__, "help": f.help}
+            for name, f in sorted(_REGISTRY.items())}
 
 
 # The Paddle API's eager checks (core/dispatch.py), with the reference's

@@ -24,6 +24,10 @@ __all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
 
 
 def _gen(device):
+    """The port's generator of ``device`` (none for ``meta``, where a
+    ``LazyGuard`` puts parameters: nothing is drawn there)."""
+    if torch.device(device).type == "meta":
+        return None
     return random_mod.default_generator().for_device(device)
 
 

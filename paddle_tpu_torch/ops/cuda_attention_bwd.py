@@ -14,7 +14,10 @@ Kernels: ``csrc/flash_bwd.cu``, the port of the two TPU kernels of
   as the reference rounds them; in float16 an overflow becomes inf and is
   not clamped, so a scaled loss's overflow reaches the gradients as the
   reference's does). δ is a torch reduction here, as the reference left it
-  to XLA (``:281``).
+  to XLA (``:281``). For the float32 kernels the wrapper also takes each
+  (batch, head)'s mean key and value out of K and V first (``_centered``),
+  which leaves the gradients as they are and keeps dq's rounding at
+  float32's own where a shared part of the keys cancels.
 - What bounds them on the H100: operations (3 and 4 products of 2·S²·D per
   head, halved when causal, against ~5·S·D elements moved); in bf16 and
   float16 only ``wgmma`` reaches the tensor cores' dense rate.
@@ -83,6 +86,38 @@ def _delta(out, do, lse_ct):
     if lse_ct is not None:
         delta = delta - lse_ct.float().reshape(b * h, s)
     return delta.contiguous()
+
+
+def _centered(q, k, v, out, lse, do, lse_ct, scale):
+    """The float32 kernels' operands: K and V less their mean over the keys
+    of each (batch, head), ``ck`` and ``cv``, with the lse and δ that keep
+    p and dS as they were: lse − scale·q·ck and rowsum((o − cv)·dO), less
+    the lse cotangent. Returns ``(k, v, lse, delta, ck)``.
+
+    dQ = Σ p (dp − δ) k: where the keys share a large part (deep layers of
+    a model put one in every token) and attention is near-uniform, dQ is a
+    small residue of that shared part, and the rounding of dp, δ and the
+    products, against the large k and v, leaves a term (Σ p dp − δ)·Σ p k
+    of the shared k's size. A row of p sums to 1 and a row of dS to
+    scale·lse_ct, so a shift of V changes no dp − δ and a shift of K adds
+    scale·lse_ct·ck to dQ (added back by the caller) and changes nothing
+    else; without the shared parts the rounding is that of the residue
+    itself. A mean that is not finite (an inf or NaN key) is not
+    subtracted."""
+    b, sq, h, _ = q.shape
+    ck = k.mean(1, keepdim=True).nan_to_num(0.0, 0.0, 0.0)   # [B, 1, H, D]
+    cv = v.mean(1, keepdim=True).nan_to_num(0.0, 0.0, 0.0)
+    shift = (q * ck).sum(-1).transpose(1, 2).reshape(b * h, sq) * scale
+    return (k - ck, v - cv, (lse - shift).contiguous(),
+            _delta(out - cv, do, lse_ct), ck)
+
+
+def _lse_ct_term(dq, lse_ct, ck, scale):
+    """dQ's part that the shift of K by ``ck`` took out: scale·lse_ct·ck,
+    added to ``dq`` ``[B, Sq, H, D]`` in place."""
+    b, sq, h, _ = dq.shape
+    ct = lse_ct.float().reshape(b, h, sq).transpose(1, 2)[..., None]
+    dq.add_(ct * ck * scale)
 
 
 def mha_bwd_reference(q, k, v, out, lse, do, causal=True, scale=None,
@@ -159,8 +194,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
     forward's lse (``[B*H, Sq]`` or ``[B, H, Sq]``), folded in as δ −=
     lse_ct. Returns ``(dq, dk, dv)``, contiguous ``[B, S, H, D]`` in the
     input type. CUDA tensors launch the two kernels of
-    ``csrc/flash_bwd.cu`` on the current stream (no synchronisation); CPU
-    tensors take :func:`mha_bwd_reference`."""
+    ``csrc/flash_bwd.cu`` on the current stream (no synchronisation; in
+    float32 on the operands of :func:`_centered`); CPU tensors take
+    :func:`mha_bwd_reference`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -172,7 +208,12 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
     _check_bwd(q, k, v, out, lse, do, causal)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    delta = _delta(out, do, lse_ct)
+    ck = None
+    if q.dtype == torch.float32:
+        k, v, lse, delta, ck = _centered(q, k, v, out, lse, do, lse_ct,
+                                         scale)
+    else:
+        delta = _delta(out, do, lse_ct)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
@@ -183,6 +224,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(lib, stream, q, k, v, do, lse, delta, dq, dk, dv, causal,
                 scale)
+        if ck is not None and lse_ct is not None:
+            _lse_ct_term(dq, lse_ct, ck, scale)
     for name, n in _PRODUCTS.items():
         flops[name] += 2.0 * n * b * h * sq * sk * d
     return dq, dk, dv

@@ -1,5 +1,6 @@
 """Optimizers: the port of ``paddle_tpu/optimizer/optimizer.py`` (``Optimizer``,
-``SGD``, ``Momentum``, ``Adam``, ``AdamW``).
+``SGD``, ``Momentum``, ``LarsMomentum``, ``Adam``, ``AdamW``, ``Adagrad``,
+``Adadelta``, ``Adamax``, ``RMSProp``, ``Lamb``).
 
 The reference's update rules, exactly (``optimizer.py:330-390``): Adam's
 bias corrections computed in float32, eps outside √v̂, AdamW's decoupled
@@ -23,6 +24,12 @@ before the update, ahead of the optimizer's ``weight_decay`` (a float, or
 an ``L1Decay``/``L2Decay`` object; AdamW takes either as its decoupled
 coefficient), as the reference. The optimizer updates the torch tensors the
 parameters hold, in place.
+
+LAMB's and LARS's trust ratios are per tensor: ``torch._foreach_norm`` of
+each group's parameters and updates, the ratios and the reference's guards
+for a zero norm computed on the device, so no step waits for the host.
+Every optimizer keeps the reference's accumulator names (``_accum_names``),
+so ``convert.load_jax_optimizer_state`` carries its state across.
 """
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ import torch
 from ..core.tensor import Tensor
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "LarsMomentum",
+           "LarsMomentumOptimizer", "Adam", "AdamW", "Adagrad", "Adadelta",
+           "Adamax", "RMSProp", "Lamb"]
 
 # elements per group of parameters updated together: bounds the float32
 # working copies a bf16-moment update makes (4 copies of 32 M floats)
@@ -48,6 +57,22 @@ def _f32(x) -> float:
     """A Python float holding the float32 rounding of ``x`` (the
     reference's scalars are float32 arrays)."""
     return float(np.float32(x))
+
+
+def _bias_correction(beta, t) -> float:
+    """1 - beta^t in float32, as the reference computes it."""
+    return float(np.float32(1) - np.float32(beta) ** np.float32(t))
+
+
+def _trust(num, den, ok_num, ok_den, fallback):
+    """Per tensor, ``num / den`` where both norms ``ok_num`` and ``ok_den``
+    are above zero, else ``fallback`` (the reference's guard for a fresh
+    or frozen tensor): lists of 0-d tensors in, a list of 0-d tensors out,
+    all on the device."""
+    a, b = torch.stack(ok_num), torch.stack(ok_den)
+    ratio = torch.where((a > 0) & (b > 0), torch.stack(num) / torch.stack(
+        den), torch.as_tensor(fallback, dtype=a.dtype, device=a.device))
+    return list(ratio.unbind())
 
 
 class Optimizer:
@@ -347,3 +372,207 @@ class AdamW(Adam):
                 not self._apply_decay_fn(self._name(p)):
             return 0.0
         return self._wd
+
+
+class LarsMomentum(Optimizer):
+    """Layer-wise adaptive rate scaling (``paddle_tpu/optimizer/
+    optimizer.py:266``): per tensor, local_lr = lr · lars_coeff · ‖p‖ /
+    (‖g‖ + wd · ‖p‖ + eps), or lr where either norm is zero; v = μ v +
+    local_lr · (g + wd · p); p −= v. ``wd`` is ``lars_weight_decay``, 0 for
+    a parameter whose name holds one of ``exclude_from_weight_decay``."""
+
+    _accum_names = ["velocity"]
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay=None, epsilon=0.0,
+                 multi_precision=False, rescale_grad=1.0, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._momentum = momentum
+        self._coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+        self._exclude = list(exclude_from_weight_decay or [])
+        self._eps = epsilon
+        self._rescale = rescale_grad
+
+    def _wd_for(self, p) -> float:
+        if any(tag in self._name(p) for tag in self._exclude):
+            return 0.0
+        return self._lars_wd
+
+    def _update_rule(self, ps, gs, lr, t, wd, state):
+        if self._rescale != 1.0:
+            gs = torch._foreach_mul(gs, self._rescale)
+        p_norm = torch._foreach_norm(ps)
+        g_norm = torch._foreach_norm(gs)
+        den = torch._foreach_add(torch._foreach_mul(p_norm, wd), g_norm)
+        torch._foreach_add_(den, self._eps)
+        num = torch._foreach_mul(p_norm, _f32(lr * self._coeff))
+        local_lr = _trust(num, den, p_norm, g_norm, lr)
+        upd = torch._foreach_add(gs, ps, alpha=wd) if wd else list(gs)
+        torch._foreach_mul_(upd, local_lr)
+        vs = state["velocity"]
+        torch._foreach_mul_(vs, self._momentum)
+        torch._foreach_add_(vs, upd)
+        torch._foreach_sub_(ps, vs)
+
+
+LarsMomentumOptimizer = LarsMomentum
+
+
+class Adagrad(Optimizer):
+    """``moment += g²``; p −= lr · g / (√moment + eps) (``:393``). The
+    moments start at ``initial_accumulator_value``."""
+
+    _accum_names = ["moment"]
+
+    def __init__(self, learning_rate, epsilon=1e-06, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._eps = epsilon
+        self._init_val = initial_accumulator_value
+
+    def _get_accum(self, name, p):
+        store = self._accumulators.setdefault(name, {})
+        if id(p) not in store:
+            store[id(p)] = torch.full(p.shape, self._init_val,
+                                      dtype=p.dtype, device=p.device)
+        return store[id(p)]
+
+    def _update_rule(self, ps, gs, lr, t, wd, state):
+        mom = state["moment"]
+        torch._foreach_addcmul_(mom, gs, gs)
+        denom = torch._foreach_sqrt(mom)
+        torch._foreach_add_(denom, self._eps)
+        torch._foreach_addcdiv_(ps, gs, denom, value=-lr)
+
+
+class Adadelta(Optimizer):
+    """E[g²] = ρ E[g²] + (1 − ρ) g²; u = g √(E[u²] + eps) / √(E[g²] + eps);
+    E[u²] = ρ E[u²] + (1 − ρ) u²; p −= lr · u (``:409``)."""
+
+    _accum_names = ["avg_squared_grad", "avg_squared_update"]
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._eps = epsilon
+        self._rho = rho
+
+    def _update_rule(self, ps, gs, lr, t, wd, state):
+        sg, su = state["avg_squared_grad"], state["avg_squared_update"]
+        torch._foreach_mul_(sg, self._rho)
+        torch._foreach_addcmul_(sg, gs, gs, value=1 - self._rho)
+        num = torch._foreach_add(su, self._eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(sg, self._eps)
+        torch._foreach_sqrt_(den)
+        upd = torch._foreach_mul(gs, num)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(su, self._rho)
+        torch._foreach_addcmul_(su, upd, upd, value=1 - self._rho)
+        torch._foreach_add_(ps, upd, alpha=-lr)
+
+
+class Adamax(Optimizer):
+    """m = β₁ m + (1 − β₁) g; u = max(β₂ u, |g|); p −= lr / (1 − β₁ᵗ) · m /
+    (u + eps) (``:427``)."""
+
+    _accum_names = ["moment", "inf_norm"]
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def _update_rule(self, ps, gs, lr, t, wd, state):
+        ms, us = state["moment"], state["inf_norm"]
+        torch._foreach_mul_(ms, self._beta1)
+        torch._foreach_add_(ms, gs, alpha=1 - self._beta1)
+        torch._foreach_mul_(us, self._beta2)
+        torch._foreach_maximum_(us, torch._foreach_abs(gs))
+        denom = torch._foreach_add(us, self._eps)
+        lr_t = _f32(np.float32(lr) / np.float32(
+            _bias_correction(self._beta1, t)))
+        torch._foreach_addcdiv_(ps, ms, denom, value=-lr_t)
+
+
+class RMSProp(Optimizer):
+    """E[g²] = ρ E[g²] + (1 − ρ) g²; centered, E[g] = ρ E[g] + (1 − ρ) g and
+    the denominator √(E[g²] − E[g]² + eps), else √(E[g²] + eps); mom = μ mom
+    + lr · g / denominator; p −= mom (``:445``)."""
+
+    _accum_names = ["mean_square", "mean_grad", "momentum_acc"]
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-06, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._eps = rho, epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _update_rule(self, ps, gs, lr, t, wd, state):
+        ms, mg = state["mean_square"], state["mean_grad"]
+        mom = state["momentum_acc"]
+        torch._foreach_mul_(ms, self._rho)
+        torch._foreach_addcmul_(ms, gs, gs, value=1 - self._rho)
+        if self._centered:
+            torch._foreach_mul_(mg, self._rho)
+            torch._foreach_add_(mg, gs, alpha=1 - self._rho)
+            denom = torch._foreach_addcmul(ms, mg, mg, value=-1)
+        else:
+            denom = [x.clone() for x in ms]
+        torch._foreach_add_(denom, self._eps)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_mul_(mom, self._momentum)
+        torch._foreach_addcdiv_(mom, torch._foreach_mul(gs, lr), denom)
+        torch._foreach_sub_(ps, mom)
+
+
+class Lamb(Optimizer):
+    """LAMB (``:470``): Adam's moments and bias corrections, r = m̂ / (√v̂ +
+    eps) + wd · p, and per tensor p −= lr · trust · r with trust = ‖p‖ / ‖r‖
+    (1 where either norm is zero). ``wd`` is ``lamb_weight_decay``, 0 for a
+    parameter that ``exclude_from_weight_decay_fn`` (called with the Paddle
+    parameter, as the reference calls it) returns True for."""
+
+    _accum_names = ["moment1", "moment2"]
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _wd_for(self, p) -> float:
+        if self._exclude_fn is not None and self._exclude_fn(
+                getattr(p, "_paddle", p)):
+            return 0.0
+        return self._lamb_wd
+
+    def _update_rule(self, ps, gs, lr, t, wd, state):
+        ms, vs = state["moment1"], state["moment2"]
+        b1, b2 = self._beta1, self._beta2
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs, alpha=1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+        r = torch._foreach_div(ms, _bias_correction(b1, t))       # m_hat
+        denom = torch._foreach_div(vs, _bias_correction(b2, t))   # v_hat
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self._eps)
+        torch._foreach_div_(r, denom)
+        if wd:
+            torch._foreach_add_(r, ps, alpha=wd)
+        w_norm = torch._foreach_norm(ps)
+        r_norm = torch._foreach_norm(r)
+        trust = _trust(w_norm, r_norm, w_norm, r_norm, 1.0)
+        torch._foreach_mul_(r, torch._foreach_mul(trust, lr))
+        torch._foreach_sub_(ps, r)

@@ -1,7 +1,8 @@
 """How much of the JAX package's Paddle surface the port offers.
 
-For ``paddle_tpu``, ``paddle_tpu.tensor``, ``paddle_tpu.nn`` and
-``paddle_tpu.nn.functional`` (``tests/fixtures/api_golden.json``'s
+For ``paddle_tpu``, ``paddle_tpu.tensor``, ``paddle_tpu.nn``,
+``paddle_tpu.nn.functional``, ``paddle_tpu.amp``, ``paddle_tpu.optimizer``
+and ``paddle_tpu.linalg`` (``tests/fixtures/api_golden.json``'s
 ``surfaces``) it prints how many names the port's counterpart has; a name
 that raises ``NotImplementedError`` and the reference's helper names do not
 count. It fails when a name of its own list of covered names goes missing.
@@ -31,7 +32,27 @@ TOP = {"Tensor", "Parameter", "to_tensor", "grad", "no_grad", "enable_grad",
        "set_rng_state", "get_flags", "set_flags", "ParamAttr", "save",
        "load", "in_dynamic_mode", "amp", "io", "jit", "inference", "nn",
        "optimizer", "profiler", "static", "vision", "distributed", "tensor",
-       "framework", "core", "L1Decay", "L2Decay", "regularizer"}
+       "framework", "core", "L1Decay", "L2Decay", "regularizer",
+       "DataParallel", "LazyGuard", "Model", "autograd", "batch", "callbacks",
+       "check_shape", "device", "disable_signal_handler", "disable_static",
+       "enable_static", "finfo", "iinfo", "flags_snapshot", "flops",
+       "summary", "hapi", "metric", "get_cuda_rng_state",
+       "set_cuda_rng_state", "set_printoptions", "incubate", "linalg"}
+# every name of the reference's paddle.amp and paddle.optimizer
+AMP = {"AmpScaler", "GradScaler", "amp_guard", "auto_cast", "decorate",
+       "grad_scaler"}
+OPTIMIZER = {"Adadelta", "Adagrad", "Adam", "AdamW", "Adamax", "Lamb",
+             "LarsMomentum", "LarsMomentumOptimizer", "Momentum", "Optimizer",
+             "RMSProp", "SGD", "lr", "optimizer"}
+# every name of the reference's paddle.linalg
+LINALG = {"bincount", "bmm", "cholesky", "cholesky_solve", "cond",
+          "corrcoef", "cov", "cross", "det", "dist", "dot", "eig", "eigh",
+          "eigvals", "eigvalsh", "histogram", "householder_product", "inv",
+          "lstsq", "lu", "lu_unpack", "matmul", "matrix_exp", "matrix_norm",
+          "matrix_power", "matrix_rank", "mm", "multi_dot", "mv", "norm",
+          "ormqr", "pca_lowrank", "pinv", "qr", "slogdet", "solve", "svd",
+          "svd_lowrank", "t", "transpose_last2", "triangular_solve",
+          "vector_norm"}
 # every name of the reference's paddle.nn and paddle.nn.functional (helpers
 # excluded)
 NN = {"AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
@@ -98,7 +119,14 @@ NN_F = {"Tensor", "activation", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
 PORTS = {"paddle_tpu": "paddle_tpu_torch",
          "paddle_tpu.tensor": "paddle_tpu_torch.tensor",
          "paddle_tpu.nn": "paddle_tpu_torch.nn",
-         "paddle_tpu.nn.functional": "paddle_tpu_torch.nn.functional"}
+         "paddle_tpu.nn.functional": "paddle_tpu_torch.nn.functional",
+         "paddle_tpu.amp": "paddle_tpu_torch.amp",
+         "paddle_tpu.optimizer": "paddle_tpu_torch.optimizer",
+         "paddle_tpu.linalg": "paddle_tpu_torch.linalg"}
+# the modules the port offers whole
+WHOLE = {"paddle_tpu.nn": NN, "paddle_tpu.nn.functional": NN_F,
+         "paddle_tpu.amp": AMP, "paddle_tpu.optimizer": OPTIMIZER,
+         "paddle_tpu.linalg": LINALG}
 
 
 def _offered(module, name) -> bool:
@@ -127,9 +155,11 @@ def test_surface_coverage(ref_name):
     print(f"{ref_name}: the port has {len(have)} of {len(names)} names "
           f"(helpers excluded); missing: "
           f"{sorted(set(names) - set(have))}")
-    if ref_name in ("paddle_tpu.nn", "paddle_tpu.nn.functional"):
-        # the whole surface since the rest of paddle.nn was ported
-        assert set(names) == (NN if ref_name == "paddle_tpu.nn" else NN_F)
+    if ref_name in WHOLE:
+        # the whole surface: every name of the reference's module
+        assert set(names) == WHOLE[ref_name]
+    if ref_name == "paddle_tpu":
+        assert len(have) >= 415
     if ref_name == "paddle_tpu.tensor":
         # every op of paddle.tensor, also at the top level, as there
         assert len(have) >= 300
@@ -137,7 +167,6 @@ def test_surface_coverage(ref_name):
         assert all(_offered(paddle_tpu_torch, n) for n in have)
         covered = set(have)
     else:
-        covered = {"paddle_tpu": TOP, "paddle_tpu.nn": NN,
-                   "paddle_tpu.nn.functional": NN_F}[ref_name]
+        covered = {"paddle_tpu": TOP, **WHOLE}[ref_name]
     lost = sorted(n for n in covered if not _offered(port, n))
     assert not lost, f"{ref_name}: covered names went missing: {lost}"

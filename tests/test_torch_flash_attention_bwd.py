@@ -395,16 +395,34 @@ def _bwd_emulation(q, k, v, do, lse, delta, causal, scale, three=True):
     return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
 
 
+def _kernel_bwd(tq, tk, tv, tdo, out, lse, causal, scale, ct=None,
+                three=True, centered=True):
+    """The emulated kernels on what the wrapper hands them in float32: K
+    and V less their mean key and value (``cab._centered``), then dQ's
+    lse-cotangent term added back; ``centered=False``: the raw operands and
+    the plain delta, as before that repair."""
+    if not centered:
+        return _bwd_emulation(tq, tk, tv, tdo, lse, cab._delta(out, tdo, ct),
+                              causal, scale, three)
+    kc, vc, lc, delta, ck = cab._centered(tq, tk, tv, out, lse, tdo, ct,
+                                          scale)
+    dq, dk, dv = _bwd_emulation(tq, kc, vc, tdo, lc, delta, causal, scale,
+                                three)
+    dq = dq.contiguous()
+    if ct is not None:
+        cab._lse_ct_term(dq, ct, ck, scale)
+    return dq, dk, dv
+
+
 def _emulate(q, k, v, do, causal, scale, lse_ct=None, three=True):
-    """The forward's plain out and lse (what the kernels read), the
-    wrapper's delta, and the emulated (dq, dk, dv); numpy in, torch out."""
+    """The forward's plain out and lse (what the kernels read), and the
+    emulated (dq, dk, dv) on the wrapper's operands; numpy in, torch
+    out."""
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     from paddle_tpu_torch.ops.cuda_attention import mha_fwd_reference
     out, lse = mha_fwd_reference(tq, tk, tv, causal=causal, scale=scale)
     ct = None if lse_ct is None else torch.from_numpy(lse_ct)
-    delta = cab._delta(out, tdo, ct)
-    grads = _bwd_emulation(tq, tk, tv, tdo, lse, delta, causal, scale,
-                           three)
+    grads = _kernel_bwd(tq, tk, tv, tdo, out, lse, causal, scale, ct, three)
     return (tq, tk, tv, tdo, out, lse, ct), grads
 
 
@@ -503,6 +521,51 @@ def _single_tf32_product_fails_the_float32_backward_limit():
         except AssertionError:
             failed.append(name)
     assert failed, "one TF32 product passes the float32 limit at D=64 S=512"
+
+
+def _cancelling_inputs(seed, b=1, s=384, h=1, d=64):
+    """q, k, v, dO [b, S, H, D] float32 where dQ cancels: small queries, so
+    attention over the S keys is near-uniform, and keys and values that
+    share a large part (a per-head vector of norm ~24 beside per-token
+    parts of norm ~4), as deep layers of a model make them."""
+    rng = np.random.RandomState(seed)
+    q = 0.05 * rng.randn(b, s, h, d)
+    k = 3.0 * rng.randn(1, 1, h, d) + 0.5 * rng.randn(b, s, h, d)
+    v = 3.0 * rng.randn(1, 1, h, d) + 0.5 * rng.randn(b, s, h, d)
+    do = rng.randn(b, s, h, d)
+    return [x.astype(np.float32) for x in (q, k, v, do)]
+
+
+def _rel_to_largest(got, want):
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.abs(np.asarray(got, dtype=np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+def _tf32_bwd_cancelling_dq_keeps_float32_accuracy():
+    """The float32 pipeline as the card runs it (the forward kernel's
+    emulated out and lse, the wrapper's operands, the backward kernels'
+    emulated maths) on a dQ that cancels: each gradient within 2e-5 of its
+    largest from float64. The control: the same kernels on the raw K, V
+    and δ (before the repair) leave dQ 1e-4 or more of its largest off."""
+    import test_torch_flash_attention as fa
+    q, k, v, do = _cancelling_inputs(seed=101)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    t64 = [torch.from_numpy(x).double().requires_grad_() for x in
+           (q, k, v)]
+    qt, kt, vt = (x.transpose(1, 2) for x in t64)
+    p = torch.softmax(qt @ kt.transpose(-1, -2) * scale, -1)
+    want = torch.autograd.grad((p @ vt).transpose(1, 2), t64,
+                               torch.from_numpy(do).double())
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = fa._kernel_emulation(tq, tk, tv, False, scale)
+    got = _kernel_bwd(tq, tk, tv, tdo, out, lse, False, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = _rel_to_largest(a.numpy(), w.numpy())
+        assert err <= F32_TOL, f"{name}: {err:.3e} of its largest"
+    raw = _kernel_bwd(tq, tk, tv, tdo, out, lse, False, scale,
+                      centered=False)
+    assert _rel_to_largest(raw[0].numpy(), want[0].numpy()) >= 1e-4
 
 
 def _tf32_bwd_arithmetic_propagates_nan_in_do(d, nan_bits):

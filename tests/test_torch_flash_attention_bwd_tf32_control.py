@@ -12,3 +12,7 @@ def test_tf32_bwd_arithmetic_with_lse_cotangent():
 
 def test_single_tf32_product_fails_the_float32_backward_limit():
     fb._single_tf32_product_fails_the_float32_backward_limit()
+
+
+def test_tf32_bwd_cancelling_dq_keeps_float32_accuracy():
+    fb._tf32_bwd_cancelling_dq_keeps_float32_accuracy()
