@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe,families,inference,api,nn,hapi]
+                  recipe,families,inference,api,nn,hapi,ops]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -231,6 +231,36 @@ Phases, each failing loudly (exit code 1, no result line):
               bit; ms a step and the busy share of each precision. Then
               the optimizer sweep: each new optimizer three steps on a
               small net, card against CPU.
+16. ops     — the serving operations plane: GenerationServer over
+              gpt3_1p3b (bf16 pools, the prefix cache on) with
+              telemetry_port=0 and a two-tenant AdmissionController: 6
+              "bulk" streams (priority batch, 1024-token prompts, 256 new
+              tokens, a quota that refuses a 7th with QuotaExceededError)
+              fill all but 16 pages, fewer than one "rt" reservation, so 3
+              "rt" streams (realtime, 256 + 64) park a bulk stream, which
+              resumes from its full history (chunked prefill on the window
+              kernel over the prompt pages still cached). Head sampling at 1.0; over HTTP on 127.0.0.1 while
+              it runs, /metrics (text, which must parse, and JSON),
+              /healthz, /readyz, /statusz (the engine's section with
+              tenant_queue_depth), /schedz (both tenants), /tracez and
+              /sloz answer 200, /goodputz, /execz, /profilez and /numericsz
+              501. Every stream ends with its max_new_tokens; the parked
+              count of /metrics equals the engine's; every request's trace
+              holds its queue, prefill and decode_step spans; the stepprof
+              decode envelopes equal the engine's decode steps; launches
+              by kernel equal 24 x the decoder's calls (decode, window,
+              flash for cold prefills), no plain call; /readyz reads 503
+              while a shutdown drains, the leak check is clean after it.
+              TTFT of the rt streams against the bulk wave's; the decode
+              step's ms with telemetry and sampling on against off (fresh
+              engines in turns off, on, on, off) and a profiled window of
+              decode steps (device ms, busy share). Then InferenceServer
+              over ERNIE-base saved by jit.save in float32 under two
+              tenants (64 requests of 16-512 tokens each, telemetry on):
+              typed quota refusals, 12 flash launches a batch and no plain
+              call, an exemplar on paddle_serving_latency_ms whose trace is
+              in /tracez, every output within 1e-4 x std of Predictor.run
+              on the request alone.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -243,6 +273,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -265,7 +296,7 @@ FMA_FLOPS_F32 = 67e12
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
-              "inference", "api", "nn", "hapi")
+              "inference", "api", "nn", "hapi", "ops")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -6147,6 +6178,550 @@ def phase_hapi(state):
     state["hapi"] = out
 
 
+# ------------------------------------------- the operations plane
+# gpt3_1p3b (full width and depth, bf16, the prefix cache on) served by a
+# GenerationServer under a two-tenant scheduler: a first wave of bulk
+# streams (priority class "batch", a token quota that refuses one more
+# request) fills all but OPS_SPARE_PAGES pages, fewer than one realtime
+# reservation, so the realtime wave has to park bulk streams, which later
+# resume from their full history (a chunked prefill over the prompt pages
+# the prefix cache still holds).
+OPS_BULK, OPS_BULK_PROMPT, OPS_BULK_NEW = 6, 1024, 256    # 80 pages each
+OPS_RT, OPS_RT_PROMPT, OPS_RT_NEW = 3, 256, 64            # 20 pages each
+OPS_SPARE_PAGES = 16
+OPS_DRAIN_NEW = 128        # the stream that drains while /readyz is read
+# the decode step with and without telemetry and sampling: 8 streams of
+# 128-token prompts, 64 new tokens, in turns off, on, on, off
+OPS_CMP_STREAMS, OPS_CMP_PROMPT, OPS_CMP_NEW = 8, 128, 64
+OPS_PROFILE_STEPS = 24     # decode steps inside the profiled window
+OPS_PROFILE_NEW = 512      # the profiled run's budget (cancelled after it)
+# the InferenceServer leg: ERNIE-base in float32 under two tenants
+OPS_INFER_REQUESTS = 64    # a tenant
+OPS_INFER_BURST = 60       # the offline tenant's quota in rows: 4 refused
+OPS_ENDPOINTS = ("/metrics", "/metrics?format=json", "/healthz", "/readyz",
+                 "/statusz", "/schedz", "/tracez", "/sloz")
+OPS_UNPORTED = ("/goodputz", "/execz", "/profilez", "/numericsz")
+# one sample line of Prometheus text 0.0.4: name, optional labels, value
+PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+    r'(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*",?)*\})?'
+    r' (-?[0-9][0-9.eE+-]*|[+-]Inf|NaN)$')
+
+
+def _http_get(port, path, timeout=10.0):
+    """GET http://127.0.0.1:<port><path> with no proxy: (status, body)."""
+    import urllib.error
+    import urllib.request
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(f"http://127.0.0.1:{port}{path}",
+                         timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _parse_prometheus(text: str) -> dict:
+    """Prometheus text 0.0.4 -> {(sample name, label string): value};
+    fails on a line that does not parse or a sample without its # TYPE."""
+    types, samples = {}, {}
+    for line in text.splitlines():
+        if not line or line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            types[name] = kind
+            continue
+        m = PROM_SAMPLE.match(line)
+        require(m is not None, f"ops: /metrics line does not parse: {line!r}")
+        name, labels, value = m.group(1), m.group(2) or "", m.group(3)
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        require(name in types or base in types,
+                f"ops: /metrics sample {name} has no # TYPE line")
+        samples[(name, labels)] = float(value)
+    return samples
+
+
+def _scrape(port, tag) -> dict:
+    """Every ported endpoint (200) and the four unported ones (501, with
+    the ROADMAP item named in the body)."""
+    out = {}
+    for path in OPS_ENDPOINTS:
+        code, body = _http_get(port, path)
+        require(code == 200, f"ops: {tag}: {path} answered {code}: "
+                             f"{body[:300]}")
+        out[path] = body
+    for path in OPS_UNPORTED:
+        code, body = _http_get(port, path)
+        require(code == 501 and "ROADMAP" in body,
+                f"ops: {tag}: {path} answered {code}, not 501 naming its "
+                f"ROADMAP item: {body[:300]}")
+    return out
+
+
+def _first_tokens(futs, t_submit):
+    """A thread per stream that waits for its first token: the threads and
+    a list that they fill with each stream's TTFT in ms."""
+    import threading
+    ttft = [None] * len(futs)
+
+    def wait(i):
+        for _ in futs[i]:
+            ttft[i] = (time.perf_counter() - t_submit[i]) * 1e3
+            return
+
+    threads = [threading.Thread(target=wait, args=(i,), daemon=True)
+               for i in range(len(futs))]
+    for t in threads:
+        t.start()
+    return threads, ttft
+
+
+def _wait_for(cond, timeout_s, what):
+    t0 = time.perf_counter()
+    while not cond():
+        require(time.perf_counter() - t0 < timeout_s,
+                f"ops: {what} did not happen within {timeout_s} s")
+        time.sleep(0.005)
+
+
+def _reset_paged_counts():
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    cpa.launches = cpa.plain_calls = 0
+    cpa.launches_by, cpa.launches_by_kernel = {}, {}
+
+
+def _ops_engine(state, model) -> dict:
+    """The scheduled engine run: bulk wave, the over-quota request, the
+    realtime wave that parks bulk streams; the endpoints read over HTTP
+    while it runs; then a draining shutdown with /readyz read."""
+    import json as _json
+    import threading
+    import numpy as np
+    from paddle_tpu_torch.observability import stepprof, tracing
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving import QuotaExceededError
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    from paddle_tpu_torch.serving.scheduling import (AdmissionController,
+                                                     SchedulerPolicy,
+                                                     TenantPolicy)
+    cfg = model.config
+    layers = cfg.num_layers
+    rng = np.random.RandomState(state["seed"] + 17)
+    bulk_cost = OPS_BULK_PROMPT + OPS_BULK_NEW
+    policy = SchedulerPolicy(tenants={
+        "rt": TenantPolicy("rt", rate=0.0, weight=4.0, priority="realtime"),
+        # a quota of exactly OPS_BULK requests (the refill is 1e-3 tokens
+        # a second: nothing within the run)
+        "bulk": TenantPolicy("bulk", rate=1e-3, burst=OPS_BULK * bulk_cost,
+                             priority="batch")})
+    ctl = AdmissionController(policy, name="ops")
+    per_bulk = -(-bulk_cost // PAGE_SIZE)
+    per_rt = -(-(OPS_RT_PROMPT + OPS_RT_NEW) // PAGE_SIZE)
+    require(OPS_SPARE_PAGES < per_rt, "ops: spare pages must not fit an rt "
+                                      "reservation")
+    num_pages = 1 + OPS_BULK * per_bulk + OPS_SPARE_PAGES
+    srv = GenerationServer(model, max_batch=MAX_BATCH, page_size=PAGE_SIZE,
+                           num_pages=num_pages, device="cuda",
+                           telemetry_port=0, scheduler=ctl, name="ops")
+    port = srv.telemetry.port
+    log(f"ops: engine of {num_pages} pages ({srv.kv.pool_bytes() / 1e9:.2f} "
+        f"GB of bf16 K/V pools), telemetry on 127.0.0.1:{port}")
+    bulk_prompts = [rng.randint(0, cfg.vocab_size, OPS_BULK_PROMPT)
+                    for _ in range(OPS_BULK + 1)]
+    rt_prompts = [rng.randint(0, cfg.vocab_size, OPS_RT_PROMPT)
+                  for _ in range(OPS_RT + 1)]
+    futs, tenants, contexts, t_submit = [], [], [], []
+
+    def submit(prompt, new, tenant, i):
+        ctx = tracing.new_context()          # head-sampled at rate 1.0
+        require(ctx.sampled, "ops: a request was not head-sampled at 1.0")
+        with tracing.use_context(ctx):
+            t_submit.append(time.perf_counter())
+            futs.append(srv.submit_generate(
+                prompt, max_new_tokens=new,
+                temperature=0.0 if i % 2 == 0 else 0.8,
+                seed=state["seed"] + 100 + len(futs), tenant=tenant))
+        tenants.append(tenant)
+        contexts.append(ctx)
+
+    _reset_counts()
+    _reset_paged_counts()
+    t0 = time.perf_counter()
+    for i in range(OPS_BULK):
+        submit(bulk_prompts[i], OPS_BULK_NEW, "bulk", i)
+    try:
+        srv.submit_generate(bulk_prompts[OPS_BULK],
+                            max_new_tokens=OPS_BULK_NEW, tenant="bulk")
+        refused = None
+    except QuotaExceededError as e:
+        refused = e
+    require(refused is not None and refused.tenant == "bulk",
+            f"ops: the over-quota bulk request was not refused with "
+            f"QuotaExceededError(tenant='bulk'): {refused!r}")
+    threads, ttft = _first_tokens(futs[:OPS_BULK], t_submit)
+    # the bulk wave decodes before the realtime wave arrives
+    _wait_for(lambda: all(len(f.tokens()) >= 8 for f in futs), 300,
+              "the bulk wave's first 8 tokens")
+    for t in threads:
+        t.join()
+    for i in range(OPS_RT):
+        submit(rt_prompts[i], OPS_RT_NEW, "rt", i)
+    rt_threads, rt_ttft = _first_tokens(futs[OPS_BULK:],
+                                        t_submit[OPS_BULK:])
+    _wait_for(lambda: srv.metrics_snapshot()["counters"]["parked"] >= 1,
+              300, "a bulk stream's parking")
+    mid = _scrape(port, "mid-run")
+    mid_status = _json.loads(mid["/statusz"])
+    mid_sched = _json.loads(mid["/schedz"])
+    _parse_prometheus(mid["/metrics"])
+    section = (mid_status.get("decode_engines") or {}).get("ops")
+    require(section is not None and "tenant_queue_depth" in section,
+            f"ops: /statusz has no engine section with tenant_queue_depth: "
+            f"{mid_status.get('decode_engines')}")
+    events = mid_sched["admission"]["ops"]["events"]
+    require({"rt", "bulk"} <= set(events), f"ops: /schedz shows {events}")
+    outs = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    for t in rt_threads:
+        t.join()
+    counts = _read_counts()
+    by_kernel = dict(cpa.launches_by_kernel)
+    paged = (cpa.launches, cpa.plain_calls)
+    snap = srv.metrics_snapshot()
+    calls = dict(srv.decoder.calls)
+    c = snap["counters"]
+    news = [OPS_BULK_NEW] * OPS_BULK + [OPS_RT_NEW] * OPS_RT
+    for i, (f, toks, n) in enumerate(zip(futs, outs, news)):
+        require(f.finish_reason == "length" and len(toks) == n,
+                f"ops: stream {i} ({tenants[i]}) ended {f.finish_reason} "
+                f"after {len(toks)} of {n} tokens")
+    require(c["parked"] >= 1 and c["resumed"] >= 1 and c["preempted"] == 0,
+            f"ops: counters {c}")
+    end = _scrape(port, "end")
+    samples = _parse_prometheus(end["/metrics"])
+    key = ("paddle_decode_requests_total", '{event="parked",server="ops"}')
+    require(samples.get(key) == c["parked"],
+            f"ops: /metrics reads {samples.get(key)} parked, the engine "
+            f"{c['parked']}")
+    # the kernels: cold prefills on the flash forward, decode on the split
+    # decode kernel, the resumed streams' chunked prefill on the window
+    # kernel, every call through all layers, no plain version
+    require(counts["plain_calls"]["flash_fwd"] == 0 and paged[1] == 0,
+            f"ops: plain calls: flash {counts['plain_calls']['flash_fwd']}, "
+            f"paged {paged[1]}")
+    want = {"paged_window_bf16": layers * calls["chunked"],
+            "paged_decode_split_bf16": layers * calls["decode"]}
+    require(calls["chunked"] > 0 and calls["decode"] > 0
+            and by_kernel == want
+            and counts["launches"]["flash_fwd"] == layers * calls["prefill"],
+            f"ops: paged launches {by_kernel}, flash "
+            f"{counts['launches']['flash_fwd']}, against the decoder's "
+            f"calls {calls}")
+    # every traced request: its queue, prefill and decode_step spans under
+    # its trace id, in the recorder and over /tracez
+    for i, ctx in enumerate(contexts):
+        stages = {s["stage"] for s in tracing.spans(ctx.trace_id)}
+        require({"queue", "prefill", "decode_step"} <= stages,
+                f"ops: stream {i}'s trace has stages {sorted(stages)}")
+    code, body = _http_get(port, f"/tracez?trace_id={contexts[-1].trace_id}")
+    got = _json.loads(body)["traces"]
+    require(code == 200 and len(got) == 1 and {"queue", "prefill",
+            "decode_step"} <= {s["stage"] for s in got[0]["spans"]},
+            f"ops: /tracez?trace_id= answered {code} with {len(got)} traces")
+    prof = stepprof.default_profiler().summary()
+    steps_env = prof["kinds"].get("decode", {}).get("samples", 0)
+    require(steps_env == snap["decode_steps"],
+            f"ops: {steps_env} decode envelopes for "
+            f"{snap['decode_steps']} engine decode steps")
+    # a draining shutdown: /readyz reads 503 while the last stream drains,
+    # and the engine's checks are gone once it returned
+    extra_ctx = tracing.new_context()
+    with tracing.use_context(extra_ctx):
+        extra = srv.submit_generate(rt_prompts[OPS_RT],
+                                    max_new_tokens=OPS_DRAIN_NEW, tenant="rt")
+    _wait_for(lambda: len(extra.tokens()) >= 1, 120, "the drain stream")
+    code_before, _ = _http_get(port, "/readyz")
+    closer = threading.Thread(target=srv.shutdown, daemon=True)
+    closer.start()
+    readyz_draining = None
+    while closer.is_alive():
+        code, _ = _http_get(port, "/readyz")
+        if code == 503:
+            readyz_draining = 503
+            break
+        time.sleep(0.005)
+    closer.join(300)
+    require(not closer.is_alive(), "ops: shutdown did not return")
+    require(code_before == 200 and readyz_draining == 503,
+            f"ops: /readyz read {code_before} before shutdown and "
+            f"{readyz_draining} while draining, not 200 and 503")
+    require(extra.finish_reason == "length"
+            and len(extra.result()) == OPS_DRAIN_NEW,
+            f"ops: the drained stream ended {extra.finish_reason}")
+    code, body = _http_get(port, "/readyz")
+    require("decode:ops" not in _json.loads(body)["checks"],
+            f"ops: the engine's readiness check outlived shutdown: {body}")
+    leak = srv.leak_check()
+    require(leak["ok"], f"ops: leak check after shutdown {leak}")
+    rec = {"streams": {"bulk": OPS_BULK, "rt": OPS_RT},
+           "telemetry_port": port,
+           "prompt_new": {"bulk": [OPS_BULK_PROMPT, OPS_BULK_NEW],
+                          "rt": [OPS_RT_PROMPT, OPS_RT_NEW]},
+           "kv_pages": num_pages, "pool_bytes": srv.kv.pool_bytes(),
+           "wall_s": wall, "counters": c,
+           "ttft_ms": {"bulk": ttft, "rt": rt_ttft},
+           "decode_step_ms": snap["step_ms"]["decode"],
+           "prefill_step_ms": snap["step_ms"]["prefill"],
+           "decode_steps": snap["decode_steps"],
+           "decoder_calls": calls, "prefix": snap["prefix"],
+           "launches": {"flash_fwd": counts["launches"]["flash_fwd"],
+                        "paged_attention": paged[0]},
+           "paged_launches_by_kernel": by_kernel,
+           "plain_calls": {"flash_fwd": counts["plain_calls"]["flash_fwd"],
+                           "paged_attention": paged[1]},
+           "sched_events": srv.scheduler.snapshot()["events"],
+           "stepprof": {k: prof["kinds"][k] for k in prof["kinds"]},
+           "device_peak_bytes": max(
+               (e.get("device_peak_bytes", 0) for e in
+                stepprof.default_profiler().envelopes(limit=10 ** 6)),
+               default=None),
+           "spans": tracing.default_buffer().stats(),
+           "readyz": {"before": code_before, "draining": readyz_draining},
+           "leak_check": leak["ok"]}
+    del srv
+    return rec
+
+
+def _ops_compare(state, model) -> dict:
+    """The decode step with telemetry and head sampling at 1.0 against
+    without, in turns off, on, on, off, fresh engines of the same shape;
+    then one more "on" run profiles a window of its decode steps (device
+    ms a step, busy share), apart from the compared runs."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    rng = np.random.RandomState(state["seed"] + 29)
+    prompts = [rng.randint(0, model.config.vocab_size, OPS_CMP_PROMPT)
+               for _ in range(OPS_CMP_STREAMS)]
+    pages = 1 + OPS_CMP_STREAMS * -(-(OPS_CMP_PROMPT + OPS_PROFILE_NEW)
+                                    // PAGE_SIZE)
+    runs, window = {"off": [], "on": []}, None
+    for turn in ("off", "on", "on", "off", "profiled"):
+        on = turn != "off"
+        set_flags({"FLAGS_trace_sample_rate": 1.0 if on else 0.0})
+        srv = GenerationServer(
+            model, max_batch=MAX_BATCH, page_size=PAGE_SIZE, num_pages=pages,
+            prefix_cache=False, device="cuda",
+            telemetry_port=0 if on else -1, name=f"ops_cmp_{turn}")
+        new = OPS_PROFILE_NEW if turn == "profiled" else OPS_CMP_NEW
+        futs = [srv.submit_generate(p, max_new_tokens=new)
+                for p in prompts]
+        if turn == "profiled":
+            _wait_for(lambda: all(len(f.tokens()) >= 2 for f in futs), 300,
+                      "the compared run's first tokens")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                # the window opens once the profiler runs
+                s0 = srv.metrics_snapshot()["decode_steps"]
+                t0 = time.perf_counter()
+                _wait_for(lambda: srv.metrics_snapshot()["decode_steps"]
+                          >= s0 + OPS_PROFILE_STEPS, 300, "profiled steps")
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                s1 = srv.metrics_snapshot()["decode_steps"]
+            busy = 0.0
+            for ev in prof.key_averages():
+                if ev.device_type != DeviceType.CUDA:
+                    continue
+                busy += getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0)) / 1e3
+            require(all(not f.done() for f in futs),
+                    "ops: the profiled streams ended inside the window")
+            window = {"steps": s1 - s0, "wall_ms": wall_ms,
+                      "device_ms_per_step": busy / max(1, s1 - s0),
+                      "wall_ms_per_step": wall_ms / max(1, s1 - s0),
+                      "busy_share": busy / wall_ms if wall_ms else None}
+            for f in futs:
+                f.cancel()
+        for f in futs:
+            toks = f.result(timeout=600)
+            require(len(toks) == new or (turn == "profiled"
+                                         and f.cancelled()),
+                    f"ops: a compared stream ({turn}) ended "
+                    f"{f.finish_reason} after {len(toks)} tokens")
+        snap = srv.metrics_snapshot()
+        srv.shutdown()
+        if turn != "profiled":
+            runs[turn].append(snap["step_ms"]["decode"]["mean"])
+        del srv
+    set_flags({"FLAGS_trace_sample_rate": 0.0})
+    return {"decode_step_ms_mean": runs,
+            "on_over_off": (statistics.mean(runs["on"])
+                            / statistics.mean(runs["off"])),
+            "profiled_window": window}
+
+
+def _ops_inference(state, engine_port) -> dict:
+    """InferenceServer over ERNIE-base saved by jit.save (float32, as the
+    inference phase saves it) under two tenants, with the telemetry
+    endpoint: typed quota refusals, 12 flash launches a batch, the latency
+    histogram with an exemplar whose trace is in /tracez, outputs against
+    Predictor.run on each request alone."""
+    import json as _json
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import inference, jit, serving
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         ernie_base)
+    from paddle_tpu_torch.serving import QuotaExceededError
+    from paddle_tpu_torch.serving.scheduling import (AdmissionController,
+                                                     SchedulerPolicy,
+                                                     TenantPolicy)
+    from paddle_tpu_torch.static import InputSpec
+    seed = state["seed"]
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ops_"))
+    try:
+        cfg = ernie_base(hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+        model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                               device="cuda",
+                                               seed=seed).eval()
+        jit.save(model, str(work / "ernie_f32"),
+                 input_spec=[InputSpec([None, None], "int64", "input_ids")])
+        del model
+        _release()
+        pred = inference.create_predictor(
+            inference.Config(str(work / "ernie_f32")))
+        policy = SchedulerPolicy(tenants={
+            "online": TenantPolicy("online", rate=0.0, weight=2.0,
+                                   priority="realtime"),
+            "offline": TenantPolicy("offline", rate=1e-3,
+                                    burst=OPS_INFER_BURST, priority="batch")})
+        ctl = AdmissionController(policy, name="ops_infer")
+        srv = serving.InferenceServer(
+            pred, max_batch_size=SERVER_MAX_BATCH,
+            seq_buckets=SERVER_BUCKETS, pipeline_depth=2,
+            queue_capacity=4 * OPS_INFER_REQUESTS, name="ops_infer",
+            scheduler=ctl, telemetry_port=0, ready_requires_warmup=True)
+        port = srv.telemetry.port
+        require(port == engine_port,
+                "ops: the server did not share the process's endpoint")
+        srv.warmup()
+        rng = np.random.RandomState(seed + 31)
+        reqs = {t: [rng.randint(1, cfg.vocab_size, (1, n)).astype(np.int64)
+                    for n in rng.randint(SERVER_MIN_LEN,
+                                         SERVER_BUCKETS[-1] + 1,
+                                         OPS_INFER_REQUESTS)]
+                for t in ("online", "offline")}
+        _reset_counts()
+        futs, refused = [], []
+        for i in range(OPS_INFER_REQUESTS):
+            for tenant in ("online", "offline"):
+                try:
+                    futs.append((tenant, i, srv.submit([reqs[tenant][i]],
+                                                       tenant=tenant)))
+                except QuotaExceededError as e:
+                    refused.append(e.tenant)
+        outs = [(t, i, f.result(timeout=300)[0]) for t, i, f in futs]
+        counts = _read_counts()
+        snap = srv.metrics.snapshot()
+        c = snap["counters"]
+        require(refused == ["offline"] * (OPS_INFER_REQUESTS
+                                          - OPS_INFER_BURST),
+                f"ops: refusals {refused}")
+        require(c["completed"] == len(futs) and c["failed"] == 0,
+                f"ops: server counters {c}")
+        _require_launches("ops_infer", counts,
+                          {"flash_fwd": cfg.num_layers}, c["batches"])
+        scraped = _scrape(port, "inference leg")
+        samples = _parse_prometheus(scraped["/metrics"])
+        lat = [k for k in samples if k[0] == "paddle_serving_latency_ms_count"
+               and 'server="ops_infer"' in k[1]]
+        require(lat and samples[lat[0]] == len(futs),
+                f"ops: /metrics latency count {lat and samples[lat[0]]}")
+        ex = _json.loads(scraped["/tracez"])["exemplars"].get(
+            "paddle_serving_latency_ms", {})
+        require(ex, "ops: no exemplar on paddle_serving_latency_ms")
+        for le, e in ex.items():
+            code, body = _http_get(port, f"/tracez?trace_id={e['trace_id']}")
+            require(code == 200 and len(_json.loads(body)["traces"]) == 1,
+                    f"ops: exemplar {le} trace {e['trace_id']} is not in "
+                    f"/tracez")
+        srv.shutdown()
+        # each request alone through Predictor.run, padded to its bucket
+        worst = 0.0
+        for tenant, i, out in outs:
+            padded = srv.policy.pad_request_seq([reqs[tenant][i]])[0]
+            alone = pred.run([padded])[0]
+            worst = max(worst, _dist(out, alone))
+        require(worst <= F32_MODEL_LIMIT, f"ops: server outputs {worst:.2e} "
+                f"from Predictor.run alone, beyond {F32_MODEL_LIMIT}")
+        rec = {"requests": len(futs), "refused": len(refused),
+               "batches": c["batches"],
+               "launches": counts["launches"]["flash_fwd"],
+               "plain_calls": counts["plain_calls"]["flash_fwd"],
+               "latency_ms": snap["latency_ms"],
+               "vs_predictor_alone": worst,
+               "exemplars": len(ex),
+               "sched_events": ctl.snapshot()["events"]}
+        del pred, srv
+        _release()
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def phase_ops(state):
+    """The serving operations plane on the card: gpt3_1p3b under a
+    two-tenant scheduler with priority preemption, the telemetry endpoint
+    read over HTTP, traces, step profiles; the decode step with telemetry
+    and sampling against without; then InferenceServer under two tenants.
+    Head sampling at 1.0 for the phase (the flag restored after)."""
+    from paddle_tpu_torch.framework.flags import flag_value, set_flags
+    from paddle_tpu_torch.observability import (SpanBuffer, StepProfiler,
+                                                stop_telemetry_server,
+                                                tracing)
+    from paddle_tpu_torch.observability import stepprof
+    model = _model(state)
+    rate = flag_value("FLAGS_trace_sample_rate")
+    prev_buf = tracing.set_default_buffer(
+        SpanBuffer(max_spans=1 << 16, max_per_trace=1024))
+    prev_prof = stepprof.set_default_profiler(StepProfiler(window=1 << 16))
+    tracing.clear_exemplars()
+    try:
+        set_flags({"FLAGS_trace_sample_rate": 1.0})
+        t0 = time.perf_counter()
+        engine = _ops_engine(state, model)
+        engine_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compare = _ops_compare(state, model)
+        compare_s = time.perf_counter() - t0
+        set_flags({"FLAGS_trace_sample_rate": 1.0})
+        tracing.set_default_buffer(SpanBuffer(max_spans=1 << 16))
+        t0 = time.perf_counter()
+        infer = _ops_inference(state, engine["telemetry_port"])
+        infer_s = time.perf_counter() - t0
+    finally:
+        set_flags({"FLAGS_trace_sample_rate": rate})
+        tracing.set_default_buffer(prev_buf)
+        stepprof.set_default_profiler(prev_prof)
+        stop_telemetry_server()
+    out = {"card": state.get("smi"), "engine": engine, "compare": compare,
+           "inference_server": infer,
+           "seconds": {"engine": engine_s, "compare": compare_s,
+                       "inference_server": infer_s}}
+    state["ops"] = out
+    log("ops: " + json.dumps(out))
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -6170,7 +6745,10 @@ def kernels_line(state) -> dict:
     entry listing its times at the script's shape (``api_shape``,
     ``nn_shape``); the hapi phase's ``Model.fit`` runs count the same way
     (its O2 run's evaluations run in float32). ``flash_fwd`` also lists its
-    times at Sq != Sk (``cross_shapes``). The inference phase's bf16 server
+    times at Sq != Sk (``cross_shapes``). The ops phase's scheduled engine
+    run counts in ``flash_fwd`` and ``paged_attention`` (also apart, as
+    ``ops_launches``), its InferenceServer leg in ``flash_fwd_f32``. The
+    inference phase's bf16 server
     run counts in
     ``flash_fwd`` (its
     times at the Predictor's shape and the server's: ``serving_shapes``),
@@ -6204,6 +6782,8 @@ def kernels_line(state) -> dict:
     nn_o2, nn_f32 = nn["o2"]["launches"], nn["f32_launches"]
     hapi_b, hapi_f = state["hapi"]["launches"]["bf16"], \
         state["hapi"]["launches"]["f32"]
+    ops_eng = state["ops"]["engine"]["launches"]
+    ops_infer = state["ops"]["inference_server"]["launches"]
 
     def api_row(dtype, part, kname=None, phase=api):
         """The flash kernel at a Paddle script's shape (the api phase's, or
@@ -6226,10 +6806,12 @@ def kernels_line(state) -> dict:
              + sum(r["launches"]["flash_fwd"] for r in st_serve.values())
              + sum(t["flash_fwd"] for t in st_train) + fam_fwd
              + infer["bfloat16"]["launches"] + api_o2["flash_fwd"]
-             + nn_o2["flash_fwd"] + hapi_b["flash_fwd"], None),
+             + nn_o2["flash_fwd"] + hapi_b["flash_fwd"]
+             + ops_eng["flash_fwd"], None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
-             + st_serve["bfloat16"]["launches"]["paged_attention"],
+             + st_serve["bfloat16"]["launches"]["paged_attention"]
+             + ops_eng["paged_attention"],
              state["engine"]["paged_launches_by"]),
             ("paged_attention_int8", cpa, state["paged_int8_main"],
              serving["launches"]["paged_attention"]
@@ -6241,6 +6823,11 @@ def kernels_line(state) -> dict:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": row["case"]}
+        if name in ("flash_fwd", "paged_attention"):
+            entry["ops_launches"] = ops_eng[name]
+        if name == "paged_attention":
+            entry["ops_launches_by_kernel"] = \
+                state["ops"]["engine"]["paged_launches_by_kernel"]
         if by is not None:
             entry["launches_by_kind"] = by
             src = state["engine"] if name == "paged_attention" else serving
@@ -6339,9 +6926,10 @@ def kernels_line(state) -> dict:
                 "source": ca.SOURCE, "replaces": ca.REPLACES,
                 "launches": infer["float32"]["launches"]
                 + f32_train["flash_fwd"] + api_f32["flash_fwd"]
-                + nn_f32["flash_fwd"] + hapi_f["flash_fwd"],
+                + nn_f32["flash_fwd"] + hapi_f["flash_fwd"] + ops_infer,
                 "launches_by_path": {
                     "inference_server": infer["float32"]["launches"],
+                    "ops_inference_server": ops_infer,
                     "training_parities": f32_train["flash_fwd"],
                     "paddle_api_script": api_f32["flash_fwd"],
                     "paddle_nn_script": nn_f32["flash_fwd"],
@@ -6531,7 +7119,7 @@ def main(argv=None) -> int:
            "train": phase_train, "stacked": phase_stacked,
            "recipe": phase_recipe, "families": phase_families,
            "inference": phase_inference, "api": phase_api, "nn": phase_nn,
-           "hapi": phase_hapi}
+           "hapi": phase_hapi, "ops": phase_ops}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -6551,11 +7139,11 @@ def main(argv=None) -> int:
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
-                                     "api", "nn", "hapi", "total_s")
+                                     "api", "nn", "hapi", "ops", "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",
-                                "inference", "api", "nn", "hapi")):
+                                "inference", "api", "nn", "hapi", "ops")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

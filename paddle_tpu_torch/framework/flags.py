@@ -166,9 +166,11 @@ define_flag("FLAGS_serving_pipeline_depth", 2,
             "the worker assembles batch N+1 while batch N computes on "
             "the device (0 = synchronous execute)")
 define_flag("FLAGS_serving_telemetry_port", -1,
-            "HTTP telemetry endpoint the InferenceServer attaches: -1 "
-            "disabled; any other value raises until the telemetry plane "
-            "is ported (ROADMAP queue 1 item 5b)")
+            "HTTP telemetry endpoint (/metrics /healthz /readyz /statusz "
+            "/tracez /sloz /schedz) the InferenceServer and the "
+            "GenerationServer attach on construction: -1 disabled, 0 "
+            "ephemeral port, >0 fixed port; one shared endpoint per "
+            "process")
 define_flag("FLAGS_serving_donate_inputs", True,
             "accepted for the reference's surface and without effect: "
             "torch has no buffer donation, so the port always behaves as "
@@ -184,3 +186,53 @@ define_flag("FLAGS_serving_warmup_from_manifest", False,
 define_flag("FLAGS_serving_ready_requires_warmup", False,
             "gate InferenceServer.ready on warmup: the server reports "
             "not-ready until warmup() completes (or mark_ready())")
+
+# The operations plane (observability/{tracing,stepprof,slo}.py) and the
+# multi-tenant scheduler (serving/scheduling/), with the reference's names
+# and defaults (paddle_tpu/framework/flags.py:292-365, :481-499).
+define_flag("FLAGS_stepprof_window", 512,
+            "bound of the continuous step profiler's per-step envelope "
+            "ring (oldest envelopes are evicted past this)")
+define_flag("FLAGS_stepprof_anomaly_k", 6.0,
+            "straggler threshold: a step slower than ewma + k * 1.4826 * "
+            "MAD of its kind is flagged and promoted into the trace "
+            "flight recorder as an error span")
+define_flag("FLAGS_stepprof_min_samples", 32,
+            "step samples per kind before the straggler detector arms "
+            "(the EWMA/MAD baseline warm-up)")
+define_flag("FLAGS_slo_eval_interval_s", 10.0,
+            "cadence of the background SLO evaluator thread "
+            "(SLOMonitor.start(); explicit evaluate() calls are always "
+            "allowed)")
+define_flag("FLAGS_trace_sample_rate", 0.0,
+            "head-sampling rate for request traces (0 = tracing off, 1 = "
+            "every request). The decision is made once at ingress, "
+            "deterministically from the trace id; errored, shed and "
+            "deadline requests are tail-promoted into the recorder "
+            "regardless of the coin flip")
+define_flag("FLAGS_trace_buffer_spans", 4096,
+            "bound of the in-process span flight recorder (/tracez): "
+            "oldest spans are evicted past this many")
+define_flag("FLAGS_trace_max_spans_per_trace", 256,
+            "per-trace span cap in the flight recorder and on the "
+            "unsampled pending list, so one long decode stream cannot "
+            "evict every other trace")
+define_flag("FLAGS_sched_policy_file", "",
+            "JSON tenant-policy file (rate/burst/weight/priority per "
+            "tenant); hot-reloaded on mtime change. Empty = flags-only "
+            "policy")
+define_flag("FLAGS_sched_default_rate", 0.0,
+            "default tenant token-bucket refill rate in tokens/s "
+            "(admission cost is the request's rows at the InferenceServer, "
+            "prompt+max_new tokens at the generation engine); 0 = "
+            "unlimited")
+define_flag("FLAGS_sched_default_burst", 64.0,
+            "default tenant token-bucket depth (burst allowance)")
+define_flag("FLAGS_sched_default_weight", 1.0,
+            "default tenant weighted-fair-queuing weight (a weight-4 "
+            "tenant drains 4x the token volume of a weight-1 tenant under "
+            "contention)")
+define_flag("FLAGS_sched_default_priority", "standard",
+            "default tenant priority class: realtime | standard | batch "
+            "(admission prefers realtime; page-pressure preemption parks "
+            "batch first and never touches a higher class)")

@@ -27,10 +27,14 @@ hand-written flash kernels forward and backward.
   ignored.
 - Randomness (dropout) draws from the port's generator
   (``framework/random.py``), which advances with every step.
+- ``donate`` (the reference's default True) is accepted and has no
+  effect: parameters and optimizer state are updated in place, which is
+  what the reference's buffer donation buys, so ``donate=True`` and
+  ``False`` run the same step.
 
-Not in this slice: buffer donation, meshes, the compile cache and xstats,
-the numerics tripwires, DGC/LocalSGD and ASP masks. Asking for any of them
-raises ``NotImplementedError`` naming its ROADMAP item.
+Not in this slice: meshes, the compile cache and xstats, the numerics
+tripwires, DGC/LocalSGD and ASP masks. Asking for any of them raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -56,11 +60,10 @@ class TrainStep:
                  donate: Optional[bool] = None,
                  amp_level: Optional[str] = None,
                  amp_dtype: str = "bfloat16", scaler=None):
-        if donate is not None:
-            raise NotImplementedError(
-                "buffer donation is not ported: the port updates parameters "
-                "and optimizer state in place (ROADMAP queue 1 item 11: the "
-                "compiled step's features)")
+        # donate is accepted for the reference's surface and has no
+        # effect: the step updates parameters and optimizer state in
+        # place, which is what the reference's buffer donation buys
+        del donate
         for attr in ("_dgc_cfg", "_localsgd_cfg"):
             if getattr(optimizer, attr, None) is not None:
                 raise NotImplementedError(

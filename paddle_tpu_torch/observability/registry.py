@@ -1,12 +1,17 @@
-"""Typed metric registry (the part of ``paddle_tpu/observability/registry.py``
-that the serving metrics and ``framework.monitor`` use).
+"""Typed metric registry, the single surface every subsystem of the port
+reports into (the port of ``paddle_tpu/observability/registry.py``).
 
 Three metric families (``Counter``, ``Gauge``, ``Histogram``) with
 Prometheus-style label sets, the bounded-window percentile estimator
-``PercentileWindow`` (the serving snapshot's percentiles) and a
-process-wide ``MetricRegistry`` that owns the families. The reference's scrape-time collectors and its exposition (text,
-JSON, HTTP) wait for the operations plane (ROADMAP queue 1 item 5b). Pure
-standard library, as the reference's.
+``PercentileWindow`` (shared with ``serving.metrics``), and a
+``MetricRegistry`` that owns the families plus scrape-time collectors.
+Exposition (Prometheus text, JSON, HTTP) lives in ``exposition.py`` and
+``httpd.py``, so this module stays standard-library only and import-light:
+``framework.monitor`` imports it before most of the package exists.
+
+Time is injected: ``PercentileWindow`` and ``Histogram`` take a ``now``
+callable (default ``time.monotonic``), so age-bounded windows are
+deterministic under test and immune to wall-clock jumps.
 """
 from __future__ import annotations
 
@@ -16,20 +21,33 @@ import re
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricRegistry",
-           "PercentileWindow", "default_registry", "DEFAULT_MS_BUCKETS"]
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricRegistry", "PercentileWindow",
+    "default_registry", "sanitize_metric_name", "DEFAULT_MS_BUCKETS",
+]
 
-# Millisecond-scaled default buckets (the stack's latencies are ms-sized).
+# Millisecond-scaled default buckets (the stack's latencies are ms-sized;
+# Prometheus' stock seconds buckets would collapse everything into one).
 DEFAULT_MS_BUCKETS = (0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
                       250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0)
 
 _NAME_RE = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_INVALID_CHARS = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def sanitize_metric_name(name: str) -> str:
+    """Coerce an arbitrary string into a legal Prometheus metric name."""
+    name = _INVALID_CHARS.sub("_", str(name))
+    if not name or not _NAME_RE.match(name):
+        name = "_" + name
+    return name
 
 
 def _nearest_rank(sorted_vals: Sequence[float], q: float) -> float:
-    """Nearest-rank percentile over an already-sorted sample."""
+    """Nearest-rank percentile over an already-sorted sample: serving and
+    the registry agree on every quantile."""
     if not sorted_vals:
         return 0.0
     k = max(0, min(len(sorted_vals) - 1,
@@ -39,9 +57,13 @@ def _nearest_rank(sorted_vals: Sequence[float], q: float) -> float:
 
 class PercentileWindow:
     """Bounded window of recent observations with nearest-rank
-    percentiles: at most ``maxlen`` samples and, with ``max_age_s``, only
-    samples younger than that. ``now`` is injected for deterministic
-    tests. Not locked: callers synchronize around it."""
+    percentiles. Bounded two ways: at most ``maxlen`` samples, and (when
+    ``max_age_s`` is set) only samples younger than that — so a
+    long-running server's p99 tracks current behavior, not its whole
+    life. ``now`` is injected for deterministic tests.
+
+    Not internally locked: callers (Histogram children, ServingMetrics)
+    synchronize around it, matching the deques it replaces."""
 
     __slots__ = ("_dq", "_now", "max_age_s")
 
@@ -79,6 +101,13 @@ class PercentileWindow:
     def sum(self) -> float:
         return float(sum(self.values()))
 
+    def max(self) -> float:
+        vals = self.values()
+        return float(max(vals)) if vals else 0.0
+
+    def percentile(self, q: float) -> float:
+        return _nearest_rank(sorted(self.values()), q)
+
     def snapshot(self, qs: Sequence[float] = (50, 95, 99)) -> dict:
         vals = sorted(self.values())
         out = {"count": len(vals)}
@@ -87,10 +116,15 @@ class PercentileWindow:
         out["max"] = vals[-1] if vals else 0.0
         return out
 
+    def clear(self):
+        self._dq.clear()
 
+
+# --------------------------------------------------------------- families
 class _Family:
     """A named metric with a fixed label-name set; each distinct label
-    value tuple is one child."""
+    value tuple is one child. With an empty label set the family proxies
+    to its single anonymous child (``Counter("x").inc()``)."""
 
     kind = "untyped"
 
@@ -104,6 +138,7 @@ class _Family:
         self._lock = threading.Lock()
         self._children: "OrderedDict[Tuple, object]" = OrderedDict()
 
+    # -- child construction (subclass hook)
     def _new_child(self):
         raise NotImplementedError
 
@@ -131,7 +166,8 @@ class _Family:
             return child
 
     def get(self, *args, **kwargs):
-        """Child for these labels, or None (never creates one)."""
+        """Child for these labels, or None — never creates (so read-only
+        probes like monitor.stat_get don't mint empty series)."""
         key = self._key(args, kwargs)
         with self._lock:
             return self._children.get(key)
@@ -159,6 +195,19 @@ class _Family:
             for k in dead:
                 del self._children[k]
 
+    def items(self) -> List[Tuple[Tuple, object]]:
+        with self._lock:
+            return list(self._children.items())
+
+    def collect(self) -> List[Tuple[Dict[str, str], object]]:
+        """(labels_dict, child) pairs for exposition."""
+        return [(dict(zip(self.labelnames, key)), child)
+                for key, child in self.items()]
+
+    def label_values(self) -> List[Tuple]:
+        with self._lock:
+            return list(self._children)
+
 
 class _CounterChild:
     __slots__ = ("_lock", "_value")
@@ -176,30 +225,62 @@ class _CounterChild:
     def value(self):
         return self._value
 
+    def reset(self):
+        with self._lock:
+            self._value = 0
+
 
 class Counter(_Family):
-    """Monotonic count (``inc`` takes any numeric delta: it also backs
-    ``framework.monitor``'s ``stat_add``)."""
+    """Monotonic count. ``inc`` tolerates any numeric delta because it
+    also backs ``framework.monitor``'s permissive STAT_ADD view."""
 
     kind = "counter"
 
     def _new_child(self):
         return _CounterChild()
 
+    def inc(self, n=1):
+        return self.labels().inc(n)
+
+    @property
+    def value(self):
+        return self.labels().value
+
 
 class _GaugeChild:
-    __slots__ = ("_lock", "_value")
+    __slots__ = ("_lock", "_value", "_fn")
 
     def __init__(self):
         self._lock = threading.Lock()
         self._value = 0.0
+        self._fn = None
 
     def set(self, v):
         with self._lock:
+            self._fn = None
             self._value = v
+
+    def inc(self, n=1):
+        with self._lock:
+            self._value += n
+
+    def dec(self, n=1):
+        with self._lock:
+            self._value -= n
+
+    def set_function(self, fn: Callable[[], float]):
+        """Value is computed at read time (scrape) instead of pushed."""
+        with self._lock:
+            self._fn = fn
 
     @property
     def value(self):
+        fn = self._fn
+        if fn is not None:
+            try:
+                return fn()
+            except Exception:  # noqa: BLE001 - a broken probe must not
+                return float("nan")  # take down the whole scrape
         return self._value
 
 
@@ -209,19 +290,41 @@ class Gauge(_Family):
     def _new_child(self):
         return _GaugeChild()
 
+    def set(self, v):
+        self.labels().set(v)
+
+    def inc(self, n=1):
+        self.labels().inc(n)
+
+    def dec(self, n=1):
+        self.labels().dec(n)
+
+    def set_function(self, fn):
+        self.labels().set_function(fn)
+
+    @property
+    def value(self):
+        return self.labels().value
+
 
 class _HistogramChild:
-    __slots__ = ("_lock", "_bounds", "_counts", "_sum", "_count")
+    __slots__ = ("_lock", "_bounds", "_counts", "_sum", "_count", "window")
 
-    def __init__(self, bounds):
+    def __init__(self, bounds, window_len, max_age_s, now):
         self._lock = threading.Lock()
         self._bounds = bounds
         self._counts = [0] * (len(bounds) + 1)   # +1 = the +Inf bucket
         self._sum = 0.0
         self._count = 0
+        self.window = PercentileWindow(window_len, max_age_s, now)
 
     def observe(self, v):
-        self.observe_many((v,))
+        v = float(v)
+        with self._lock:
+            self._counts[bisect.bisect_left(self._bounds, v)] += 1
+            self._sum += v
+            self._count += 1
+            self.window.observe(v)
 
     def observe_many(self, vals):
         with self._lock:
@@ -230,6 +333,7 @@ class _HistogramChild:
                 self._counts[bisect.bisect_left(self._bounds, v)] += 1
                 self._sum += v
                 self._count += 1
+                self.window.observe(v)
 
     @property
     def sum(self):
@@ -240,7 +344,8 @@ class _HistogramChild:
         return self._count
 
     def buckets(self) -> List[Tuple[float, int]]:
-        """Cumulative (upper_bound, count) pairs, +Inf last."""
+        """Cumulative (upper_bound, count) pairs, +Inf last — the
+        Prometheus histogram wire shape."""
         with self._lock:
             out, running = [], 0
             for ub, c in zip(self._bounds, self._counts):
@@ -249,32 +354,86 @@ class _HistogramChild:
             out.append((float("inf"), running + self._counts[-1]))
             return out
 
+    def percentile(self, q: float) -> float:
+        with self._lock:
+            return self.window.percentile(q)
+
+    def window_snapshot(self, qs=(50, 95, 99)) -> dict:
+        with self._lock:
+            return self.window.snapshot(qs)
+
+    def window_sum(self) -> float:
+        with self._lock:
+            return self.window.sum()
+
+    def window_count(self) -> int:
+        with self._lock:
+            return len(self.window)
+
+    def reset(self):
+        with self._lock:
+            self._counts = [0] * len(self._counts)
+            self._sum = 0.0
+            self._count = 0
+            self.window.clear()
+
 
 class Histogram(_Family):
-    """Cumulative buckets, a sum and a count per child (the reference's
-    per-child percentile window is not kept: the serving snapshot keeps
-    its own)."""
+    """Cumulative buckets (Prometheus exposition) plus a bounded
+    ``PercentileWindow`` per child (live p50/p95/p99, the serving
+    snapshot schema)."""
 
     kind = "histogram"
 
     def __init__(self, name, help="", labelnames=(),  # noqa: A002
-                 buckets: Sequence[float] = DEFAULT_MS_BUCKETS):
+                 buckets: Sequence[float] = DEFAULT_MS_BUCKETS,
+                 window: int = 2048, max_age_s: Optional[float] = None,
+                 now: Callable[[], float] = time.monotonic):
         super().__init__(name, help, labelnames)
         bounds = tuple(sorted(float(b) for b in buckets))
         if not bounds:
             raise ValueError("histogram needs at least one bucket bound")
         self._bounds = tuple(b for b in bounds if not math.isinf(b))
+        self._window_len = int(window)
+        self._max_age_s = max_age_s
+        self._now = now
 
     def _new_child(self):
-        return _HistogramChild(self._bounds)
+        return _HistogramChild(self._bounds, self._window_len,
+                               self._max_age_s, self._now)
+
+    def observe(self, v):
+        self.labels().observe(v)
 
 
+# --------------------------------------------------------------- registry
 class MetricRegistry:
-    """Owns metric families; creation is get-or-create and idempotent."""
+    """Owns metric families (creation is get-or-create and idempotent)
+    plus scrape-time collectors — callables invoked at ``collect()`` to
+    refresh pull-style gauges (device memory, queue depths) just before
+    exposition."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._families: "OrderedDict[str, _Family]" = OrderedDict()
+        self._collectors: List[Callable[["MetricRegistry"], None]] = []
+
+    # -- family management
+    def register(self, family: _Family) -> _Family:
+        with self._lock:
+            existing = self._families.get(family.name)
+            if existing is not None:
+                if type(existing) is not type(family):
+                    raise ValueError(
+                        f"metric {family.name!r} already registered as "
+                        f"{existing.kind}, not {family.kind}")
+                return existing
+            self._families[family.name] = family
+            return family
+
+    def unregister(self, name: str):
+        with self._lock:
+            self._families.pop(name, None)
 
     def get(self, name: str) -> Optional[_Family]:
         with self._lock:
@@ -304,9 +463,40 @@ class MetricRegistry:
         return self._get_or_create(Gauge, name, help, labelnames)
 
     def histogram(self, name, help="", labelnames=(),  # noqa: A002
-                  buckets=DEFAULT_MS_BUCKETS) -> Histogram:
+                  buckets=DEFAULT_MS_BUCKETS, window=2048,
+                  max_age_s=None, now=time.monotonic) -> Histogram:
         return self._get_or_create(Histogram, name, help, labelnames,
-                                   buckets=buckets)
+                                   buckets=buckets, window=window,
+                                   max_age_s=max_age_s, now=now)
+
+    # -- collectors
+    def register_collector(self, fn, name: Optional[str] = None):
+        """Idempotent by ``name`` (default: the function's qualname), so
+        installers can run on every telemetry-server start."""
+        key = name or getattr(fn, "__qualname__", repr(fn))
+        with self._lock:
+            if any(k == key for k, _ in self._collectors):
+                return fn
+            self._collectors.append((key, fn))
+        return fn
+
+    def unregister_collector(self, name: str):
+        with self._lock:
+            self._collectors = [(k, f) for k, f in self._collectors
+                                if k != name]
+
+    def collect(self) -> List[_Family]:
+        """Run collectors (a broken one is skipped, never fatal) and
+        return families in registration order."""
+        with self._lock:
+            collectors = list(self._collectors)
+            families = list(self._families.values())
+        for _, fn in collectors:
+            try:
+                fn(self)
+            except Exception:  # noqa: BLE001 - scrape must survive any
+                pass           # single broken probe
+        return families
 
 
 _default_lock = threading.Lock()
@@ -314,7 +504,8 @@ _default: Optional[MetricRegistry] = None
 
 
 def default_registry() -> MetricRegistry:
-    """The process-wide registry (``framework.monitor``, serving)."""
+    """The process-wide registry every built-in subsystem reports into
+    (framework.monitor, serving, the scheduler, SLOs, step profiles)."""
     global _default
     with _default_lock:
         if _default is None:

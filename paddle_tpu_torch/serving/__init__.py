@@ -14,10 +14,12 @@
 - ``ServingMetrics`` (``metrics.py``): the reference's snapshot schema.
 - ``generation`` (subpackage): autoregressive decode serving
   (``GenerationServer``) over a paged KV cache.
+- ``scheduling`` (subpackage): multi-tenant admission control (token
+  buckets, weighted-fair queuing, priority classes, ``/schedz``).
 
-Knobs: ``FLAGS_serving_*`` in ``framework/flags.py``. The serving fleet,
-the tenant scheduler and ``wrap_capi`` wait for ROADMAP queue 1 items 5b
-and 5d, the serving mesh for item 5c.
+Knobs: ``FLAGS_serving_*`` and ``FLAGS_sched_*`` in ``framework/flags.py``.
+The serving fleet and ``wrap_capi`` wait for ROADMAP queue 1 items 5b and
+5d, the serving mesh for item 5c.
 """
 from . import metrics  # noqa: F401  (the registry sub-namespace)
 from .batcher import DynamicBatcher
@@ -26,8 +28,10 @@ from .metrics import ServingMetrics
 from .request import (DeadlineExceededError, QueueFullError,
                       QuotaExceededError, Request, ServerClosedError)
 from .server import InferenceServer
+from . import generation, scheduling  # noqa: F401,E402  (subpackages)
 
 __all__ = ["InferenceServer", "DynamicBatcher", "ShapeBucketPolicy",
            "BucketSpec", "ServingMetrics", "Request", "QueueFullError",
            "QuotaExceededError", "DeadlineExceededError",
-           "ServerClosedError", "next_pow2", "metrics"]
+           "ServerClosedError", "next_pow2", "metrics", "generation",
+           "scheduling"]

@@ -15,9 +15,11 @@ at drain time, never run. Per-signature row counts are kept incrementally,
 so the batch-ready check walks the live signatures, not the queue, and the
 expiry sweep is skipped while no queued request carries a deadline.
 
-The reference's per-tenant ``scheduler`` (admission quotas and
-weighted-fair picks) waits for ROADMAP queue 1 item 5b: the port's batcher
-is FIFO by signature.
+With a ``scheduler`` (a ``scheduling.AdmissionController``) ``put`` debits
+the request's tenant by its rows and raises the typed
+``QuotaExceededError`` when the tenant's bucket is empty, and a window that
+closes without a full batch goes to the tenant with the lowest virtual
+finish tag (priority classes first) instead of the oldest request.
 """
 from __future__ import annotations
 
@@ -33,11 +35,15 @@ __all__ = ["DynamicBatcher"]
 
 class DynamicBatcher:
     def __init__(self, max_batch_size: int = 8, max_wait_ms: float = 2.0,
-                 capacity: int = 64, metrics=None):
+                 capacity: int = 64, metrics=None, scheduler=None):
         self.max_batch_size = int(max_batch_size)
         self.max_wait_ms = float(max_wait_ms)
         self.capacity = int(capacity)
         self.metrics = metrics
+        # optional scheduling.AdmissionController: per-tenant quota on
+        # put() (typed QuotaExceededError sheds) and the weighted-fair
+        # head pick in next_batch() when no bucket is full
+        self.scheduler = scheduler
         self._q: deque = deque()
         self._sig_rows: Dict[Tuple, int] = {}  # queued rows per signature
         self._deadlined = 0                    # queued reqs with deadlines
@@ -71,6 +77,13 @@ class DynamicBatcher:
 
     # ---- producer side ----
     def put(self, req: Request):
+        if self.scheduler is not None:
+            # per-tenant quota gate (cost = request rows); raises the
+            # typed QuotaExceededError, a QueueFullError subclass, so
+            # untyped callers shed it as backpressure. The controller has
+            # its own lock: gate before taking ours.
+            self.scheduler.admit(getattr(req, "tenant", None),
+                                 cost=float(req.rows))
         with self._lock:
             if len(self._q) >= self.capacity:
                 raise QueueFullError(
@@ -85,7 +98,9 @@ class DynamicBatcher:
         """Bulk enqueue: ONE lock acquisition + notify for the whole
         list (a per-request ``put`` loop pays lock/notify/depth-metric
         per request). All-or-nothing: raises QueueFullError without
-        enqueueing anything if the batch doesn't fit."""
+        enqueueing anything if the batch doesn't fit. Not quota-gated, as
+        the reference's: the bulk path belongs to a fleet worker, which
+        sheds per tenant at its own admission point."""
         with self._lock:
             if len(self._q) + len(reqs) > self.capacity:
                 raise QueueFullError(
@@ -214,6 +229,16 @@ class DynamicBatcher:
                     target = head.signature
                 if not self._q:
                     continue  # everything expired/cancelled mid-wait
+
+                if (self.scheduler is not None and len(self._q) > 1
+                        and self._full_signature() is None):
+                    # the window closed without a full bucket: the
+                    # dispatch slot goes to the tenant with the lowest
+                    # virtual finish tag (weighted-fair across tenants,
+                    # priority classes first) instead of strict FIFO
+                    sel = self.scheduler.select(self._q)
+                    if sel is not None:
+                        target = self._q[sel].signature
 
                 batch, rest, rows = [], deque(), 0
                 for r in self._q:

@@ -35,14 +35,34 @@ Backpressure: a bounded queue raising ``QueueFullError``,
 ``ServerClosedError`` after shutdown, and a fault barrier that fails only
 the affected requests, never the worker.
 
-Not in this slice (ROADMAP): the multi-tenant scheduler, tensor-parallel
-meshes, telemetry, tracing, warmup manifests and the compile cache.
-``metrics_snapshot()`` returns a plain dict.
+The operations plane: ``DecodeMetrics`` records into the process-wide
+registry under the reference's ``paddle_decode_*`` families (and keeps the
+windows ``metrics_snapshot()`` reads); a traced request (``tracing.
+request_context()`` at submit) records ``queue``, ``prefill``,
+``decode_step`` or ``verify``, ``shed`` and ``request`` spans; every
+prefill group, decode iteration and verify window drops a ``stepprof``
+envelope; ``telemetry_port=`` (or ``FLAGS_serving_telemetry_port``)
+attaches the telemetry endpoint with ``decode:<name>`` health and
+readiness checks, and ``engines_statusz()`` is the ``/statusz`` section.
+
+Multi-tenant scheduling: with ``scheduler=`` (a
+``scheduling.AdmissionController``) ``submit_generate(tenant=)`` debits the
+tenant's token bucket by prompt + generation budget (the typed
+``QuotaExceededError`` when it is spent), admission picks weighted-fair
+across tenants (priority classes first), and a request that finds too few
+free pages parks in-flight streams of a strictly lower priority class:
+their pages go back, and each resumes later from its full token history on
+the same future and RNG (a chunked prefill over its cached prompt pages),
+or fails with ``QuotaExceededError`` when it cannot.
+
+Not in this slice (ROADMAP): tensor-parallel meshes (item 5c), warmup
+manifests and the compile cache (item 5a).
 """
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -51,17 +71,34 @@ import torch
 
 from ...framework.device import resolve_device, same_device
 from ...framework.flags import flag_value
+from ...observability import tracing
+from ...observability.registry import default_registry
+from ...observability.stepprof import default_profiler
 from ...ops.paged_attention import kv_pool_bytes, resolve_kv_dtype
 from ..bucketing import ShapeBucketPolicy
 from ..request import (DeadlineExceededError, QueueFullError,
-                       ServerClosedError)
+                       QuotaExceededError, ServerClosedError)
 from .kv_cache import PagedKVCache
 from .model_fns import CachedDecoder, supports_cached_decode
 from .prefix_cache import PrefixCache
 from .sampling import sample_next_tokens
 from .spec_decode import _sample, accept_tokens, softmax
 
-__all__ = ["GenerationServer", "StreamingFuture", "DecodeMetrics"]
+__all__ = ["GenerationServer", "StreamingFuture", "DecodeMetrics",
+           "engines_statusz"]
+
+# live-engine registry for /statusz (weak: a dropped engine vanishes)
+_ENGINES_LOCK = threading.Lock()
+_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def engines_statusz() -> dict:
+    """``/statusz`` section: every live engine's prefix-cache, speculative
+    and page-accounting state (with the refcount-leak check) and, under a
+    scheduler, its per-tenant queue depths."""
+    with _ENGINES_LOCK:
+        engines = list(_ENGINES)
+    return {e.metrics.name: e.statusz() for e in engines}
 
 
 class StreamingFuture:
@@ -168,11 +205,14 @@ class StreamingFuture:
 
 class _Request:
     __slots__ = ("prompt", "max_new", "temperature", "rng", "future",
-                 "submit_t", "deadline", "hard_deadline")
+                 "submit_t", "deadline", "hard_deadline", "trace",
+                 "t_wall_ns", "tenant", "prio_rank", "n_done", "cost")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float,
                  seed: Optional[int], timeout_ms: Optional[float],
-                 deadline_ms: Optional[float] = None):
+                 trace=None, deadline_ms: Optional[float] = None,
+                 tenant: str = "default", prio_rank: int = 1,
+                 n_done: int = 0):
         self.prompt = prompt
         self.max_new = int(max_new)
         self.temperature = float(temperature)
@@ -185,6 +225,18 @@ class _Request:
         # evicted at batch re-form, unlike the scheduling-only deadline
         self.hard_deadline = (self.submit_t + deadline_ms / 1e3
                               if deadline_ms else None)
+        # trace identity (a tracing.TraceContext child whose span id is
+        # the generate::request root span)
+        self.trace = trace
+        self.t_wall_ns = time.time_ns() if trace is not None else 0
+        # multi-tenant scheduling: the WFQ cost is token-denominated
+        # (prompt + generation budget); n_done counts tokens streamed
+        # before a park/resume cycle, so TTFT and max_new accounting
+        # survive preemption
+        self.tenant = tenant
+        self.prio_rank = int(prio_rank)
+        self.n_done = int(n_done)
+        self.cost = float(len(prompt) + self.max_new)
 
     def expired(self, now: float) -> bool:
         if self.deadline is not None and now > self.deadline:
@@ -221,7 +273,7 @@ class _ActiveSeq:
 
 
 _EVENTS = ("submitted", "completed", "rejected", "timed_out", "cancelled",
-           "failed")
+           "failed", "parked", "preempted", "resumed")
 
 
 def _window_stats(values) -> dict:
@@ -235,88 +287,169 @@ def _window_stats(values) -> dict:
 
 
 class DecodeMetrics:
-    """Engine counters and bounded latency windows, read as one plain dict
-    by :meth:`snapshot`."""
+    """The engine's metric families on the process-wide registry, under the
+    reference's names (``paddle_decode_requests_total{server,event}``,
+    ``paddle_decode_tokens_total``, ``paddle_decode_ttft_ms``,
+    ``paddle_decode_inter_token_ms``, ``paddle_decode_step_ms{stage}``,
+    ``paddle_decode_batch_occupancy``, ``paddle_decode_kv_pages{state}``,
+    ``paddle_decode_kv_pool_bytes{dtype}``, the eviction, prefix and
+    speculation counters), plus bounded windows that :meth:`snapshot`
+    reads as one plain dict (its schema is the port's: count, mean, p50,
+    p90, p99 and max a window)."""
 
-    def __init__(self, name: str, page_capacity: int, window: int = 4096):
+    def __init__(self, name: str, max_batch: int, page_capacity: int,
+                 window: int = 4096, registry=None):
         self.name = name
         self._lock = threading.Lock()
-        self._events = {e: 0 for e in _EVENTS}
-        self._tokens = 0
+        reg = registry or default_registry()
+        occ_buckets = sorted({1, 2, 4, 8, 16, 32, 64, 128,
+                              max(1, int(max_batch))})
+        self._f_events = reg.counter(
+            "paddle_decode_requests_total",
+            "generation request lifecycle events per engine",
+            ("server", "event"))
+        self._f_tokens = reg.counter(
+            "paddle_decode_tokens_total",
+            "tokens emitted by the decode engine", ("server",))
+        self._f_inter = reg.histogram(
+            "paddle_decode_inter_token_ms",
+            "latency between consecutive streamed tokens of a sequence",
+            ("server",))
+        self._f_step = reg.histogram(
+            "paddle_decode_step_ms",
+            "device step durations by stage (prefill batch / decode "
+            "iteration)", ("server", "stage"))
+        self._f_occ = reg.histogram(
+            "paddle_decode_batch_occupancy",
+            "live lanes per decode iteration (continuous-batching "
+            "utilization of the fixed [max_batch, 1] step)",
+            ("server",), buckets=occ_buckets)
+        self._f_pages = reg.gauge(
+            "paddle_decode_kv_pages",
+            "KV-cache page occupancy by state", ("server", "state"))
+        self._f_pool_bytes = reg.gauge(
+            "paddle_decode_kv_pool_bytes",
+            "resident device bytes of the paged K/V pools (quantized "
+            "pools include their scale planes)", ("server", "dtype"))
+        self._f_evict = reg.counter(
+            "paddle_decode_kv_page_evictions_total",
+            "pages released by finished/cancelled sequences", ("server",))
+        self._f_ttft = reg.histogram(
+            "paddle_decode_ttft_ms",
+            "time to first token: submit to first streamed token "
+            "(prefix-cache hits collapse the prefill share)", ("server",))
+        self._f_pfx_hits = reg.counter(
+            "paddle_decode_prefix_hits_total",
+            "admissions whose prompt reused cached prefix pages",
+            ("server",))
+        self._f_pfx_reused = reg.counter(
+            "paddle_decode_prefix_tokens_reused_total",
+            "prompt tokens served from the prefix cache instead of "
+            "prefill", ("server",))
+        self._f_spec_prop = reg.counter(
+            "paddle_decode_spec_proposed_tokens_total",
+            "draft-model tokens proposed to the verify step", ("server",))
+        self._f_spec_acc = reg.counter(
+            "paddle_decode_spec_accepted_tokens_total",
+            "proposed tokens the target model accepted", ("server",))
+        for fam in (self._f_events, self._f_tokens, self._f_inter,
+                    self._f_step, self._f_occ, self._f_pages,
+                    self._f_pool_bytes, self._f_evict, self._f_ttft,
+                    self._f_pfx_hits, self._f_pfx_reused,
+                    self._f_spec_prop, self._f_spec_acc):
+            fam.clear(server=name)
+        self._events = {e: self._f_events.labels(server=name, event=e)
+                        for e in _EVENTS}
+        self._c_tokens = self._f_tokens.labels(server=name)
+        self._h_inter = self._f_inter.labels(server=name)
+        self._h_step = {s: self._f_step.labels(server=name, stage=s)
+                        for s in ("prefill", "decode")}
+        self._h_occ = self._f_occ.labels(server=name)
+        self._g_used = self._f_pages.labels(server=name, state="used")
+        self._g_free = self._f_pages.labels(server=name, state="free")
+        self._c_evict = self._f_evict.labels(server=name)
+        self._h_ttft = self._f_ttft.labels(server=name)
+        self._c_pfx_hits = self._f_pfx_hits.labels(server=name)
+        self._c_pfx_reused = self._f_pfx_reused.labels(server=name)
+        self._c_spec_prop = self._f_spec_prop.labels(server=name)
+        self._c_spec_acc = self._f_spec_acc.labels(server=name)
         self._ttft = deque(maxlen=window)
         self._inter = deque(maxlen=window)
         self._step = {s: deque(maxlen=window) for s in ("prefill", "decode")}
         self._occ_sum = 0
         self._occ_n = 0
         self._page_capacity = int(page_capacity)
-        self._pages_used = 0
-        self._evicted = 0
         self._pool_bytes = 0
         self._pool_dtype = "model"
-        self._pfx_hits = 0
-        self._pfx_reused = 0
-        self._spec_proposed = 0
-        self._spec_accepted = 0
         self._spec_greedy = [0, 0]      # greedy lanes: proposed, accepted
 
     def count(self, event: str, n: int = 1):
-        with self._lock:
-            self._events[event] += n
+        self._events[event].inc(n)
 
     def observe_tokens(self, n: int):
-        with self._lock:
-            self._tokens += int(n)
+        self._c_tokens.inc(int(n))
 
     def observe_inter_token(self, ms_list: Sequence[float]):
+        ms_list = [float(m) for m in ms_list]
+        if not ms_list:
+            return
         with self._lock:
-            self._inter.extend(float(m) for m in ms_list)
+            self._inter.extend(ms_list)
+        self._h_inter.observe_many(ms_list)
 
     def observe_step(self, stage: str, ms: float):
         with self._lock:
             self._step[stage].append(float(ms))
+        self._h_step[stage].observe(float(ms))
 
     def observe_occupancy(self, n_active: int):
         with self._lock:
             self._occ_sum += int(n_active)
             self._occ_n += 1
+        self._h_occ.observe(n_active)
 
     def observe_ttft(self, ms: float):
         with self._lock:
             self._ttft.append(float(ms))
+        self._h_ttft.observe(float(ms))
 
-    def set_kv_pages(self, used: int):
-        with self._lock:
-            self._pages_used = int(used)
+    def set_kv_pages(self, used: int, free: int):
+        self._g_used.set(int(used))
+        self._g_free.set(int(free))
 
     def observe_evictions(self, n_pages: int):
-        with self._lock:
-            self._evicted += int(n_pages)
+        self._c_evict.inc(int(n_pages))
 
     def set_kv_pool_bytes(self, nbytes: int, dtype: str = ""):
         with self._lock:
             self._pool_bytes = int(nbytes)
             self._pool_dtype = dtype or "model"
+        self._f_pool_bytes.labels(server=self.name,
+                                  dtype=self._pool_dtype).set(int(nbytes))
 
     def observe_prefix_hit(self, tokens_reused: int):
-        with self._lock:
-            self._pfx_hits += 1
-            self._pfx_reused += int(tokens_reused)
+        self._c_pfx_hits.inc()
+        self._c_pfx_reused.inc(int(tokens_reused))
 
     def observe_spec(self, proposed: int, accepted: int,
                      greedy: bool = False):
-        with self._lock:
-            self._spec_proposed += int(proposed)
-            self._spec_accepted += int(accepted)
-            if greedy:
+        self._c_spec_prop.inc(int(proposed))
+        self._c_spec_acc.inc(int(accepted))
+        if greedy:
+            with self._lock:
                 self._spec_greedy[0] += int(proposed)
                 self._spec_greedy[1] += int(accepted)
 
     def snapshot(self) -> dict:
+        proposed = int(self._c_spec_prop.value)
+        accepted = int(self._c_spec_acc.value)
+        used = int(self._g_used.value)
         with self._lock:
             return {
                 "server": self.name,
-                "counters": dict(self._events),
-                "tokens_total": self._tokens,
+                "counters": {e: int(c.value)
+                             for e, c in self._events.items()},
+                "tokens_total": int(self._c_tokens.value),
                 "ttft_ms": _window_stats(self._ttft),
                 "inter_token_ms": _window_stats(self._inter),
                 "step_ms": {s: _window_stats(w)
@@ -326,17 +459,16 @@ class DecodeMetrics:
                              if self._occ_n else 0.0),
                     "steps": self._occ_n},
                 "kv_pages": {"capacity": self._page_capacity,
-                             "used": self._pages_used,
-                             "free": self._page_capacity - self._pages_used,
-                             "evicted_total": self._evicted,
+                             "used": used,
+                             "free": self._page_capacity - used,
+                             "evicted_total": int(self._c_evict.value),
                              "pool_bytes": self._pool_bytes,
                              "pool_dtype": self._pool_dtype},
-                "prefix": {"hits": self._pfx_hits,
-                           "tokens_reused": self._pfx_reused},
-                "spec": {"proposed": self._spec_proposed,
-                         "accepted": self._spec_accepted,
-                         "acceptance_rate": (self._spec_accepted
-                                             / max(1, self._spec_proposed)),
+                "prefix": {"hits": int(self._c_pfx_hits.value),
+                           "tokens_reused": int(self._c_pfx_reused.value)},
+                "spec": {"proposed": proposed,
+                         "accepted": accepted,
+                         "acceptance_rate": accepted / max(1, proposed),
                          # greedy lanes alone: with the target as its own
                          # draft, only rounding can reject there
                          "greedy_acceptance_rate": (
@@ -357,7 +489,14 @@ class GenerationServer:
     ``FLAGS_decode_spec_k``) proposals a step. ``device`` (default: the
     CUDA device; ``"cpu"`` must be asked for) must be the model's and the
     draft's. The models are put in eval mode; their parameters are read
-    live at each step.
+    live at each step. ``donate`` is accepted for the reference's surface
+    and has no effect: the port updates the pools in place, which is what
+    the reference's donation buys. ``scheduler`` (an
+    ``AdmissionController``) turns on per-tenant quotas, weighted-fair
+    admission and priority-aware page preemption; ``telemetry_port``
+    (default ``FLAGS_serving_telemetry_port``; -1 off, 0 ephemeral)
+    attaches the telemetry endpoint, and a port that cannot be bound raises
+    ``OSError``.
     """
 
     def __init__(self, model, *, max_batch: Optional[int] = None,
@@ -369,10 +508,13 @@ class GenerationServer:
                  default_timeout_ms: Optional[float] = None,
                  eos_token_id: Optional[int] = None,
                  pad_token_id: int = 0,
+                 donate: Optional[bool] = None,
                  name: str = "generate",
+                 telemetry_port: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  draft_model=None,
                  spec_k: Optional[int] = None,
+                 scheduler=None,
                  device=None,
                  start: bool = True):
         self.device = resolve_device(device)
@@ -421,7 +563,7 @@ class GenerationServer:
             model, max_batch=self.max_batch, page_size=self.page_size,
             pages_per_seq=self.pages_per_seq,
             max_positions=self.max_seq_len, kv_dtype=self.kv_dtype,
-            device=self.device)
+            device=self.device, donate=donate)
         self.kv = PagedKVCache(model, num_pages=int(num_pages),
                                page_size=self.page_size, dtype=pool_dtype)
         # ---- shared-prefix KV reuse (radix index over full pages)
@@ -457,11 +599,19 @@ class GenerationServer:
                 draft_model, max_batch=self.max_batch,
                 page_size=self.page_size, pages_per_seq=self.pages_per_seq,
                 max_positions=self.max_seq_len, kv_dtype=self.kv_dtype,
-                device=self.device)
+                device=self.device, donate=donate)
             self._draft_k, self._draft_v = draft_model.init_kv_pools(
                 self.kv.num_pages, self.page_size, pool_dtype)
-        self.metrics = DecodeMetrics(name, self.kv.capacity)
+        self.metrics = DecodeMetrics(name, self.max_batch, self.kv.capacity)
+        self.metrics.set_kv_pages(0, self.kv.capacity)
         self.metrics.set_kv_pool_bytes(self.kv.pool_bytes(), self.kv_dtype)
+        # ---- multi-tenant admission: an AdmissionController adds
+        # per-tenant token-bucket quotas, weighted-fair queue order and
+        # priority-aware page-pressure preemption; None = FIFO engine
+        self.scheduler = scheduler
+        if scheduler is not None:
+            from ..scheduling.schedz import register_controller
+            register_controller(scheduler)
         # ONE Condition is both the engine lock and the wakeup channel
         self._lock = threading.Condition()
         self._queue: "deque[_Request]" = deque()
@@ -473,8 +623,61 @@ class GenerationServer:
         self._loop_running = False
         self._worker: Optional[threading.Thread] = None
         self._steps = 0
+        self._span_q: List[tuple] = []      # spans to record, lock held
+        self.telemetry = self._attach_telemetry(telemetry_port, name)
+        with _ENGINES_LOCK:
+            _ENGINES.add(self)
         if start:
             self.start()
+
+    # ------------------------------------------------------ telemetry
+    def _attach_telemetry(self, telemetry_port, name):
+        port = telemetry_port if telemetry_port is not None \
+            else flag_value("FLAGS_serving_telemetry_port")
+        if port is None or int(port) < 0:
+            return None
+        from ... import observability
+        srv = observability.start_telemetry_server(port=int(port))
+        observability.add_health_check(f"decode:{name}", self._health)
+        observability.add_readiness_check(f"decode:{name}",
+                                          self._readiness)
+        return srv
+
+    def _health(self):
+        if self._closed:
+            return False, "shut down"
+        w = self._worker
+        if w is not None and not w.is_alive() and not self._loop_running:
+            return False, "worker thread died"
+        return True, {"queue_depth": self.queue_depth,
+                      "active_sequences": self.active_sequences}
+
+    def _readiness(self):
+        """Ready while accepting requests (the reference's warmup gate
+        waits with the engine's warmup, ROADMAP queue 1 item 5a)."""
+        return not self._closed, {"warmed": False, "gated": False}
+
+    def statusz(self) -> dict:
+        """One engine's /statusz section: page accounting (with the
+        refcount-leak check), prefix-cache and speculative state, and
+        under a scheduler the queued requests per tenant."""
+        with self._lock:
+            out = {
+                "closed": self._closed,
+                "queue_depth": len(self._queue),
+                "active_sequences": sum(
+                    1 for s in self._slots if s is not None),
+                "kv_leak_check": self.kv.leak_check(),
+                "spec_k": self.spec_k,
+            }
+            if self.prefix is not None:
+                out["prefix_cache"] = self.prefix.stats()
+            if self.scheduler is not None:
+                depths: Dict[str, int] = {}
+                for q in self._queue:
+                    depths[q.tenant] = depths.get(q.tenant, 0) + 1
+                out["tenant_queue_depth"] = depths
+        return out
 
     def refresh_params(self):
         """After the model's weights changed: the decoders read live
@@ -492,7 +695,8 @@ class GenerationServer:
         with self._lock:
             n = self.prefix.clear()
             if n:
-                self.metrics.set_kv_pages(self.kv.used_pages)
+                self.metrics.set_kv_pages(self.kv.used_pages,
+                                          self.kv.free_pages)
             return n
 
     # ------------------------------------------------------ observability
@@ -550,6 +754,11 @@ class GenerationServer:
             # never-started engine (start=False): run the loop inline so
             # queued requests still drain (or abort)
             self._loop()
+        if self.telemetry is not None:
+            from ...observability import (remove_health_check,
+                                          remove_readiness_check)
+            remove_health_check(f"decode:{self.metrics.name}")
+            remove_readiness_check(f"decode:{self.metrics.name}")
 
     def __enter__(self):
         return self
@@ -563,13 +772,17 @@ class GenerationServer:
                         temperature: float = 0.0,
                         timeout_ms: Optional[float] = None,
                         seed: Optional[int] = None,
-                        deadline_ms: Optional[float] = None
+                        deadline_ms: Optional[float] = None,
+                        tenant: Optional[str] = None
                         ) -> StreamingFuture:
         """Enqueue one prompt; returns the token stream. ``timeout_ms`` is a
         SCHEDULING deadline: a request still queued past it fails with
         DeadlineExceededError; once prefilled, the stream runs to
         completion. ``deadline_ms`` is the HARD end-to-end budget: a stream
-        still decoding past it is evicted at the next batch re-form. Raises
+        still decoding past it is evicted at the next batch re-form.
+        ``tenant`` selects the multi-tenant envelope when the engine has a
+        scheduler (untagged maps to ``default``): an over-quota submission
+        raises the typed per-tenant QuotaExceededError. Raises
         QueueFullError at capacity, ServerClosedError after shutdown,
         ValueError for prompts that leave no room to generate."""
         if self._closed:
@@ -585,20 +798,54 @@ class GenerationServer:
                 f"within max_seq_len={self.max_seq_len}")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        ctx = tracing.request_context()
+        prio_rank, tname = 1, "default"
+        if self.scheduler is not None:
+            pol = self.scheduler.policy.lookup(tenant)
+            tname, prio_rank = pol.tenant, pol.rank
+            # token-denominated quota: one submission spends prompt +
+            # generation budget from the tenant's bucket
+            cost = float(prompt.size + max_new_tokens)
+            if not self.scheduler.try_admit(tname, cost):
+                self.metrics.count("rejected")
+                if ctx is not None:
+                    tracing.record_span(
+                        ctx.child(), "generate::shed", stage="shed",
+                        start_unix_ns=time.time_ns(), duration_ms=0.0,
+                        status="error",
+                        attrs={"server": self.metrics.name,
+                               "tenant": tname,
+                               "error": "QuotaExceededError"},
+                        root=True)
+                raise QuotaExceededError(
+                    f"tenant {tname!r} exceeded its token quota "
+                    f"({pol.rate:g}/s, burst {pol.burst:g})", tenant=tname)
         req = _Request(prompt, max_new_tokens, temperature, seed,
                        timeout_ms if timeout_ms is not None
                        else self.default_timeout_ms,
-                       deadline_ms=deadline_ms)
+                       trace=ctx.child() if ctx is not None else None,
+                       deadline_ms=deadline_ms,
+                       tenant=tname, prio_rank=prio_rank)
         with self._lock:
             if self._closed:
                 raise ServerClosedError("engine is shut down")
-            if len(self._queue) >= self.queue_capacity:
+            full = len(self._queue) >= self.queue_capacity
+            if full:
                 self.metrics.count("rejected")
-                raise QueueFullError(
-                    f"generation queue at capacity ({self.queue_capacity})")
-            self._queue.append(req)
-            self.metrics.count("submitted")
-            self._lock.notify_all()
+            else:
+                self._queue.append(req)
+                self.metrics.count("submitted")
+                self._lock.notify_all()
+        if full:
+            if req.trace is not None:
+                tracing.record_span(
+                    req.trace, "generate::shed", stage="shed",
+                    start_unix_ns=req.t_wall_ns, duration_ms=0.0,
+                    status="error",
+                    attrs={"server": self.metrics.name,
+                           "error": "QueueFullError"}, root=True)
+            raise QueueFullError(
+                f"generation queue at capacity ({self.queue_capacity})")
         return req.future
 
     def generate(self, prompt, max_new_tokens: int = 32,
@@ -631,13 +878,54 @@ class GenerationServer:
                                 return
                             self._lock.wait(0.05)
                             continue
+                    self._flush_spans()
                     if self.draft is not None:
                         self._spec_iteration(active)
                     else:
                         self._decode_iteration(active)
+                    self._flush_spans()
         finally:
             with self._lock:
                 self._loop_running = False
+            self._flush_spans()
+
+    # ---- spans: queued under the engine lock, recorded outside it ----
+    def _queue_span(self, ctx, name: str, **kw):
+        """Queue one span for recording (lock held): the tracing layer's
+        own lock is never taken under the engine's."""
+        self._span_q.append((ctx, name, kw))
+
+    def _flush_spans(self):
+        with self._lock:
+            if not self._span_q:
+                return
+            pending, self._span_q = self._span_q, []
+        for ctx, name, kw in pending:
+            tracing.record_span(ctx, name, **kw)
+
+    def _trace_finish(self, seqs: List[_ActiveSeq], status: str,
+                      finish_reason: Optional[str] = None,
+                      error: Optional[str] = None):
+        """Queue each traced sequence's ``generate::request`` root span
+        (the whole-stream envelope; lock held). An error status
+        tail-promotes an unsampled trace."""
+        now = time.time_ns()
+        for seq in seqs:
+            r = seq.req
+            if r.trace is None:
+                continue
+            attrs = {"server": self.metrics.name,
+                     "prompt_tokens": len(r.prompt),
+                     "tokens": seq.n_generated}
+            if finish_reason:
+                attrs["finish_reason"] = finish_reason
+            if error:
+                attrs["error"] = error
+            self._queue_span(
+                r.trace, "generate::request", stage="request",
+                start_unix_ns=r.t_wall_ns,
+                duration_ms=max(0.0, (now - r.t_wall_ns) / 1e6),
+                status=status, attrs=attrs, root=True)
 
     def _evict_expired_streams(self):
         """Hard-deadline check at batch re-form (lock held)."""
@@ -651,6 +939,73 @@ class GenerationServer:
                     f"generated token(s); stream evicted"),
                 reason="deadline")
             self._release(seq, "timed_out")
+            self._trace_finish([seq], "error",
+                               error="DeadlineExceededError",
+                               finish_reason="deadline")
+
+    def _preempt_for_pages(self, rank: int, need: int) -> bool:
+        """Priority-aware page pressure (lock held): park in-flight streams
+        of a strictly lower priority class (a higher rank number), lowest
+        class first and youngest first within a class, until ``need`` pages
+        are free. Their pages go back (``leak_check`` stays clean) and each
+        is re-queued to resume from its full token history. Returns True
+        when the reservation now fits; equal or higher classes are never
+        touched."""
+        if need > self.kv.free_pages + sum(
+                len(s.pages) for s in self._slots
+                if s is not None and s.req.prio_rank > rank):
+            return False        # not even parking everyone would fit
+        victims = [s for s in self._slots
+                   if s is not None and s.req.prio_rank > rank]
+        victims.sort(key=lambda s: (-s.req.prio_rank, -s.req.submit_t))
+        for seq in victims:
+            if self.kv.free_pages >= need:
+                break
+            self._park(seq)
+        return self.kv.free_pages >= need
+
+    def _park(self, seq: _ActiveSeq):
+        """Preempt one in-flight stream (lock held): free its pages and
+        lane, then re-queue it to resume. The resumed request's prompt is
+        the full token history, so a later prefill (a chunked one over the
+        prompt pages the prefix cache still holds) rebuilds the K/V and the
+        same future keeps streaming where it left off. When it cannot
+        resume (engine closing, queue full, or the history already fills
+        max_seq_len) the stream fails with the typed per-tenant
+        QuotaExceededError instead of hanging."""
+        self._release(seq, "parked")
+        r = seq.req
+        history = list(seq.history)     # prompt + every emitted token
+        resumable = (not self._closed
+                     and len(self._queue) < self.queue_capacity
+                     and len(history) < self.max_seq_len
+                     and r.max_new - seq.n_generated >= 1)
+        if not resumable:
+            self.metrics.count("preempted")
+            r.future._fail(
+                QuotaExceededError(
+                    f"stream preempted by a higher priority class after "
+                    f"{seq.n_generated} token(s); resume unavailable",
+                    tenant=r.tenant),
+                reason="preempted")
+            self._trace_finish([seq], "error", error="QuotaExceededError",
+                               finish_reason="preempted")
+            return
+        nr = _Request(np.asarray(history, np.int64),
+                      r.max_new - seq.n_generated, r.temperature,
+                      None, None, trace=r.trace,
+                      tenant=r.tenant, prio_rank=r.prio_rank,
+                      n_done=r.n_done + seq.n_generated)
+        # the resumed request is the original request: the same future,
+        # RNG stream, deadlines and submit time (so the scheduling
+        # deadline keeps covering the whole stream)
+        nr.future = r.future
+        nr.rng = r.rng
+        nr.submit_t = r.submit_t
+        nr.deadline = r.deadline
+        nr.hard_deadline = r.hard_deadline
+        nr.t_wall_ns = r.t_wall_ns
+        self._queue.append(nr)
 
     def _do_abort(self):
         """drain=False shutdown: fail everything still live (lock held)."""
@@ -663,6 +1018,7 @@ class GenerationServer:
             if seq is not None:
                 seq.req.future._fail(err, reason="shutdown")
                 self._release(seq, "failed")
+                self._trace_finish([seq], "error", error="ServerClosedError")
 
     # ---- admission + prefill ----
     def _admit_and_prefill(self):
@@ -677,12 +1033,27 @@ class GenerationServer:
                         DeadlineExceededError(
                             "deadline passed before the request could be "
                             "scheduled"), reason="timed_out")
+                    if req.trace is not None:
+                        self._queue_span(
+                            req.trace, "generate::queue", stage="queue",
+                            start_unix_ns=req.t_wall_ns,
+                            duration_ms=(now - req.submit_t) * 1e3,
+                            status="error",
+                            attrs={"server": self.metrics.name,
+                                   "error": "DeadlineExceededError"},
+                            root=True)
                 else:
                     live.append(req)
             self._queue = live
             free_slots = [i for i, s in enumerate(self._slots) if s is None]
             while self._queue and free_slots:
-                req = self._queue[0]
+                # weighted-fair pick across tenants (priority classes
+                # first) under a scheduler; FIFO otherwise
+                idx = 0
+                if self.scheduler is not None and len(self._queue) > 1:
+                    sel = self.scheduler.select(self._queue)
+                    idx = sel if sel is not None else 0
+                req = self._queue[idx]
                 max_total = min(len(req.prompt) + req.max_new,
                                 self.max_seq_len)
                 # the prefix index FIRST: matched full pages are shared
@@ -695,8 +1066,23 @@ class GenerationServer:
                 pages = self.kv.alloc(need)
                 if pages is None and self.prefix is not None:
                     # pool pressure: reclaim LRU cache-only pages, then
-                    # retry once
-                    if self.prefix.evict(need - self.kv.free_pages):
+                    # retry once. The matched pages are pinned meanwhile:
+                    # a parked stream's prompt pages are cache-only too,
+                    # and evicting them would hand the same page out
+                    # again as one of this request's own (the reference
+                    # engine maps such a page twice in one block table)
+                    self.kv.retain(shared)
+                    try:
+                        if self.prefix.evict(need - self.kv.free_pages):
+                            pages = self.kv.alloc(need)
+                    finally:
+                        self.kv.release(shared)
+                if pages is None and self.scheduler is not None:
+                    # priority-aware page pressure: park strictly lower
+                    # priority in-flight streams (batch before standard;
+                    # realtime is never touched) until the reservation
+                    # fits, then retry once
+                    if self._preempt_for_pages(req.prio_rank, need):
                         pages = self.kv.alloc(need)
                 if pages is None:
                     break       # head-of-line until pages free up
@@ -712,7 +1098,7 @@ class GenerationServer:
                         self.prefix.note_admission(matched)
                         if matched:
                             self.metrics.observe_prefix_hit(matched)
-                    self._queue.popleft()
+                    del self._queue[idx]
                     slot = free_slots.pop(0)
                     seq = _ActiveSeq(req, slot, shared + pages, max_total,
                                      prefix_len=matched)
@@ -724,9 +1110,19 @@ class GenerationServer:
                 self._tables[slot, :len(seq.pages)] = seq.pages
                 admitted.append(seq)
             if admitted:
-                self.metrics.set_kv_pages(self.kv.used_pages)
+                self.metrics.set_kv_pages(self.kv.used_pages,
+                                          self.kv.free_pages)
         if not admitted:
             return
+        t_adm = time.time_ns()
+        for seq in admitted:
+            if seq.req.trace is not None:
+                tracing.record_span(
+                    seq.req.trace, "generate::queue", stage="queue",
+                    start_unix_ns=seq.req.t_wall_ns,
+                    duration_ms=max(0.0, (t_adm - seq.req.t_wall_ns) / 1e6),
+                    attrs={"server": self.metrics.name, "slot": seq.slot,
+                           "pages": len(seq.pages)})
         # prefill OUTSIDE the lock: cold prompts grouped by prompt bucket
         # (causal attention over the window), prefix hits by SUFFIX bucket
         # (chunked attention over the cached prefix)
@@ -747,6 +1143,33 @@ class GenerationServer:
             for seq in seqs:
                 seq.req.future._fail(exc)
                 self._release(seq, "failed")
+            self._trace_finish(seqs, "error",
+                               error=f"{type(exc).__name__}: {exc}")
+
+    def _profile(self, ms: float, kind: str, occupancy: int,
+                 device_ms: Optional[float] = None, kv_pages: bool = True,
+                 attrs=None):
+        """One ``stepprof`` envelope (profiling is garnish on the hot
+        path: a failure there never fails a step)."""
+        try:
+            default_profiler().record_step(
+                ms, kind=kind, step=self._steps, device_ms=device_ms,
+                occupancy=occupancy,
+                kv_pages_used=self.kv.used_pages if kv_pages else None,
+                attrs=attrs, device=self.device)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _trace_prefill(self, seqs: List[_ActiveSeq], t_wall: int, ms: float,
+                       seq_bucket: int, chunked: bool):
+        for seq in seqs:
+            if seq.req.trace is not None:
+                tracing.record_span(
+                    seq.req.trace, "generate::prefill", stage="prefill",
+                    start_unix_ns=t_wall, duration_ms=ms,
+                    attrs={"server": self.metrics.name, "rows": len(seqs),
+                           "seq_bucket": seq_bucket, "prefix_hit": chunked,
+                           "tokens_reused": seq.prefix_len})
 
     def _prefill_group(self, seqs: List[_ActiveSeq], seq_bucket: int):
         rows = len(seqs)
@@ -759,6 +1182,7 @@ class GenerationServer:
             ids[i, :len(p)] = p
             lens[i] = len(p)
             tables[i] = self._tables[seq.slot]
+        t_wall = time.time_ns()
         t0 = time.perf_counter()
         try:
             last, k2, v2 = self.decoder.prefill(ids, lens, tables, self.kv.k,
@@ -771,7 +1195,12 @@ class GenerationServer:
         except Exception as e:  # noqa: BLE001 - fault barrier: fail only
             self._fail_group(seqs, e)   # THIS group; the worker survives
             return
-        self.metrics.observe_step("prefill", (time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.observe_step("prefill", ms)
+        # one envelope per prefill group (the same kind for the chunked
+        # path: one stream per step kind)
+        self._profile(ms, "prefill", rows, device_ms=ms)
+        self._trace_prefill(seqs, t_wall, ms, seq_bucket, chunked=False)
         self._publish_prompts(seqs)
         self._sample_and_emit(seqs, logits[:rows])
 
@@ -791,6 +1220,7 @@ class GenerationServer:
             start[i] = seq.prefix_len
             seg[i] = len(suffix)
             tables[i] = self._tables[seq.slot]
+        t_wall = time.time_ns()
         t0 = time.perf_counter()
         try:
             last, k2, v2 = self.decoder.prefill_chunked(
@@ -803,7 +1233,10 @@ class GenerationServer:
         except Exception as e:  # noqa: BLE001 - fault barrier, as above
             self._fail_group(seqs, e)
             return
-        self.metrics.observe_step("prefill", (time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.observe_step("prefill", ms)
+        self._profile(ms, "prefill", rows, device_ms=ms)
+        self._trace_prefill(seqs, t_wall, ms, seq_bucket, chunked=True)
         self._publish_prompts(seqs)
         self._sample_and_emit(seqs, logits[:rows])
 
@@ -832,6 +1265,7 @@ class GenerationServer:
             mask[seq.slot] = True
             # decode attends over the context INCLUDING the token written
             ctx_after[seq.slot] = seq.ctx + 1
+        t_wall = time.time_ns()
         t0 = time.perf_counter()
         try:
             logits, k2, v2 = self.decoder.decode(
@@ -842,9 +1276,27 @@ class GenerationServer:
             self._fail_group(active, e)  # error fails the in-flight
             return                       # sequences, not the engine
         self.kv.k, self.kv.v = k2, v2
+        ms = (time.perf_counter() - t0) * 1e3
         self._steps += 1
-        self.metrics.observe_step("decode", (time.perf_counter() - t0) * 1e3)
+        self.metrics.observe_step("decode", ms)
         self.metrics.observe_occupancy(len(active))
+        # continuous step profiler: one envelope per decode iteration
+        # (occupancy and KV pressure ride along); a straggler iteration
+        # becomes an error span in /tracez
+        self._profile(ms, "decode", len(active), device_ms=ms, attrs={
+            "prefix_tokens_reused": self.prefix.tokens_reused
+            if self.prefix is not None else 0})
+        for seq in active:
+            if seq.req.trace is not None:
+                # per-iteration span; long streams are bounded by the
+                # flight recorder's per-trace cap, not here
+                tracing.record_span(
+                    seq.req.trace, "generate::decode_step",
+                    stage="decode_step", start_unix_ns=t_wall,
+                    duration_ms=ms,
+                    attrs={"server": self.metrics.name,
+                           "step": seq.n_generated,
+                           "occupancy": len(active)})
         for seq in active:
             seq.ctx += 1
         self._sample_and_emit(active, logits[[s.slot for s in active]])
@@ -860,9 +1312,11 @@ class GenerationServer:
         reserved pages and are rolled back by truncating ``ctx`` /
         ``draft_ctx``."""
         b, k = self.max_batch, self.spec_k
+        t_wall = time.time_ns()
         t0 = time.perf_counter()
         try:
             draft_toks, draft_probs = self._draft_propose(active, k)
+            draft_ms = (time.perf_counter() - t0) * 1e3
             ids = np.zeros((b, k + 1), np.int64)
             start = np.zeros(b, np.int32)
             seg = np.zeros(b, np.int32)
@@ -878,10 +1332,12 @@ class GenerationServer:
             self._fail_group(active, e)  # error fails the in-flight
             return                       # sequences, not the engine
         self.kv.k, self.kv.v = k2, v2
+        ms = (time.perf_counter() - t0) * 1e3
         self._steps += 1
-        self.metrics.observe_step("decode", (time.perf_counter() - t0) * 1e3)
+        self.metrics.observe_step("decode", ms)
         self.metrics.observe_occupancy(len(active))
         toks_lists: List[List[int]] = []
+        accs: List[int] = []
         for s in active:
             remaining = min(s.req.max_new - s.n_generated,
                             s.max_total - s.ctx)
@@ -896,6 +1352,24 @@ class GenerationServer:
             # and the next write overwrites them in place
             s.draft_ctx = min(s.draft_ctx, s.ctx)
             toks_lists.append(emitted)
+            accs.append(acc)
+        self._profile(ms, "decode", len(active), device_ms=ms, attrs={
+            "spec_proposed": k * len(active), "spec_accepted": sum(accs),
+            "prefix_tokens_reused": self.prefix.tokens_reused
+            if self.prefix is not None else 0})
+        # the verify window alone (the iteration less the draft's
+        # proposal) as a kind of its own
+        self._profile(max(ms - draft_ms, 0.0), "verify", len(active),
+                      kv_pages=False, attrs={"draft_ms": round(draft_ms, 4)})
+        for seq, toks, acc in zip(active, toks_lists, accs):
+            if seq.req.trace is not None:
+                tracing.record_span(
+                    seq.req.trace, "generate::verify", stage="verify",
+                    start_unix_ns=t_wall, duration_ms=ms,
+                    attrs={"server": self.metrics.name, "proposed": k,
+                           "accepted": acc, "emitted": len(toks),
+                           "draft_ms": round(draft_ms, 3),
+                           "occupancy": len(active)})
         self._emit_batch(active, toks_lists)
 
     def _draft_propose(self, active: List[_ActiveSeq], k: int):
@@ -979,8 +1453,13 @@ class GenerationServer:
                     seq.history.append(tok)
                     seq.n_generated += 1
                     if seq.n_generated == 1:
-                        self.metrics.observe_ttft(
-                            (now - seq.req.submit_t) * 1e3)
+                        if seq.req.n_done:
+                            # a parked stream came back: count the resume,
+                            # not a TTFT (its first token came before)
+                            self.metrics.count("resumed")
+                        else:
+                            self.metrics.observe_ttft(
+                                (now - seq.req.submit_t) * 1e3)
                     else:
                         inter.append((now - seq.last_emit_t) * 1e3)
                     seq.last_emit_t = now
@@ -990,16 +1469,19 @@ class GenerationServer:
                 if seq.req.future._cancel_requested:
                     seq.req.future._finish("cancelled")
                     self._release(seq, "cancelled")
+                    self._trace_finish([seq], "ok", finish_reason="cancelled")
                 elif self.eos_token_id is not None and \
                         int(toks[-1]) == self.eos_token_id:
                     seq.req.future._finish("eos")
                     self._release(seq, "completed")
+                    self._trace_finish([seq], "ok", finish_reason="eos")
                 elif seq.n_generated >= seq.req.max_new or \
                         seq.ctx + 1 > seq.max_total:
                     # ctx + 1: one more token would need a cache slot past
                     # this sequence's reservation
                     seq.req.future._finish("length")
                     self._release(seq, "completed")
+                    self._trace_finish([seq], "ok", finish_reason="length")
         if inter:
             self.metrics.observe_inter_token(inter)
 
@@ -1025,5 +1507,5 @@ class GenerationServer:
         freed = self.kv.release(seq.pages)
         self.metrics.observe_evictions(freed)
         self.metrics.count(event)
-        self.metrics.set_kv_pages(self.kv.used_pages)
+        self.metrics.set_kv_pages(self.kv.used_pages, self.kv.free_pages)
         self._lock.notify_all()

@@ -63,18 +63,21 @@ class CachedDecoder:
     (default) or through their plain versions. ``kv_dtype`` names the
     pools' storage type ('' = the model's, or a FLAGS_decode_kv_dtype
     value); the pools themselves come from the caller, and every entry
-    point refuses pools of another type.
+    point refuses pools of another type. ``donate`` is accepted for the
+    reference's surface and has no effect: the pools are written in place,
+    which is what the reference's buffer donation buys.
     """
 
     def __init__(self, model, *, max_batch: int, page_size: int,
                  pages_per_seq: int, max_positions: Optional[int] = None,
                  use_kernels: bool = True, kv_dtype: str = "",
-                 device=None):
+                 device=None, donate: Optional[bool] = None):
         if not supports_cached_decode(model):
             raise TypeError(
                 f"{type(model).__name__} does not support KV-cached decode "
                 f"(forward must accept cache=, and the model must expose "
                 f"init_kv_pools)")
+        del donate      # in-place pool writes: nothing to donate
         self.device = resolve_device(device)
         if not same_device(model.device, self.device):
             raise ValueError(f"the model is on {model.device}, the decoder "

@@ -6,7 +6,9 @@ Every recording lands in typed metric families on the process-wide registry
 family names (``paddle_serving_requests_total``, ``paddle_serving_latency_ms``,
 ``paddle_serving_stage_ms``, ...); counter bumps also mirror into
 ``framework.monitor`` as ``serving_<server>_*``, and the server wraps batch
-stages in ``profiler.RecordEvent`` spans. ``snapshot()`` keeps the
+stages in ``profiler.RecordEvent`` spans and records a traced request's
+latency as the exemplar of its ``paddle_serving_latency_ms`` bucket
+(``tracing.record_exemplar``, served in ``/tracez``). ``snapshot()`` keeps the
 reference's JSON schema::
 
     {"server": str,

@@ -27,8 +27,8 @@ class QueueFullError(RuntimeError):
 class QuotaExceededError(QueueFullError):
     """Per-tenant shed (a tenant's quota rejected the request). Subclasses
     ``QueueFullError`` so untyped shed paths treat it as load shedding;
-    ``.tenant`` names the tenant. Nothing in the port raises it until the
-    tenant scheduler is ported (ROADMAP queue 1 item 5b)."""
+    ``.tenant`` names the tenant. The scheduler's ``admit`` raises it, and
+    the generation engine sets it on a parked stream that cannot resume."""
 
     def __init__(self, message: str = "tenant quota exceeded",
                  tenant: str = "default"):

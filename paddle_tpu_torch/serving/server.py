@@ -28,10 +28,17 @@ kernels launch on the current one (``ops/cuda_attention.py``). A staging
 slot is rewritten only after the event recorded behind its host-to-device
 copy has fired.
 
+``scheduler=`` (a ``scheduling.AdmissionController``) debits each
+request's tenant by its rows at ``submit`` (the typed
+``QuotaExceededError`` when the tenant's bucket is empty) and hands a
+window that closes without a full batch to the tenant with the lowest
+virtual finish tag. ``telemetry_port=`` (or ``FLAGS_serving_telemetry_port``)
+attaches the process-wide telemetry endpoint and registers this server's
+``serving:<name>`` health and readiness checks; a traced request's latency
+is also its latency bucket's exemplar.
+
 Left out, each raising ``NotImplementedError`` that names its ROADMAP
-queue 1 item: the per-tenant ``scheduler=`` and the telemetry endpoint
-(``telemetry_port=``, ``FLAGS_serving_telemetry_port``) (item 5b); the
-persistent warmup manifest (``warmup_from_manifest``,
+queue 1 item: the persistent warmup manifest (``warmup_from_manifest``,
 ``FLAGS_serving_warmup_from_manifest``) (item 5a); a tensor-parallel
 replica (``FLAGS_serving_mesh_mp`` above 1) (item 5c); C-ABI batching
 (``FLAGS_serving_capi_batching``) (item 5d).
@@ -165,17 +172,6 @@ class InferenceServer:
                  telemetry_port: Optional[int] = None,
                  ready_requires_warmup: Optional[bool] = None,
                  scheduler=None, start: bool = True):
-        if scheduler is not None:
-            raise NotImplementedError(
-                "per-tenant admission (scheduler=) waits for ROADMAP queue "
-                "1 item 5b")
-        port = telemetry_port if telemetry_port is not None \
-            else _flag("FLAGS_serving_telemetry_port")
-        if port is not None and int(port) >= 0:
-            raise NotImplementedError(
-                "the telemetry endpoint (telemetry_port=, "
-                "FLAGS_serving_telemetry_port) waits for ROADMAP queue 1 "
-                "item 5b")
         if _flag("FLAGS_serving_warmup_from_manifest"):
             raise NotImplementedError(
                 "warmup manifests (FLAGS_serving_warmup_from_manifest) wait "
@@ -211,10 +207,14 @@ class InferenceServer:
             seq_buckets=seq_buckets, seq_axis=seq_axis)
         self.metrics = metrics_mod.register(metrics_mod.ServingMetrics(
             name, window=int(_flag("FLAGS_serving_latency_window"))))
+        self.scheduler = scheduler  # scheduling.AdmissionController
+        if scheduler is not None:
+            from .scheduling.schedz import register_controller
+            register_controller(scheduler)
         self._batcher = DynamicBatcher(
             max_batch_size=self.max_batch_size,
             max_wait_ms=self.max_wait_ms, capacity=int(cap),
-            metrics=self.metrics)
+            metrics=self.metrics, scheduler=scheduler)
         self._feed_names = list(predictor.get_input_names())
         self._staging = _StagingPool(
             self.pipeline_depth + 2,
@@ -235,8 +235,42 @@ class InferenceServer:
             ready_requires_warmup if ready_requires_warmup is not None
             else _flag("FLAGS_serving_ready_requires_warmup"))
         self._warmed = threading.Event()
+        self.telemetry = self._attach_telemetry(telemetry_port)
         if start:
             self.start()
+
+    def _attach_telemetry(self, telemetry_port: Optional[int]):
+        """Attach the shared telemetry endpoint. Port -1 = off (the flag
+        default), 0 = ephemeral, >0 = fixed; a port that cannot be bound
+        raises ``OSError``. The endpoint is process-wide and outlives this
+        server (the registry it exposes aggregates every subsystem), so
+        shutdown() deregisters only this server's checks."""
+        port = telemetry_port if telemetry_port is not None \
+            else _flag("FLAGS_serving_telemetry_port")
+        if port is None or int(port) < 0:
+            return None
+        from .. import observability
+        srv = observability.start_telemetry_server(port=int(port))
+        observability.add_health_check(
+            f"serving:{self.metrics.name}", self._health)
+        observability.add_readiness_check(
+            f"serving:{self.metrics.name}", self._readiness)
+        return srv
+
+    def _health(self):
+        """Healthy while accepting traffic: not shut down, and if the
+        worker was ever started it must still be alive."""
+        if self._closed:
+            return False, "shut down"
+        w = self._worker
+        if w is not None and not w.is_alive() and not self._loop_running:
+            return False, "worker thread died"
+        return True, {"queue_depth": self.queue_depth,
+                      "inflight_batches": self.inflight_batches}
+
+    def _readiness(self):
+        return self.ready, {"warmed": self._warmed.is_set(),
+                            "gated": self._ready_gate}
 
     @property
     def warmup_manifest(self):
@@ -316,6 +350,11 @@ class InferenceServer:
                     (deadline is None or time.monotonic() < deadline):
                 time.sleep(0.005)  # wait out a serve_forever drain
         self._stop_completion(timeout)
+        if self.telemetry is not None:
+            from ..observability import (remove_health_check,
+                                         remove_readiness_check)
+            remove_health_check(f"serving:{self.metrics.name}")
+            remove_readiness_check(f"serving:{self.metrics.name}")
         metrics_mod.unregister(self.metrics.name)
 
     def __enter__(self):
@@ -347,9 +386,9 @@ class InferenceServer:
         """Enqueue one request; returns a Future resolving to the list
         of output arrays for THIS request (padded rows/positions already
         sliced away). Raises QueueFullError at capacity and
-        ServerClosedError after shutdown. ``tenant`` is recorded on the
-        request (the per-tenant scheduler waits for ROADMAP queue 1 item
-        5b)."""
+        ServerClosedError after shutdown; with a ``scheduler``, the
+        typed per-tenant ``QuotaExceededError`` (a QueueFullError) when
+        ``tenant``'s quota is spent."""
         if self._closed:
             raise ServerClosedError("server is shut down")
         req = self._make_request(feed, timeout_ms,
@@ -365,7 +404,8 @@ class InferenceServer:
         return req.future
 
     def _trace_shed(self, reqs: Sequence[Request]):
-        """Record a shed request's QueueFullError as an errored span."""
+        """Tail-promote shed requests: a QueueFullError is the kind of
+        tail event an unsampled trace must still record."""
         now = time.time_ns()
         for r in reqs:
             if r.trace is not None:
@@ -692,6 +732,8 @@ class InferenceServer:
                     start_unix_ns=r.t_wall_ns, duration_ms=lat,
                     attrs={"rows": r.rows,
                            "server": self.metrics.name}, root=True)
+                tracing.record_exemplar("paddle_serving_latency_ms",
+                                        lat, r.trace.trace_id)
         # metrics are bulked per BATCH, not per request: count/stat_add
         # take two locks each, a measurable tax at high request rates
         if inf.record_traffic and completed:

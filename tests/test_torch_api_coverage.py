@@ -116,13 +116,51 @@ NN_F = {"Tensor", "activation", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
         "square_error_cost", "swish", "tanh", "tanh_", "tanhshrink",
         "temporal_shift", "thresholded_relu", "triplet_margin_loss",
         "triplet_margin_with_distance_loss", "unfold", "upsample", "zeropad2d"}
+# the operations plane's surfaces (ROADMAP queue 1 item 5b): the names the
+# port offers; every other name of these modules raises naming its item
+OBS = {"BurnRule", "Counter", "DEFAULT_MS_BUCKETS", "Gauge", "Histogram",
+       "LatencySLO", "MetricRegistry", "PROMETHEUS_CONTENT_TYPE",
+       "PercentileWindow", "SLOMonitor", "Span", "SpanBuffer", "StepProfiler",
+       "TelemetryServer", "TraceContext", "add_alert_sink",
+       "add_health_check", "add_readiness_check", "current_context",
+       "default_buffer", "default_monitor", "default_profiler",
+       "default_registry", "export_chrome_trace", "exposition",
+       "get_telemetry_server", "healthz", "httpd", "json_snapshot",
+       "json_text", "latency_slo", "new_context", "parse_traceparent",
+       "prometheus_text", "readyz", "record_exemplar", "record_span",
+       "record_step", "registry", "remove_alert_sink", "remove_health_check",
+       "remove_readiness_check", "request_context", "sanitize_metric_name",
+       "set_default_monitor", "set_default_profiler", "slo", "sloz_payload",
+       "start_span", "start_telemetry_server", "stepprof",
+       "stop_telemetry_server", "tracez_payload", "tracing", "use_context"}
+TRACING = {"Span", "SpanBuffer", "TraceContext", "chrome_trace_events",
+           "clear_exemplars", "current_context", "default_buffer",
+           "exemplars", "export_chrome_trace", "group_traces",
+           "merge_span_dicts", "new_context", "parse_traceparent",
+           "process_name", "promote", "record_exemplar", "record_span",
+           "request_context", "sample_decision", "set_default_buffer",
+           "set_process_name", "start_span", "tracez_payload", "use_context"}
+SCHED = {"AdmissionController", "DEFAULT_TENANT", "PRIORITY_CLASSES",
+         "SchedMetrics", "SchedulerPolicy", "TenantPolicy", "TokenBucket",
+         "WeightedFairQueue", "merge_schedz_payloads", "normalize_tenant",
+         "priority_rank", "register_controller", "schedz_payload"}
+GENERATION = {"CachedDecoder", "DecodeMetrics", "GenerationServer",
+              "PagedKVCache", "PrefixCache", "StreamingFuture",
+              "accept_tokens", "engines_statusz", "sample_next_tokens",
+              "supports_cached_decode"}
+PLANE = {"paddle_tpu.observability": OBS,
+         "paddle_tpu.observability.tracing": TRACING,
+         "paddle_tpu.serving.scheduling": SCHED,
+         "paddle_tpu.serving.generation": GENERATION}
 PORTS = {"paddle_tpu": "paddle_tpu_torch",
          "paddle_tpu.tensor": "paddle_tpu_torch.tensor",
          "paddle_tpu.nn": "paddle_tpu_torch.nn",
          "paddle_tpu.nn.functional": "paddle_tpu_torch.nn.functional",
          "paddle_tpu.amp": "paddle_tpu_torch.amp",
          "paddle_tpu.optimizer": "paddle_tpu_torch.optimizer",
-         "paddle_tpu.linalg": "paddle_tpu_torch.linalg"}
+         "paddle_tpu.linalg": "paddle_tpu_torch.linalg",
+         **{name: name.replace("paddle_tpu", "paddle_tpu_torch", 1)
+            for name in PLANE}}
 # the modules the port offers whole
 WHOLE = {"paddle_tpu.nn": NN, "paddle_tpu.nn.functional": NN_F,
          "paddle_tpu.amp": AMP, "paddle_tpu.optimizer": OPTIMIZER,
@@ -167,6 +205,23 @@ def test_surface_coverage(ref_name):
         assert all(_offered(paddle_tpu_torch, n) for n in have)
         covered = set(have)
     else:
-        covered = {"paddle_tpu": TOP, **WHOLE}[ref_name]
+        covered = {"paddle_tpu": TOP, **WHOLE, **PLANE}[ref_name]
     lost = sorted(n for n in covered if not _offered(port, n))
     assert not lost, f"{ref_name}: covered names went missing: {lost}"
+
+
+@pytest.mark.parametrize("ref_name", sorted(PLANE))
+def test_missing_names_raise_with_their_item(ref_name):
+    """Every name of an operations-plane surface that the port does not
+    offer is a stand-in that raises NotImplementedError naming its ROADMAP
+    queue 1 item, when called or when an attribute is read."""
+    names, have, port = _surface(ref_name)
+    assert set(have) == PLANE[ref_name]
+    for n in sorted(set(names) - set(have)):
+        obj = getattr(port, n)
+        assert obj.__not_ported__, n
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+            obj()
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+            obj.anything
+

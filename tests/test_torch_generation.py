@@ -265,10 +265,10 @@ def test_decoder_refuses_pools_of_another_type(kv_dtype, pools, ok):
 
 
 def test_unported_features_raise():
-    """What the port still leaves out raises, naming its ROADMAP item:
-    buffer donation. The stacked decoder, the prefix cache, speculative
-    decoding, int8 pools and the fp16 GradScaler no longer raise; an
-    unknown recompute policy raises the reference's ValueError."""
+    """What the port once left out builds now: the stacked decoder, the
+    prefix cache, speculative decoding, int8 pools, the fp16 GradScaler
+    and ``donate=`` (accepted without effect, as the reference takes it);
+    an unknown recompute policy raises the reference's ValueError."""
     from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
@@ -280,11 +280,13 @@ def test_unported_features_raise():
         gpt_tiny(stacked=True, recompute="sometimes")
     opt = AdamW(learning_rate=1e-3, parameters=tm.named_parameters())
     TrainStep(tm, lambda out, y: out.mean(), opt, scaler=GradScaler())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        TrainStep(tm, lambda out, y: out.mean(), opt, donate=True)
+    TrainStep(tm, lambda out, y: out.mean(), opt, donate=True)
     srv = GenerationServer(tm, device="cpu", prefix_cache=True,
-                           draft_model=tm, spec_k=2, start=False)
+                           draft_model=tm, spec_k=2, donate=True,
+                           start=False)
     assert srv.prefix is not None and srv.spec_k == 2
+    CachedDecoder(tm, max_batch=1, page_size=8, pages_per_seq=16,
+                  device="cpu", donate=False)
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):

@@ -312,10 +312,17 @@ class TestRobustness:
 
     def test_left_out_options_raise(self, preds):
         pp, _ = preds
-        with pytest.raises(NotImplementedError, match="5b"):
-            serving.InferenceServer(pp, scheduler=object(), start=False)
-        with pytest.raises(NotImplementedError, match="5b"):
-            serving.InferenceServer(pp, telemetry_port=0, start=False)
+        # the scheduler and the telemetry endpoint are ported now (tests/
+        # test_torch_obs_httpd.py, tests/test_torch_scheduling.py)
+        from paddle_tpu_torch.observability import stop_telemetry_server
+        from paddle_tpu_torch.serving.scheduling import AdmissionController
+        srv = serving.InferenceServer(
+            pp, name="tp_left_sched",
+            scheduler=AdmissionController(name="tp_left_sched"),
+            telemetry_port=0, start=False)
+        assert srv.telemetry is not None and srv.telemetry.port > 0
+        srv.shutdown()
+        stop_telemetry_server()
         for flag, value, item in (("FLAGS_serving_mesh_mp", 2, "5c"),
                                   ("FLAGS_serving_capi_batching", True,
                                    "5d")):
@@ -414,7 +421,7 @@ class TestMetrics:
 
     def test_traced_request_records_its_stages(self, preds):
         pp, _ = preds
-        ctx = tracing.new_context()
+        ctx = tracing.new_context(sampled=True)
         srv = serving.InferenceServer(pp, max_wait_ms=1, name="tp_trace")
         with tracing.use_context(ctx):
             fut = srv.submit([np.zeros((1, 8), "float32")])

@@ -54,7 +54,16 @@ def test_package_has_modules_to_scan():
                 "serving/batcher.py", "serving/metrics.py",
                 "observability/registry.py", "observability/tracing.py",
                 "profiler/__init__.py", "static/__init__.py",
-                "bench_inference.py"):
+                "bench_inference.py",
+                # the operations plane and the tenant scheduler
+                "observability/__init__.py", "observability/exposition.py",
+                "observability/httpd.py", "observability/slo.py",
+                "observability/stepprof.py", "observability/_unported.py",
+                "serving/scheduling/__init__.py",
+                "serving/scheduling/admission.py",
+                "serving/scheduling/policy.py",
+                "serving/scheduling/metrics.py",
+                "serving/scheduling/schedz.py"):
         assert f"paddle_tpu_torch/{mod}" in scanned
 
 

@@ -513,11 +513,40 @@ def test_unported_options_raise():
     # the GradScaler and dropout are ported now (tests/test_torch_grad_
     # scaler.py, tests/test_torch_dropout.py): they build and run
     TrainStep(m, lambda o, y: o.sum(), opt, scaler=GradScaler())
-    with pytest.raises(NotImplementedError, match="donation"):
-        TrainStep(m, lambda o, y: o.sum(), opt, donate=True)
+    # donate= is accepted without effect, as the reference takes it
+    # (test_donate_runs_the_same_step holds the steps bit for bit)
+    TrainStep(m, lambda o, y: o.sum(), opt, donate=True)
+    TrainStep(m, lambda o, y: o.sum(), opt, donate=False)
     md = GPTForCausalLM(gpt_tiny(dropout=0.1), device="cpu")
     ids = torch.from_numpy(_ids())
     train_out = md(ids)
     md.eval()
     assert md(ids).shape == train_out.shape == (2, SEQ, 256)
     assert not torch.equal(md(ids), train_out)
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_donate_runs_the_same_step(donate):
+    """``donate=`` has no effect: two steps with it are bit for bit the
+    steps without it, losses, parameters and the optimizer's state."""
+    ids = _ids(3)
+    arrays = _arrays(_jax_model())
+    runs = []
+    for kw in ({}, {"donate": donate}):
+        m = _port_model(arrays)
+        opt = AdamW(learning_rate=1e-4, parameters=m.named_parameters())
+        crit = GPTPretrainingCriterion()
+        step = TrainStep(m, lambda out, y: crit(out, y), opt, **kw)
+        t = torch.from_numpy(ids)
+        losses = [float(step(t, t)) for _ in range(2)]
+        state = {k: v.detach().clone()
+                 for k, v in opt.state_dict().items()
+                 if isinstance(v, torch.Tensor)}
+        runs.append((losses, convert.export_jax_state(m), state))
+    (la, pa, sa), (lb, pb, sb) = runs
+    assert la == lb
+    for n in pa:
+        np.testing.assert_array_equal(pa[n], pb[n], err_msg=n)
+    assert sa.keys() == sb.keys() and len(sa) > 0
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
