@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe,families,inference,api,nn,hapi,ops]
+                  recipe,families,inference,api,nn,hapi,ops,fleet]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -261,6 +261,41 @@ Phases, each failing loudly (exit code 1, no result line):
               call, an exemplar on paddle_serving_latency_ms whose trace is
               in /tracez, every output within 1e-4 x std of Predictor.run
               on the request alone.
+17. fleet   — the serving fleet (float32, the reference's default serving
+              precision). Leg A: two thread replicas
+              (ReplicaSupervisor(ThreadReplicaFactory), the single-process
+              mode), each a PredictorBackend over ERNIE-base saved by
+              jit.save with gpt3_1p3b (one model object, an engine and
+              1,025 pages each) for generation, behind RouterApp; from 4
+              clients over HTTP, 16 greedy /generate streams (prompts of
+              64-1024 tokens, half sharing a 128-token preamble, 64 new
+              tokens) and 128 /submit_many requests of 16-512 tokens. Each
+              stream token for token the same model's GenerationServer on
+              that prompt alone (where one parts, the top-2 logit margin
+              there within 1e-4 x std); both replicas served streams;
+              responses within 1e-4 x std of Predictor.run alone; flash
+              launches = 24 x the decoders' prefills + 12 x the predictor
+              batches, paged launches by kernel = 24 x the decoders' decode
+              and chunked calls, 0 plain calls; /metrics?merged=1 with the
+              engines' families under replica="0" and "1"; one stream's
+              /tracez?trace_id= with the router's span and the engine's
+              queue, prefill and decode_step spans; /statusz 2 ready;
+              /execz, /numericsz, /profilez 501 naming item 11; leak checks
+              clean. Leg B: worker processes (ProcessReplicaFactory, the
+              port's worker, --warmup lattice) under FleetAutoscaler (1-2
+              replicas): a burst of 256 requests scales out and the second
+              worker takes traffic; swap_weights to a second version under
+              traffic (0 failures, every response its version's
+              Predictor.run within 1e-4 x std); a SIGKILL mid-batch (only
+              in-flight requests fail, typed; respawned, 2 ready again);
+              quiet scales in (the decision log and /schedz); each worker
+              that exits cleanly dumps its counters (a sitecustomize.py on
+              its PYTHONPATH): 12 flash launches a batch of its /metrics, 0
+              plain calls; the wedge drill on a --stub worker (/readyz
+              reads wedged, the request behind the poison a typed 503,
+              respawned). Printed with no limit: QPS and p50/p99 through
+              the router against one in-process InferenceServer, spawn to
+              ready, the swap, kill to ready, the streams' TTFT.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -296,7 +331,7 @@ FMA_FLOPS_F32 = 67e12
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
-              "inference", "api", "nn", "hapi", "ops")
+              "inference", "api", "nn", "hapi", "ops", "fleet")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -6277,11 +6312,11 @@ def _first_tokens(futs, t_submit):
     return threads, ttft
 
 
-def _wait_for(cond, timeout_s, what):
+def _wait_for(cond, timeout_s, what, tag="ops"):
     t0 = time.perf_counter()
     while not cond():
         require(time.perf_counter() - t0 < timeout_s,
-                f"ops: {what} did not happen within {timeout_s} s")
+                f"{tag}: {what} did not happen within {timeout_s} s")
         time.sleep(0.005)
 
 
@@ -6722,6 +6757,827 @@ def phase_ops(state):
     log("ops: " + json.dumps(out))
 
 
+FLEET_CLIENTS = 4
+FLEET_STREAMS, FLEET_STREAM_NEW = 16, 64
+FLEET_PROMPT_LENS = (64, 1024)
+FLEET_PREAMBLE = 128       # tokens the longer even streams share (8 pages)
+FLEET_SUBMITS = 128        # leg A's /submit_many requests, 16-512 tokens
+FLEET_GEN_BATCH = 8        # each replica engine's decode lanes
+FLEET_BURST = 256          # leg B's burst through the router
+FLEET_POOL = 64            # distinct requests leg B draws from
+FLEET_WINDOW = 8           # leg B's requests in flight a client
+FLEET_SPAWN_S = 300.0      # bound on a worker's spawn to ready
+FLEET_UNPORTED = ("/execz", "/numericsz", "/profilez")
+FLEET_WEDGE_MS = 500
+FLEET_HANG = 777.0         # the stub's hang poison
+
+# Written onto the leg B workers' PYTHONPATH: at a clean exit, each worker
+# process dumps the port's kernel counters (no program feature needed).
+_FLEET_SITECUSTOMIZE = r'''
+import atexit, json, os, sys
+
+
+def _dump():
+    ca = sys.modules.get("paddle_tpu_torch.ops.cuda_attention")
+    cpa = sys.modules.get("paddle_tpu_torch.ops.cuda_paged_attention")
+    rec = {"pid": os.getpid(),
+           "flash_fwd": getattr(ca, "launches", 0),
+           "flash_fwd_plain": getattr(ca, "plain_calls", 0),
+           "paged_attention": getattr(cpa, "launches", 0),
+           "paged_attention_plain": getattr(cpa, "plain_calls", 0)}
+    out = os.path.join(os.environ["CHIP_SMOKE_FLEET_COUNTS"],
+                       "counts-%d.json" % os.getpid())
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+if os.environ.get("CHIP_SMOKE_FLEET_COUNTS"):
+    atexit.register(_dump)
+'''
+
+
+def _opener():
+    import urllib.request
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _fleet_stream(url, prompt, new, traceparent=None):
+    """One greedy /generate stream over HTTP: tokens, the terminal event
+    and the time to the first token (ms)."""
+    import urllib.request
+    body = {"prompt": prompt, "max_new_tokens": new, "temperature": 0.0}
+    if traceparent:
+        body["traceparent"] = traceparent
+    req = urllib.request.Request(url + "/generate",
+                                 data=json.dumps(body).encode(),
+                                 method="POST")
+    req.add_header("Content-Type", "application/json")
+    toks, done, ttft = [], None, None
+    t0 = time.perf_counter()
+    with _opener().open(req, timeout=600) as resp:
+        for line in resp:
+            ev = json.loads(line)
+            if ev.get("done"):
+                done = ev
+                break
+            if ttft is None:
+                ttft = (time.perf_counter() - t0) * 1e3
+            toks.append(int(ev["t"]))
+    return toks, done, ttft
+
+
+def _fleet_submit(url, arr, codec):
+    """One request through POST /submit_many: its outputs and ms."""
+    import urllib.request
+    req = urllib.request.Request(url + "/submit_many",
+                                 data=codec.encode_batch([[arr]]),
+                                 method="POST")
+    req.add_header("Content-Type", "application/x-paddle-fleet")
+    t0 = time.perf_counter()
+    with _opener().open(req, timeout=600) as resp:
+        (res,) = codec.decode_results(resp.read())
+    require(not isinstance(res, BaseException),
+            f"fleet: a /submit_many request failed: {res!r}")
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def _fleet_percentiles(ms) -> dict:
+    import numpy as np
+    ms = np.asarray(ms, np.float64)
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "mean_ms": float(ms.mean()), "n": int(ms.size)}
+
+
+def _fleet_dispatches(text: str) -> int:
+    """Every dispatch a worker process ran, from its own /metrics: the
+    compile-cache lookups (hit or miss) of all its servers, warmup
+    included, one a batch."""
+    samples = _parse_prometheus(text)
+    return int(sum(v for (name, _), v in samples.items()
+                   if name == "paddle_serving_compile_total"))
+
+
+def _fleet_margin(model, prompt, agreed) -> float:
+    """Top-2 logit margin over std(logits) at the step after ``agreed``
+    tokens of ``prompt``'s stream, from the plain forward (no cache)."""
+    import torch
+    ids = torch.tensor([list(prompt) + list(agreed)], device=model.device)
+    with torch.no_grad():
+        logits = model(ids)[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float((top[0] - top[1]) / logits.std())
+
+
+def _fleet_thread_leg(state, work, ernie_prefix, ernie_vocab) -> dict:
+    """Leg A: two thread replicas (``ThreadReplicaFactory``), each a
+    PredictorBackend over float32 ERNIE-base with the float32 gpt3_1p3b as
+    its generation model (one model object, an engine and pools each),
+    behind ``RouterApp``; 16 greedy streams and 128 /submit_many requests
+    over HTTP from 4 clients."""
+    import threading
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving import ShapeBucketPolicy, fleet
+    from paddle_tpu_torch.serving.fleet import codec
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    seed = state["seed"]
+    t0 = time.perf_counter()
+    gpt = GPTForCausalLM(gpt3_1p3b(), device="cuda", dtype=torch.float32,
+                         seed=seed).eval()
+    layers, vocab = gpt.config.num_layers, gpt.config.vocab_size
+    # each engine's pool priced explicitly: the second engine must not
+    # size itself from the memory the first one left
+    pages = 1 + FLEET_GEN_BATCH * -(-gpt.config.max_seq_len // 16)
+    gen_kw = {"num_pages": pages, "max_batch": FLEET_GEN_BATCH,
+              "page_size": 16}
+    backends = {}
+
+    def factory(rid):
+        be = fleet.PredictorBackend(
+            ernie_prefix, max_batch_size=SERVER_MAX_BATCH,
+            seq_buckets=SERVER_BUCKETS, warmup_mode="lattice",
+            name=f"fleet-a{rid}", generation_model=gpt,
+            generation_kwargs=gen_kw)
+        backends[rid] = be
+        return be
+
+    sup = fleet.ReplicaSupervisor(fleet.ThreadReplicaFactory(factory), 2,
+                                  name="fleet_a")
+    t_spawn = time.perf_counter()
+    sup.start()
+    router = fleet.FleetRouter(supervisor=sup, name="fleet_a",
+                               health_interval_ms=100)
+    app = fleet.RouterApp(router, host="127.0.0.1").start()
+    url = app.url()
+    try:
+        require(router.wait_ready(2, timeout=FLEET_SPAWN_S),
+                f"fleet A: replicas not ready: {router.replica_states()}")
+        ready_s = time.perf_counter() - t_spawn
+        rng = np.random.RandomState(seed + 41)
+        preamble = rng.randint(1, vocab, FLEET_PREAMBLE)
+        prompts = []
+        for i, n in enumerate(rng.randint(FLEET_PROMPT_LENS[0],
+                                          FLEET_PROMPT_LENS[1] + 1,
+                                          FLEET_STREAMS)):
+            p = rng.randint(1, vocab, int(n))
+            if i % 2 == 0 and n > FLEET_PREAMBLE:
+                p[:FLEET_PREAMBLE] = preamble
+            prompts.append(p.tolist())
+        reqs = [rng.randint(1, ernie_vocab, (1, int(n))).astype(np.int64)
+                for n in rng.randint(SERVER_MIN_LEN, SERVER_BUCKETS[-1] + 1,
+                                     FLEET_SUBMITS)]
+        traced = tracing.new_context(sampled=True)
+        calls0 = {r: dict(b.generation_server.decoder.calls)
+                  for r, b in backends.items()}
+        batches0 = {r: b.server.metrics.snapshot()["counters"]["batches"]
+                    for r, b in backends.items()}
+        streams = [None] * FLEET_STREAMS
+        outs, lat = [None] * FLEET_SUBMITS, [None] * FLEET_SUBMITS
+        errors = []
+
+        def stream(i):
+            try:
+                streams[i] = _fleet_stream(
+                    url, prompts[i], FLEET_STREAM_NEW,
+                    traced.to_traceparent() if i == 0 else None)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        def client(c):
+            subs = [threading.Thread(target=stream, args=(i,))
+                    for i in range(c, FLEET_STREAMS, FLEET_CLIENTS)]
+            for t in subs:
+                t.start()
+            try:
+                for i in range(c, FLEET_SUBMITS, FLEET_CLIENTS):
+                    outs[i], lat[i] = _fleet_submit(url, reqs[i], codec)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+            for t in subs:
+                t.join()
+
+        _reset_counts()
+        _reset_paged_counts()
+        t_traffic = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(FLEET_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join()
+        wall = time.perf_counter() - t_traffic
+        counts = _read_counts()
+        by_kernel = dict(cpa.launches_by_kernel)
+        paged = (cpa.launches, cpa.plain_calls)
+        require(not errors, f"fleet A: a client failed: {errors[:1]!r}")
+        calls = {k: sum(b.generation_server.decoder.calls[k] - calls0[r][k]
+                        for r, b in backends.items())
+                 for k in ("prefill", "chunked", "decode", "verify")}
+        batches = sum(b.server.metrics.snapshot()["counters"]["batches"]
+                      - batches0[r] for r, b in backends.items())
+        snaps = {r: b.generation_server.metrics_snapshot()
+                 for r, b in backends.items()}
+        served = {r: sn["counters"]["completed"] for r, sn in snaps.items()}
+        decode_ms = {r: sn["step_ms"]["decode"] for r, sn in snaps.items()}
+        want_flash = layers * calls["prefill"] + 12 * batches
+        require(counts["launches"]["flash_fwd"] == want_flash
+                and counts["plain_calls"]["flash_fwd"] == 0,
+                f"fleet A: flash launches {counts['launches']['flash_fwd']} "
+                f"(plain {counts['plain_calls']['flash_fwd']}), want "
+                f"{layers} x {calls['prefill']} prefills + 12 x {batches} "
+                f"batches")
+        want_paged = {"paged_decode_split_f32": layers * calls["decode"],
+                      "paged_window_f32": layers * calls["chunked"]}
+        require({k: v for k, v in by_kernel.items() if v} ==
+                {k: v for k, v in want_paged.items() if v}
+                and paged[1] == 0 and calls["verify"] == 0,
+                f"fleet A: paged launches {by_kernel} (plain {paged[1]}), "
+                f"want {want_paged} from the decoders' calls {calls}")
+        require(all(n > 0 for n in served.values()) and
+                sum(served.values()) == FLEET_STREAMS,
+                f"fleet A: streams served per replica {served}")
+        # the HTTP surface while the fleet is up
+        code, body = _http_get(app.port, "/metrics?merged=1")
+        require(code == 200 and all(
+            f'paddle_decode_requests_total{{replica="{r}",' in body
+            for r in ("0", "1")),
+            "fleet A: /metrics?merged=1 lacks an engine family under "
+            "replica 0 or 1")
+        merged_samples = len(_parse_prometheus(body))
+        code, body = _http_get(app.port, f"/tracez?trace_id="
+                                         f"{traced.trace_id}")
+        doc = json.loads(body)
+        stages = {s["stage"] for t in doc["traces"] for s in t["spans"]}
+        require(code == 200 and len(doc["traces"]) == 1 and
+                {"router", "queue", "prefill", "decode_step"} <= stages,
+                f"fleet A: the traced stream's /tracez has "
+                f"{len(doc['traces'])} traces, stages {sorted(stages)}")
+        code, body = _http_get(app.port, "/statusz")
+        st = json.loads(body)
+        require(code == 200 and st["ready_replicas"] == 2,
+                f"fleet A: /statusz {code} {body[:300]}")
+        for path in FLEET_UNPORTED:
+            code, body = _http_get(app.port, path)
+            require(code == 501 and "item 11" in body,
+                    f"fleet A: {path} answered {code}: {body[:200]}")
+    finally:
+        app.stop()
+        router.shutdown()
+        sup.stop()
+    leaks = {r: b.generation_server.leak_check() for r, b in backends.items()}
+    require(all(v["ok"] for v in leaks.values()),
+            f"fleet A: leak checks after shutdown {leaks}")
+    del backends, sup, router, app, factory
+    _release()
+    # each stream against the same model's GenerationServer on that prompt
+    # alone; where one parts from it, the top-2 margin there must be within
+    # the model phase's float32 limit
+    ref = GenerationServer(gpt, name="fleet_a_ref", **gen_kw)
+    parted = []
+    try:
+        for i, p in enumerate(prompts):
+            toks, done, _ = streams[i]
+            require(done["finish_reason"] == "length"
+                    and len(toks) == FLEET_STREAM_NEW,
+                    f"fleet A: stream {i} ended {done} after {len(toks)}")
+            want = ref.generate(p, max_new_tokens=FLEET_STREAM_NEW)
+            if toks != want:
+                k = next(j for j, (a, b) in enumerate(zip(toks, want))
+                         if a != b)
+                margin = _fleet_margin(gpt, p, want[:k])
+                parted.append({"stream": i, "step": k, "margin": margin})
+                require(margin <= F32_MODEL_LIMIT,
+                        f"fleet A: stream {i} parts from the single engine "
+                        f"at step {k} with a top-2 margin of {margin:.2e} x "
+                        f"std, beyond {F32_MODEL_LIMIT}")
+        require(ref.leak_check()["ok"], "fleet A: the reference engine leaks")
+    finally:
+        ref.shutdown()
+    del ref, gpt
+    _release()
+    # each /submit_many response against Predictor.run on it alone
+    pred = inference.create_predictor(inference.Config(ernie_prefix))
+    pol = ShapeBucketPolicy(seq_buckets=SERVER_BUCKETS)
+    alone = [pred.run(pol.pad_request_seq([r]))[0] for r in reqs]
+    scale = _fleet_scale(alone)
+    worst = max(_fleet_gap(o[0], a, scale) for o, a in zip(outs, alone))
+    require(worst <= F32_MODEL_LIMIT, f"fleet A: predictor outputs "
+            f"{worst:.2e} x std from Predictor.run alone, beyond "
+            f"{F32_MODEL_LIMIT}")
+    worst_own = max(_dist(o[0], a) for o, a in zip(outs, alone))
+    del pred
+    _release()
+    ttft = [s[2] for s in streams]
+    return {"replicas_ready_s": ready_s, "wall_s": wall,
+            "decoder_calls": calls, "predictor_batches": batches,
+            "streams_per_replica": served, "decode_step_ms": decode_ms,
+            "launches": {"flash_fwd": counts["launches"]["flash_fwd"]},
+            "paged_launches_by_kernel": by_kernel,
+            "plain_calls": {"flash_fwd": counts["plain_calls"]["flash_fwd"],
+                            "paged_attention": paged[1]},
+            "streams_parted": parted,
+            "stream_ttft": _fleet_percentiles(ttft),
+            "submit_latency": _fleet_percentiles(lat),
+            "vs_predictor_alone": worst,
+            "vs_predictor_alone_own_std": worst_own,
+            "merged_samples": merged_samples,
+            "trace_stages": sorted(stages),
+            "seconds": time.perf_counter() - t0}
+
+
+class _FleetLoad:
+    """Client threads sending requests (indices into ``reqs``) through
+    ``submit`` (a router's or a server's); each completion is recorded as
+    (index, submit time, done time, outputs or the exception). ``burst``
+    sends n at once from every client and waits; ``start``/``stop`` keep
+    ``window`` requests in flight a client until stopped."""
+
+    def __init__(self, submit, n_reqs, clients=FLEET_CLIENTS):
+        import threading
+        self.submit, self.n_reqs, self.clients = submit, n_reqs, clients
+        self.records = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = []
+        self._next = 0
+
+    def _send(self, sem=None):
+        with self._lock:
+            i = self._next % self.n_reqs
+            self._next += 1
+        t0 = time.perf_counter()
+        fut = self.submit(i)
+
+        def done(f):
+            exc = f.exception()
+            rec = (i, t0, time.perf_counter(),
+                   exc if exc is not None else f.result())
+            with self._lock:
+                self.records.append(rec)
+            if sem is not None:
+                sem.release()
+        fut.add_done_callback(done)
+        return fut
+
+    def burst(self, n):
+        import concurrent.futures
+        import threading
+        futs = []
+
+        def client(k):
+            for _ in range(k):
+                futs.append(self._send())
+
+        threads = [threading.Thread(target=client, args=(n // self.clients,))
+                   for _ in range(self.clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        concurrent.futures.wait(futs, timeout=600)
+
+    def start(self, window=FLEET_WINDOW):
+        import threading
+        self._stop.clear()
+
+        def client():
+            sem = threading.Semaphore(window)
+            while not self._stop.is_set():
+                if sem.acquire(timeout=0.1):
+                    self._send(sem)
+            for _ in range(window):      # wait for this client's tail
+                sem.acquire(timeout=600)
+
+        self._threads = [threading.Thread(target=client)
+                         for _ in range(self.clients)]
+        for t in self._threads:
+            t.start()
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join()
+
+
+def _fleet_scale(outs) -> float:
+    """The std of a model's outputs over a request pool: the scale the
+    fleet's responses are held at. A 2-logit classifier's own output can
+    have an arbitrarily small std, so one request's is no scale."""
+    import numpy as np
+    return float(np.std(np.stack([np.asarray(o, np.float32)
+                                  for o in outs])))
+
+
+def _fleet_gap(res, want, scale) -> float:
+    import numpy as np
+    return float(np.abs(np.asarray(res, np.float32)
+                        - np.asarray(want, np.float32)).max()) / scale
+
+
+def _fleet_versions_check(records, outs, when) -> tuple:
+    """Each ok record against the version(s) ``when(t_submit, t_done)``
+    allows, at 1e-4 x the std of that version's outputs over the pool:
+    the worst distance, and the failures."""
+    worst, failed = 0.0, []
+    scales = {v: _fleet_scale(o) for v, o in outs.items()}
+    for i, t0, t1, res in records:
+        if isinstance(res, BaseException):
+            failed.append((t0, t1, res))
+            continue
+        allowed = when(t0, t1)
+        d = min(_fleet_gap(res[0], outs[v][i], scales[v]) for v in allowed)
+        require(d <= F32_MODEL_LIMIT, f"fleet B: a response ({allowed}) is "
+                f"{d:.2e} x std from its version's Predictor.run")
+        worst = max(worst, d)
+    return worst, failed
+
+
+def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
+    """Leg B: worker processes (``ProcessReplicaFactory``) under a
+    supervisor, the autoscaler, a rolling swap, a SIGKILL and the wedge
+    drill."""
+    import os
+    import signal
+    import threading
+    import numpy as np
+    from paddle_tpu_torch import inference, serving
+    from paddle_tpu_torch.serving import ShapeBucketPolicy, fleet
+    from paddle_tpu_torch.serving.scheduling import (FleetAutoscaler,
+                                                     register_autoscaler)
+    seed = state["seed"]
+    t0 = time.perf_counter()
+    counts_dir, site_dir = work / "counts", work / "site"
+    for d in (counts_dir, site_dir, work / "announce",
+              work / "announce_wedge"):
+        d.mkdir()
+    (site_dir / "sitecustomize.py").write_text(_FLEET_SITECUSTOMIZE)
+    env = {"PYTHONPATH": os.pathsep.join(
+               [str(site_dir), str(REPO)] +
+               [p for p in [os.environ.get("PYTHONPATH")] if p]),
+           "CHIP_SMOKE_FLEET_COUNTS": str(counts_dir)}
+    logf = open(work / "workers.log", "w")
+    rng = np.random.RandomState(seed + 53)
+    reqs = [rng.randint(1, ernie_vocab, (1, int(n))).astype(np.int64)
+            for n in rng.randint(SERVER_MIN_LEN, SERVER_BUCKETS[-1] + 1,
+                                 FLEET_POOL)]
+    pol = ShapeBucketPolicy(seq_buckets=SERVER_BUCKETS)
+    outs, preds = {}, {}
+    for v in ("v1", "v2"):
+        preds[v] = inference.create_predictor(
+            inference.Config(prefixes[v]))
+        outs[v] = [preds[v].run(pol.pad_request_seq([r]))[0] for r in reqs]
+    # the same burst through one in-process InferenceServer over v1
+    srv = serving.InferenceServer(
+        preds["v1"], max_batch_size=SERVER_MAX_BATCH,
+        seq_buckets=SERVER_BUCKETS, queue_capacity=4 * FLEET_BURST,
+        name="fleet_b_local", ready_requires_warmup=True)
+    srv.warmup()
+    local = _FleetLoad(lambda i: srv.submit([reqs[i]]), FLEET_POOL)
+    t_local = time.perf_counter()
+    local.burst(FLEET_BURST)
+    local_s = time.perf_counter() - t_local
+    srv.shutdown()
+    worst_local, failed_local = _fleet_versions_check(
+        local.records, outs, lambda a, b: ("v1",))
+    require(not failed_local and len(local.records) == FLEET_BURST,
+            f"fleet B: the local server failed {failed_local[:1]}")
+    del srv, preds
+    _release()
+    args = ["--model-prefix", prefixes["v1"], "--warmup", "lattice",
+            "--max-batch-size", str(SERVER_MAX_BATCH), "--seq-buckets",
+            ",".join(str(b) for b in SERVER_BUCKETS)]
+    fac = fleet.ProcessReplicaFactory(extra_args=args, env=env,
+                                      announce_dir=str(work / "announce"),
+                                      stdout=logf, stderr=logf)
+    sup = fleet.ReplicaSupervisor(fac, 1, name="fleet_b")
+    router = fleet.FleetRouter(supervisor=sup, name="fleet_b",
+                               health_interval_ms=100)
+    asc = FleetAutoscaler(
+        sup, queue_depth_fn=lambda: sum(s["outstanding"]
+                                        for s in router.replica_states()),
+        min_replicas=1, max_replicas=2, cooldown_s=2.0,
+        scale_in_quiet_s=4.0, queue_high=8.0, interval_s=0.1,
+        name="fleet_b")
+    register_autoscaler(asc)
+    load = _FleetLoad(lambda i: router.submit([reqs[i]]), FLEET_POOL)
+    rec = {}
+
+    def log_tail():
+        logf.flush()
+        return (work / "workers.log").read_text()[-4000:]
+
+    try:
+        t_spawn = time.perf_counter()
+        sup.start()
+        # announced once its predictor is loaded and its app listens;
+        # ready once the lattice warmup ran
+        _wait_for(lambda: bool(sup.endpoints()), FLEET_SPAWN_S,
+                  "the first worker's announce", tag="fleet B")
+        rec["spawn_to_announce_s"] = time.perf_counter() - t_spawn
+        require(router.wait_ready(1, timeout=FLEET_SPAWN_S),
+                f"fleet B: the first worker is not ready:\n{log_tail()}")
+        rec["spawn_to_ready_s"] = time.perf_counter() - t_spawn
+        first_pid = sup._managed[0].proc.pid
+        code, body = _http_get(int(sup.endpoints()[0].rsplit(":", 1)[1]),
+                               "/statusz")
+        info = json.loads(body)
+        require(code == 200 and info["package"] ==
+                "paddle_tpu_torch.serving.fleet" and
+                info["version"].startswith("model_v1@"),
+                f"fleet B: the worker's /statusz {body[:300]}")
+        asc.start()
+        # 1. the burst scales the fleet out; the second worker warms
+        t_burst = time.perf_counter()
+        load.burst(FLEET_BURST)
+        burst_s = time.perf_counter() - t_burst
+        burst = list(load.records)
+        # a decision is logged once scale_to returned: wait for the log
+        _wait_for(lambda: asc.snapshot()["decisions"], 30,
+                  "the burst's scale-out decision", tag="fleet B")
+        out_d = [d for d in asc.snapshot()["decisions"]
+                 if d["direction"] == "out"]
+        require(len(out_d) == 1 and out_d[0]["to"] == 2,
+                f"fleet B: the burst's decisions {asc.snapshot()}")
+        load.start()
+        t_out = time.perf_counter()
+        require(router.wait_ready(2, timeout=FLEET_SPAWN_S),
+                f"fleet B: the second worker is not ready:\n{log_tail()}")
+        rec["scale_out_to_ready_s"] = time.perf_counter() - t_out
+        port_1 = int(sup.endpoints()[1].rsplit(":", 1)[1])
+
+        def completed_on_second():
+            code, body = _http_get(port_1, "/metrics")
+            require(code == 200, f"fleet B: worker 1 /metrics {code}")
+            return sum(v for (n, lab), v in _parse_prometheus(body).items()
+                       if n == "paddle_serving_requests_total"
+                       and 'event="completed"' in lab)
+
+        t_took = time.perf_counter()
+        while completed_on_second() == 0:
+            require(time.perf_counter() - t_took < 60,
+                    "fleet B: the second worker took no traffic in 60 s")
+            time.sleep(0.1)
+        rec["second_worker_first_completion_s"] = \
+            time.perf_counter() - t_took
+        # 2. the rolling swap under traffic (both replicas polled ready:
+        # the swap skips a replica the router does not see alive)
+        require(router.wait_ready(2, timeout=60),
+                f"fleet B: not 2 ready before the swap "
+                f"{router.replica_states()}")
+        t_swap0 = time.perf_counter()
+        report = router.swap_weights(prefixes["v2"])
+        t_swap1 = time.perf_counter()
+        fac.extra_args[fac.extra_args.index("--model-prefix") + 1] = \
+            prefixes["v2"]
+        require([r["version"].split("@")[0] for r in report["replicas"]]
+                == ["model_v2", "model_v2"],
+                f"fleet B: swap report {report}")
+        router.poll_replicas()
+        require(all(s["version"].startswith("model_v2@")
+                    for s in router.replica_states()),
+                f"fleet B: versions after the swap "
+                f"{router.replica_states()}")
+        n_swapped = len(load.records)
+        _wait_for(lambda: len(load.records) > n_swapped + 64, 60,
+                  "traffic after the swap", tag="fleet B")
+        # 3. SIGKILL the second worker in the middle of a batch
+        victim = sup._managed[1].proc.pid
+        _wait_for(lambda: any(s["replica"] == "1" and s["outstanding"] > 0
+                              for s in router.replica_states()), 60,
+                  "a batch in flight on replica 1", tag="fleet B")
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        _wait_for(lambda: sup.restart_counts().get(1, 0) == 1, 60,
+                  "the respawn", tag="fleet B")
+        require(router.wait_ready(2, timeout=FLEET_SPAWN_S),
+                f"fleet B: the respawned worker is not ready:\n{log_tail()}")
+        rec["kill_to_ready_s"] = time.perf_counter() - t_kill
+        n_ready = len(load.records)
+        _wait_for(lambda: len(load.records) > n_ready + 64, 60,
+                  "traffic after the respawn", tag="fleet B")
+        load.stop()
+        t_quiet = time.perf_counter()
+        # every live worker's dispatches from its own /metrics (no more
+        # traffic reaches them after this)
+        dispatches = {}
+        for rid, m in sorted(sup._managed.items()):
+            code, body = _http_get(int(m.proc.url().rsplit(":", 1)[1]),
+                                   "/metrics")
+            require(code == 200, f"fleet B: worker {rid} /metrics {code}")
+            dispatches[m.proc.pid] = _fleet_dispatches(body)
+        worst, failed = _fleet_versions_check(
+            load.records, outs,
+            lambda a, b: ("v1",) if b < t_swap0 else
+            ("v2",) if a > t_swap1 else ("v1", "v2"))
+        # a failure that ended before the kill is the swap's (or steady
+        # state's); after it, only the typed failures of the killed
+        # worker's in-flight requests are allowed
+        in_swap = [f for f in failed if t_swap0 < f[1] < t_kill]
+        bad = [f for f in failed if f[1] < t_kill or not isinstance(
+            f[2], (fleet.ReplicaError, serving.ServerClosedError))]
+        require(not in_swap and not bad,
+                f"fleet B: failed in the swap {in_swap[:2]}, untyped or "
+                f"outside the kill {bad[:2]} (swap {t_swap0:.3f}-"
+                f"{t_swap1:.3f}, kill {t_kill:.3f})")
+        # 4. quiet scales the fleet in
+        _wait_for(lambda: asc.snapshot()["decisions"][-1]["direction"]
+                  == "in", 60, "the quiet scale-in", tag="fleet B")
+        rec["quiet_to_scale_in_s"] = time.perf_counter() - t_quiet
+        require(sup.replica_ids == [0],
+                f"fleet B: replicas after the scale-in {sup.replica_ids}")
+        snap = asc.snapshot()
+        last = snap["decisions"][-1]
+        require(last["direction"] == "in" and last["to"] == 1 and
+                last["reason"] == "slow_burn_quiet",
+                f"fleet B: decision log {snap['decisions']}")
+        schedz = router.merged_schedz()["autoscalers"].get("fleet_b")
+        require(schedz is not None and schedz["decisions"][-1] == last,
+                f"fleet B: /schedz autoscalers {schedz}")
+        rec.update(
+            first_pid=first_pid, killed_pid=victim,
+            burst={"requests": len(burst), "wall_s": burst_s,
+                   "qps": len(burst) / burst_s,
+                   **_fleet_percentiles([(b - a) * 1e3
+                                         for _, a, b, _ in burst])},
+            local_server={"requests": FLEET_BURST, "wall_s": local_s,
+                          "qps": FLEET_BURST / local_s,
+                          **_fleet_percentiles([(b - a) * 1e3 for _, a, b, _
+                                                in local.records])},
+            swap_s=t_swap1 - t_swap0, swap_report=report,
+            responses=len(load.records), failed=len(failed),
+            failed_types=sorted({type(f[2]).__name__ for f in failed}),
+            vs_predictor_alone=max(worst, worst_local),
+            dispatches_by_pid=dispatches, decisions=snap["decisions"])
+    finally:
+        load.stop()
+        asc.stop()
+        router.shutdown()
+        sup.stop()
+    # the workers that exited cleanly dumped their counters
+    dumps = [json.loads(p.read_text()) for p in counts_dir.glob("*.json")]
+    by_pid = {d["pid"]: d for d in dumps}
+    require(victim not in by_pid and set(by_pid) == set(dispatches),
+            f"fleet B: dumps from {sorted(by_pid)}, live workers "
+            f"{sorted(dispatches)}, killed {victim}")
+    for pid, d in by_pid.items():
+        require(d["flash_fwd"] == 12 * dispatches[pid] and
+                d["flash_fwd_plain"] == 0 and d["paged_attention"] == 0,
+                f"fleet B: worker {pid} launched {d} for "
+                f"{dispatches[pid]} batches (12 a batch, no plain call)")
+    rec["worker_launches"] = {str(p): d["flash_fwd"]
+                              for p, d in by_pid.items()}
+    rec["wedge"] = _fleet_wedge(work, env, logf)
+    logf.close()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _fleet_wedge(work, env, logf) -> dict:
+    """The wedge drill on a ``--stub`` worker process: the hang poison's
+    dispatch wedges the stub's device, the watchdog (500 ms) flips
+    /readyz, the request queued behind it gets the typed 503 "wedged",
+    the worker exits and the supervisor respawns it."""
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.serving.fleet import codec
+    fac = fleet.ProcessReplicaFactory(
+        extra_args=["--stub", "--stub-device-ms", "1", "--stub-hang-value",
+                    str(FLEET_HANG), "--wedge-timeout-ms",
+                    str(FLEET_WEDGE_MS)],
+        env=env, announce_dir=str(work / "announce_wedge"), stdout=logf,
+        stderr=logf)
+    sup = fleet.ReplicaSupervisor(fac, 1, restart_backoff_ms=50,
+                                  name="fleet_wedge").start()
+    router = fleet.FleetRouter(supervisor=sup, name="fleet_wedge",
+                               health_interval_ms=50, retries=0)
+    seen = {"readyz": []}
+    try:
+        require(router.wait_ready(1, timeout=FLEET_SPAWN_S),
+                "fleet wedge: the stub worker is not ready")
+        url = sup.endpoints()[0]
+        port = int(url.rsplit(":", 1)[1])
+
+        def stub_outstanding():
+            code, body = _http_get(port, "/healthz")
+            return json.loads(body)["info"]["outstanding"]
+
+        t0 = time.perf_counter()
+        poison = router.submit([np.full((1, 4), FLEET_HANG, np.float32)])
+        # the poison inside the stub (it takes the free device at once);
+        # the waiter sent after it queues behind it
+        _wait_for(lambda: stub_outstanding() > 0, 30,
+                  "the poison in flight", tag="fleet wedge")
+        waiter = {}
+
+        def wait_typed():
+            req = urllib.request.Request(
+                url + "/submit_many",
+                data=codec.encode_batch([[np.ones((1, 4), np.float32)]]),
+                method="POST")
+            try:
+                _opener().open(req, timeout=60).read()
+                waiter["answer"] = "ok"
+            except urllib.error.HTTPError as e:
+                waiter["answer"] = (e.code, e.read().decode())
+            except Exception as e:  # noqa: BLE001 - reported below
+                waiter["answer"] = repr(e)
+
+        wt = threading.Thread(target=wait_typed)
+        wt.start()
+        # /readyz read until it flips (the worker answers one health
+        # interval more, then exits)
+        while True:
+            try:
+                code, body = _http_get(port, "/readyz", timeout=2)
+            except OSError:
+                break
+            seen["readyz"].append((code, json.loads(body)))
+            if code == 503:
+                break
+            require(time.perf_counter() - t0 < 60,
+                    "fleet wedge: /readyz never flipped")
+            time.sleep(0.01)
+        wt.join(60)
+        try:
+            poison.result(60)
+            poison_err = None
+        except Exception as e:  # noqa: BLE001 - expected
+            poison_err = type(e).__name__
+        wedge_s = time.perf_counter() - t0
+        flipped = [b for c, b in seen["readyz"] if c == 503]
+        require(flipped and flipped[0].get("wedged") is True,
+                f"fleet wedge: /readyz reads {seen['readyz'][-3:]}")
+        ans = waiter.get("answer")
+        require(isinstance(ans, tuple) and ans[0] == 503 and
+                "wedged" in ans[1],
+                f"fleet wedge: the waiter got {ans!r}, not a typed 503")
+        require(poison_err is not None, "fleet wedge: the poison returned")
+        _wait_for(lambda: sup.restart_counts().get(0, 0) == 1, 60,
+                  "the respawn", tag="fleet wedge")
+        require(router.wait_ready(1, timeout=FLEET_SPAWN_S),
+                "fleet wedge: the respawned worker is not ready")
+        return {"wedge_to_typed_s": wedge_s, "poison": poison_err,
+                "waiter": ans[0], "readyz": flipped[0],
+                "respawn_s": time.perf_counter() - t0}
+    finally:
+        router.shutdown()
+        sup.stop()
+
+
+def phase_fleet(state):
+    """The serving fleet on the card: leg A, two thread replicas of ERNIE-
+    base with gpt3_1p3b generation behind RouterApp; leg B, worker
+    processes under the autoscaler, a rolling swap, a SIGKILL and the
+    wedge drill. Float32 throughout (the reference's default serving
+    precision)."""
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         ernie_base)
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.static import InputSpec
+    t0 = time.perf_counter()
+    _build.load_library()       # once here: the workers load it as built
+    seed = state["seed"]
+    state.pop("model", None)    # the bf16 model of earlier phases
+    _release()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        cfg = ernie_base(hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+        prefixes = {}
+        for v, s in (("v1", seed), ("v2", seed + 1)):
+            model = ErnieForSequenceClassification(
+                cfg, num_classes=2, device="cuda", seed=s).eval()
+            prefixes[v] = str(work / f"model_{v}")
+            jit.save(model, prefixes[v], input_spec=[
+                InputSpec([None, None], "int64", "input_ids")])
+            del model
+        _release()
+        thread = _fleet_thread_leg(state, work, prefixes["v1"],
+                                   cfg.vocab_size)
+        log("fleet A: " + json.dumps(thread))
+        process = _fleet_process_leg(state, work, prefixes, cfg.vocab_size)
+        log("fleet B: " + json.dumps(process))
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": state.get("smi"), "thread": thread, "process": process,
+           "seconds": time.perf_counter() - t0}
+    state["fleet"] = out
+    log(f"fleet: {out['seconds']:.1f} s ({state.get('smi')})")
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -6748,6 +7604,9 @@ def kernels_line(state) -> dict:
     times at Sq != Sk (``cross_shapes``). The ops phase's scheduled engine
     run counts in ``flash_fwd`` and ``paged_attention`` (also apart, as
     ``ops_launches``), its InferenceServer leg in ``flash_fwd_f32``. The
+    fleet phase's thread replicas count in ``flash_fwd_f32`` and
+    ``paged_attention_f32``, its worker processes' launches (dumped at
+    their exit) in ``flash_fwd_f32``. The
     inference phase's bf16 server
     run counts in
     ``flash_fwd`` (its
@@ -6784,6 +7643,10 @@ def kernels_line(state) -> dict:
         state["hapi"]["launches"]["f32"]
     ops_eng = state["ops"]["engine"]["launches"]
     ops_infer = state["ops"]["inference_server"]["launches"]
+    fleet_a = state["fleet"]["thread"]
+    fleet_a_flash = fleet_a["launches"]["flash_fwd"]
+    fleet_b_flash = sum(state["fleet"]["process"]["worker_launches"]
+                        .values())
 
     def api_row(dtype, part, kname=None, phase=api):
         """The flash kernel at a Paddle script's shape (the api phase's, or
@@ -6882,7 +7745,8 @@ def kernels_line(state) -> dict:
     for name, kv, parts in (
             ("paged_attention_f32", "model",
              (check["paged_calls_vs_plain"]["float32"]["launches_by_kernel"],
-              accept["float32/float32"]["paged_launches_by_kernel"])),
+              accept["float32/float32"]["paged_launches_by_kernel"],
+              fleet_a["paged_launches_by_kernel"])),
             ("paged_attention_f32_int8", "int8",
              (check["int8"]["paged_calls_vs_plain"]["float32"][
                  "launches_by_kernel"],
@@ -6926,10 +7790,13 @@ def kernels_line(state) -> dict:
                 "source": ca.SOURCE, "replaces": ca.REPLACES,
                 "launches": infer["float32"]["launches"]
                 + f32_train["flash_fwd"] + api_f32["flash_fwd"]
-                + nn_f32["flash_fwd"] + hapi_f["flash_fwd"] + ops_infer,
+                + nn_f32["flash_fwd"] + hapi_f["flash_fwd"] + ops_infer
+                + fleet_a_flash + fleet_b_flash,
                 "launches_by_path": {
                     "inference_server": infer["float32"]["launches"],
                     "ops_inference_server": ops_infer,
+                    "fleet_thread_replicas": fleet_a_flash,
+                    "fleet_worker_processes": fleet_b_flash,
                     "training_parities": f32_train["flash_fwd"],
                     "paddle_api_script": api_f32["flash_fwd"],
                     "paddle_nn_script": nn_f32["flash_fwd"],
@@ -7119,7 +7986,7 @@ def main(argv=None) -> int:
            "train": phase_train, "stacked": phase_stacked,
            "recipe": phase_recipe, "families": phase_families,
            "inference": phase_inference, "api": phase_api, "nn": phase_nn,
-           "hapi": phase_hapi, "ops": phase_ops}
+           "hapi": phase_hapi, "ops": phase_ops, "fleet": phase_fleet}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -7139,11 +8006,13 @@ def main(argv=None) -> int:
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
-                                     "api", "nn", "hapi", "ops", "total_s")
+                                     "api", "nn", "hapi", "ops", "fleet",
+                                     "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",
-                                "inference", "api", "nn", "hapi", "ops")):
+                                "inference", "api", "nn", "hapi", "ops",
+                                "fleet")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

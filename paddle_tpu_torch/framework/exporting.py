@@ -79,8 +79,8 @@ def export_artifact(path_prefix: str, module: torch.nn.Module,
 class LoadedArtifact:
     """A loaded ``.pt2`` artifact on ``device``: ``program`` (the
     ``ExportedProgram``), ``module`` (its callable ``GraphModule``), the
-    feed names and specs, and the output count. Calling it on device
-    tensors returns the list of outputs."""
+    feed names and specs, the output count and the file's ``path``.
+    Calling it on device tensors returns the list of outputs."""
 
     def __init__(self, path_prefix: str, device: torch.device):
         from ..ops import flash_attention  # noqa: F401 - registers the ops
@@ -95,6 +95,7 @@ class LoadedArtifact:
             meta = {}
         if meta.get("format") != FORMAT:
             raise ValueError(f"{path} is not a {FORMAT} artifact")
+        self.path = path
         self.device = torch.device(device)
         if self.device.type != "cpu":
             program = _to_device(program, self.device)

@@ -236,3 +236,102 @@ define_flag("FLAGS_sched_default_priority", "standard",
             "default tenant priority class: realtime | standard | batch "
             "(admission prefers realtime; page-pressure preemption parks "
             "batch first and never touches a higher class)")
+
+
+# The serving fleet (serving/fleet/: supervisor, replica workers, router,
+# resilience) and its autoscaler (serving/scheduling/autoscaler.py), with
+# the reference's names and defaults (paddle_tpu/framework/flags.py:396-480,
+# :503-522).
+define_flag("FLAGS_fleet_replicas", 2,
+            "default replica count a ReplicaSupervisor spawns when the "
+            "caller does not pass one")
+define_flag("FLAGS_fleet_retries", 2,
+            "router retry budget per batch: a dispatch shed with "
+            "QueueFullError (HTTP 429) or refused by a not-ready "
+            "replica is retried on another replica this many times "
+            "before the batch fails with QueueFullError")
+define_flag("FLAGS_fleet_health_interval_ms", 200.0,
+            "router readiness-poll cadence: every interval each known "
+            "replica's /readyz is probed and the routable set updated")
+define_flag("FLAGS_fleet_restart_backoff_ms", 200.0,
+            "supervisor respawn backoff after a replica process exits "
+            "unexpectedly (doubles per consecutive crash of the same "
+            "replica, capped at 30x)")
+define_flag("FLAGS_fleet_request_timeout_s", 120.0,
+            "router-side HTTP timeout for one forwarded batch or "
+            "generation stream read; a replica that blows it fails "
+            "only the in-flight requests riding that connection")
+define_flag("FLAGS_fleet_drain_timeout_s", 30.0,
+            "rolling-swap drain bound: max seconds swap_weights waits "
+            "for one draining replica's outstanding requests to reach "
+            "zero before the swap aborts (remaining replicas keep the "
+            "old weights — never a half-broken fleet)")
+define_flag("FLAGS_fleet_retry_backoff_ms", 10.0,
+            "base of the router's exponential retry backoff: retry N "
+            "sleeps uniform[0, min(cap, base * 2^N)] (full jitter, so "
+            "a fleet-wide brownout does not trigger a synchronized "
+            "retry storm); 0 = immediate retries (the pre-resilience "
+            "behavior)")
+define_flag("FLAGS_fleet_retry_backoff_max_ms", 500.0,
+            "cap of the router's exponential retry backoff sleep")
+define_flag("FLAGS_fleet_breaker_window", 16,
+            "per-replica circuit-breaker rolling outcome window: the "
+            "last N dispatch outcomes drive the open/close decision")
+define_flag("FLAGS_fleet_breaker_failure_ratio", 0.5,
+            "circuit-breaker open threshold: the breaker opens when "
+            "failures / window samples reaches this ratio (with at "
+            "least FLAGS_fleet_breaker_min_samples outcomes seen)")
+define_flag("FLAGS_fleet_breaker_min_samples", 4,
+            "minimum outcomes in the rolling window before the "
+            "failure ratio can open a breaker (no opening on the "
+            "first blip)")
+define_flag("FLAGS_fleet_breaker_open_ms", 1000.0,
+            "circuit-breaker cooldown: an open breaker sheds all "
+            "traffic from its replica for this long, then moves to "
+            "half-open and admits ONE probe request; the probe's "
+            "outcome closes or re-opens it")
+define_flag("FLAGS_fleet_breaker_latency_ms", 0.0,
+            "slow-but-alive threshold: a SUCCESSFUL dispatch slower "
+            "than this counts as a breaker failure, so a replica "
+            "serving 100x latency while /readyz-green still gets "
+            "drained (0 = latency never trips the breaker)")
+define_flag("FLAGS_fleet_hedge_ms", 0.0,
+            "request hedging floor: when a submit/submit_many "
+            "dispatch is still pending after max(this, the replica "
+            "latency window's FLAGS_fleet_hedge_quantile), a hedge "
+            "fires to a SECOND replica and the first response wins "
+            "(idempotent batch path only — submit_generate never "
+            "hedges); 0 = hedging off")
+define_flag("FLAGS_fleet_hedge_quantile", 0.95,
+            "latency quantile of the primary replica's rolling window "
+            "used as the adaptive hedge trigger (bounded below by "
+            "FLAGS_fleet_hedge_ms)")
+define_flag("FLAGS_fleet_wedge_timeout_ms", 0.0,
+            "device-wedge watchdog: a worker dispatch in flight "
+            "longer than this flips /readyz to not-ready, fails "
+            "waiting requests with ReplicaWedgedError and asks the "
+            "supervisor for a restart (worker processes exit; the "
+            "respawn is a warm start). 0 = watchdog off")
+define_flag("FLAGS_autoscale_min_replicas", 1,
+            "autoscaler floor: never scale the fleet below this")
+define_flag("FLAGS_autoscale_max_replicas", 8,
+            "autoscaler ceiling: never scale the fleet above this")
+define_flag("FLAGS_autoscale_cooldown_s", 30.0,
+            "minimum seconds between scale actions in either "
+            "direction (hysteresis against flapping)")
+define_flag("FLAGS_autoscale_scale_in_quiet_s", 120.0,
+            "scale IN only after this long with no burn-rate rule "
+            "firing and queue/occupancy low (asymmetric hysteresis: "
+            "out fast, in slow)")
+define_flag("FLAGS_autoscale_queue_high", 16.0,
+            "router/worker queue depth above which the autoscaler "
+            "scales out")
+define_flag("FLAGS_autoscale_occupancy_high", 0.85,
+            "decode-slot occupancy fraction above which the "
+            "autoscaler scales out")
+define_flag("FLAGS_autoscale_interval_s", 5.0,
+            "autoscaler control-loop evaluation period in seconds")
+define_flag("FLAGS_numerics_canary_period_s", 0.0,
+            "period of the per-worker numerics canary sweep; 0 disables "
+            "it, and a period above 0 waits for the numerics plane, "
+            "ROADMAP queue 1 item 11")

@@ -25,7 +25,8 @@ queue 1 item: ``Config.set_precision(Half | Bfloat16)``, which the
 reference re-lowers from its ``.pdmodel`` program (item 5d; serve a model
 saved after ``amp.decorate`` instead); the reference's ``.pdmodel`` /
 ``.pdiparams`` pair and StableHLO ``.pdexec`` (item 5d); the persistent
-compile cache and its fingerprint (item 5a); the serving mesh (item 5c).
+compile cache (item 5a; ``artifact_fingerprint``, which a fleet worker
+stamps its version with, is ported); the serving mesh (item 5c).
 """
 from __future__ import annotations
 
@@ -295,6 +296,7 @@ class Predictor:
         # output handles are stable per fetch name: a host that fetched a
         # handle before the first run reads the current run's result
         self._output_handles: Dict[str, Tensor] = {}
+        self._fingerprint: Optional[str] = None
 
     @property
     def device(self) -> torch.device:
@@ -447,10 +449,32 @@ class Predictor:
     def try_shrink_memory(self):
         pass
 
-    def artifact_fingerprint(self):
-        raise NotImplementedError(
-            "artifact fingerprints key the persistent compile cache, which "
-            "waits for ROADMAP queue 1 item 5a")
+    def artifact_fingerprint(self) -> str:
+        """Stable identity of the loaded program, as the reference defines
+        it: sha256 of the saved program (the serialized graph of the
+        ``.pt2`` archive, where the reference hashes its StableHLO, and
+        the port's record of feeds and outputs) plus the weight layout
+        (names, shapes, dtypes; weight values are not program identity).
+        The same file gives the same fingerprint in any process."""
+        if self._fingerprint is None:
+            import hashlib
+            import zipfile
+            h = hashlib.sha256()
+            with zipfile.ZipFile(self._artifact.path) as z:
+                for name in sorted(z.namelist()):
+                    parts = name.split("/")
+                    if "models" in parts[:-1] or "extra" in parts[:-1]:
+                        h.update(name.split("/", 1)[-1].encode())
+                        h.update(z.read(name))
+            program = self._artifact.program
+            layout = dict(program.state_dict)
+            layout.update(program.constants)
+            for n in sorted(layout):
+                w = layout[n]
+                if isinstance(w, torch.Tensor):
+                    h.update(f"{n}:{tuple(w.shape)}:{w.dtype}".encode())
+            self._fingerprint = h.hexdigest()
+        return self._fingerprint
 
     def attach_serving_mesh(self, mesh):
         raise NotImplementedError(

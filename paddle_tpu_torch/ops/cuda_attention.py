@@ -39,7 +39,9 @@ what the kernel does not take; only CPU tensors take the plain version
 alone, whether the kernel takes a call: the callers
 (``ops/flash_attention.py``) send what it refuses to the plain version.
 ``launches`` counts kernel launches, ``plain_calls`` calls of the plain
-version (both plain module-level integers), and ``flops`` the operations
+version (both plain module-level integers, incremented under the module's
+``COUNT_LOCK``, so replicas serving from threads of one process count
+exactly), and ``flops`` the operations
 of the launched kernels' two matrix products, ``4·B·H·Sq·Sk·D`` a launch
 over the whole score matrix (a causal launch skips the tiles its mask
 empties): a FLOP counter over torch's ops (``bench.py``'s cost check)
@@ -48,6 +50,7 @@ cannot see a kernel called through ``ctypes``.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -66,6 +69,7 @@ REPLACES = "paddle_tpu/ops/pallas_attention.py:135"
 launches = 0
 plain_calls = 0
 flops = 0.0
+COUNT_LOCK = threading.Lock()
 
 
 def mha_fwd_reference(q, k, v, causal=True, scale=None):
@@ -82,7 +86,8 @@ def mha_fwd_reference(q, k, v, causal=True, scale=None):
     ``(out [B, Sq, H, D] in q.dtype, lse [B*H, Sq] float32)``.
     """
     global plain_calls
-    plain_calls += 1
+    with COUNT_LOCK:
+        plain_calls += 1
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if scale is None:
@@ -222,6 +227,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
             float(scale), int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)],
             stream)
     _build.check(err, "flash_fwd")
-    launches += 1
-    flops += 4.0 * b * h * sq * sk * d
+    with COUNT_LOCK:
+        launches += 1
+        flops += 4.0 * b * h * sq * sk * d
     return out, lse

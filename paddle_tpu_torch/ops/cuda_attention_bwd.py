@@ -46,16 +46,18 @@ Kernels: ``csrc/flash_bwd.cu``, the port of the two TPU kernels of
 what they do not take; only CPU tensors take the plain version
 ``mha_bwd_reference``. ``launches`` counts each kernel's launches,
 ``plain_calls`` the plain version's calls (it stands for both kernels), as
-plain module-level dictionaries keyed by kernel name, and ``flops`` the
-operations of the launched kernels' matrix products over the whole score
-matrix (dq three products, ``6·B·H·Sq·Sk·D``; dk/dv four, ``8·B·H·Sq·Sk·D``;
-a causal launch skips the tiles its mask empties), which a FLOP counter
-over torch's ops cannot see.
+plain module-level dictionaries keyed by kernel name (updated under the
+module's ``COUNT_LOCK``, so threads of one process count exactly), and
+``flops`` the operations of the launched kernels' matrix products over the
+whole score matrix (dq three products, ``6·B·H·Sq·Sk·D``; dk/dv four,
+``8·B·H·Sq·Sk·D``; a causal launch skips the tiles its mask empties),
+which a FLOP counter over torch's ops cannot see.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -73,6 +75,7 @@ REPLACES = {"flash_bwd_dq": "paddle_tpu/ops/pallas_attention.py:288",
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)
 flops = dict.fromkeys(KERNELS, 0.0)
+COUNT_LOCK = threading.Lock()
 # the products of each kernel (s, dp, dq; s, dp, dv, dk)
 _PRODUCTS = {"flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 
@@ -131,8 +134,9 @@ def mha_bwd_reference(q, k, v, out, lse, do, causal=True, scale=None,
     q/out/do: ``[B, Sq, H, D]``; k/v: ``[B, Sk, H, D]``; lse: the forward's
     ``[B*H, Sq]`` float. Returns ``(dq, dk, dv)`` in the layout and type of
     q, k, v."""
-    for name in KERNELS:
-        plain_calls[name] += 1
+    with COUNT_LOCK:
+        for name in KERNELS:
+            plain_calls[name] += 1
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if scale is None:
@@ -226,8 +230,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
                 scale)
         if ck is not None and lse_ct is not None:
             _lse_ct_term(dq, lse_ct, ck, scale)
-    for name, n in _PRODUCTS.items():
-        flops[name] += 2.0 * n * b * h * sq * sk * d
+    with COUNT_LOCK:
+        for name, n in _PRODUCTS.items():
+            flops[name] += 2.0 * n * b * h * sq * sk * d
     return dq, dk, dv
 
 
@@ -279,8 +284,10 @@ def _launch(lib, stream, q, k, v, do, lse, delta, dq, dk, dv, causal,
            lse.data_ptr(), delta.data_ptr())
     err = lib.pt_flash_bwd_dq(*ins, dq.data_ptr(), *tail, stream)
     _build.check(err, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
+    with COUNT_LOCK:
+        launches["flash_bwd_dq"] += 1
     err = lib.pt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail,
                                stream)
     _build.check(err, "flash_bwd_dkv")
-    launches["flash_bwd_dkv"] += 1
+    with COUNT_LOCK:
+        launches["flash_bwd_dkv"] += 1

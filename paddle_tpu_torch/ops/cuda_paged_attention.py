@@ -46,9 +46,13 @@ alone, whether the kernels take a call: ``paged_attention_update`` sends
 what it refuses (a head_dim outside ``HEAD_DIMS``) to the plain version.
 ``launches`` counts wrapper calls that launched (``launches_by`` by kind and
 pool type, e.g. ``("chunked", "int8")``; ``launches_by_kernel`` by the entry
-of ``KERNELS`` that ran), ``plain_calls`` calls of the plain version.
+of ``KERNELS`` that ran), ``plain_calls`` calls of the plain version;
+all are updated under the module's ``COUNT_LOCK``, so replicas serving from
+threads of one process count exactly.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -74,6 +78,7 @@ launches = 0
 launches_by = {}
 launches_by_kernel = {}
 plain_calls = 0
+COUNT_LOCK = threading.Lock()
 
 
 def kernel_for(kind: str, dtype, s: int) -> str:
@@ -95,7 +100,8 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, ctx_len,
     so the kernel can be held against it on every row. Returns [B, S, H, D]
     in q's type."""
     global plain_calls
-    plain_calls += 1
+    with COUNT_LOCK:
+        plain_calls += 1
     if kind not in _KIND_CODES:
         raise ValueError(f"kind must be 'decode' or 'chunked', got {kind!r}")
     values = k_pool[0] if is_quantized_pool(k_pool) else k_pool
@@ -271,9 +277,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_len, valid,
             _build.DTYPE_CODES[str(k_vals.dtype)], work.data_ptr(),
             work.numel(), stream)
     _build.check(err, "paged_attention")
-    launches += 1
     key = (kind, str(k_vals.dtype).replace("torch.", ""))
-    launches_by[key] = launches_by.get(key, 0) + 1
     name = kernel_for(kind, q.dtype, s)
-    launches_by_kernel[name] = launches_by_kernel.get(name, 0) + 1
+    with COUNT_LOCK:
+        launches += 1
+        launches_by[key] = launches_by.get(key, 0) + 1
+        launches_by_kernel[name] = launches_by_kernel.get(name, 0) + 1
     return out

@@ -15,11 +15,15 @@
 - ``generation`` (subpackage): autoregressive decode serving
   (``GenerationServer``) over a paged KV cache.
 - ``scheduling`` (subpackage): multi-tenant admission control (token
-  buckets, weighted-fair queuing, priority classes, ``/schedz``).
+  buckets, weighted-fair queuing, priority classes, ``/schedz``) and the
+  fleet autoscaler.
+- ``fleet`` (subpackage): multi-replica serving — replica workers, their
+  supervisor, the router with the rolling weight swap, the wire codec and
+  the resilience layer.
 
-Knobs: ``FLAGS_serving_*`` and ``FLAGS_sched_*`` in ``framework/flags.py``.
-The serving fleet and ``wrap_capi`` wait for ROADMAP queue 1 items 5b and
-5d, the serving mesh for item 5c.
+Knobs: ``FLAGS_serving_*``, ``FLAGS_sched_*``, ``FLAGS_fleet_*`` and
+``FLAGS_autoscale_*`` in ``framework/flags.py``. ``wrap_capi`` waits for
+ROADMAP queue 1 item 5d, the serving mesh for item 5c.
 """
 from . import metrics  # noqa: F401  (the registry sub-namespace)
 from .batcher import DynamicBatcher
@@ -28,10 +32,10 @@ from .metrics import ServingMetrics
 from .request import (DeadlineExceededError, QueueFullError,
                       QuotaExceededError, Request, ServerClosedError)
 from .server import InferenceServer
-from . import generation, scheduling  # noqa: F401,E402  (subpackages)
+from . import fleet, generation, scheduling  # noqa: F401,E402
 
 __all__ = ["InferenceServer", "DynamicBatcher", "ShapeBucketPolicy",
            "BucketSpec", "ServingMetrics", "Request", "QueueFullError",
            "QuotaExceededError", "DeadlineExceededError",
            "ServerClosedError", "next_pow2", "metrics", "generation",
-           "scheduling"]
+           "scheduling", "fleet"]

@@ -55,6 +55,12 @@ their pages go back, and each resumes later from its full token history on
 the same future and RNG (a chunked prefill over its cached prompt pages),
 or fails with ``QuotaExceededError`` when it cannot.
 
+Readiness, for a fleet replica: with ``FLAGS_serving_ready_requires_warmup``
+on, ``ready`` stays false until ``warmup()`` (the decode, verify, prefill
+and chunked lattice, each signature run once on the device) or
+``mark_ready()``; ``dispatch_signatures`` lists every signature the engine
+ran, as the reference's ``_note_dispatch`` records them.
+
 Not in this slice (ROADMAP): tensor-parallel meshes (item 5c), warmup
 manifests and the compile cache (item 5a).
 """
@@ -119,6 +125,7 @@ class StreamingFuture:
         self._done = False
         self._finish_reason: Optional[str] = None
         self._cancel_requested = False
+        self._on_cancel = None
 
     # ---- consumer ----
     def __iter__(self):
@@ -168,12 +175,34 @@ class StreamingFuture:
     def cancel(self) -> bool:
         """Request eviction; returns False when already finished. The
         engine honours it at its next harvest — tokens already emitted stay
-        available."""
+        available. A registered cancel hook (the fleet router closes the
+        stream's socket with it) fires outside the lock, so a routed
+        stream's cancellation reaches the replica."""
         with self._cond:
             if self._done:
                 return False
             self._cancel_requested = True
-            return True
+            hook = self._on_cancel
+        if hook is not None:
+            try:
+                hook()
+            except Exception:  # noqa: BLE001 - propagation is best
+                pass           # effort; the local cancel already holds
+        return True
+
+    def _set_cancel_hook(self, hook):
+        """Install or clear the propagation hook; when cancellation was
+        already requested, fire it at once (the cancel raced the
+        installation)."""
+        with self._cond:
+            self._on_cancel = hook
+            fire = hook is not None and self._cancel_requested \
+                and not self._done
+        if fire:
+            try:
+                hook()
+            except Exception:  # noqa: BLE001 - as above
+                pass
 
     def cancelled(self) -> bool:
         with self._cond:
@@ -624,6 +653,17 @@ class GenerationServer:
         self._worker: Optional[threading.Thread] = None
         self._steps = 0
         self._span_q: List[tuple] = []      # spans to record, lock held
+        # readiness (distinct from liveness): with the warmup gate on
+        # (FLAGS_serving_ready_requires_warmup), the engine reports
+        # not-ready until warmup() or mark_ready()
+        self._ready_gate = bool(
+            flag_value("FLAGS_serving_ready_requires_warmup"))
+        self._warmed = threading.Event()
+        # (site, ((shape, dtype), ...)) of every dispatch signature this
+        # engine ran, in first-run order (the reference's _note_dispatch
+        # records); warmup counts the ones new to this engine
+        self.dispatch_signatures: List[tuple] = []
+        self._signature_set = set()
         self.telemetry = self._attach_telemetry(telemetry_port, name)
         with _ENGINES_LOCK:
             _ENGINES.add(self)
@@ -652,10 +692,21 @@ class GenerationServer:
         return True, {"queue_depth": self.queue_depth,
                       "active_sequences": self.active_sequences}
 
+    @property
+    def ready(self) -> bool:
+        """Traffic readiness (as ``InferenceServer.ready``): live, and,
+        when the ``FLAGS_serving_ready_requires_warmup`` gate is on,
+        warmed up."""
+        if self._closed:
+            return False
+        return self._warmed.is_set() or not self._ready_gate
+
+    def mark_ready(self):
+        self._warmed.set()
+
     def _readiness(self):
-        """Ready while accepting requests (the reference's warmup gate
-        waits with the engine's warmup, ROADMAP queue 1 item 5a)."""
-        return not self._closed, {"warmed": False, "gated": False}
+        return self.ready, {"warmed": self._warmed.is_set(),
+                            "gated": self._ready_gate}
 
     def statusz(self) -> dict:
         """One engine's /statusz section: page accounting (with the
@@ -856,6 +907,110 @@ class GenerationServer:
         generated-token list."""
         return self.submit_generate(prompt, max_new_tokens, temperature,
                                     timeout_ms, seed).result()
+
+    # ------------------------------------------------------ warmup
+    @property
+    def warmup_manifest(self):
+        """The reference's persisted warmup manifest; the port has none
+        (the compile cache waits for ROADMAP queue 1 item 5a)."""
+        return None
+
+    def warmup_from_manifest(self, path: Optional[str] = None) -> int:
+        raise NotImplementedError(
+            "warmup manifests wait for the compile cache, ROADMAP queue 1 "
+            "item 5a")
+
+    def warmup(self, seq_buckets: Optional[Sequence[int]] = None,
+               batch_buckets: Optional[Sequence[int]] = None) -> int:
+        """Run the decode lattice once on the device before traffic: the
+        one decode-step shape (plus the verify step under speculation)
+        and every (power-of-two rows, seq bucket) prefill shape admission
+        can dispatch, with the chunked (suffix-prefill) lattice beside it
+        when the prefix cache is on; a draft model runs each signature
+        too. On the card a shape's first run pays the kernels' first
+        launches and the caching allocator's growth, which the
+        reference's XLA compile stood for. Returns how many of the
+        signatures were new to this engine, and turns the readiness gate
+        on."""
+        fresh = self._warm_decode()
+        if self.spec_k:
+            fresh += self._warm_verify()
+        seqs = list(seq_buckets if seq_buckets is not None
+                    else (self.policy.seq_buckets or []))
+        if batch_buckets is None:
+            batch_buckets, r = [], 1
+            while r < self.max_batch:
+                batch_buckets.append(r)
+                r <<= 1
+            batch_buckets.append(self.max_batch)
+        for s in seqs:
+            for r in batch_buckets:
+                fresh += self._warm_prefill(int(r), int(s))
+                if self.prefix is not None:
+                    fresh += self._warm_chunked(int(r), int(s))
+        self._warmed.set()
+        return fresh
+
+    def _warm(self, site: str, fn: str, args, feeds) -> int:
+        """One warmup dispatch of decoder entry point ``fn`` (and the
+        draft's): the pools stay in place, dead rows write to the trash
+        page. Returns the signatures new to this engine."""
+        out, self.kv.k, self.kv.v = getattr(self.decoder, fn)(
+            *args, self.kv.k, self.kv.v)
+        fresh = int(self._note_dispatch(site, feeds))
+        if self.draft is not None and site != "generate_verify":
+            _, self._draft_k, self._draft_v = getattr(self.draft, fn)(
+                *args, self._draft_k, self._draft_v)
+            fresh += int(self._note_dispatch("draft_" + site, feeds))
+        out.float().cpu()       # surface a failed warmup here, loudly
+        return fresh
+
+    def _warm_decode(self) -> int:
+        b = self.max_batch
+        return self._warm("generate_decode", "decode", (
+            np.zeros(b, np.int64), np.zeros(b, np.int32),
+            np.zeros(b, bool), np.zeros(b, np.int32),
+            np.zeros_like(self._tables)), [
+            ((b,), "int64"), ((b,), "int32"), ((b,), "bool"),
+            ((b,), "int32"), (self._tables.shape, "int32")])
+
+    def _warm_prefill(self, rows: int, seq: int) -> int:
+        ids = np.zeros((rows, seq), np.int64)
+        lens = np.zeros(rows, np.int32)
+        tables = np.zeros((rows, self.pages_per_seq), np.int32)
+        return self._warm("generate_prefill", "prefill", (ids, lens, tables),
+                          [(ids.shape, "int64"), (lens.shape, "int32"),
+                           (tables.shape, "int32")])
+
+    def _warm_window(self, site: str, fn: str, rows: int, seq: int) -> int:
+        ids = np.zeros((rows, seq), np.int64)
+        start = np.zeros(rows, np.int32)
+        seg = np.zeros(rows, np.int32)
+        tables = np.zeros((rows, self.pages_per_seq), np.int32)
+        return self._warm(site, fn, (ids, start, seg, tables),
+                          [(ids.shape, "int64"), (start.shape, "int32"),
+                           (seg.shape, "int32"), (tables.shape, "int32")])
+
+    def _warm_chunked(self, rows: int, seq: int) -> int:
+        return self._warm_window("generate_chunked", "prefill_chunked",
+                                 rows, seq)
+
+    def _warm_verify(self) -> int:
+        """The one [max_batch, spec_k + 1] verify signature."""
+        return self._warm_window("generate_verify", "verify",
+                                 self.max_batch, self.spec_k + 1)
+
+    def _note_dispatch(self, site: str, feeds) -> bool:
+        """Record a dispatch signature; True when it is new to this
+        engine."""
+        key = (site, tuple((tuple(int(d) for d in shape), str(dt))
+                           for shape, dt in feeds))
+        with self._lock:
+            if key in self._signature_set:
+                return False
+            self._signature_set.add(key)
+            self.dispatch_signatures.append(key)
+            return True
 
     # ------------------------------------------------------ worker
     def _loop(self):
@@ -1189,9 +1344,13 @@ class GenerationServer:
                                                 self.kv.v)
             logits = last.float().cpu().numpy()
             self.kv.k, self.kv.v = k2, v2
+            feeds = [(ids.shape, "int64"), (lens.shape, "int32"),
+                     (tables.shape, "int32")]
+            self._note_dispatch("generate_prefill", feeds)
             if self.draft is not None:
                 _, self._draft_k, self._draft_v = self.draft.prefill(
                     ids, lens, tables, self._draft_k, self._draft_v)
+                self._note_dispatch("draft_generate_prefill", feeds)
         except Exception as e:  # noqa: BLE001 - fault barrier: fail only
             self._fail_group(seqs, e)   # THIS group; the worker survives
             return
@@ -1227,9 +1386,13 @@ class GenerationServer:
                 ids, start, seg, tables, self.kv.k, self.kv.v)
             logits = last.float().cpu().numpy()
             self.kv.k, self.kv.v = k2, v2
+            feeds = [(ids.shape, "int64"), (start.shape, "int32"),
+                     (seg.shape, "int32"), (tables.shape, "int32")]
+            self._note_dispatch("generate_chunked", feeds)
             if self.draft is not None:
                 _, self._draft_k, self._draft_v = self.draft.prefill_chunked(
                     ids, start, seg, tables, self._draft_k, self._draft_v)
+                self._note_dispatch("draft_generate_chunked", feeds)
         except Exception as e:  # noqa: BLE001 - fault barrier, as above
             self._fail_group(seqs, e)
             return
@@ -1276,6 +1439,10 @@ class GenerationServer:
             self._fail_group(active, e)  # error fails the in-flight
             return                       # sequences, not the engine
         self.kv.k, self.kv.v = k2, v2
+        b = self.max_batch
+        self._note_dispatch("generate_decode", [
+            ((b,), "int64"), ((b,), "int32"), ((b,), "bool"),
+            ((b,), "int32"), (self._tables.shape, "int32")])
         ms = (time.perf_counter() - t0) * 1e3
         self._steps += 1
         self.metrics.observe_step("decode", ms)
@@ -1332,6 +1499,9 @@ class GenerationServer:
             self._fail_group(active, e)  # error fails the in-flight
             return                       # sequences, not the engine
         self.kv.k, self.kv.v = k2, v2
+        self._note_dispatch("generate_verify", [
+            (ids.shape, "int64"), (start.shape, "int32"),
+            (seg.shape, "int32"), (self._tables.shape, "int32")])
         ms = (time.perf_counter() - t0) * 1e3
         self._steps += 1
         self.metrics.observe_step("decode", ms)

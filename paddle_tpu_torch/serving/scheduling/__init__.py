@@ -10,26 +10,24 @@
   queue-full.
 - ``schedz``: the ``/schedz`` JSON surface and, in ``metrics``, the
   ``paddle_sched_*`` metric families.
+- ``autoscaler``: ``FleetAutoscaler`` follows the SLO monitor's burn-rate
+  alert sinks, queue depth and decode occupancy and drives the fleet
+  supervisor's ``scale_to(n)`` with hysteresis (``paddle_autoscale_*``
+  metrics, ``/schedz``'s ``autoscalers``).
 
 ``InferenceServer(scheduler=)`` and ``GenerationServer(scheduler=)`` take
 an ``AdmissionController``; the engine also parks lower-priority streams
-under KV-page pressure and resumes them from their full history. The
-reference's ``FleetAutoscaler`` drives a fleet supervisor and waits with
-the fleet (ROADMAP queue 1 item 5b): it, ``AutoscaleMetrics`` and
-``register_autoscaler`` raise, naming that item.
+under KV-page pressure and resumes them from their full history.
 """
 from __future__ import annotations
 
-from ...observability._unported import not_ported
 from .admission import AdmissionController, TokenBucket, WeightedFairQueue
+from .autoscaler import FleetAutoscaler
 from .metrics import AutoscaleMetrics, SchedMetrics
 from .policy import (DEFAULT_TENANT, PRIORITY_CLASSES, SchedulerPolicy,
                      TenantPolicy, normalize_tenant, priority_rank)
 from .schedz import (merge_schedz_payloads, register_autoscaler,
                      register_controller, schedz_payload)
-
-FleetAutoscaler = not_ported(
-    "FleetAutoscaler", "item 5b (the fleet, with scheduling/autoscaler.py)")
 
 __all__ = [
     "AdmissionController", "TokenBucket", "WeightedFairQueue",

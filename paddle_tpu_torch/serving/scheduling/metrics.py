@@ -2,17 +2,14 @@
 ``paddle_tpu/serving/scheduling/metrics.py``).
 
 ``SchedMetrics`` is the per-admission-point view (``paddle_sched_*``,
-labelled ``server`` and ``tenant``), on the default registry so
-``/metrics`` sees it with no extra wiring. The reference's
-``AutoscaleMetrics`` acts for the fleet autoscaler and waits with it
-(ROADMAP queue 1 item 5b, the fleet).
+labelled ``server`` and ``tenant``), ``AutoscaleMetrics`` the fleet
+autoscaler's control-loop view (``paddle_autoscale_*``); both live on the
+default registry so ``/metrics`` sees them with no extra wiring.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict
-
-from ...observability._unported import not_ported
 
 __all__ = ["SchedMetrics", "AutoscaleMetrics"]
 
@@ -77,5 +74,44 @@ class SchedMetrics:
         return out
 
 
-AutoscaleMetrics = not_ported(
-    "AutoscaleMetrics", "item 5b (the fleet, with scheduling/autoscaler.py)")
+class AutoscaleMetrics:
+    """Control-loop accounting:
+
+    - ``paddle_autoscale_decisions_total{fleet,direction,reason}``
+    - ``paddle_autoscale_target_replicas{fleet}`` — last target passed
+      to ``scale_to``
+    - ``paddle_autoscale_signal{fleet,signal}`` — the inputs the last
+      evaluation saw (queue_depth, occupancy, fast_burn, slow_burn)
+    """
+
+    def __init__(self, name: str, registry=None):
+        from ...observability.registry import default_registry
+        reg = registry or default_registry()
+        self.name = name
+        self._f_decisions = reg.counter(
+            "paddle_autoscale_decisions_total",
+            "scale decisions by direction and triggering reason",
+            ("fleet", "direction", "reason"))
+        self._f_target = reg.gauge(
+            "paddle_autoscale_target_replicas",
+            "replica count last requested from the supervisor",
+            ("fleet",))
+        self._f_signal = reg.gauge(
+            "paddle_autoscale_signal",
+            "inputs seen by the last autoscaler evaluation",
+            ("fleet", "signal"))
+        for fam in (self._f_decisions, self._f_target,
+                    self._f_signal):
+            fam.clear(fleet=name)
+        self._g_target = self._f_target.labels(fleet=name)
+
+    def count_decision(self, direction: str, reason: str):
+        self._f_decisions.labels(fleet=self.name, direction=direction,
+                                 reason=reason).inc()
+
+    def set_target(self, n: int):
+        self._g_target.set(int(n))
+
+    def set_signal(self, signal: str, value: float):
+        self._f_signal.labels(fleet=self.name, signal=signal).set(
+            round(float(value), 4))

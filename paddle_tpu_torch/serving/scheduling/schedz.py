@@ -5,10 +5,9 @@ A per-process payload (``schedz_payload``) served by the telemetry
 endpoint, and a merge (``merge_schedz_payloads``) that sums per-tenant
 admission counters across processes. Admission controllers register into
 a process-wide WeakSet (``register_controller``; the engine and the
-server do it when given a ``scheduler=``), so a dropped controller leaves
-the payload by itself. Autoscalers act on a fleet and wait with it
-(ROADMAP queue 1 item 5b): ``register_autoscaler`` raises and the
-payload's ``autoscalers`` stays empty.
+server do it when given a ``scheduler=``), and fleet autoscalers into
+another (``register_autoscaler``), so a dropped object leaves the payload by
+itself.
 """
 from __future__ import annotations
 
@@ -16,13 +15,12 @@ import threading
 import weakref
 from typing import Dict
 
-from ...observability._unported import not_ported
-
 __all__ = ["register_controller", "register_autoscaler",
            "schedz_payload", "merge_schedz_payloads"]
 
 _LOCK = threading.Lock()
 _CONTROLLERS: "weakref.WeakSet" = weakref.WeakSet()
+_AUTOSCALERS: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def register_controller(controller) -> None:
@@ -30,9 +28,9 @@ def register_controller(controller) -> None:
         _CONTROLLERS.add(controller)
 
 
-register_autoscaler = not_ported(
-    "register_autoscaler",
-    "item 5b (the fleet, with scheduling/autoscaler.py)")
+def register_autoscaler(autoscaler) -> None:
+    with _LOCK:
+        _AUTOSCALERS.add(autoscaler)
 
 
 def schedz_payload() -> dict:
@@ -40,12 +38,15 @@ def schedz_payload() -> dict:
     from ...observability.tracing import process_name
     with _LOCK:
         controllers = list(_CONTROLLERS)
+        autoscalers = list(_AUTOSCALERS)
     return {
         "process": process_name(),
         "admission": {c.name: c.snapshot()
                       for c in sorted(controllers,
                                       key=lambda c: c.name)},
-        "autoscalers": {},
+        "autoscalers": {a.name: a.snapshot()
+                        for a in sorted(autoscalers,
+                                        key=lambda a: a.name)},
     }
 
 

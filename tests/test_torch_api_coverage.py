@@ -116,8 +116,9 @@ NN_F = {"Tensor", "activation", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
         "square_error_cost", "swish", "tanh", "tanh_", "tanhshrink",
         "temporal_shift", "thresholded_relu", "triplet_margin_loss",
         "triplet_margin_with_distance_loss", "unfold", "upsample", "zeropad2d"}
-# the operations plane's surfaces (ROADMAP queue 1 item 5b): the names the
-# port offers; every other name of these modules raises naming its item
+# the operations plane's and the serving fleet's surfaces (ROADMAP queue 1
+# item 5b): the names the port offers; every other name of these modules
+# raises naming its item
 OBS = {"BurnRule", "Counter", "DEFAULT_MS_BUCKETS", "Gauge", "Histogram",
        "LatencySLO", "MetricRegistry", "PROMETHEUS_CONTENT_TYPE",
        "PercentileWindow", "SLOMonitor", "Span", "SpanBuffer", "StepProfiler",
@@ -140,10 +141,20 @@ TRACING = {"Span", "SpanBuffer", "TraceContext", "chrome_trace_events",
            "process_name", "promote", "record_exemplar", "record_span",
            "request_context", "sample_decision", "set_default_buffer",
            "set_process_name", "start_span", "tracez_payload", "use_context"}
-SCHED = {"AdmissionController", "DEFAULT_TENANT", "PRIORITY_CLASSES",
-         "SchedMetrics", "SchedulerPolicy", "TenantPolicy", "TokenBucket",
+SCHED = {"AdmissionController", "AutoscaleMetrics", "DEFAULT_TENANT",
+         "FleetAutoscaler", "PRIORITY_CLASSES", "SchedMetrics",
+         "SchedulerPolicy", "TenantPolicy", "TokenBucket",
          "WeightedFairQueue", "merge_schedz_payloads", "normalize_tenant",
-         "priority_rank", "register_controller", "schedz_payload"}
+         "priority_rank", "register_autoscaler", "register_controller",
+         "schedz_payload"}
+# every name of the reference's serving.fleet
+FLEET = {"CircuitBreaker", "Deadline", "FleetMetrics", "FleetRouter",
+         "NoReadyReplicaError", "PredictorBackend", "ProcessReplicaFactory",
+         "ReplicaApp", "ReplicaError", "ReplicaSupervisor",
+         "ReplicaWedgedError", "RouterApp", "StubBackend",
+         "SubprocessReplica", "ThreadReplicaFactory", "WedgeMonitor",
+         "WedgeWatchdog", "arm_canary", "arm_wedge_watchdog", "codec",
+         "merge_prometheus_texts", "resilience"}
 GENERATION = {"CachedDecoder", "DecodeMetrics", "GenerationServer",
               "PagedKVCache", "PrefixCache", "StreamingFuture",
               "accept_tokens", "engines_statusz", "sample_next_tokens",
@@ -151,7 +162,8 @@ GENERATION = {"CachedDecoder", "DecodeMetrics", "GenerationServer",
 PLANE = {"paddle_tpu.observability": OBS,
          "paddle_tpu.observability.tracing": TRACING,
          "paddle_tpu.serving.scheduling": SCHED,
-         "paddle_tpu.serving.generation": GENERATION}
+         "paddle_tpu.serving.generation": GENERATION,
+         "paddle_tpu.serving.fleet": FLEET}
 PORTS = {"paddle_tpu": "paddle_tpu_torch",
          "paddle_tpu.tensor": "paddle_tpu_torch.tensor",
          "paddle_tpu.nn": "paddle_tpu_torch.nn",

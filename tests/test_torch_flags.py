@@ -7,6 +7,10 @@ module with the flag at '' in both packages. Flags are process state, so a
 value left set by one test reaches whatever test the same xdist worker runs
 next; a module imports both names from here (``from test_torch_flags
 import kv_dtype_flag, pin_kv_dtype``) so there is one copy to keep right.
+
+The serving fleet's and the autoscaler's flags (``FLAGS_fleet_*``,
+``FLAGS_autoscale_*``, the warmup gate and the canary period) carry the
+reference's names and defaults.
 """
 import contextlib
 
@@ -61,3 +65,21 @@ def test_kv_dtype_flag_restores_after_an_error():
         with kv_dtype_flag("float32"):
             assert _both() == ("float32", "float32")
         assert _both() == ("int8", "int8")
+
+
+FLEET_PREFIXES = ("FLAGS_fleet_", "FLAGS_autoscale_")
+FLEET_FLAGS = sorted(
+    n for n in jflags._REGISTRY if n.startswith(FLEET_PREFIXES)) + [
+    "FLAGS_serving_ready_requires_warmup", "FLAGS_numerics_canary_period_s"]
+
+
+def test_fleet_flags_cover_the_reference():
+    assert len(FLEET_FLAGS) == 25
+    ours = {n for n in tflags._REGISTRY if n.startswith(FLEET_PREFIXES)}
+    assert ours == set(FLEET_FLAGS[:-2])
+
+
+@pytest.mark.parametrize("name", FLEET_FLAGS)
+def test_fleet_flag_defaults_equal_reference(name):
+    assert tflags.flag_value(name) == jflags.flag_value(name)
+    assert type(tflags.flag_value(name)) is type(jflags.flag_value(name))

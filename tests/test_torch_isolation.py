@@ -63,7 +63,13 @@ def test_package_has_modules_to_scan():
                 "serving/scheduling/admission.py",
                 "serving/scheduling/policy.py",
                 "serving/scheduling/metrics.py",
-                "serving/scheduling/schedz.py"):
+                "serving/scheduling/schedz.py",
+                # the serving fleet and its autoscaler
+                "serving/scheduling/autoscaler.py",
+                "serving/fleet/__init__.py", "serving/fleet/codec.py",
+                "serving/fleet/metrics.py", "serving/fleet/resilience.py",
+                "serving/fleet/router.py", "serving/fleet/supervisor.py",
+                "serving/fleet/worker.py"):
         assert f"paddle_tpu_torch/{mod}" in scanned
 
 

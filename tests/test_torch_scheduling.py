@@ -7,7 +7,8 @@ through each package's ``TokenBucket``, ``WeightedFairQueue`` and
 admissions, the pick orders across tenants and priority classes, the typed
 refusals and the ``/schedz`` payloads must be equal. The policy file loads
 and hot-reloads the same way, untagged tenants map to ``DEFAULT_TENANT``,
-and the fleet autoscaler's names raise, naming their ROADMAP item. Then an
+and the fleet autoscaler's names work (its decisions against the
+reference's are in ``test_torch_fleet_autoscaler.py``). Then an
 ``InferenceServer`` with ``scheduler=`` and ``telemetry_port=`` over a small
 predictor answers as the reference's does, refusals included.
 """
@@ -201,13 +202,30 @@ def test_schedz_matches_reference():
 
 
 def test_fleet_names_raise_naming_their_item():
+    """The fleet autoscaler's names are ported now (ROADMAP item 5b part
+    1): none is a stand-in, each works, and a registered autoscaler shows
+    on /schedz as the reference's does."""
     for name in ("FleetAutoscaler", "AutoscaleMetrics",
                  "register_autoscaler"):
-        obj = getattr(psch, name)
-        assert obj.__not_ported__
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            obj("x")
-    assert psch.schedz_payload()["autoscalers"] == {}
+        assert not getattr(getattr(psch, name), "__not_ported__", False)
+
+    class _Sup:
+        replica_ids = [0]
+
+        def scale_to(self, n):
+            pass
+
+    docs = []
+    for sch, reg in PKGS:
+        asc = sch.FleetAutoscaler(
+            _Sup(), now=lambda: 5.0, name="t_sched_asc",
+            metrics=sch.AutoscaleMetrics("t_sched_asc",
+                                         registry=reg.MetricRegistry()))
+        sch.register_autoscaler(asc)
+        docs.append(sch.schedz_payload()["autoscalers"]["t_sched_asc"])
+        del asc
+    assert docs[0] == docs[1]
+    assert docs[0]["replicas"] == 1 and docs[0]["decisions"] == []
 
 
 def test_inference_server_with_scheduler_matches_reference(tmp_path):
