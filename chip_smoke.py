@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe,families,inference,api,nn,hapi,ops,fleet]
+                  recipe,families,inference,api,nn,hapi,ops,fleet,elastic]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -242,9 +242,9 @@ Phases, each failing loudly (exit code 1, no result line):
               kernel over the prompt pages still cached). Head sampling at 1.0; over HTTP on 127.0.0.1 while
               it runs, /metrics (text, which must parse, and JSON),
               /healthz, /readyz, /statusz (the engine's section with
-              tenant_queue_depth), /schedz (both tenants), /tracez and
-              /sloz answer 200, /goodputz, /execz, /profilez and /numericsz
-              501. Every stream ends with its max_new_tokens; the parked
+              tenant_queue_depth), /schedz (both tenants), /tracez, /sloz
+              and (since the elastic slice) /goodputz answer 200, /execz,
+              /profilez and /numericsz 501. Every stream ends with its max_new_tokens; the parked
               count of /metrics equals the engine's; every request's trace
               holds its queue, prefill and decode_step spans; the stepprof
               decode envelopes equal the engine's decode steps; launches
@@ -296,6 +296,43 @@ Phases, each failing loudly (exit code 1, no result line):
               respawned). Printed with no limit: QPS and p50/p99 through
               the router against one in-process InferenceServer, spawn to
               ready, the swap, kill to ready, the streams' TTFT.
+18. elastic — elastic training (paddle_tpu_torch.elastic, the goodput
+              ledger, the training telemetry). Leg A: gpt3_1p3b (stacked,
+              recompute "full", full width and depth) trains 11 steps at
+              b=2 s=2048, bf16 O2, AdamW with float32 moments under a
+              LinearWarmup schedule, batches from the port's generator,
+              under CheckpointManager (async saves every 4 steps, keep=1);
+              a fresh model, optimizer and schedule from another seed (the
+              generator reseeded) restores step 8's checkpoint and runs
+              steps 9-11: losses, parameters and AdamW moments bit for bit,
+              48/24/24 flash forward/dq/dk-dv launches a step and 0 plain
+              calls, the goodput identity (ckpt_save, ckpt_restore and
+              recovery above 0), 2 saves, last committed step 8, 3 steps
+              lost. Checkpoints go to the temporary directory (TMPDIR),
+              which must hold two, else the phase fails; it is printed. Leg
+              B: python -m paddle_tpu_torch.tools.faultinject over
+              elastic_ckpt_worker --model gpt --layers 4 (12 steps, saves
+              every 3, keep=2): an uninterrupted run, then a SIGKILL
+              mid-step, mid-save and mid-commit and a SIGTERM in the middle
+              of a step, each relaunched; every loss bitwise the
+              uninterrupted run's, the final digests equal, steps lost
+              within 2x the interval, the SIGTERM's final save committed at
+              the next step boundary, 8/4/4 launches a step in each
+              completed worker and 0 plain calls. Leg C: the hapi phase's
+              float32 encoder under LAMB through Model.fit with
+              ElasticCheckpoint (every 4 steps) and
+              TrainingTelemetryCallback, the optimizers instrumented:
+              /goodputz over HTTP answers 200 and closes, the training and
+              LAMB step counters equal the steps, a second fit on a fresh
+              model resumes at the last save with the first fit's
+              parameters at that step bit for bit, the float32 kernels
+              launch 12 a step with 0 plain calls. Printed with no limit,
+              beside the card's name and power limit: checkpoint bytes,
+              each save's synchronous half and writer seconds, restore
+              seconds, step ms with and without a save in flight, the
+              goodput fractions, kills survived, steps lost per kill, the
+              median restore ms, spawn to first step and the SIGTERM's
+              wait for the step boundary and final save.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -331,7 +368,7 @@ FMA_FLOPS_F32 = 67e12
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
-              "inference", "api", "nn", "hapi", "ops", "fleet")
+              "inference", "api", "nn", "hapi", "ops", "fleet", "elastic")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -6234,8 +6271,8 @@ OPS_PROFILE_NEW = 512      # the profiled run's budget (cancelled after it)
 OPS_INFER_REQUESTS = 64    # a tenant
 OPS_INFER_BURST = 60       # the offline tenant's quota in rows: 4 refused
 OPS_ENDPOINTS = ("/metrics", "/metrics?format=json", "/healthz", "/readyz",
-                 "/statusz", "/schedz", "/tracez", "/sloz")
-OPS_UNPORTED = ("/goodputz", "/execz", "/profilez", "/numericsz")
+                 "/statusz", "/schedz", "/tracez", "/sloz", "/goodputz")
+OPS_UNPORTED = ("/execz", "/profilez", "/numericsz")
 # one sample line of Prometheus text 0.0.4: name, optional labels, value
 PROM_SAMPLE = re.compile(
     r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
@@ -6278,7 +6315,7 @@ def _parse_prometheus(text: str) -> dict:
 
 
 def _scrape(port, tag) -> dict:
-    """Every ported endpoint (200) and the four unported ones (501, with
+    """Every ported endpoint (200) and the three unported ones (501, with
     the ROADMAP item named in the body)."""
     out = {}
     for path in OPS_ENDPOINTS:
@@ -7578,6 +7615,430 @@ def phase_fleet(state):
     log(f"fleet: {out['seconds']:.1f} s ({state.get('smi')})")
 
 
+# ------------------------------------------------ elastic training
+# Leg A: the north star at full width and depth (gpt3_1p3b stacked,
+# recompute "full", b=2 s=2048, bf16 O2, AdamW with float32 moments under
+# a LinearWarmup schedule) under CheckpointManager; leg B: the
+# cross-process kill drills (faultinject) at PARITY_LAYERS depth; leg C:
+# Model.fit of the hapi phase's float32 encoder with ElasticCheckpoint and
+# the training telemetry.
+ELASTIC_STEPS = 11          # saves at 4 and 8, keep=1; resume at 8
+ELASTIC_INTERVAL = 4
+ELASTIC_FAULT_STEPS, ELASTIC_FAULT_INTERVAL = 12, 3
+ELASTIC_FIT_INTERVAL = 4
+ELASTIC_WORKER_TIMEOUT_S = 300.0
+
+
+def _elastic_root(ckpt_bytes: int, tag: str) -> tuple:
+    """A directory for checkpoints of ``ckpt_bytes`` each, in the
+    temporary directory (``TMPDIR``; point it at a tmpfs for a faster
+    one), which must hold two of them and 2 GB more, else the phase
+    fails. Returns (path, why)."""
+    import shutil
+    import tempfile
+    where = Path(tempfile.gettempdir())
+    free = shutil.disk_usage(where).free
+    require(free >= 2 * ckpt_bytes + 2e9,
+            f"elastic {tag}: {where} cannot hold two checkpoints of "
+            f"{ckpt_bytes / 1e9:.2f} GB ({free / 1e9:.1f} GB free)")
+    path = Path(tempfile.mkdtemp(prefix=f"chip_smoke_elastic_{tag}_",
+                                 dir=where))
+    why = {"dir": str(path), "free_gb": free / 1e9,
+           "checkpoint_gb": ckpt_bytes / 1e9}
+    log(f"elastic {tag}: checkpoints in {path} " + json.dumps(why))
+    return path, why
+
+
+def _gpt_params(cfg) -> int:
+    """Parameters of a GPT config: embeddings, 12 h^2 + 13 h a layer
+    (attention, the 4h MLP, two LayerNorms), the final LayerNorm."""
+    h = cfg.hidden_size
+    return (cfg.vocab_size + cfg.max_seq_len) * h + cfg.num_layers * (
+        12 * h * h + 13 * h) + 2 * h
+
+
+# checkpoint bytes a parameter: float32 weights and two float32 moments
+ELASTIC_BYTES_PER_PARAM = 12
+
+
+def _gauge(name, *labels):
+    from paddle_tpu_torch.observability.registry import default_registry
+    fam = default_registry().get(name)
+    if fam is None:
+        return 0
+    return (fam.labels(*labels) if labels else fam).value
+
+
+def _elastic_north_star(state) -> dict:
+    """Leg A: 11 steps of gpt3_1p3b under CheckpointManager (async saves
+    every 4 steps, keep=1), then a fresh model, optimizer and schedule from
+    another seed restored from step 8's checkpoint, and steps 9-11 again:
+    losses, parameters and AdamW moments bit for bit; the launches exact;
+    the goodput identity; the paddle_ckpt_* families."""
+    import shutil
+    import torch
+    from paddle_tpu_torch.elastic import CheckpointManager
+    from paddle_tpu_torch.framework import checkpoint as ck
+    from paddle_tpu_torch.framework import random as trandom
+    from paddle_tpu_torch.models import gpt3_1p3b
+    from paddle_tpu_torch.observability import goodput
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    from paddle_tpu_torch.tools import elastic_ckpt_worker as worker
+    seed = state["seed"]
+    ledger = goodput.GoodputLedger()
+    prev_ledger = goodput.set_default_ledger(ledger)
+    ledger.start()
+    saves_ok0 = _gauge("paddle_ckpt_saves_total", "ok")
+    lost0 = _gauge("paddle_ckpt_steps_lost_total")
+    cfg = gpt3_1p3b(stacked=True, recompute="full")
+    per_step = {"flash_fwd": cfg.num_layers * STACKED_FWD_PER_LAYER["full"],
+                **{n: cfg.num_layers for n in cab.KERNELS}}
+    root, where = _elastic_root(
+        ELASTIC_BYTES_PER_PARAM * _gpt_params(cfg), "north_star")
+    saves, step_ms, managers = [], [], []
+
+    def run(mgr, model, sched, train_step, steps):
+        """Steps ``steps`` (global numbers) with ``mgr.step`` after each:
+        each step's ms (synchronised; ``host_ms`` until the step's calls
+        return) and whether a save was in flight; at a save step, the wait
+        for the previous save (which ``save`` does first) apart from the
+        save's synchronous half, and, when its writer ends, its total."""
+        losses = []
+        for i in steps:
+            busy = bool(saves) and "total_s" not in saves[-1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = worker.gpt_batch(model, "cuda")
+            loss = train_step(ids, ids)
+            sched.step()
+            t_host = time.perf_counter()
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step_ms.append({"step": i, "ms": (t1 - t0) * 1e3,
+                            "host_ms": (t_host - t0) * 1e3,
+                            "save_in_flight": busy})
+            wait_s = None
+            if i % ELASTIC_INTERVAL == 0:
+                mgr.wait()
+                wait_s = time.perf_counter() - t1
+                t1 = time.perf_counter()
+            handle = mgr.step(i)
+            if handle is not None:
+                rec = {"step": i, "waited_for_previous_s": wait_s,
+                       "sync_s": time.perf_counter() - t1}
+                handle.add_done_callback(
+                    lambda _h, rec=rec, t1=t1: rec.update(
+                        total_s=time.perf_counter() - t1))
+                saves.append(rec)
+        return losses
+
+    try:
+        trandom.seed(seed + 11)
+        model, opt, sched, step = worker.build_gpt(cfg.num_layers, "cuda",
+                                                   seed=seed)
+        mgr = CheckpointManager(str(root), model=model, optimizer=opt,
+                                save_interval_steps=ELASTIC_INTERVAL,
+                                async_save=True, keep=1,
+                                health_check=False)
+        managers.append(mgr)
+        _reset_counts()
+        straight = run(mgr, model, sched, step,
+                       range(1, ELASTIC_STEPS + 1))
+        counts_a = _read_counts()
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        mgr.close()
+        for rec in saves:
+            rec["writer_s"] = rec["total_s"] - rec["sync_s"]
+        kept = [Path(p).name for p in ck.list_checkpoints(str(root))]
+        nbytes = ck.checkpoint_nbytes(str(root / "step_00000008"))
+        require(kept == ["step_00000008"],
+                f"elastic A: keep=1 left {kept}, not step 8's checkpoint")
+        require(_gauge("paddle_ckpt_saves_total", "ok") - saves_ok0 == 2,
+                "elastic A: not 2 successful saves")
+        # a fresh model, optimizer and schedule from another seed, the
+        # generator reseeded: the restore must bring back all of it
+        trandom.seed(seed + 999)
+        model2, opt2, sched2, step2 = worker.build_gpt(
+            cfg.num_layers, "cuda", seed=seed + 1)
+        mgr2 = CheckpointManager(str(root), model=model2, optimizer=opt2,
+                                 save_interval_steps=ELASTIC_INTERVAL,
+                                 async_save=True, keep=1,
+                                 health_check=False)
+        managers.append(mgr2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mgr2.restore_latest()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(res is not None and res.step == 8 and res.steps_lost == 3,
+                f"elastic A: restored {res}, not step 8 with 3 steps lost")
+        _reset_counts()
+        resumed = run(mgr2, model2, sched2, step2,
+                      range(res.step + 1, ELASTIC_STEPS + 1))
+        counts_b = _read_counts()
+        mgr2.close()
+        report = ledger.report()
+        same_p = all(torch.equal(a, b) for a, b in zip(
+            model.parameters(), model2.parameters()))
+        same_m = all(torch.equal(opt._accumulators[an][id(a)],
+                                 opt2._accumulators[an][id(b)])
+                     for a, b in zip(opt._parameters, opt2._parameters)
+                     for an in opt._accum_names)
+        out = {"config": f"gpt3_1p3b(stacked=True, recompute='full'), "
+                         f"b={worker.GPT_BATCH} s={worker.GPT_SEQ}, bf16 "
+                         f"O2, AdamW (float32 moments), LinearWarmup",
+               "params": model.num_params(), "where": where,
+               "checkpoint_bytes": nbytes, "saves": saves,
+               "wait_for_last_save_s": wait_s, "restore_s": restore_s,
+               "restore_ms_manager": res.restore_ms,
+               "losses_straight": straight, "losses_resumed": resumed,
+               "params_bit_for_bit": same_p, "moments_bit_for_bit": same_m,
+               "step_ms": step_ms, "launches_straight": counts_a,
+               "launches_resumed": counts_b,
+               "goodput": report, "card": state.get("smi")}
+        with_save = [r["ms"] for r in step_ms[1:] if r["save_in_flight"]]
+        without = [r["ms"] for r in step_ms[1:] if not r["save_in_flight"]]
+        out["step_ms_with_save_in_flight"] = statistics.median(with_save) \
+            if with_save else None
+        out["step_ms_without_save"] = statistics.median(without) \
+            if without else None
+        log("elastic A: " + json.dumps(out))
+        require(resumed == straight[res.step:],
+                f"elastic A: steps 9-11 lost {resumed} against "
+                f"{straight[res.step:]}")
+        require(same_p, "elastic A: parameters differ after the resume")
+        require(same_m, "elastic A: AdamW moments differ after the resume")
+        _require_launches("elastic A", counts_a, per_step, ELASTIC_STEPS)
+        _require_launches("elastic A resumed", counts_b, per_step,
+                          ELASTIC_STEPS - res.step)
+        acc, cats = report["accounting"], report["categories_s"]
+        require(acc["closes"], f"elastic A: goodput accounting does not "
+                               f"close: {acc}")
+        require(cats["ckpt_save"] > 0 and cats["ckpt_restore"] > 0
+                and cats["recovery"] > 0
+                and report["replay_steps_pending"] == 0,
+                f"elastic A: goodput categories {cats}")
+        require(_gauge("paddle_ckpt_last_success_step") == 8,
+                "elastic A: paddle_ckpt_last_success_step is not 8")
+        require(_gauge("paddle_ckpt_steps_lost_total") - lost0 == 3,
+                "elastic A: paddle_ckpt_steps_lost_total did not rise by 3")
+        out["launches"] = _add_launches(counts_a["launches"],
+                                        counts_b["launches"])
+        return out
+    finally:
+        goodput.set_default_ledger(prev_ledger)
+        for m in managers:      # frees the page-locked snapshot buffer
+            m.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _elastic_drills(state) -> dict:
+    """Leg B: faultinject over elastic_ckpt_worker --model gpt --layers
+    PARITY_LAYERS on the card: an uninterrupted run, then a SIGKILL
+    mid-step, mid-save and mid-commit and a SIGTERM, each relaunched; every
+    loss bitwise, launches 8/4/4 a step in each completed worker."""
+    import shutil
+    import torch
+    from paddle_tpu_torch.models import gpt3_1p3b
+    cfg = gpt3_1p3b(stacked=True, recompute="full",
+                    num_layers=PARITY_LAYERS)
+    root, where = _elastic_root(
+        ELASTIC_BYTES_PER_PARAM * _gpt_params(cfg), "drills")
+    out_json = OUT_DIR / "elastic_faultinject.json"
+    OUT_DIR.mkdir(exist_ok=True)
+    per_step = (PARITY_LAYERS * STACKED_FWD_PER_LAYER["full"],
+                PARITY_LAYERS, PARITY_LAYERS)
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.faultinject",
+             "--model", "gpt", "--layers", str(PARITY_LAYERS),
+             "--steps", str(ELASTIC_FAULT_STEPS),
+             "--interval", str(ELASTIC_FAULT_INTERVAL), "--keep", "2",
+             "--kills", "3", "--sleep-s", "0.05", "--midstep-sleep", "1.0",
+             "--seed", str(state["seed"]),
+             "--expect-launches", ",".join(map(str, per_step)),
+             "--dir", str(root), "--timeout-s",
+             str(ELASTIC_WORKER_TIMEOUT_S), "--out", str(out_json)],
+            cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, timeout=12 * ELASTIC_WORKER_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("elastic B: faultinject stderr: " + proc.stderr[-3000:])
+    require(proc.returncode == 0,
+            f"elastic B: faultinject exited {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(rec["trajectory_bitwise_equal"] and rec["final_digest_equal"]
+            and rec["kills_survived"] == 3 and rec["sigterm"] is not None,
+            f"elastic B: {rec}")
+    rec.update({"where": where, "seconds": seconds,
+                "card": state.get("smi")})
+    log("elastic B: " + json.dumps(rec))
+    wl = rec["worker_launches"]
+    steps_done = ELASTIC_FAULT_STEPS + wl["final_steps"]
+    rec["launches"] = {
+        name: wl["reference"][i] + wl["final"][i]
+        for i, name in enumerate(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"))}
+    require(all(rec["launches"][k] == n * steps_done for k, n in zip(
+        rec["launches"], per_step)),
+        f"elastic B: launches {rec['launches']} over {steps_done} steps")
+    return rec
+
+
+def _elastic_fit(state) -> dict:
+    """Leg C: the hapi phase's float32 encoder classifier (BERT-base
+    widths, LAMB) through Model.fit with ElasticCheckpoint and
+    TrainingTelemetryCallback, the optimizers instrumented and the
+    telemetry server up: /goodputz closes, the training and optimizer
+    counters equal the steps; a second fit on a fresh model resumes from
+    the last save with the first fit's parameters at that step, bit for
+    bit; the float32 flash kernels launch, their plain versions never."""
+    import shutil
+    import tempfile
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.observability import goodput, httpd, training
+    script = _load_script(ENCODER_SCRIPT, "encoder_script")
+    h = _load_script(HAPI_SCRIPT, "hapi_script")
+    paddle.set_device("gpu")
+    seed = state["seed"]
+    train = h.samples(paddle, NN_CFG, HAPI_TRAIN_BATCHES, seed + 1)
+    ledger = goodput.GoodputLedger()
+    prev_ledger = goodput.set_default_ledger(ledger)
+    srv = httpd.start_telemetry_server(port=0, host="127.0.0.1")
+    training.uninstrument_optimizers()
+    training.instrument_optimizers()
+    steps0 = _gauge("paddle_training_steps_total")
+    lamb0 = _gauge("paddle_optimizer_steps_total", "Lamb")
+
+    class Keep(paddle.callbacks.Callback):
+        """Each global step's parameters (after the update), and the
+        parameters as training begins (after ElasticCheckpoint's
+        restore)."""
+        def __init__(self, start=0):
+            super().__init__()
+            self.at, self.step, self.begin = {}, start, None
+
+        def on_train_begin(self, logs=None):
+            self.begin = {n: p._data.detach().clone() for n, p in
+                          self.model.network.named_parameters()}
+
+        def on_train_batch_end(self, step, logs=None):
+            self.step += 1
+            self.at[self.step] = {n: p._data.detach().clone() for n, p in
+                                  self.model.network.named_parameters()}
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        paddle.seed(seed)
+        model = h.make_model(paddle, script, NN_CFG, warmup=HAPI_WARMUP)
+        elastic = paddle.callbacks.ElasticCheckpoint(
+            str(root), save_interval_steps=ELASTIC_FIT_INTERVAL, keep=2)
+        keep = Keep()
+        _reset_counts()
+        t0 = time.perf_counter()
+        hist = model.fit(train, batch_size=NN_CFG["batch"], epochs=1,
+                         shuffle=False, verbose=0, callbacks=[
+                             paddle.callbacks.LRScheduler(
+                                 by_step=True, by_epoch=False),
+                             elastic, training.TrainingTelemetryCallback(
+                                 batch_size=NN_CFG["batch"]), keep])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _read_counts()
+        steps = len(hist["loss"])
+        code, body = _http_get(srv.port, "/goodputz")
+        doc = json.loads(body)
+        # a second fit on a fresh model from another seed resumes
+        paddle.seed(seed + 5)
+        model2 = h.make_model(paddle, script, NN_CFG, warmup=HAPI_WARMUP)
+        elastic2 = paddle.callbacks.ElasticCheckpoint(
+            str(root), save_interval_steps=ELASTIC_FIT_INTERVAL, keep=2)
+        keep2 = Keep()
+        _reset_counts()
+        hist2 = model2.fit(train, batch_size=NN_CFG["batch"], epochs=1,
+                           shuffle=False, verbose=0, callbacks=[
+                               paddle.callbacks.LRScheduler(
+                                   by_step=True, by_epoch=False),
+                               elastic2, keep2])
+        torch.cuda.synchronize()
+        counts2 = _read_counts()
+        restored = elastic2.restored
+        same = restored is not None and restored.step in keep.at and all(
+            torch.equal(keep2.begin[n], p)
+            for n, p in keep.at[restored.step].items())
+    finally:
+        training.uninstrument_optimizers()
+        goodput.set_default_ledger(prev_ledger)
+        shutil.rmtree(root, ignore_errors=True)
+    per_step = {k: NN_CFG["layers"] for k in ("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv")}
+    out = {"config": "bert_base encoder classifier, float32, LAMB, "
+                     "Model.fit + ElasticCheckpoint + "
+                     "TrainingTelemetryCallback",
+           "steps": steps, "fit_s": fit_s, "goodputz_status": code,
+           "goodput": doc.get("goodput"),
+           "training_steps_total": _gauge("paddle_training_steps_total")
+           - steps0,
+           "lamb_steps_total": _gauge("paddle_optimizer_steps_total", "Lamb")
+           - lamb0,
+           "restored_step": None if restored is None else restored.step,
+           "params_at_restore_bit_for_bit": same,
+           "losses": hist["loss"], "losses_second_fit": hist2["loss"],
+           "launches": counts, "launches_second_fit": counts2,
+           "card": state.get("smi")}
+    log("elastic C: " + json.dumps(out))
+    require(code == 200 and doc["goodput"]["accounting"]["closes"],
+            f"elastic C: /goodputz {code}: {body[:400]}")
+    require(out["training_steps_total"] == steps == HAPI_TRAIN_BATCHES,
+            f"elastic C: paddle_training_steps_total "
+            f"{out['training_steps_total']} for {steps} steps")
+    require(out["lamb_steps_total"] == steps + len(hist2["loss"]),
+            f"elastic C: paddle_optimizer_steps_total{{optimizer=Lamb}} "
+            f"{out['lamb_steps_total']}")
+    require(out["restored_step"] == steps,
+            f"elastic C: the second fit restored step "
+            f"{out['restored_step']}, not the last save's {steps}")
+    require(same, "elastic C: parameters after the restore differ from "
+                  "the first fit's at that step")
+    _require_launches("elastic C", counts, per_step, steps)
+    _require_launches("elastic C second fit", counts2, per_step,
+                      len(hist2["loss"]))
+    out["launches_f32"] = _add_launches(counts["launches"],
+                                        counts2["launches"])
+    return out
+
+
+def phase_elastic(state):
+    """Elastic training on the card: leg A, gpt3_1p3b at full width and
+    depth resumed bit for bit from an async checkpoint in one process; leg
+    B, the kill -9 and SIGTERM drills across processes at PARITY_LAYERS
+    depth; leg C, Model.fit with ElasticCheckpoint and the training
+    telemetry, /goodputz over HTTP."""
+    import torch
+    from paddle_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.load_library()       # built once: the drill's workers load it
+    state.pop("model", None)
+    _release()
+    out = {"north_star": _elastic_north_star(state)}
+    _release()
+    out["drills"] = _elastic_drills(state)
+    out["fit"] = _elastic_fit(state)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = state.get("smi")
+    state["elastic"] = out
+    log(f"elastic: {out['seconds']:.1f} s ({state.get('smi')})")
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -7647,6 +8108,10 @@ def kernels_line(state) -> dict:
     fleet_a_flash = fleet_a["launches"]["flash_fwd"]
     fleet_b_flash = sum(state["fleet"]["process"]["worker_launches"]
                         .values())
+    el = state["elastic"]
+    el_b = _add_launches(el["north_star"]["launches"],
+                         el["drills"]["launches"])
+    el_f = el["fit"]["launches_f32"]
 
     def api_row(dtype, part, kname=None, phase=api):
         """The flash kernel at a Paddle script's shape (the api phase's, or
@@ -7670,7 +8135,7 @@ def kernels_line(state) -> dict:
              + sum(t["flash_fwd"] for t in st_train) + fam_fwd
              + infer["bfloat16"]["launches"] + api_o2["flash_fwd"]
              + nn_o2["flash_fwd"] + hapi_b["flash_fwd"]
-             + ops_eng["flash_fwd"], None),
+             + ops_eng["flash_fwd"] + el_b["flash_fwd"], None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
              + st_serve["bfloat16"]["launches"]["paged_attention"]
@@ -7688,6 +8153,8 @@ def kernels_line(state) -> dict:
                  "library_ms": row["library_ms"], "shape": row["case"]}
         if name in ("flash_fwd", "paged_attention"):
             entry["ops_launches"] = ops_eng[name]
+        if name == "flash_fwd":
+            entry["elastic_launches"] = el_b[name]
         if name == "paged_attention":
             entry["ops_launches_by_kernel"] = \
                 state["ops"]["engine"]["paged_launches_by_kernel"]
@@ -7791,7 +8258,7 @@ def kernels_line(state) -> dict:
                 "launches": infer["float32"]["launches"]
                 + f32_train["flash_fwd"] + api_f32["flash_fwd"]
                 + nn_f32["flash_fwd"] + hapi_f["flash_fwd"] + ops_infer
-                + fleet_a_flash + fleet_b_flash,
+                + fleet_a_flash + fleet_b_flash + el_f["flash_fwd"],
                 "launches_by_path": {
                     "inference_server": infer["float32"]["launches"],
                     "ops_inference_server": ops_infer,
@@ -7800,7 +8267,8 @@ def kernels_line(state) -> dict:
                     "training_parities": f32_train["flash_fwd"],
                     "paddle_api_script": api_f32["flash_fwd"],
                     "paddle_nn_script": nn_f32["flash_fwd"],
-                    "paddle_model_fit": hapi_f["flash_fwd"]},
+                    "paddle_model_fit": hapi_f["flash_fwd"],
+                    "elastic_model_fit": el_f["flash_fwd"]},
                 "api_shape": api_row("float32", "fwd"),
                 "nn_shape": api_row("float32", "fwd", phase=nn),
                 "max_abs_err": max(r["max_abs_err"] for r in
@@ -7822,11 +8290,12 @@ def kernels_line(state) -> dict:
         entry = {"name": f"{name}_f32", "route": "cuda",
                  "source": cab.SOURCE, "replaces": cab.REPLACES[name],
                  "launches": f32_train[name] + api_f32[name]
-                 + nn_f32[name] + hapi_f[name],
+                 + nn_f32[name] + hapi_f[name] + el_f[name],
                  "launches_by_path": {"training_parities": f32_train[name],
                                       "paddle_api_script": api_f32[name],
                                       "paddle_nn_script": nn_f32[name],
-                                      "paddle_model_fit": hapi_f[name]},
+                                      "paddle_model_fit": hapi_f[name],
+                                      "elastic_model_fit": el_f[name]},
                  "api_shape": api_row("float32", "bwd", name),
                  "nn_shape": api_row("float32", "bwd", name, phase=nn)}
         for prefix, r in (("", state["bwd_f32_main"]),
@@ -7860,9 +8329,10 @@ def kernels_line(state) -> dict:
                         ("flash_bwd_dkv", ("dk", "dv"))):
         launches = train[name] + sum(t[name] for t in st_train) + \
             sum(t[name] for t in fam_train) + api_o2[name] + nn_o2[name] \
-            + hapi_b[name]
+            + hapi_b[name] + el_b[name]
         out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
                     "replaces": cab.REPLACES[name], "launches": launches,
+                    "elastic_launches": el_b[name],
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
                                        for g in grads),
                     "ms": row[f"{name}_ms"],
@@ -7986,7 +8456,8 @@ def main(argv=None) -> int:
            "train": phase_train, "stacked": phase_stacked,
            "recipe": phase_recipe, "families": phase_families,
            "inference": phase_inference, "api": phase_api, "nn": phase_nn,
-           "hapi": phase_hapi, "ops": phase_ops, "fleet": phase_fleet}
+           "hapi": phase_hapi, "ops": phase_ops, "fleet": phase_fleet,
+           "elastic": phase_elastic}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -8007,12 +8478,12 @@ def main(argv=None) -> int:
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
                                      "api", "nn", "hapi", "ops", "fleet",
-                                     "total_s")
+                                     "elastic", "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",
                                 "inference", "api", "nn", "hapi", "ops",
-                                "fleet")):
+                                "fleet", "elastic")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

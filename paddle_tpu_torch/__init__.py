@@ -13,7 +13,8 @@ why), the ``paddle.tensor`` op surface (also Tensor methods), autograd over
 torch's, dtypes, places, ``nn.Layer`` and the ``paddle.nn`` layers and
 functionals, the optimizers with the regularizers, ``amp``, ``save``/``load``,
 ``autograd`` (``PyLayer``, the functional transforms), ``paddle.Model``
-(hapi) with its callbacks, ``metric``, ``linalg`` and ``device``.
+(hapi) with its callbacks, ``metric``, ``linalg``, ``device`` and
+``elastic`` (crash-safe checkpoints and preemption-tolerant training).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (the
 Paddle API: ``paddle.set_device("cpu")``); without a CUDA device and without
@@ -46,8 +47,9 @@ from .tensor import *  # noqa: F401,F403  (also patches the Tensor methods)
 from . import tensor  # noqa: F401
 
 from . import (amp, autograd, core, device, distributed,  # noqa: F401
-               framework, hapi, incubate, inference, io, jit, linalg, metric,
-               nn, optimizer, profiler, regularizer, static, vision)
+               elastic, framework, hapi, incubate, inference, io, jit,
+               linalg, metric, nn, optimizer, profiler, regularizer, static,
+               vision)
 from .distributed import DataParallel  # noqa: F401
 from .hapi import Model, callbacks, summary  # noqa: F401
 

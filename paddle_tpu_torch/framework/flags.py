@@ -190,6 +190,10 @@ define_flag("FLAGS_serving_ready_requires_warmup", False,
 # The operations plane (observability/{tracing,stepprof,slo}.py) and the
 # multi-tenant scheduler (serving/scheduling/), with the reference's names
 # and defaults (paddle_tpu/framework/flags.py:292-365, :481-499).
+define_flag("FLAGS_goodput_tolerance", 0.02,
+            "goodput_report() accounting tolerance: the report's 'closes' "
+            "bit requires categories (incl. derived idle) to sum to "
+            "elapsed wall-clock within this fraction")
 define_flag("FLAGS_stepprof_window", 512,
             "bound of the continuous step profiler's per-step envelope "
             "ring (oldest envelopes are evicted past this)")
@@ -335,3 +339,34 @@ define_flag("FLAGS_numerics_canary_period_s", 0.0,
             "period of the per-worker numerics canary sweep; 0 disables "
             "it, and a period above 0 waits for the numerics plane, "
             "ROADMAP queue 1 item 11")
+
+# Elastic training (elastic/manager.py, elastic/preemption.py), with the
+# reference's names and defaults (paddle_tpu/elastic/manager.py:66-86,
+# paddle_tpu/elastic/preemption.py:33-40).
+define_flag("FLAGS_ckpt_keep", 3,
+            "checkpoints retained per directory (mtime-LRU: the oldest "
+            "beyond this many committed checkpoints are deleted after "
+            "each successful save; <= 0 keeps everything)")
+define_flag("FLAGS_ckpt_interval_steps", 0,
+            "CheckpointManager.step() saves every this many steps "
+            "(0 = no step-based cadence)")
+define_flag("FLAGS_ckpt_interval_s", 0.0,
+            "CheckpointManager.step() saves when this many seconds "
+            "passed since the last save attempt (0 = no wall-clock "
+            "cadence)")
+define_flag("FLAGS_ckpt_async", True,
+            "stage+commit checkpoint writes on a background thread "
+            "(the device->host snapshot is always synchronous, so in-place "
+            "updates after the call never corrupt the checkpoint); off = "
+            "fully synchronous saves")
+define_flag("FLAGS_ckpt_staleness_s", 0.0,
+            "checkpoint /healthz staleness threshold: unhealthy when the "
+            "last committed checkpoint is older than this many seconds "
+            "(0 = auto: 3x FLAGS_ckpt_interval_s when set, else 1800)")
+define_flag("FLAGS_ckpt_preempt_deadline_s", 30.0,
+            "grace budget for the preemption-triggered final checkpoint "
+            "save, counted from the signal: the save waits for the next "
+            "step boundary (at most half of it), then at most the rest for "
+            "the save to commit before chaining to the previous handler "
+            "(a commit that misses the window is a torn staging directory "
+            "the next restore ignores)")

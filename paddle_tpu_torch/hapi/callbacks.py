@@ -2,10 +2,9 @@
 ``CallbackList``, ``ProgBarLogger``, ``ModelCheckpoint``, ``LRScheduler``,
 ``EarlyStopping``, ``config_callbacks``).
 
-``ElasticCheckpoint`` stands on the reference's ``elastic`` checkpoint
-manager, which the port does not have yet (ROADMAP queue 1, item 5b): it
-raises ``NotImplementedError``. ``EarlyStopping`` keeps its best weights as
-copies on their own device, not on the host.
+``ElasticCheckpoint`` is the hapi face of ``elastic.CheckpointManager``.
+``EarlyStopping`` keeps its best weights as copies on their own device,
+not on the host.
 """
 from __future__ import annotations
 
@@ -137,15 +136,60 @@ class ModelCheckpoint(Callback):
 
 
 class ElasticCheckpoint(Callback):
-    """The reference's preemption-tolerant checkpointing for ``fit``; it
-    needs the elastic checkpoint manager (ROADMAP queue 1, item 5b)."""
+    """Preemption-tolerant checkpointing for ``Model.fit``, as the
+    reference's: the full training state (optimizer accumulators, LR step,
+    RNG) every ``save_interval_steps`` global steps into an atomic,
+    kill-9-safe checkpoint directory (``elastic.CheckpointManager``),
+    restored when training starts, with SIGTERM/SIGINT wired to a final
+    bounded-deadline save.
 
-    __not_ported__ = True
+    ``fit`` replays data from the epoch start, so after a restore the
+    already covered steps of the interrupted epoch run again: the state
+    is never wrong, some work repeats. The restore's result is
+    ``.restored``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ElasticCheckpoint needs the elastic checkpoint manager, which "
-            "the port does not have yet (ROADMAP queue 1, item 5b)")
+    def __init__(self, directory, save_interval_steps=None,
+                 save_interval_s=None, keep=None, restore=True,
+                 preemption_handlers=True):
+        super().__init__()
+        self.directory = directory
+        self._kw = {"save_interval_steps": save_interval_steps,
+                    "save_interval_s": save_interval_s, "keep": keep}
+        self._restore = restore
+        self._preempt = preemption_handlers
+        self.manager = None
+        self.restored = None
+        self._global_step = 0
+        self._epoch = 0
+
+    def on_train_begin(self, logs=None):
+        from ..elastic import CheckpointManager
+        if self.manager is None:
+            self.manager = CheckpointManager(
+                self.directory, model=self.model.network,
+                optimizer=getattr(self.model, "_optimizer", None),
+                **{k: v for k, v in self._kw.items() if v is not None})
+        if self._restore:
+            self.restored = self.manager.restore_latest()
+            if self.restored is not None:
+                self._global_step = self.restored.step
+                self._epoch = self.restored.epoch or 0
+        if self._preempt:
+            self.manager.install_preemption_handlers()
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self._epoch = epoch
+
+    def on_train_batch_end(self, step, logs=None):
+        self._global_step += 1
+        self.manager.step(self._global_step, epoch=self._epoch,
+                          offset=step)
+
+    def on_train_end(self, logs=None):
+        if self.manager is not None:
+            self.manager.save(self._global_step, epoch=self._epoch,
+                              block=True, reason="final")
+            self.manager.close()
 
 
 class LRScheduler(Callback):

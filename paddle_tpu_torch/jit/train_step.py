@@ -12,6 +12,13 @@ hand-written flash kernels forward and backward.
 - ``run_steps(n, *batch)`` runs n steps on the same batch at the learning
   rate of the window's start, t advancing once per step, and synchronises
   with the device once, at the end (reference ``:614-675``).
+- ``__call__`` runs inside a goodput ``step`` frame of the default ledger
+  (``observability/goodput.py``; a checkpoint restore's replay turns the
+  frame into ``recovery``) and records one ``kind="train"`` envelope into
+  the default step profiler, as the reference's (``:754-776``); profiling
+  never fails a step. ``run_steps`` feeds neither, as the reference's.
+  Every update calls the optimizer's step observers
+  (``optimizer.register_step_observer``) with its host wall time.
 - Every trainable parameter is updated at every step, a parameter that got
   no gradient with a zero one, as the reference's ``value_and_grad`` gives.
 - ``scaler=GradScaler(...)`` (enabled) brings dynamic loss scaling into the
@@ -39,11 +46,13 @@ tripwires, DGC/LocalSGD and ASP masks. Asking for any of them raises
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Optional
 
 import torch
 
 from ..amp.auto_cast import auto_cast
+from ..optimizer import optimizer as opt_mod
 
 __all__ = ["TrainStep"]
 
@@ -175,10 +184,12 @@ class TrainStep:
                 torch._amp_foreach_non_finite_check_and_unscale_(
                     grads, found, torch.ones((), device=self._device))
                 found_inf = found > 0
+        t0 = time.perf_counter() if opt_mod._step_observers else None
         clip = self.optimizer._grad_clip
         if clip is not None:
             params_grads = clip(params_grads)
         self.optimizer._apply(params_grads, lr, t, skip=found_inf)
+        opt_mod.notify_step_observers(self.optimizer, t0, len(params_grads))
         if st is not None:
             self._schedule(st, found_inf)
         return loss.detach()
@@ -193,10 +204,24 @@ class TrainStep:
         """``batch`` = the model's inputs, then ``loss_fn``'s extra
         arguments (labels); ``n_inputs`` says how many are inputs (default:
         all but the last). Returns the loss."""
-        self._set_inputs(batch, n_inputs)
-        self.optimizer._step_count += 1
-        return self._step(batch, self.optimizer.get_lr(),
-                          self.optimizer._step_count)
+        from ..observability.goodput import default_ledger
+        from ..observability.stepprof import default_profiler
+        ledger = default_ledger()
+        ledger.begin("step")
+        try:
+            self._set_inputs(batch, n_inputs)
+            self.optimizer._step_count += 1
+            out = self._step(batch, self.optimizer.get_lr(),
+                             self.optimizer._step_count)
+        finally:
+            wall_s = ledger.end()
+            try:
+                default_profiler().record_step(
+                    wall_s * 1e3, kind="train",
+                    step=int(self.optimizer._step_count))
+            except Exception:  # noqa: BLE001 - profiling never fails
+                pass           # the step it measures
+        return out
 
     def run_steps(self, n_steps: int, *batch,
                   n_inputs: Optional[int] = None):

@@ -20,20 +20,33 @@
   into the flight recorder;
 - ``slo``: declarative latency SLOs over rolling windows of the latency
   histograms, multi-window multi-burn-rate alerts (``/sloz``, alert
-  sinks, ``paddle_slo_*`` gauges).
+  sinks, ``paddle_slo_*`` gauges);
+- ``goodput``: the goodput ledger, wall-clock accounting of a training
+  run into typed categories that sum to elapsed time (``/goodputz``),
+  fed by ``jit.TrainStep``, the fit callback and the elastic
+  ``CheckpointManager``;
+- ``training``: ``TrainingTelemetryCallback`` (the ``paddle_training_*``
+  families, goodput step frames and step envelopes from ``Model.fit``)
+  and ``instrument_optimizers`` (the ``paddle_optimizer_*`` families from
+  the optimizers' step observers).
 
 Not ported yet, each name raising ``NotImplementedError`` that names its
-ROADMAP queue 1 item: ``goodput`` and ``training`` (item 5b, elastic
-training), ``runtime``, ``xstats`` and ``numerics`` (item 11).
+ROADMAP queue 1 item: ``runtime``, ``xstats`` and ``numerics`` (item
+11).
 ``framework.monitor``'s stat_add/stat_get are a Counter view onto the
 default registry; ``serving.ServingMetrics`` is backed by these types.
 """
 from __future__ import annotations
 
-from . import exposition, httpd, registry, slo, stepprof, tracing  # noqa
+from . import (exposition, goodput, httpd, registry, slo,  # noqa: F401
+               stepprof, tracing, training)
 from ._unported import not_ported
 from .exposition import (  # noqa: F401
     PROMETHEUS_CONTENT_TYPE, json_snapshot, json_text, prometheus_text,
+)
+from .goodput import (  # noqa: F401
+    GoodputLedger, default_ledger, goodput_report, goodputz_payload,
+    set_default_ledger,
 )
 from .httpd import (  # noqa: F401
     TelemetryServer, add_health_check, add_readiness_check,
@@ -51,20 +64,17 @@ from .slo import (  # noqa: F401
 from .stepprof import (  # noqa: F401
     StepProfiler, default_profiler, record_step, set_default_profiler,
 )
+from .training import (  # noqa: F401
+    TrainingTelemetryCallback, instrument_optimizers, uninstrument_optimizers,
+)
 from .tracing import (  # noqa: F401
     Span, SpanBuffer, TraceContext, current_context, default_buffer,
     export_chrome_trace, new_context, parse_traceparent, record_exemplar,
     record_span, request_context, start_span, tracez_payload, use_context,
 )
 
-_ELASTIC = "item 5b (elastic training: goodput.py, training.py)"
 _RUNTIME = "item 11 (runtime.py, xstats.py, numerics.py)"
 _UNPORTED = {
-    **{n: _ELASTIC for n in (
-        "goodput", "GoodputLedger", "default_ledger", "set_default_ledger",
-        "goodput_report", "goodputz_payload", "training",
-        "TrainingTelemetryCallback", "instrument_optimizers",
-        "uninstrument_optimizers")},
     **{n: _RUNTIME for n in (
         "runtime", "install_jax_monitoring",
         "install_device_memory_collector", "mirror_profiler_spans",
@@ -96,6 +106,10 @@ __all__ = [
     "parse_traceparent", "start_span", "record_span",
     "default_buffer", "tracez_payload", "export_chrome_trace",
     "record_exemplar",
+    "GoodputLedger", "default_ledger", "set_default_ledger",
+    "goodput_report", "goodputz_payload", "TrainingTelemetryCallback",
+    "instrument_optimizers", "uninstrument_optimizers",
     "registry", "exposition", "httpd", "tracing", "stepprof", "slo",
+    "goodput", "training",
     *_UNPORTED,
 ]

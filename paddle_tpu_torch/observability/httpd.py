@@ -19,10 +19,12 @@ Serves off a daemon thread:
 - ``/sloz``: declared SLOs with rolling-window attainment, burn rates and
   firing alerts (evaluated at scrape time);
 - ``/schedz``: multi-tenant admission state (per-tenant token buckets and
-  event counts).
+  event counts);
+- ``/goodputz``: the goodput ledger's accounting report and the step
+  profiler's summary (``goodput.goodputz_payload``).
 
-``/goodputz``, ``/execz``, ``/profilez`` and ``/numericsz`` answer 501
-with a body naming the ROADMAP item that ports them.
+``/execz``, ``/profilez`` and ``/numericsz`` answer 501 with a body naming
+the ROADMAP item that ports them.
 
 ``InferenceServer`` and ``GenerationServer`` attach through
 ``telemetry_port=`` or ``FLAGS_serving_telemetry_port`` (-1 disabled, 0
@@ -56,8 +58,6 @@ _start_time = time.time()
 # the reference's endpoints that wait for later work, with the ROADMAP
 # item that ports each
 UNPORTED_ENDPOINTS = {
-    "/goodputz": "the goodput ledger waits for ROADMAP queue 1 item 5b "
-                 "(elastic training: goodput.py, training.py)",
     "/execz": "the executable cost registry waits for ROADMAP queue 1 "
               "item 11 (runtime.py, xstats.py, numerics.py)",
     "/profilez": "the device-profile capture ring waits for ROADMAP queue "
@@ -240,6 +240,9 @@ class _Handler(BaseHTTPRequestHandler):
             elif path == "/schedz":
                 from ..serving.scheduling.schedz import schedz_payload
                 self._json(200, schedz_payload())
+            elif path == "/goodputz":
+                from .goodput import goodputz_payload
+                self._json(200, goodputz_payload())
             elif path in UNPORTED_ENDPOINTS:
                 self._json(501, {"error": "not implemented",
                                  "endpoint": path,
@@ -247,7 +250,7 @@ class _Handler(BaseHTTPRequestHandler):
             elif path == "/":
                 self._send(200, "paddle-tpu telemetry\n"
                                 "/metrics  /healthz  /readyz  /statusz  "
-                                "/tracez  /sloz  /schedz\n",
+                                "/tracez  /sloz  /schedz  /goodputz\n",
                            "text/plain; charset=utf-8")
             else:
                 self._send(404, "not found\n", "text/plain; charset=utf-8")

@@ -30,9 +30,17 @@ each group's parameters and updates, the ratios and the reference's guards
 for a zero norm computed on the device, so no step waits for the host.
 Every optimizer keeps the reference's accumulator names (``_accum_names``),
 so ``convert.load_jax_optimizer_state`` carries its state across.
+
+Step observers (``register_step_observer``, as the reference's): each is
+called as ``fn(optimizer, duration_s, n_params)`` after every update, by
+``step()``/``apply_gradients`` and by ``jit.TrainStep``'s update.
+``duration_s`` is the host's wall time of the update call, as in the
+reference; on a GPU that is the time to enqueue the update's kernels, not
+the device's time. With no observer registered nothing is timed.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -41,7 +49,8 @@ import torch
 from ..core.tensor import Tensor
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "LarsMomentum",
+__all__ = ["register_step_observer", "unregister_step_observer",
+           "Optimizer", "SGD", "Momentum", "LarsMomentum",
            "LarsMomentumOptimizer", "Adam", "AdamW", "Adagrad", "Adadelta",
            "Adamax", "RMSProp", "Lamb"]
 
@@ -51,6 +60,38 @@ _CHUNK_ELEMS = 32 * 1024 * 1024
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+# Step observers: ``fn(optimizer, duration_s, n_params)`` after every
+# update. The observability layer registers here
+# (training.instrument_optimizers).
+_step_observers: List = []
+
+
+def register_step_observer(fn):
+    if fn not in _step_observers:
+        _step_observers.append(fn)
+    return fn
+
+
+def unregister_step_observer(fn):
+    if fn in _step_observers:
+        _step_observers.remove(fn)
+
+
+def notify_step_observers(optimizer, t0, n_params) -> None:
+    """Call every observer with the wall time since ``t0`` (a
+    ``time.perf_counter()`` reading; None when no observer was registered
+    at the update's start). An observer's failure never fails the
+    update."""
+    if t0 is None:
+        return
+    dt = time.perf_counter() - t0
+    for fn in list(_step_observers):
+        try:
+            fn(optimizer, dt, n_params)
+        except Exception:  # noqa: BLE001 - telemetry must never fail
+            pass           # the update it observes
 
 
 def _f32(x) -> float:
@@ -218,12 +259,14 @@ class Optimizer:
 
     def apply_gradients(self, params_grads):
         """Apply explicit ``(param, grad)`` pairs: clip, advance the step
-        count, update."""
+        count, update, and call the step observers."""
+        t0 = time.perf_counter() if _step_observers else None
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         lr = self.get_lr()
         self._step_count += 1
         self._apply(params_grads, lr, self._step_count)
+        notify_step_observers(self, t0, len(params_grads))
 
     def step(self):
         if self._parameters is None:

@@ -34,9 +34,10 @@ rotation — zero downtime, zero failed in-flight requests, fleet-wide.
 
 The merged views (``/metrics?merged=1``, ``/tracez``, ``/sloz``,
 ``/schedz``) fan out to every live replica and stitch the answers with
-the operations plane's helpers; ``/goodputz``, ``/execz``, ``/profilez``
-and ``/numericsz`` answer 501 naming their ROADMAP items, as the port's
-telemetry endpoint does.
+the operations plane's helpers; ``/goodputz`` answers the router
+process's own goodput ledger, as the reference's; ``/execz``,
+``/profilez`` and ``/numericsz`` answer 501 naming their ROADMAP items,
+as the port's telemetry endpoint does.
 
 Resilience layer (resilience.py):
 
@@ -1289,6 +1290,10 @@ class _RouterHandler(BaseHTTPRequestHandler):
                 self._send(200, json.dumps(
                     self._router.merged_schedz(), sort_keys=True,
                     default=str).encode())
+            elif path == "/goodputz":
+                from ...observability.goodput import goodputz_payload
+                self._send(200, json.dumps(
+                    goodputz_payload(), sort_keys=True).encode())
             elif path in UNPORTED_ENDPOINTS:
                 self._send(501, json.dumps(
                     {"error": "not implemented", "endpoint": path,

@@ -28,9 +28,10 @@ Control plane (JSON):
   text) / ``GET /statusz`` / ``GET /tracez`` (this process's span flight
   recorder; the router's merged ``/tracez`` fans out to it) / ``GET /sloz``
   / ``GET /schedz`` (this process's admission and autoscaler state; the
-  router's merged views sum them fleet-wide). ``/goodputz``, ``/execz``,
-  ``/profilez`` and ``/numericsz`` answer 501 naming their ROADMAP items,
-  as the port's telemetry endpoint does.
+  router's merged views sum them fleet-wide) / ``GET /goodputz`` (this
+  process's goodput ledger and step profiler). ``/execz``, ``/profilez``
+  and ``/numericsz`` answer 501 naming their ROADMAP items, as the port's
+  telemetry endpoint does.
 - ``POST /reload`` — hot weight swap: load the version-stamped artifact
   named in the body, warm the replacement server, swap it in, drain the
   old one and release it. The router drains this replica first, so
@@ -799,6 +800,11 @@ class _ReplicaHandler(BaseHTTPRequestHandler):
                 _worker_scheduler()   # ensure the gate is registered
                 self._send(200, json.dumps(
                     schedz_payload(), sort_keys=True).encode(),
+                    "application/json")
+            elif path == "/goodputz":
+                from ...observability.goodput import goodputz_payload
+                self._send(200, json.dumps(
+                    goodputz_payload(), sort_keys=True).encode(),
                     "application/json")
             elif path in UNPORTED_ENDPOINTS:
                 self._send_json(501, {"error": "not implemented",

@@ -126,8 +126,10 @@ def test_static_program_names_raise():
     with pytest.raises(NotImplementedError, match="item 5d"):
         tp.enable_static()
     tp.disable_static()
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tp.callbacks.ElasticCheckpoint("dir")
+    # ported with the elastic checkpoint manager: building the callback
+    # touches nothing until fit starts
+    cb = tp.callbacks.ElasticCheckpoint("dir")
+    assert cb.manager is None and cb.restored is None
     with pytest.raises(NotImplementedError):
         ia.Jacobian(_f1(tp), tp.to_tensor(X[0]), is_batched=True)
     assert not ia.prim_enabled()

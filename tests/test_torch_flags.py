@@ -9,7 +9,8 @@ next; a module imports both names from here (``from test_torch_flags
 import kv_dtype_flag, pin_kv_dtype``) so there is one copy to keep right.
 
 The serving fleet's and the autoscaler's flags (``FLAGS_fleet_*``,
-``FLAGS_autoscale_*``, the warmup gate and the canary period) carry the
+``FLAGS_autoscale_*``, the warmup gate and the canary period), and elastic
+training's (``FLAGS_ckpt_*``, the goodput tolerance) carry the
 reference's names and defaults.
 """
 import contextlib
@@ -81,5 +82,25 @@ def test_fleet_flags_cover_the_reference():
 
 @pytest.mark.parametrize("name", FLEET_FLAGS)
 def test_fleet_flag_defaults_equal_reference(name):
+    assert tflags.flag_value(name) == jflags.flag_value(name)
+    assert type(tflags.flag_value(name)) is type(jflags.flag_value(name))
+
+
+ELASTIC_FLAGS = ["FLAGS_ckpt_keep", "FLAGS_ckpt_interval_steps",
+                 "FLAGS_ckpt_interval_s", "FLAGS_ckpt_async",
+                 "FLAGS_ckpt_staleness_s", "FLAGS_ckpt_preempt_deadline_s",
+                 "FLAGS_goodput_tolerance"]
+
+
+def test_elastic_flags_cover_the_reference():
+    import paddle_tpu.elastic  # noqa: F401 - defines the FLAGS_ckpt_* there
+    ref = sorted(n for n in jflags._REGISTRY if n.startswith("FLAGS_ckpt_"))
+    assert ref == sorted(ELASTIC_FLAGS[:6])
+    assert all(n in tflags._REGISTRY for n in ELASTIC_FLAGS)
+
+
+@pytest.mark.parametrize("name", ELASTIC_FLAGS)
+def test_elastic_flag_defaults_equal_reference(name):
+    import paddle_tpu.elastic  # noqa: F401
     assert tflags.flag_value(name) == jflags.flag_value(name)
     assert type(tflags.flag_value(name)) is type(jflags.flag_value(name))

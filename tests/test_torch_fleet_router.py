@@ -483,13 +483,20 @@ def test_router_app_serves_the_port_views_and_501s():
             for path in ("/metrics?merged=1", "/statusz", "/tracez",
                          "/sloz", "/schedz", "/readyz", "/healthz"):
                 assert _http_get(app.url(path))[0] == 200, path
-            for path in ("/execz", "/profilez", "/numericsz", "/goodputz"):
+            for path in ("/execz", "/profilez", "/numericsz"):
                 code, text = _http_get(app.url(path))
-                item = "11" if path != "/goodputz" else "5b"
-                assert code == 501 and f"item {item}" in text.decode(), path
-            for path in ("/execz", "/numericsz", "/goodputz"):
+                assert code == 501 and "item 11" in text.decode(), path
+            for path in ("/execz", "/numericsz"):
                 code, text = _http_get(f.apps[0].url + path)
                 assert code == 501 and b"ROADMAP" in text, path
+            # the goodput ledger is ported: the router and the worker
+            # answer their process's ledger
+            for url in (app.url("/goodputz"), f.apps[0].url + "/goodputz"):
+                code, text = _http_get(url)
+                doc = json.loads(text)
+                assert code == 200, url
+                assert {"goodput", "steps"} <= set(doc), url
+                assert doc["goodput"]["accounting"]["closes"], url
             code, text = _http_get(f.apps[0].url + "/statusz")
             assert json.loads(text)["package"] == \
                 "paddle_tpu_torch.serving.fleet"

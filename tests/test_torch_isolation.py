@@ -69,7 +69,13 @@ def test_package_has_modules_to_scan():
                 "serving/fleet/__init__.py", "serving/fleet/codec.py",
                 "serving/fleet/metrics.py", "serving/fleet/resilience.py",
                 "serving/fleet/router.py", "serving/fleet/supervisor.py",
-                "serving/fleet/worker.py"):
+                "serving/fleet/worker.py",
+                # elastic training and its telemetry, and the drill
+                "framework/checkpoint.py", "elastic/__init__.py",
+                "elastic/manager.py", "elastic/preemption.py",
+                "observability/goodput.py", "observability/training.py",
+                "tools/__init__.py", "tools/faultinject.py",
+                "tools/elastic_ckpt_worker.py"):
         assert f"paddle_tpu_torch/{mod}" in scanned
 
 

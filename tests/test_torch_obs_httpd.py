@@ -4,9 +4,11 @@
 Each package's ``TelemetryServer`` serves a fresh registry fed the same
 operations; every endpoint must answer with the reference's status code
 and JSON keys, ``/metrics`` byte for byte, and health and readiness checks
-(passing, failing, raising, removed) the same way. The four endpoints the
-port leaves to later work answer 501 naming their ROADMAP item, and a port
-that cannot be bound raises ``OSError``. Checks registered here are
+(passing, failing, raising, removed) the same way. ``/goodputz`` answers
+each package's goodput ledger, driven by the same calls under one clock,
+with the same document; the three endpoints the port leaves to later work
+answer 501 naming their ROADMAP item, and a port that cannot be bound
+raises ``OSError``. Checks registered here are
 removed before each test ends (the check tables are process-wide).
 """
 import json
@@ -25,7 +27,7 @@ _OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 PORTED = ("/metrics", "/metrics?format=json", "/healthz", "/readyz",
           "/statusz", "/tracez", "/tracez?format=chrome", "/sloz", "/schedz",
           "/", "/nope")
-UNPORTED = ("/goodputz", "/execz", "/profilez", "/numericsz")
+UNPORTED = ("/execz", "/profilez", "/numericsz")
 
 
 def _get(srv, path, accept=None):
@@ -101,6 +103,43 @@ def test_unported_endpoints_answer_501(servers, path):
     assert code == 501 and ctype == "application/json"
     doc = json.loads(body)
     assert doc["endpoint"] == path and "ROADMAP" in doc["detail"]
+
+
+def test_goodputz_answers_the_ledger(servers):
+    from paddle_tpu.observability import goodput as jgood
+    from paddle_tpu_torch.observability import goodput as pgood
+    clock = [0.0]
+    now = lambda: clock[0]  # noqa: E731
+    ledgers = [pgood.GoodputLedger(registry=preg.MetricRegistry(), now=now),
+               jgood.GoodputLedger(registry=jreg.MetricRegistry(), now=now)]
+    prev = [pgood.set_default_ledger(ledgers[0]),
+            jgood.set_default_ledger(ledgers[1])]
+    try:
+        for ledger in ledgers:
+            clock[0] = 10.0
+            ledger.start()
+            ledger.begin("step")
+            clock[0] = 12.0
+            ledger.record("ckpt_save", 0.5)
+            ledger.end()
+            ledger.arm_replay(1)
+            ledger.begin("step")
+            clock[0] = 13.0
+            ledger.end()
+        clock[0] = 14.0
+        (pc, pt, pb), (jc, jt, jb) = (_get(s, "/goodputz") for s in servers)
+        assert pc == jc == 200 and pt == jt == "application/json"
+        pdoc, jdoc = json.loads(pb), json.loads(jb)
+        assert pdoc["goodput"] == jdoc["goodput"]
+        assert sorted(pdoc["steps"]) == sorted(jdoc["steps"])
+        got = pdoc["goodput"]
+        assert got["accounting"]["closes"] and got["elapsed_s"] == 4.0
+        assert got["categories_s"] == {
+            "step": 1.5, "ckpt_save": 0.5, "recovery": 1.0, "idle": 1.0,
+            "compile": 0.0, "ckpt_restore": 0.0, "data_stall": 0.0}
+    finally:
+        pgood.set_default_ledger(prev[0])
+        jgood.set_default_ledger(prev[1])
 
 
 def test_health_and_readiness_match_reference(servers):
