@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--parent DIR]
         [--phases card,build,kernels,tiny,model,engine,serving,train,stacked,
-                  recipe,families,inference,api,nn,hapi,ops,fleet,elastic]
+                  recipe,families,inference,api,nn,hapi,ops,fleet,elastic,
+                  runtime]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -243,8 +244,9 @@ Phases, each failing loudly (exit code 1, no result line):
               it runs, /metrics (text, which must parse, and JSON),
               /healthz, /readyz, /statusz (the engine's section with
               tenant_queue_depth), /schedz (both tenants), /tracez, /sloz
-              and (since the elastic slice) /goodputz answer 200, /execz,
-              /profilez and /numericsz 501. Every stream ends with its max_new_tokens; the parked
+              and (since the elastic slice) /goodputz answer 200, and
+              (since the runtime slice) /execz, /profilez and /numericsz
+              200 with their bodies' keys. Every stream ends with its max_new_tokens; the parked
               count of /metrics equals the engine's; every request's trace
               holds its queue, prefill and decode_step spans; the stepprof
               decode envelopes equal the engine's decode steps; launches
@@ -265,8 +267,9 @@ Phases, each failing loudly (exit code 1, no result line):
               precision). Leg A: two thread replicas
               (ReplicaSupervisor(ThreadReplicaFactory), the single-process
               mode), each a PredictorBackend over ERNIE-base saved by
-              jit.save with gpt3_1p3b (one model object, an engine and
-              1,025 pages each) for generation, behind RouterApp; from 4
+              jit.save with gpt3_1p3b at 12 of its 24 layers since the
+              runtime slice (one model object, an engine and 1,025 pages
+              each) for generation, behind RouterApp; from 4
               clients over HTTP, 16 greedy /generate streams (prompts of
               64-1024 tokens, half sharing a 128-token preamble, 64 new
               tokens) and 128 /submit_many requests of 16-512 tokens. Each
@@ -274,13 +277,14 @@ Phases, each failing loudly (exit code 1, no result line):
               that prompt alone (where one parts, the top-2 logit margin
               there within 1e-4 x std); both replicas served streams;
               responses within 1e-4 x std of Predictor.run alone; flash
-              launches = 24 x the decoders' prefills + 12 x the predictor
-              batches, paged launches by kernel = 24 x the decoders' decode
+              launches = 12 x the decoders' prefills + 12 x the predictor
+              batches, paged launches by kernel = 12 x the decoders' decode
               and chunked calls, 0 plain calls; /metrics?merged=1 with the
               engines' families under replica="0" and "1"; one stream's
               /tracez?trace_id= with the router's span and the engine's
               queue, prefill and decode_step spans; /statusz 2 ready;
-              /execz, /numericsz, /profilez 501 naming item 11; leak checks
+              /execz, /numericsz, /profilez 200 with the merged bodies'
+              keys; leak checks
               clean. Leg B: worker processes (ProcessReplicaFactory, the
               port's worker, --warmup lattice) under FleetAutoscaler (1-2
               replicas): a burst of 256 requests scales out and the second
@@ -298,14 +302,16 @@ Phases, each failing loudly (exit code 1, no result line):
               ready, the swap, kill to ready, the streams' TTFT.
 18. elastic — elastic training (paddle_tpu_torch.elastic, the goodput
               ledger, the training telemetry). Leg A: gpt3_1p3b (stacked,
-              recompute "full", full width and depth) trains 11 steps at
+              recompute "full", full width, 6 of its 24 layers since
+              the runtime slice, to keep the smoke in its time) trains 11
+              steps at
               b=2 s=2048, bf16 O2, AdamW with float32 moments under a
               LinearWarmup schedule, batches from the port's generator,
               under CheckpointManager (async saves every 4 steps, keep=1);
               a fresh model, optimizer and schedule from another seed (the
               generator reseeded) restores step 8's checkpoint and runs
               steps 9-11: losses, parameters and AdamW moments bit for bit,
-              48/24/24 flash forward/dq/dk-dv launches a step and 0 plain
+              12/6/6 flash forward/dq/dk-dv launches a step and 0 plain
               calls, the goodput identity (ckpt_save, ckpt_restore and
               recovery above 0), 2 saves, last committed step 8, 3 steps
               lost. Checkpoints go to the temporary directory (TMPDIR),
@@ -333,18 +339,75 @@ Phases, each failing loudly (exit code 1, no result line):
               goodput fractions, kills survived, steps lost per kill, the
               median restore ms, spawn to first step and the SIGTERM's
               wait for the step boundary and final save.
+19. runtime — the runtime and numerics plane (observability/{runtime,
+              xstats,numerics}.py). Leg A: gpt3_1p3b in bf16. A direct gate
+              first: one decode, one chunked and one verify call of a
+              CachedDecoder (bf16, then int8 pools), each from the same
+              cloned pools with the shadow off, on, and through a decoder
+              on the plain versions: the shadow leaves logits, pools
+              (bytes), tables and the generators bit for bit, runs 24 plain
+              calls, and publishes paddle_numerics_shadow_divergence equal
+              to the float to the max|kernel - plain| computed here; the
+              decode step's ms with the plane off, the tripwires only, and
+              both. Then GenerationServer (prefix cache, self-speculation at
+              spec_k=4) with FLAGS_numerics_shadow_rate and
+              FLAGS_numerics_sample_rate at 1.0 over bf16 and over int8
+              pools: 8 requests of 64-512 prompt tokens, 32 new tokens, the
+              last sharing the first's 256-token system prompt (a chunked
+              call): paged launches by kind 24 x the decoders' calls, plain
+              calls 24 x the shadowed calls, every tripwire finite, no
+              anomaly, /numericsz with the decode, chunked and verify
+              sections (the int8 scale drift over int8 pools), clean leak
+              checks. The fault: the shadow off, FLAGS_profile_on_anomaly
+              on, NaN written into one page of one live request's K pool:
+              the first decode that reads it records one non-finite anomaly
+              of kind decode, promoted into /tracez; exactly one capture in
+              /profilez; the other streams are a clean run's token for
+              token. Leg B: gpt3_1p3b(stacked=True, recompute="full") at
+              b=2 s=2048, bf16 O2, AdamW, FLAGS_check_nan_inf on, 4 steps:
+              the grad norm published one step late within 1e-3 of the
+              phase's vector_norm of the step's gradients, finite fraction
+              1.0, 48/24/24 launches a step and 0 plain calls, /execz's
+              train_step FLOPs per token within 15% of 6N + 12LHS or
+              8N + 24LHS, paddle_mfu{kind="train"} in (0, 1); step ms with
+              and without the tripwires; a 4-layer float16 run under
+              GradScaler whose forced overflow the tripwire classes as the
+              reference does (non-finite gradients, finite loss, the halved
+              scale). Leg C: /profilez?duration_ms=500 on another thread
+              during leg B's steps names the three training kernels, a
+              second capture inside the rate limit answers 429; the
+              device-memory gauge equals torch.cuda.memory_allocated(),
+              paddle_build_info carries the card and the kernel library's
+              hash, goodput's compile category is above 0; /execz lists
+              every site. Leg D: run_device_canary() equals its golden twin;
+              two thread replicas of float32 ERNIE-base behind the router
+              sweep their canary every 0.5 s; one replica's checksum is
+              corrupted (a patch of this phase): its /readyz answers 503 and
+              its breaker opens, 32 requests all go to the other with 0
+              failures, and the merged /execz, /numericsz and /profilez
+              answer 200 with both replicas.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
 result. It imports nothing of JAX and nothing of ``paddle_tpu``.
+
+A fatal signal (a segmentation fault in native code) prints every
+thread's Python stack to standard error (``faulthandler``). After the last
+line the script stops the telemetry endpoint, waits for the profile
+captures, synchronises the card and leaves through ``os._exit``: the
+interpreter's teardown (the CUDA and CUPTI libraries' static destructors
+beside the daemon threads of the HTTP servers) is not run once the result
+is out. The live threads and child processes at that point are logged.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -368,7 +431,8 @@ FMA_FLOPS_F32 = 67e12
 
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
-              "inference", "api", "nn", "hapi", "ops", "fleet", "elastic")
+              "inference", "api", "nn", "hapi", "ops", "fleet", "elastic",
+              "runtime")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -522,7 +586,13 @@ def phase_card(state):
 
 
 def phase_build(state):
+    from paddle_tpu_torch.observability import goodput, runtime
     from paddle_tpu_torch.ops import _build
+    # the process's goodput ledger accounts the run from here, and the
+    # compile-event listener is live: the build (the port's one run-time
+    # compile) is its `compile` seconds and one paddle_jax_events_total
+    goodput.default_ledger().start()
+    runtime.install_jax_monitoring()
     t0 = time.perf_counter()
     _build.load_library()
     state["build_s"] = time.perf_counter() - t0
@@ -6272,7 +6342,13 @@ OPS_INFER_REQUESTS = 64    # a tenant
 OPS_INFER_BURST = 60       # the offline tenant's quota in rows: 4 refused
 OPS_ENDPOINTS = ("/metrics", "/metrics?format=json", "/healthz", "/readyz",
                  "/statusz", "/schedz", "/tracez", "/sloz", "/goodputz")
-OPS_UNPORTED = ("/execz", "/profilez", "/numericsz")
+# the runtime and numerics plane's endpoints (they answered 501 before the
+# plane was ported) and each body's top-level keys
+OPS_PLANE = {"/execz": {"peaks", "entries", "sites", "kinds", "n_entries"},
+             "/profilez": {"dir", "artifacts", "armed_on_anomaly",
+                           "min_interval_s", "max_ms", "anomaly_ms"},
+             "/numericsz": {"serving", "train", "shadow", "int8", "canary",
+                            "anomalies", "pending", "enabled", "rates"}}
 # one sample line of Prometheus text 0.0.4: name, optional labels, value
 PROM_SAMPLE = re.compile(
     r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
@@ -6315,19 +6391,20 @@ def _parse_prometheus(text: str) -> dict:
 
 
 def _scrape(port, tag) -> dict:
-    """Every ported endpoint (200) and the three unported ones (501, with
-    the ROADMAP item named in the body)."""
+    """Every endpoint answers 200; the runtime and numerics plane's three
+    with their bodies' top-level keys."""
     out = {}
     for path in OPS_ENDPOINTS:
         code, body = _http_get(port, path)
         require(code == 200, f"ops: {tag}: {path} answered {code}: "
                              f"{body[:300]}")
         out[path] = body
-    for path in OPS_UNPORTED:
+    for path, keys in OPS_PLANE.items():
         code, body = _http_get(port, path)
-        require(code == 501 and "ROADMAP" in body,
-                f"ops: {tag}: {path} answered {code}, not 501 naming its "
-                f"ROADMAP item: {body[:300]}")
+        require(code == 200 and set(json.loads(body)) == keys,
+                f"ops: {tag}: {path} answered {code}, not 200 with keys "
+                f"{sorted(keys)}: {body[:300]}")
+        out[path] = body
     return out
 
 
@@ -6800,11 +6877,19 @@ FLEET_PROMPT_LENS = (64, 1024)
 FLEET_PREAMBLE = 128       # tokens the longer even streams share (8 pages)
 FLEET_SUBMITS = 128        # leg A's /submit_many requests, 16-512 tokens
 FLEET_GEN_BATCH = 8        # each replica engine's decode lanes
+# the generation model's depth: gpt3_1p3b's width at 12 of its 24 layers
+# (its streams are held against the same model alone; the depth only sets
+# how long the leg takes, and the smoke must stay inside its time limit)
+FLEET_GEN_LAYERS = 12
 FLEET_BURST = 256          # leg B's burst through the router
 FLEET_POOL = 64            # distinct requests leg B draws from
 FLEET_WINDOW = 8           # leg B's requests in flight a client
 FLEET_SPAWN_S = 300.0      # bound on a worker's spawn to ready
-FLEET_UNPORTED = ("/execz", "/numericsz", "/profilez")
+# the router's merged views of the runtime and numerics plane (501 before
+# the plane was ported) and each body's top-level keys
+FLEET_PLANE = {"/execz": {"router", "replicas", "fleet"},
+               "/numericsz": {"router", "replicas", "fleet"},
+               "/profilez": {"replicas", "captured", "replicas_merged"}}
 FLEET_WEDGE_MS = 500
 FLEET_HANG = 777.0         # the stub's hang poison
 
@@ -6908,8 +6993,9 @@ def _fleet_margin(model, prompt, agreed) -> float:
 
 def _fleet_thread_leg(state, work, ernie_prefix, ernie_vocab) -> dict:
     """Leg A: two thread replicas (``ThreadReplicaFactory``), each a
-    PredictorBackend over float32 ERNIE-base with the float32 gpt3_1p3b as
-    its generation model (one model object, an engine and pools each),
+    PredictorBackend over float32 ERNIE-base with the float32 gpt3_1p3b at
+    FLEET_GEN_LAYERS layers as its generation model (one model object, an
+    engine and pools each),
     behind ``RouterApp``; 16 greedy streams and 128 /submit_many requests
     over HTTP from 4 clients."""
     import threading
@@ -6924,7 +7010,8 @@ def _fleet_thread_leg(state, work, ernie_prefix, ernie_vocab) -> dict:
     from paddle_tpu_torch.serving.generation import GenerationServer
     seed = state["seed"]
     t0 = time.perf_counter()
-    gpt = GPTForCausalLM(gpt3_1p3b(), device="cuda", dtype=torch.float32,
+    gpt = GPTForCausalLM(gpt3_1p3b(num_layers=FLEET_GEN_LAYERS),
+                         device="cuda", dtype=torch.float32,
                          seed=seed).eval()
     layers, vocab = gpt.config.num_layers, gpt.config.vocab_size
     # each engine's pool priced explicitly: the second engine must not
@@ -7058,10 +7145,11 @@ def _fleet_thread_leg(state, work, ernie_prefix, ernie_vocab) -> dict:
         st = json.loads(body)
         require(code == 200 and st["ready_replicas"] == 2,
                 f"fleet A: /statusz {code} {body[:300]}")
-        for path in FLEET_UNPORTED:
+        for path, keys in FLEET_PLANE.items():
             code, body = _http_get(app.port, path)
-            require(code == 501 and "item 11" in body,
-                    f"fleet A: {path} answered {code}: {body[:200]}")
+            require(code == 200 and set(json.loads(body)) == keys,
+                    f"fleet A: {path} answered {code}, not 200 with keys "
+                    f"{sorted(keys)}: {body[:200]}")
     finally:
         app.stop()
         router.shutdown()
@@ -7616,12 +7704,16 @@ def phase_fleet(state):
 
 
 # ------------------------------------------------ elastic training
-# Leg A: the north star at full width and depth (gpt3_1p3b stacked,
+# Leg A: the north star at full width and ELASTIC_LAYERS of its 24 layers
+# (the whole smoke must end well inside its time limit since the runtime
+# phase came; the checkpoint's bytes, and so its save and restore
+# seconds, scale with the depth) (gpt3_1p3b stacked,
 # recompute "full", b=2 s=2048, bf16 O2, AdamW with float32 moments under
 # a LinearWarmup schedule) under CheckpointManager; leg B: the
 # cross-process kill drills (faultinject) at PARITY_LAYERS depth; leg C:
 # Model.fit of the hapi phase's float32 encoder with ElasticCheckpoint and
 # the training telemetry.
+ELASTIC_LAYERS = 6
 ELASTIC_STEPS = 11          # saves at 4 and 8, keep=1; resume at 8
 ELASTIC_INTERVAL = 4
 ELASTIC_FAULT_STEPS, ELASTIC_FAULT_INTERVAL = 12, 3
@@ -7670,7 +7762,8 @@ def _gauge(name, *labels):
 
 
 def _elastic_north_star(state) -> dict:
-    """Leg A: 11 steps of gpt3_1p3b under CheckpointManager (async saves
+    """Leg A: 11 steps of gpt3_1p3b at ELASTIC_LAYERS layers under
+    CheckpointManager (async saves
     every 4 steps, keep=1), then a fresh model, optimizer and schedule from
     another seed restored from step 8's checkpoint, and steps 9-11 again:
     losses, parameters and AdamW moments bit for bit; the launches exact;
@@ -7690,7 +7783,8 @@ def _elastic_north_star(state) -> dict:
     ledger.start()
     saves_ok0 = _gauge("paddle_ckpt_saves_total", "ok")
     lost0 = _gauge("paddle_ckpt_steps_lost_total")
-    cfg = gpt3_1p3b(stacked=True, recompute="full")
+    cfg = gpt3_1p3b(stacked=True, recompute="full",
+                    num_layers=ELASTIC_LAYERS)
     per_step = {"flash_fwd": cfg.num_layers * STACKED_FWD_PER_LAYER["full"],
                 **{n: cfg.num_layers for n in cab.KERNELS}}
     root, where = _elastic_root(
@@ -7787,7 +7881,8 @@ def _elastic_north_star(state) -> dict:
                                  opt2._accumulators[an][id(b)])
                      for a, b in zip(opt._parameters, opt2._parameters)
                      for an in opt._accum_names)
-        out = {"config": f"gpt3_1p3b(stacked=True, recompute='full'), "
+        out = {"config": f"gpt3_1p3b(stacked=True, recompute='full', "
+                         f"num_layers={ELASTIC_LAYERS}), "
                          f"b={worker.GPT_BATCH} s={worker.GPT_SEQ}, bf16 "
                          f"O2, AdamW (float32 moments), LinearWarmup",
                "params": model.num_params(), "where": where,
@@ -8018,7 +8113,8 @@ def _elastic_fit(state) -> dict:
 
 def phase_elastic(state):
     """Elastic training on the card: leg A, gpt3_1p3b at full width and
-    depth resumed bit for bit from an async checkpoint in one process; leg
+    ELASTIC_LAYERS layers resumed bit for bit from an async checkpoint in
+    one process; leg
     B, the kill -9 and SIGTERM drills across processes at PARITY_LAYERS
     depth; leg C, Model.fit with ElasticCheckpoint and the training
     telemetry, /goodputz over HTTP."""
@@ -8037,6 +8133,927 @@ def phase_elastic(state):
     out["card"] = state.get("smi")
     state["elastic"] = out
     log(f"elastic: {out['seconds']:.1f} s ({state.get('smi')})")
+
+
+# ------------------------------------------------ the runtime plane
+# Leg A: gpt3_1p3b (bf16) serving under the numerics plane (every decode,
+# chunked and verify call tripwired and shadow-checked); leg B: the
+# north-star training step under the gradient tripwires; leg C: profiles
+# and the runtime collectors; leg D: the SDC canary on the card and behind
+# the router.
+RT_REQUESTS = 8            # leg A's requests a run
+RT_NEW = 32                # their new tokens
+RT_PROMPT_LENS = (64, 512)
+RT_SYSTEM = 256            # the prompt two requests share
+RT_SPEC_K = 4
+RT_GATE_BATCH, RT_GATE_PAGES = 4, 20   # the direct gate's decoder
+RT_GATE_LENS = (200, 130, 170, 90)
+RT_GATE_CHUNK, RT_GATE_VERIFY = 40, RT_SPEC_K + 1
+RT_TIMED_CALLS = 8         # decode calls timed per mode and turn
+RT_FAULT_REQUESTS, RT_FAULT_NEW = 4, 16
+RT_TRAIN_STEPS = 4         # the gated steps (FLAGS_check_nan_inf)
+RT_TIMED_STEPS = 3         # steps a turn, tripwires on and off
+RT_NORM_RTOL = 1e-3
+RT_COST_TOL = 0.15         # bench.py's _COST_AGREE_TOL
+RT_CAPTURE_MS = 500
+RT_TRAIN_KERNELS = ("flash_fwd_wgmma_kernel", "dq_wgmma_kernel",
+                    "dkv_wgmma_kernel")
+RT_F16_LAYERS = PARITY_LAYERS
+RT_CANARY_PERIOD_S = 0.5
+RT_D_REQUESTS, RT_D_SEQ = 32, 128
+RT_SITES = ("generate_prefill", "generate_decode", "generate_chunked",
+            "generate_verify", "train_step", "serving")
+
+
+def _rt_flags(**values):
+    """Set ``FLAGS_<name>`` values; returns the old ones."""
+    from paddle_tpu_torch.framework.flags import flag_value, set_flags
+    values = {f"FLAGS_{k}": v for k, v in values.items()}
+    old = {k: flag_value(k) for k in values}
+    set_flags(values)
+    return old
+
+
+def _rt_http_json(port, path, timeout=30.0):
+    code, body = _http_get(port, path, timeout=timeout)
+    try:
+        return code, json.loads(body)
+    except ValueError:
+        return code, body
+
+
+def _rt_clone(pools):
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.clone(), pools)
+
+
+def _rt_same(a, b) -> bool:
+    """Per-layer pools equal byte for byte outside page 0, the trash page:
+    masked positions of several rows write the same trash slots, and
+    ``index_copy_`` on CUDA leaves such duplicates in no fixed order, with
+    or without a shadow (the page holds garbage by contract)."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x[1:].view(torch.uint8), y[1:].view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def _rt_pages_apart(a, b) -> list:
+    """The pages where two per-layer pools differ (for a failure's
+    message)."""
+    from torch.utils._pytree import tree_leaves
+    pages = set()
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        diff = x.ne(y).reshape(x.shape[0], -1).any(1)
+        pages.update(diff.nonzero().flatten().tolist())
+    return sorted(pages)
+
+
+def _rt_rng_state():
+    import torch
+    from paddle_tpu_torch.framework import random as trandom
+    st = trandom.get_rng_state()[0]
+    return ({k: v.clone() for k, v in st["states"].items()}, st["seed"],
+            torch.cuda.get_rng_state().clone())
+
+
+def _rt_same_rng(a, b) -> bool:
+    import torch
+    return (a[1] == b[1] and a[0].keys() == b[0].keys()
+            and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and torch.equal(a[2], b[2]))
+
+
+def _rt_direct_gate(model, kv_dtype, seed) -> dict:
+    """One decode, one chunked and one verify call of a CachedDecoder, each
+    from the same cloned pools, with the shadow off, with it on, and
+    through a decoder on the plain versions: the shadow leaves outputs,
+    pools, tables and the generators bit for bit, runs 24 plain calls, and
+    publishes max|kernel - plain| to the float. Then the decode step's ms
+    with the plane off, the tripwires only, and tripwires and shadow."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.observability import numerics
+    from paddle_tpu_torch.observability.registry import default_registry
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving.generation.model_fns import CachedDecoder
+    cfg = model.config
+    b, p = RT_GATE_BATCH, RT_GATE_PAGES
+    kw = {"max_batch": b, "page_size": PAGE_SIZE, "pages_per_seq": p,
+          "kv_dtype": kv_dtype, "device": "cuda"}
+    dec = CachedDecoder(model, **kw)
+    plain = CachedDecoder(model, use_kernels=False, **kw)
+    label = dec._dtype_label
+    k, v = model.init_kv_pools(1 + 2 * b * p, PAGE_SIZE,
+                               dtype="int8" if kv_dtype == "int8" else None)
+    # every other page: the pools hold pages no table names
+    tables = (1 + 2 * np.arange(b * p, dtype=np.int32)).reshape(b, p)
+    rng = np.random.RandomState(seed + 61)
+    lens = np.array(RT_GATE_LENS, np.int32)
+    ids = np.zeros((b, int(lens.max())), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.randint(1, cfg.vocab_size, n)
+    old = _rt_flags(numerics_shadow_rate=0.0, numerics_sample_rate=0.0)
+    try:
+        dec.prefill(ids, lens, tables, k, v)
+        torch.cuda.synchronize()
+        base = (k, v)
+        chunk = rng.randint(1, cfg.vocab_size, (b, RT_GATE_CHUNK))
+        window = rng.randint(1, cfg.vocab_size, (b, RT_GATE_VERIFY))
+        rng_tok = rng.randint(1, cfg.vocab_size, b)
+        calls = {
+            "decode": lambda d, kk, vv: d.decode(
+                rng_tok, lens, np.array([1, 1, 1, 0], bool), lens + 1,
+                tables, kk, vv),
+            "chunked": lambda d, kk, vv: d.prefill_chunked(
+                chunk, lens, np.array([RT_GATE_CHUNK, 17, 1, 0], np.int32),
+                tables, kk, vv),
+            "verify": lambda d, kk, vv: d.verify(
+                window, lens, np.array([RT_GATE_VERIFY] * 3 + [0],
+                                       np.int32), tables, kk, vv)}
+        fam = default_registry().get("paddle_numerics_shadow_divergence")
+        out = {"dtype": label}
+        for kind, call in calls.items():
+            runs = {}
+            for mode in ("off", "shadow", "plain"):
+                _rt_flags(numerics_shadow_rate=1.0 if mode == "shadow"
+                          else 0.0)
+                kk, vv = _rt_clone(base)
+                t0 = tables.copy()
+                rng0 = _rt_rng_state()
+                plain0 = cpa.plain_calls
+                logits = call(plain if mode == "plain" else dec, kk, vv)[0]
+                torch.cuda.synchronize()
+                runs[mode] = {"logits": logits, "pools": (kk, vv),
+                              "plain_calls": cpa.plain_calls - plain0,
+                              "tables_same": np.array_equal(tables, t0),
+                              "rng_same": _rt_same_rng(rng0,
+                                                       _rt_rng_state())}
+            numerics.drain()
+            fam = default_registry().get("paddle_numerics_shadow_divergence")
+            published = fam.labels(kind=kind, dtype=label).value
+            mine = float((runs["off"]["logits"].float()
+                          - runs["plain"]["logits"].float()).abs().max())
+            off, sh = runs["off"], runs["shadow"]
+            row = {"divergence": published, "max_abs_kernel_plain": mine,
+                   "shadow_plain_calls": sh["plain_calls"],
+                   "plain_decoder_plain_calls": runs["plain"]["plain_calls"]}
+            log(f"runtime A: direct gate {label} {kind}: {row}")
+            require(torch.equal(off["logits"], sh["logits"]),
+                    f"runtime A: {label} {kind}: the shadow changed the "
+                    f"logits")
+            require(_rt_same(off["pools"], sh["pools"]),
+                    f"runtime A: {label} {kind}: the shadow changed the "
+                    f"pools (pages "
+                    f"{_rt_pages_apart(off['pools'], sh['pools'])[:20]})")
+            require(sh["tables_same"] and sh["rng_same"] and
+                    off["rng_same"],
+                    f"runtime A: {label} {kind}: tables or generators moved")
+            require(sh["plain_calls"] == cfg.num_layers and
+                    off["plain_calls"] == 0,
+                    f"runtime A: {label} {kind}: {sh['plain_calls']} plain "
+                    f"calls with the shadow, {off['plain_calls']} without, "
+                    f"not {cfg.num_layers} and 0")
+            require(published == mine,
+                    f"runtime A: {label} {kind}: published divergence "
+                    f"{published!r} is not the phase's max|kernel - plain| "
+                    f"{mine!r}")
+            out[kind] = row
+        # the decode step with the plane off, tripwires only, and both
+        ms = {"off": [], "tripwires": [], "tripwires_shadow": []}
+        kk, vv = _rt_clone(base)
+        modes = {"off": (0.0, 0.0), "tripwires": (1.0, 0.0),
+                 "tripwires_shadow": (1.0, 1.0)}
+        for name in ("off", "tripwires", "tripwires_shadow",
+                     "tripwires_shadow", "tripwires", "off") * 2:
+            sample, shadow = modes[name]
+            _rt_flags(numerics_sample_rate=sample,
+                      numerics_shadow_rate=shadow)
+            turn = []
+            for _ in range(RT_TIMED_CALLS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                calls["decode"](dec, kk, vv)
+                torch.cuda.synchronize()
+                turn.append((time.perf_counter() - t0) * 1e3)
+            ms[name].append(turn[1:])          # each turn's first call out
+        numerics.drain()
+        out["decode_step_ms"] = {
+            n: statistics.median(sum(v, [])) for n, v in ms.items()}
+        out["decode_step_ms_turns"] = {
+            n: [statistics.median(t) for t in v] for n, v in ms.items()}
+        log(f"runtime A: {label} decode step ms (batch {b}, median of "
+            f"{4 * RT_TIMED_CALLS}; each turn's median): "
+            f"{out['decode_step_ms']} {out['decode_step_ms_turns']}")
+    finally:
+        _rt_flags(**{k[len("FLAGS_"):]: v for k, v in old.items()})
+    del dec, plain, k, v, base
+    return out
+
+
+def _rt_prompts(cfg, seed, n, system=True):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(RT_PROMPT_LENS[0], RT_PROMPT_LENS[1] + 1, n)
+    prompts = [rng.randint(1, cfg.vocab_size, int(m)) for m in lens]
+    if system:
+        # the first and the last share a system prompt: the last one's
+        # admission hits the first one's pages (a chunked call)
+        sys_prompt = rng.randint(1, cfg.vocab_size, RT_SYSTEM)
+        for i in (0, n - 1):
+            prompts[i] = np.concatenate([sys_prompt, prompts[i][:192]])
+    return [p.tolist() for p in prompts]
+
+
+def _rt_engine_run(model, kv_dtype, seed, port) -> dict:
+    """The engine (prefix cache, self-speculation at spec_k=4) with every
+    call tripwired and shadow-checked: launches by kind 24 x the decoders'
+    calls, plain calls 24 x the shadowed calls, every tripwire finite, no
+    anomaly, /numericsz with the decode, chunked and verify sections (and
+    the int8 scale drift over int8 pools), a clean leak check."""
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    cfg = model.config
+    layers = cfg.num_layers
+    prompts = _rt_prompts(cfg, seed + 62, RT_REQUESTS)
+    old_kv = _set_kv_dtype(kv_dtype)
+    try:
+        srv = GenerationServer(model, max_batch=MAX_BATCH,
+                               page_size=PAGE_SIZE, draft_model=model,
+                               spec_k=RT_SPEC_K, device="cuda",
+                               name=f"rt-{kv_dtype or 'bf16'}", start=False)
+    finally:
+        _set_kv_dtype(old_kv)
+    pool = "int8" if kv_dtype == "int8" else "bfloat16"
+    require(srv.prefix is not None and srv.kv.kv_dtype == kv_dtype,
+            "runtime A: engine not configured")
+    code, doc0 = _rt_http_json(port, "/numericsz")
+    require(code == 200, f"runtime A: /numericsz {code}")
+    old = _rt_flags(numerics_shadow_rate=1.0, numerics_sample_rate=1.0)
+    ca.launches = ca.plain_calls = 0
+    cpa.launches, cpa.plain_calls = 0, 0
+    cpa.launches_by, cpa.launches_by_kernel = {}, {}
+    try:
+        t0 = time.perf_counter()
+        with srv:
+            srv.start()
+            futs = [srv.submit_generate(p, max_new_tokens=RT_NEW,
+                                        temperature=0.0, seed=seed + i)
+                    for i, p in enumerate(prompts[:-1])]
+            first = futs[0].result(timeout=900)
+            futs.append(srv.submit_generate(prompts[-1],
+                                            max_new_tokens=RT_NEW,
+                                            temperature=0.0))
+            outs = [first] + [f.result(timeout=900) for f in futs[1:]]
+        wall = time.perf_counter() - t0
+    finally:
+        _rt_flags(**{k[len("FLAGS_"):]: v for k, v in old.items()})
+    counts = {"flash_fwd": (ca.launches, ca.plain_calls),
+              "paged": (cpa.launches, cpa.plain_calls)}
+    by = dict(cpa.launches_by)
+    calls = {"target": dict(srv.decoder.calls),
+             "draft": dict(srv.draft.calls)}
+    code, doc = _rt_http_json(port, "/numericsz")
+    snap = srv.metrics_snapshot()
+    for i, toks in enumerate(outs):
+        require(len(toks) == RT_NEW and all(0 <= t < cfg.vocab_size
+                                            for t in toks),
+                f"runtime A: {pool} request {i} emitted {len(toks)} tokens")
+    want_chunked = layers * (calls["target"]["chunked"]
+                             + calls["target"]["verify"]
+                             + calls["draft"]["chunked"])
+    want_decode = layers * (calls["target"]["decode"]
+                            + calls["draft"]["decode"])
+    shadowed = sum(c[k] for c in calls.values()
+                   for k in ("decode", "chunked", "verify"))
+    require(calls["target"]["chunked"] > 0 and calls["target"]["verify"] > 0
+            and calls["draft"]["decode"] > 0,
+            f"runtime A: {pool}: a route was not taken: {calls}")
+    require(by.get(("chunked", pool), 0) == want_chunked
+            and by.get(("decode", pool), 0) == want_decode
+            and sum(by.values()) == want_chunked + want_decode,
+            f"runtime A: {pool}: paged launches {by} against the decoders' "
+            f"calls {calls}")
+    require(counts["flash_fwd"][0] == layers * (
+        calls["target"]["prefill"] + calls["draft"]["prefill"])
+        and counts["flash_fwd"][1] == 0,
+        f"runtime A: {pool}: flash {counts['flash_fwd']} against {calls}")
+    require(counts["paged"][1] == layers * shadowed,
+            f"runtime A: {pool}: {counts['paged'][1]} plain calls, not "
+            f"{layers} x the {shadowed} shadowed calls")
+    require(code == 200, f"runtime A: /numericsz {code}")
+    kinds = doc["serving"]
+    require({"decode", "chunked", "verify"} <= set(kinds),
+            f"runtime A: {pool}: /numericsz sections {sorted(kinds)}")
+    require(all(kinds[k]["finite_fraction"] == 1.0 for k in kinds),
+            f"runtime A: {pool}: finite fractions "
+            f"{ {k: kinds[k]['finite_fraction'] for k in kinds} }")
+    new_anomalies = doc["anomalies"]["total"] - doc0["anomalies"]["total"]
+    require(new_anomalies == 0,
+            f"runtime A: {pool}: {new_anomalies} anomalies "
+            f"({doc['anomalies']['last']})")
+    label = srv.decoder._dtype_label
+    shadow = {k: doc["shadow"][f"{k}/{label}"]
+              for k in ("decode", "chunked", "verify")}
+    if kv_dtype == "int8":
+        require(doc["int8"] and all(r["notes"] > 0
+                                    for r in doc["int8"].values()),
+                f"runtime A: int8 scale drift missing: {doc['int8']}")
+    require(snap["kv_leak_check"]["ok"],
+            f"runtime A: {pool}: leak check {snap['kv_leak_check']}")
+    out = {"pool": pool, "wall_s": wall, "decoder_calls": calls,
+           "shadowed_calls": shadowed, "paged_launches_by":
+           {"/".join(k): n for k, n in by.items()},
+           "paged_launches_by_kernel": dict(cpa.launches_by_kernel),
+           "launches": {"flash_fwd": counts["flash_fwd"][0],
+                        "paged_attention": counts["paged"][0]},
+           "plain_calls": counts["paged"][1],
+           "prefix_hits": snap["prefix"]["hits"],
+           "shadow_divergence": shadow,
+           "argmax_entropy": {k: kinds[k]["argmax_entropy"] for k in kinds},
+           "finite_fraction": {k: kinds[k]["finite_fraction"]
+                               for k in kinds},
+           "int8_scale_drift": {k: r["drift"]
+                                for k, r in doc["int8"].items()}}
+    log(f"runtime A: engine {pool}: " + json.dumps(out))
+    del srv
+    return out
+
+
+def _rt_fault(model, seed, port) -> dict:
+    """The shadow off, the tripwires on, FLAGS_profile_on_anomaly armed:
+    NaN written into one page of one live request's K pool. The first
+    decode that reads it records one non-finite anomaly of kind decode
+    (one a note, as the reference counts), promoted into /tracez; exactly
+    one capture appears in /profilez (the rate limit holds back the rest);
+    the other streams are the clean run's token for token; the leak check
+    stays clean."""
+    import torch
+    from paddle_tpu_torch.observability import stepprof, xstats
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    cfg = model.config
+    prompts = _rt_prompts(cfg, seed + 63, RT_FAULT_REQUESTS, system=False)
+
+    def engine(name):
+        return GenerationServer(model, max_batch=RT_FAULT_REQUESTS,
+                                page_size=PAGE_SIZE, device="cuda",
+                                name=name, start=False)
+
+    def submit(srv):
+        return [srv.submit_generate(p, max_new_tokens=RT_FAULT_NEW,
+                                    temperature=0.0) for p in prompts]
+
+    old = _rt_flags(numerics_shadow_rate=0.0, numerics_sample_rate=1.0,
+                    profile_on_anomaly=True)
+    # a step profiler that never flags a straggler: the capture this drill
+    # gates must be the numerics anomaly's, not a slow step's (the process
+    # profiler's baselines come from every earlier phase)
+    prev_prof = stepprof.set_default_profiler(
+        stepprof.StepProfiler(min_samples=10 ** 9))
+    try:
+        clean = engine("rt-clean")
+        with clean:
+            futs = submit(clean)
+            clean.start()
+            want = [f.result(timeout=600) for f in futs]
+        xstats.default_profile_ring().clear()
+        _, doc0 = _rt_http_json(port, "/numericsz")
+        srv = engine("rt-fault")
+        futs = submit(srv)
+        with torch.inference_mode():
+            srv._admit_and_prefill()
+            active = [s for s in srv._slots if s is not None]
+            require(len(active) == RT_FAULT_REQUESTS,
+                    f"runtime A: fault: {len(active)} admitted")
+            victim = min(active, key=lambda s: s.slot)
+            page = victim.pages[0]
+            srv.kv.k[0][page].fill_(float("nan"))
+            srv._decode_iteration(active)
+        code, doc1 = _rt_http_json(port, "/numericsz")
+        an0, an1 = doc0["anomalies"], doc1["anomalies"]
+        first = {
+            "nonfinite": an1["by_reason"].get("nonfinite", 0)
+            - an0["by_reason"].get("nonfinite", 0),
+            "decode": doc1["serving"]["decode"]["anomalies"]
+            - doc0["serving"].get("decode", {}).get("anomalies", 0)}
+        last = an1["last"]
+        require(code == 200 and first == {"nonfinite": 1, "decode": 1}
+                and last["kind"] == "decode"
+                and last["reason"] == "nonfinite",
+                f"runtime A: fault: after the first decode {first}, last "
+                f"{last}")
+        trace_id = last["trace_id"]
+        code, tz = _rt_http_json(port, f"/tracez?trace_id={trace_id}")
+        spans = [s for t in tz["traces"] for s in t["spans"]]
+        require(code == 200 and any(
+            s["name"] == "numerics::nonfinite" and s["status"] == "error"
+            for s in spans),
+            f"runtime A: fault: no promoted error span in /tracez: {spans}")
+        with srv:
+            srv.start()
+            got = [f.result(timeout=600) for f in futs]
+        xstats.wait_captures(30.0)
+        code, ring = _rt_http_json(port, "/profilez")
+        arts = ring["artifacts"]
+        require(code == 200 and len(arts) == 1
+                and arts[0]["reason"] == "anomaly"
+                and arts[0]["trace_id"] == trace_id,
+                f"runtime A: fault: /profilez artifacts {arts}")
+        victim_i = [f is victim.req.future for f in futs].index(True)
+        same = [got[i] == want[i] for i in range(RT_FAULT_REQUESTS)
+                if i != victim_i]
+        require(all(same), f"runtime A: fault: the other streams moved "
+                           f"{same}")
+        _, doc2 = _rt_http_json(port, "/numericsz")
+        srv.clear_prefix_cache()
+        leak = srv.leak_check()
+        require(leak["ok"], f"runtime A: fault: leak check {leak}")
+        out = {"victim": victim_i, "page": int(page),
+               "anomalies_first_decode": first,
+               "anomalies_run": doc2["serving"]["decode"]["anomalies"]
+               - doc0["serving"].get("decode", {}).get("anomalies", 0),
+               "capture": {k: arts[0][k] for k in ("id", "duration_ms",
+                                                   "events", "bytes")},
+               "victim_stream_same": got[victim_i] == want[victim_i]}
+        log("runtime A: fault: " + json.dumps(out))
+        return out
+    finally:
+        _rt_flags(**{k[len("FLAGS_"):]: v for k, v in old.items()})
+        stepprof.set_default_profiler(prev_prof)
+        xstats.wait_captures(30.0)
+
+
+def _rt_leg_a(state, port) -> dict:
+    model = _model(state)
+    out = {"direct": {}, "engine": {}}
+    for kv in ("", "int8"):
+        out["direct"][kv or "bf16"] = _rt_direct_gate(model, kv,
+                                                      state["seed"])
+        _release()
+        out["engine"][kv or "bf16"] = _rt_engine_run(model, kv,
+                                                     state["seed"], port)
+        _release()
+    state.pop("model", None)
+    del model
+    _release()
+    return out
+
+
+def _rt_gauge(name, **labels):
+    from paddle_tpu_torch.observability.registry import default_registry
+    fam = default_registry().get(name)
+    for lab, child in (fam.collect() if fam is not None else []):
+        if all(lab.get(k) == v for k, v in labels.items()):
+            return child.value
+    return None
+
+
+def _rt_capture_during(port, step, ids) -> tuple:
+    """GET /profilez?duration_ms=RT_CAPTURE_MS on another thread while the
+    training steps run: (status, chrome document, steps taken)."""
+    import threading
+    import torch
+    got = {}
+
+    def fetch():
+        got["r"] = _rt_http_json(
+            port, f"/profilez?duration_ms={RT_CAPTURE_MS}", timeout=120.0)
+
+    t = threading.Thread(target=fetch, name="rt-profilez")
+    t.start()
+    n = 0
+    while t.is_alive() or n == 0:
+        step(ids, ids)
+        torch.cuda.synchronize()
+        n += 1
+    t.join()
+    return got["r"][0], got["r"][1], n
+
+
+def _rt_step_turns(step, ids) -> dict:
+    """The training step's ms (synchronised, median of 2 x RT_TIMED_STEPS)
+    with the tripwires off and on, in turns (off, on, on, off); the step
+    is left armed."""
+    import torch
+    ms = {True: [], False: []}
+    for armed in (False, True, True, False):
+        step._numerics_armed = armed
+        for _ in range(RT_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(ids, ids)
+            torch.cuda.synchronize()
+            ms[armed].append((time.perf_counter() - t0) * 1e3)
+    step._numerics_armed = True
+    return {"tripwires": statistics.median(ms[True]),
+            "off": statistics.median(ms[False])}
+
+
+def _rt_leg_b(state, port) -> dict:
+    """gpt3_1p3b(stacked=True, recompute="full") at b=2 s=2048, bf16 O2,
+    AdamW, FLAGS_check_nan_inf on: the grad norm published one step late
+    within RT_NORM_RTOL of the phase's own vector_norm of the step's
+    gradients, finite fraction 1.0, 48/24/24 launches a step and 0 plain
+    calls, the train_step entry's FLOPs per token within 15% of the hand
+    formulas, paddle_mfu{kind="train"} in (0, 1). Leg C's capture runs on
+    another thread during two more steps. Then the step's ms with and
+    without the tripwires."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt3_1p3b
+    from paddle_tpu_torch.observability import numerics
+    from paddle_tpu_torch.ops import cuda_attention_bwd as cab
+    cfg = gpt3_1p3b(stacked=True, recompute="full")
+    b, s = 2, 2048
+    per_step = {"flash_fwd": cfg.num_layers * STACKED_FWD_PER_LAYER["full"],
+                **{n: cfg.num_layers for n in cab.KERNELS}}
+    old = _rt_flags(check_nan_inf=True)
+    norms = []
+    real = numerics.grad_stats
+
+    def recording(grads, loss):
+        # the phase's own norm of the same gradients (a patch local to
+        # this leg): float32 norms of each, then of those
+        norms.append(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads])))
+        return real(grads, loss)
+
+    model = opt = step = None
+    try:
+        model, opt, step = _train_parts(cfg, state["seed"])
+        require(step._numerics_armed, "runtime B: tripwires not armed")
+        ids = torch.from_numpy(np.random.RandomState(state["seed"] + 64)
+                               .randint(0, cfg.vocab_size, (b, s))).cuda()
+        numerics.grad_stats = recording
+        _reset_counts()
+        published, losses = [], []
+        for i in range(RT_TRAIN_STEPS):
+            losses.append(float(step(ids, ids)))
+            torch.cuda.synchronize()
+            published.append(_rt_gauge("paddle_numerics_grad_norm"))
+        counts = _read_counts()
+        numerics.grad_stats = real
+        _require_launches("runtime B", counts, per_step, RT_TRAIN_STEPS)
+        mine = [float(n) for n in norms]
+        # after step i (synchronised), step i+1's note publishes step i's
+        late = [(published[i], mine[i - 1])
+                for i in range(1, RT_TRAIN_STEPS)]
+        for got, want in late:
+            require(got is not None and abs(got - want) <= RT_NORM_RTOL
+                    * abs(want),
+                    f"runtime B: published grad norm {got} against the "
+                    f"step's {want}")
+        frac = _rt_gauge("paddle_numerics_finite_fraction", kind="train")
+        require(frac == 1.0, f"runtime B: grad finite fraction {frac}")
+        # this step's entry: the tag, the batch and the parameters (an
+        # earlier phase's model of the same shapes shares it)
+        from paddle_tpu_torch.observability import xstats
+        sig = [[list(shape), dt] for shape, dt in (
+            (((0,), "tag:single"),) + xstats.signature_of([ids, ids])
+            + xstats.signature_of(step._params))]
+        code, execz = _rt_http_json(port, "/execz")
+        ents = [e for e in execz["entries"]
+                if e["site"] == "train_step" and e["signature"] == sig]
+        require(code == 200 and len(ents) == 1,
+                f"runtime B: /execz train_step entries {len(ents)} of "
+                f"this step's signature")
+        ana = ents[0]["analysis"]
+        n_params = model.num_params()
+        attn = 12 * cfg.num_layers * cfg.hidden_size * s
+        per_token = ana["flops"] / (b * s)
+        ratios = {"plain": per_token / (6 * n_params + attn),
+                  "remat": per_token / (8 * n_params + 2 * attn)}
+        require(min(abs(r - 1.0) for r in ratios.values()) <= RT_COST_TOL,
+                f"runtime B: train_step FLOPs per token {per_token:.4e}, "
+                f"ratios {ratios} to the hand formulas")
+        mfu = _rt_gauge("paddle_mfu", kind="train")
+        require(mfu is not None and 0.0 < mfu < 1.0,
+                f"runtime B: paddle_mfu{{kind=train}} {mfu}")
+        before = _rt_step_turns(step, ids)
+        # leg C: a capture on another thread while steps run
+        xstats.default_profile_ring().clear()
+        code, doc, n_cap = _rt_capture_during(port, step, ids)
+        require(code == 200 and isinstance(doc, dict),
+                f"runtime C: /profilez capture answered {code}")
+        names = " ".join(str(e.get("name", ""))
+                         for e in doc.get("traceEvents", []))
+        seen = {k: k in names for k in RT_TRAIN_KERNELS}
+        require(all(seen.values()),
+                f"runtime C: the capture lacks kernels: {seen}")
+        code2, refused = _rt_http_json(port, "/profilez?duration_ms=100")
+        code3, ring = _rt_http_json(port, "/profilez")
+        require(code2 == 429 and code3 == 200
+                and len(ring["artifacts"]) == 1,
+                f"runtime C: second capture {code2}, ring {code3} "
+                f"{ring.get('artifacts') if isinstance(ring, dict) else ''}")
+        capture = {"status": code, "events": len(doc["traceEvents"]),
+                   "steps_during": n_cap, "kernels_seen": seen,
+                   "second_status": code2,
+                   "artifact": {k: ring["artifacts"][0][k]
+                                for k in ("id", "duration_ms", "bytes",
+                                          "events")}}
+        after = _rt_step_turns(step, ids)
+        numerics.drain()
+        out = {"steps": RT_TRAIN_STEPS, "losses": losses,
+               "published_vs_phase_norm": late,
+               "finite_fraction": frac, "launches": counts["launches"],
+               "flops_per_token": per_token, "cost_ratios": ratios,
+               "analysis": ana, "mfu_gauge": mfu,
+               "step_ms": before, "step_ms_after_capture": after,
+               "capture": capture}
+        log("runtime B: " + json.dumps(
+            {k: v for k, v in out.items() if k != "analysis"}))
+        log(f"runtime B: train_step entry {json.dumps(ana)}")
+        return out
+    finally:
+        numerics.grad_stats = real
+        _rt_flags(**{k[len("FLAGS_"):]: v for k, v in old.items()})
+        model = opt = step = None
+        _release()
+
+
+def _rt_fp16_drill(state) -> dict:
+    """PARITY_LAYERS layers of gpt3_1p3b in float16 O2 under GradScaler,
+    FLAGS_check_nan_inf on: one good step, then the scale forced to
+    OVERFLOW_SCALE (as the recipe phase forces it) for two steps whose
+    gradients overflow. The tripwire reads the good step finite, classes
+    each overflowed step as a non-finite train anomaly with a finite loss
+    (the reference's classes), and publishes the loss scale after each
+    step's schedule: 2^15, then OVERFLOW_SCALE, then its half."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models import gpt3_1p3b
+    from paddle_tpu_torch.observability import numerics
+    cfg = gpt3_1p3b(num_layers=RT_F16_LAYERS)
+    old = _rt_flags(check_nan_inf=True)
+    model = opt = step = None
+    try:
+        scaler = GradScaler(init_loss_scaling=2.0 ** 15,
+                            decr_every_n_nan_or_inf=OVERFLOW_DECR_EVERY)
+        model, opt, step = _train_parts(cfg, state["seed"] + 65, "float16",
+                                        scaler)
+        ids = torch.from_numpy(np.random.RandomState(state["seed"] + 65)
+                               .randint(0, cfg.vocab_size, (2, 2048))).cuda()
+        _reset_counts()
+        rows = []
+        for i in range(3):
+            if i == 1:
+                scaler.load_state_dict({"scale": OVERFLOW_SCALE,
+                                        "incr_count": 0, "decr_count": 0})
+            a0 = numerics.numericsz_payload()["anomalies"]
+            loss = float(step(ids, ids))
+            numerics.drain()
+            doc = numerics.numericsz_payload()
+            a1 = doc["anomalies"]
+            t = doc["train"]
+            rows.append({"loss": loss, "found_inf": bool(scaler._found_inf),
+                         "grad_finite_fraction": t["grad_finite_fraction"],
+                         "grad_norm": t["grad_norm"],
+                         "loss_finite": t["loss_finite"],
+                         "loss_scale": t["loss_scale"],
+                         "new_anomalies": a1["total"] - a0["total"],
+                         "last": a1["last"] if a1["total"] > a0["total"]
+                         else None})
+        counts = _read_counts()
+        good, bad1, bad2 = rows
+        require(good["grad_finite_fraction"] == 1.0
+                and good["new_anomalies"] == 0
+                and good["loss_scale"] == 2.0 ** 15,
+                f"runtime B: fp16 good step {good}")
+        for row, scale in ((bad1, OVERFLOW_SCALE),
+                           (bad2, OVERFLOW_SCALE / 2)):
+            last = row["last"] or {}
+            require(row["found_inf"] and row["grad_finite_fraction"] < 1.0
+                    and row["new_anomalies"] == 1
+                    and last.get("kind") == "train"
+                    and last.get("reason") == "nonfinite"
+                    and last["detail"]["loss_finite"] is True
+                    and row["loss_scale"] == scale,
+                    f"runtime B: fp16 overflowed step {row}, want scale "
+                    f"{scale}")
+        out = {"layers": RT_F16_LAYERS, "steps": rows,
+               "launches": counts["launches"]}
+        log("runtime B: fp16 drill " + json.dumps(out, default=str))
+        return out
+    finally:
+        _rt_flags(**{k[len("FLAGS_"):]: v for k, v in old.items()})
+        model = opt = step = None
+        _release()
+
+
+def _rt_collectors(port) -> dict:
+    """Leg C's collectors: the allocated-bytes series at a scrape equals
+    torch.cuda.memory_allocated() read beside it; paddle_build_info carries
+    the card's name and the kernel library's hash; the goodput ledger's
+    compile category is above 0 after the build."""
+    import torch
+    from paddle_tpu_torch.observability import goodput
+    from paddle_tpu_torch.ops import _build
+    dev = torch.cuda.current_device()
+    before = torch.cuda.memory_allocated(dev)
+    code, text = _http_get(port, "/metrics")
+    after = torch.cuda.memory_allocated(dev)
+    require(code == 200, f"runtime C: /metrics {code}")
+    samples = _parse_prometheus(text)
+    key = ("paddle_device_memory_bytes",
+           f'{{device="cuda:{dev}",stat="bytes_in_use"}}')
+    scraped = samples.get(key)
+    require(scraped is not None and before == after == scraped,
+            f"runtime C: scraped allocated bytes {scraped}, "
+            f"memory_allocated {before} / {after}")
+    name = torch.cuda.get_device_name(dev)
+    info = [lab for (n, lab) in samples if n == "paddle_build_info"]
+    require(len(info) == 1 and f'device="{name}"' in info[0]
+            and f'kernels="{_build.library_hash()}"' in info[0],
+            f"runtime C: paddle_build_info {info}")
+    compile_s = goodput.default_ledger().report()["categories_s"]["compile"]
+    require(_build.build_seconds() > 0 and compile_s > 0,
+            f"runtime C: goodput compile {compile_s} s after a build of "
+            f"{_build.build_seconds()} s")
+    out = {"allocated_bytes": scraped, "build_info": info[0],
+           "goodput_compile_s": compile_s,
+           "build_s": _build.build_seconds()}
+    log("runtime C: collectors " + json.dumps(out))
+    return out
+
+
+def _rt_leg_d(state, port) -> dict:
+    """The canary on the card equals its golden twin; two thread replicas
+    of float32 ERNIE-base (jit.save) behind the router, each sweeping
+    every RT_CANARY_PERIOD_S; one replica's device checksum corrupted by a
+    patch local to this leg (its sweep's result XORed with 1 on that
+    replica's canary thread): that replica's /readyz answers 503 and its
+    breaker opens, RT_D_REQUESTS requests all go to the other replica with
+    0 failures, and the router's merged /execz, /numericsz and /profilez
+    answer 200 with both replicas."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         ernie_base)
+    from paddle_tpu_torch.observability import numerics
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.static import InputSpec
+    res = numerics.run_device_canary(record=False)
+    require(res["ok"] and res["got"] == numerics.canary_reference(),
+            f"runtime D: device canary {res}")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_runtime_"))
+    apps, backends, router, rapp = [], [], None, None
+    real = numerics.canary_sweep
+    try:
+        cfg = ernie_base(hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+        model = ErnieForSequenceClassification(
+            cfg, num_classes=2, device="cuda", seed=state["seed"]).eval()
+        prefix = str(work / "ernie")
+        jit.save(model, prefix, input_spec=[
+            InputSpec([None, None], "int64", "input_ids")])
+        del model
+        _release()
+        for i in range(2):
+            be = fleet.PredictorBackend(prefix, max_batch_size=8,
+                                        seq_buckets=[RT_D_SEQ],
+                                        warmup_mode="none",
+                                        name=f"rt-d{i}")
+            be.warmup()
+            app = fleet.ReplicaApp(be).start()
+            fleet.arm_canary(be, app, period_s=RT_CANARY_PERIOD_S,
+                             name=f"rt-d{i}")
+            backends.append(be)
+            apps.append(app)
+        router = fleet.FleetRouter({i: a.url for i, a in enumerate(apps)},
+                                   name="rt_d", health_interval_ms=50)
+        rapp = fleet.RouterApp(router, host="127.0.0.1").start()
+        require(router.wait_ready(2, timeout=60),
+                f"runtime D: replicas not ready {router.replica_states()}")
+        bad_thread = "numerics-canary-rt-d0"
+
+        def corrupted(device):
+            got = real(device)
+            if threading.current_thread().name == bad_thread:
+                got = got ^ 1       # one flipped bit of the checksum
+            return got
+
+        numerics.canary_sweep = corrupted
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            st = {s["replica"]: s for s in router.replica_states()}["0"]
+            if not st["ready"] and st["breaker"]["state"] == "open":
+                break
+            time.sleep(0.05)
+        ready_code, ready = _rt_http_json(int(apps[0].port), "/readyz")
+        st = {s["replica"]: s for s in router.replica_states()}
+        require(ready_code == 503 and ready.get("corrupt")
+                and st["0"]["breaker"]["state"] == "open"
+                and st["1"]["ready"],
+                f"runtime D: corrupt replica not fenced: {ready_code} "
+                f"{ready} "
+                f"{st}")
+        batches0 = [be.server.metrics.snapshot()["counters"]["batches"]
+                    for be in backends]
+        launches0 = ca.launches
+        rng = np.random.RandomState(state["seed"] + 66)
+        futs = [router.submit([rng.randint(1, cfg.vocab_size,
+                                           (1, RT_D_SEQ))])
+                for _ in range(RT_D_REQUESTS)]
+        failures = 0
+        for f in futs:
+            try:
+                out = f.result(timeout=120)
+                require(np.all(np.isfinite(np.asarray(out[0]))),
+                        "runtime D: a non-finite response")
+            except SmokeFailure:
+                raise
+            except Exception:  # noqa: BLE001 - counted below
+                failures += 1
+        torch.cuda.synchronize()
+        batches = [be.server.metrics.snapshot()["counters"]["batches"]
+                   - b0 for be, b0 in zip(backends, batches0)]
+        launches = ca.launches - launches0
+        require(failures == 0 and batches[0] == 0 and batches[1] > 0
+                and launches == cfg.num_layers * batches[1],
+                f"runtime D: {failures} failures, batches by replica "
+                f"{batches}, {launches} flash launches")
+        merged = {}
+        for path in ("/execz", "/numericsz", "/profilez"):
+            code, doc = _rt_http_json(rapp.port, path)
+            n = (doc["fleet"] if "fleet" in doc else doc)["replicas_merged"]
+            require(code == 200 and n == 2,
+                    f"runtime D: merged {path} {code}, {n} replicas")
+            merged[path] = n
+        corrupt = _rt_http_json(rapp.port, "/numericsz")[1]["fleet"][
+            "corrupt_replicas"]
+        require(corrupt == ["0"], f"runtime D: corrupt replicas {corrupt}")
+        out = {"device_canary": res, "requests": RT_D_REQUESTS,
+               "failures": failures, "batches_by_replica": batches,
+               "launches": {"flash_fwd_f32": launches},
+               "readyz": [ready_code, ready], "merged_replicas": merged,
+               "corrupt_replicas": corrupt,
+               "corruption": "the sweep's checksum XORed with 1 on the "
+                             "replica's canary thread"}
+        log("runtime D: " + json.dumps(out))
+        return out
+    finally:
+        numerics.canary_sweep = real
+        if rapp is not None:
+            rapp.stop()
+        if router is not None:
+            router.shutdown()
+        for app in apps:
+            app.stop()
+        for be in backends:
+            be.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        _release()
+
+
+def phase_runtime(state):
+    """The runtime and numerics plane on the card (legs A-D)."""
+    import torch
+    from paddle_tpu_torch.observability import httpd
+    from paddle_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.load_library()
+    srv = httpd.start_telemetry_server(port=0, host="127.0.0.1")
+    port = int(srv.port)
+    out = {"leg_a": _rt_leg_a(state, port)}
+    # leg B's capture comes before the fault's, so its step times before
+    # the capture follow no profiler session of this phase
+    out["leg_b"] = _rt_leg_b(state, port)
+    out["leg_a"]["fault"] = _rt_fault(_model(state), state["seed"], port)
+    state.pop("model", None)
+    _release()
+    out["fp16"] = _rt_fp16_drill(state)
+    out["leg_c"] = _rt_collectors(port)
+    out["leg_d"] = _rt_leg_d(state, port)
+    code, execz = _rt_http_json(port, "/execz")
+    sites = set(execz["sites"])
+    require(code == 200 and set(RT_SITES) <= sites,
+            f"runtime C: /execz sites {sorted(sites)}")
+    torch.cuda.synchronize()
+    a = out["leg_a"]["engine"]
+    out["launches"] = {
+        "flash_fwd": sum(r["launches"]["flash_fwd"] for r in a.values())
+        + out["leg_b"]["launches"]["flash_fwd"],
+        "flash_bwd_dq": out["leg_b"]["launches"]["flash_bwd_dq"],
+        "flash_bwd_dkv": out["leg_b"]["launches"]["flash_bwd_dkv"],
+        "paged_attention": a["bf16"]["launches"]["paged_attention"],
+        "paged_attention_int8": a["int8"]["launches"]["paged_attention"],
+        "flash_fwd_f32": out["leg_d"]["launches"]["flash_fwd_f32"],
+        "f16": out["fp16"]["launches"]}
+    out["execz_sites"] = sorted(sites)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = state.get("smi")
+    state["runtime"] = out
+    log(f"runtime: {out['seconds']:.1f} s ({state.get('smi')})")
 
 
 def kernels_line(state) -> dict:
@@ -8067,7 +9084,11 @@ def kernels_line(state) -> dict:
     ``ops_launches``), its InferenceServer leg in ``flash_fwd_f32``. The
     fleet phase's thread replicas count in ``flash_fwd_f32`` and
     ``paged_attention_f32``, its worker processes' launches (dumped at
-    their exit) in ``flash_fwd_f32``. The
+    their exit) in ``flash_fwd_f32``. The runtime phase's engine runs
+    count in ``flash_fwd`` and the paged entries (bf16 and int8 pools),
+    its training steps in ``flash_fwd`` and the bf16 backward entries, its
+    float16 drill in the ``*_f16`` entries and its canary replicas in
+    ``flash_fwd_f32`` (each also apart, as ``runtime_launches``). The
     inference phase's bf16 server
     run counts in
     ``flash_fwd`` (its
@@ -8112,6 +9133,7 @@ def kernels_line(state) -> dict:
     el_b = _add_launches(el["north_star"]["launches"],
                          el["drills"]["launches"])
     el_f = el["fit"]["launches_f32"]
+    rt = state["runtime"]["launches"]
 
     def api_row(dtype, part, kname=None, phase=api):
         """The flash kernel at a Paddle script's shape (the api phase's, or
@@ -8135,15 +9157,17 @@ def kernels_line(state) -> dict:
              + sum(t["flash_fwd"] for t in st_train) + fam_fwd
              + infer["bfloat16"]["launches"] + api_o2["flash_fwd"]
              + nn_o2["flash_fwd"] + hapi_b["flash_fwd"]
-             + ops_eng["flash_fwd"] + el_b["flash_fwd"], None),
+             + ops_eng["flash_fwd"] + el_b["flash_fwd"] + rt["flash_fwd"],
+             None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
              + st_serve["bfloat16"]["launches"]["paged_attention"]
-             + ops_eng["paged_attention"],
+             + ops_eng["paged_attention"] + rt["paged_attention"],
              state["engine"]["paged_launches_by"]),
             ("paged_attention_int8", cpa, state["paged_int8_main"],
              serving["launches"]["paged_attention"]
-             + st_serve["int8"]["launches"]["paged_attention"],
+             + st_serve["int8"]["launches"]["paged_attention"]
+             + rt["paged_attention_int8"],
              serving["paged_launches_by"])):
         entry = {"name": name, "route": "cuda", "source": mod.SOURCE,
                  "replaces": mod.REPLACES, "launches": launches,
@@ -8151,6 +9175,7 @@ def kernels_line(state) -> dict:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": row["case"]}
+        entry["runtime_launches"] = rt[name]
         if name in ("flash_fwd", "paged_attention"):
             entry["ops_launches"] = ops_eng[name]
         if name == "flash_fwd":
@@ -8258,8 +9283,10 @@ def kernels_line(state) -> dict:
                 "launches": infer["float32"]["launches"]
                 + f32_train["flash_fwd"] + api_f32["flash_fwd"]
                 + nn_f32["flash_fwd"] + hapi_f["flash_fwd"] + ops_infer
-                + fleet_a_flash + fleet_b_flash + el_f["flash_fwd"],
+                + fleet_a_flash + fleet_b_flash + el_f["flash_fwd"]
+                + rt["flash_fwd_f32"],
                 "launches_by_path": {
+                    "runtime_canary_replicas": rt["flash_fwd_f32"],
                     "inference_server": infer["float32"]["launches"],
                     "ops_inference_server": ops_infer,
                     "fleet_thread_replicas": fleet_a_flash,
@@ -8329,10 +9356,11 @@ def kernels_line(state) -> dict:
                         ("flash_bwd_dkv", ("dk", "dv"))):
         launches = train[name] + sum(t[name] for t in st_train) + \
             sum(t[name] for t in fam_train) + api_o2[name] + nn_o2[name] \
-            + hapi_b[name] + el_b[name]
+            + hapi_b[name] + el_b[name] + rt[name]
         out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
                     "replaces": cab.REPLACES[name], "launches": launches,
                     "elastic_launches": el_b[name],
+                    "runtime_launches": rt[name],
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
                                        for g in grads),
                     "ms": row[f"{name}_ms"],
@@ -8373,7 +9401,8 @@ def kernels_line(state) -> dict:
     row, long_row = state["flash_f16_train"], state["flash_f16_long"]
     out.append({"name": "flash_fwd_f16", "route": "cuda",
                 "source": ca.SOURCE, "replaces": ca.REPLACES,
-                "launches": fp16["flash_fwd"],
+                "launches": fp16["flash_fwd"] + rt["f16"]["flash_fwd"],
+                "runtime_launches": rt["f16"]["flash_fwd"],
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -8390,7 +9419,8 @@ def kernels_line(state) -> dict:
                         ("flash_bwd_dkv", ("dk", "dv"))):
         out.append({"name": f"{name}_f16", "route": "cuda",
                     "source": cab.SOURCE, "replaces": cab.REPLACES[name],
-                    "launches": fp16[name],
+                    "launches": fp16[name] + rt["f16"][name],
+                    "runtime_launches": rt["f16"][name],
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
                                        for g in grads),
                     "ms": row[f"{name}_ms"], "tflops": row[f"{name}_tflops"],
@@ -8422,6 +9452,7 @@ def main(argv=None) -> int:
                          "timed in turns with this tree's in the kernels "
                          "phase")
     args = ap.parse_args(argv)
+    faulthandler.enable(file=sys.stderr, all_threads=True)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
@@ -8457,7 +9488,7 @@ def main(argv=None) -> int:
            "recipe": phase_recipe, "families": phase_families,
            "inference": phase_inference, "api": phase_api, "nn": phase_nn,
            "hapi": phase_hapi, "ops": phase_ops, "fleet": phase_fleet,
-           "elastic": phase_elastic}
+           "elastic": phase_elastic, "runtime": phase_runtime}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -8478,22 +9509,51 @@ def main(argv=None) -> int:
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
                                      "api", "nn", "hapi", "ops", "fleet",
-                                     "elastic", "total_s")
+                                     "elastic", "runtime", "total_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",
                                 "inference", "api", "nn", "hapi", "ops",
-                                "fleet", "elastic")):
+                                "fleet", "elastic", "runtime")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "smoke_summary.json").write_text(json.dumps(summary, indent=1))
     log(state.get("smi", ""))
+    _quiesce()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
+def _quiesce() -> None:
+    """Stop what the phases leave serving (the process-wide telemetry
+    endpoint, background profile captures), synchronise the card, and log
+    the live threads and child processes."""
+    import threading
+    import torch
+    from paddle_tpu_torch.observability import httpd, xstats
+    httpd.stop_telemetry_server()
+    xstats.wait_captures(30.0)
+    torch.cuda.synchronize()
+    live = sorted(t.name for t in threading.enumerate()
+                  if t is not threading.main_thread())
+    log(f"exit: {len(live)} live threads {live}; child processes "
+        f"{_children()}")
+
+
+def _children() -> list:
+    """The pids whose parent is this process (``/proc``)."""
+    kids = []
+    for task in Path(f"/proc/{os.getpid()}/task").glob("*/children"):
+        with contextlib.suppress(OSError):
+            kids += [int(x) for x in task.read_text().split()]
+    return sorted(kids)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

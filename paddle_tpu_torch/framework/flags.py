@@ -13,7 +13,7 @@ import os
 from typing import Any, Dict
 
 __all__ = ["define_flag", "flag_value", "set_flags", "get_flags",
-           "flags_snapshot"]
+           "flags_snapshot", "flags_generation"]
 
 
 class _Flag:
@@ -67,13 +67,26 @@ def _key(name: str) -> str:
     return key
 
 
+_GENERATION = 0
+
+
 def flag_value(name: str):
     return _REGISTRY[_key(name)].value
 
 
+def flags_generation() -> int:
+    """A counter bumped by every ``set_flags`` call: readers on hot paths
+    cache what they derive from flags and recompute when it moves."""
+    return _GENERATION
+
+
 def set_flags(flags: Dict[str, Any]) -> None:
-    for name, v in flags.items():
-        _REGISTRY[_key(name)].set(v)
+    global _GENERATION
+    try:
+        for name, v in flags.items():
+            _REGISTRY[_key(name)].set(v)
+    finally:
+        _GENERATION += 1
 
 
 def get_flags(flags) -> Dict[str, Any]:
@@ -194,6 +207,67 @@ define_flag("FLAGS_goodput_tolerance", 0.02,
             "goodput_report() accounting tolerance: the report's 'closes' "
             "bit requires categories (incl. derived idle) to sum to "
             "elapsed wall-clock within this fraction")
+define_flag("FLAGS_profiler_span_metrics", False,
+            "mirror profiler RecordEvent span durations into the "
+            "paddle_profiler_span_ms histogram so profiler traces and "
+            "scraped /metrics agree")
+
+# The runtime and numerics plane (observability/{runtime,xstats,numerics}
+# .py), with the reference's names and defaults
+# (paddle_tpu/framework/flags.py:281, 310-349, 377-390).
+define_flag("FLAGS_xstats_enable", True,
+            "populate the process-wide executable registry at the first "
+            "dispatch of every signature (FLOPs, bytes and allocator "
+            "memory per signature, the /execz page, and the "
+            "paddle_mfu{kind=} join with the step profiler); off = every "
+            "hook is a no-op")
+define_flag("FLAGS_xstats_max_entries", 512,
+            "bound of the executable registry: least-recently-registered "
+            "entries are evicted past this many (counted in "
+            "paddle_exec_evicted_total)")
+define_flag("FLAGS_device_peak_flops", 0.0,
+            "per-device peak FLOP/s for MFU and roofline computation; 0 = "
+            "the built-in table keyed by the CUDA device's name (H100: "
+            "dense bf16). No table entry pretends to know a host CPU's "
+            "peak")
+define_flag("FLAGS_device_peak_bytes_per_s", 0.0,
+            "per-device peak memory bandwidth (bytes/s) for the bandwidth "
+            "utilization gauge and the roofline ridge point; 0 = the "
+            "built-in table, same contract as FLAGS_device_peak_flops")
+define_flag("FLAGS_profile_dir", "",
+            "directory of the bounded on-disk profile-capture ring "
+            "(/profilez artifacts); empty = a per-process directory under "
+            "the system temp dir")
+define_flag("FLAGS_profile_ring", 8,
+            "max retained capture artifacts in the /profilez ring (oldest "
+            "artifact files are deleted past this)")
+define_flag("FLAGS_profile_max_ms", 2000.0,
+            "hard bound on one /profilez capture duration: a larger "
+            "duration_ms query parameter is clamped here")
+define_flag("FLAGS_profile_min_interval_s", 30.0,
+            "rate limit between profile captures (manual or "
+            "anomaly-triggered); captures inside the interval are refused "
+            "and counted in paddle_profile_rate_limited_total")
+define_flag("FLAGS_profile_on_anomaly", False,
+            "arm anomaly-triggered capture: a stepprof straggler or a "
+            "numerics anomaly starts one rate-limited background profile "
+            "capture whose artifact records the anomaly span's trace id")
+define_flag("FLAGS_profile_anomaly_ms", 500.0,
+            "duration of an anomaly-triggered capture (bounded by "
+            "FLAGS_profile_max_ms like every capture)")
+define_flag("FLAGS_numerics_sample_rate", 0.0,
+            "fraction of train/decode steps whose output health stats "
+            "(finite fraction, max-abs, argmax-entropy, grad norm) are "
+            "published; FLAGS_check_nan_inf=true overrides this to every "
+            "step. The reductions run on the device and their host read "
+            "is deferred one note, so sampling adds no device sync")
+define_flag("FLAGS_numerics_shadow_rate", 0.0,
+            "duty cycle of decode/chunked/verify shadow checks: a sampled "
+            "dispatch is run again through the kernels' plain versions "
+            "(use_kernels=False) on a copy of the pages it reads, and the "
+            "max-abs logit divergence is published as "
+            "paddle_numerics_shadow_divergence{kind,dtype}")
+
 define_flag("FLAGS_stepprof_window", 512,
             "bound of the continuous step profiler's per-step envelope "
             "ring (oldest envelopes are evicted past this)")
@@ -336,9 +410,10 @@ define_flag("FLAGS_autoscale_occupancy_high", 0.85,
 define_flag("FLAGS_autoscale_interval_s", 5.0,
             "autoscaler control-loop evaluation period in seconds")
 define_flag("FLAGS_numerics_canary_period_s", 0.0,
-            "period of the per-worker numerics canary sweep; 0 disables "
-            "it, and a period above 0 waits for the numerics plane, "
-            "ROADMAP queue 1 item 11")
+            "period of the per-worker deterministic checksum canary "
+            "sweep (SDC detection); 0 disables. The sweep also runs "
+            "on not-ready -> ready transitions; a failing canary "
+            "quarantines the replica (readiness flip + breaker open)")
 
 # Elastic training (elastic/manager.py, elastic/preemption.py), with the
 # reference's names and defaults (paddle_tpu/elastic/manager.py:66-86,

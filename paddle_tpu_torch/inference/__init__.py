@@ -297,6 +297,8 @@ class Predictor:
         # handle before the first run reads the current run's result
         self._output_handles: Dict[str, Tensor] = {}
         self._fingerprint: Optional[str] = None
+        # xstats memo: assembled-batch shapes -> ExecEntry
+        self._xstats_memo: Dict[tuple, object] = {}
 
     @property
     def device(self) -> torch.device:
@@ -323,6 +325,23 @@ class Predictor:
         done = torch.cuda.Event()
         done.record(self._stream)
         return host, done
+
+    def _forward(self, xs):
+        """One dispatch of the program (site ``serving``): the first of
+        each assembled-batch signature is measured and registered by
+        xstats (``observability/xstats.py``), as the reference registers
+        it (``inference/__init__.py:594-640``). The signature leads with
+        the reference's donation tag, always 0 here: torch donates
+        nothing."""
+        from ..observability import xstats
+        key = tuple((tuple(a.shape), str(a.dtype)) for a in xs)
+        return xstats.observed_call(
+            self._xstats_memo, key, "serving",
+            lambda: self._artifact(*xs),
+            signature_fn=lambda: ((((0,), "donate"),)
+                                  + xstats.signature_of(list(xs))),
+            kind="serving", fingerprint=self.artifact_fingerprint,
+            device=self._device)
 
     # ---- reference Predictor API ----
     def get_input_names(self) -> List[str]:
@@ -357,7 +376,7 @@ class Predictor:
                 placed = self._place(h._value)
                 self._feed_cache[name] = (h._value, placed)
                 arrays.append(placed)
-            outs = self._artifact(*arrays)
+            outs = self._forward(arrays)
             if inputs is not None:
                 host, done = self._copy_out(outs)
         if inputs is not None:
@@ -409,7 +428,7 @@ class Predictor:
             if self._stream is not None:
                 inputs_done = torch.cuda.Event()
                 inputs_done.record(self._stream)
-            host, done = self._copy_out(self._artifact(*xs))
+            host, done = self._copy_out(self._forward(xs))
         return _PendingBatch(host, list(rows), inputs_done, done)
 
     def fetch_many(self, pending: _PendingBatch):

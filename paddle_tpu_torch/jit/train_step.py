@@ -39,8 +39,23 @@ hand-written flash kernels forward and backward.
   what the reference's buffer donation buys, so ``donate=True`` and
   ``False`` run the same step.
 
-Not in this slice: meshes, the compile cache and xstats, the numerics
-tripwires, DGC/LocalSGD and ASP masks. Asking for any of them raises
+- xstats (``observability/xstats.py``): the first step of each batch
+  signature runs under the registry's counters and registers the
+  ``train_step`` entry (FLOPs per step, bytes, allocator memory); later
+  steps only bump its counters. The ``kind="train"`` envelope then joins
+  it into ``paddle_mfu{kind="train"}``.
+- Numerics tripwires (``observability/numerics.py``), armed when the step
+  is built by ``FLAGS_check_nan_inf`` (every step) or
+  ``FLAGS_numerics_sample_rate`` (a sampled share), as the reference's
+  (``:154-165, 297-381, 452-456``): after the backward, on the device,
+  the global norm of the (unscaled) gradients over their finite
+  elements, their finite fraction and whether the loss is finite, noted
+  with the loss scale after the step's schedule; the numerics layer
+  publishes them one note later (grad-norm EWMA drift, anomalies), so no
+  step waits for them.
+
+Not in this slice: meshes, the compile cache, DGC/LocalSGD (ROADMAP queue
+1 item 5c) and ASP masks (item 5d). Asking for any of them raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -52,6 +67,7 @@ from typing import Callable, Optional
 import torch
 
 from ..amp.auto_cast import auto_cast
+from ..observability import numerics, xstats
 from ..optimizer import optimizer as opt_mod
 
 __all__ = ["TrainStep"]
@@ -77,7 +93,7 @@ class TrainStep:
             if getattr(optimizer, attr, None) is not None:
                 raise NotImplementedError(
                     "DGC/LocalSGD optimizers are not ported yet (ROADMAP "
-                    "queue 1 item 11: the compiled step's features)")
+                    "queue 1 item 5c)")
         if amp_level not in (None, "O1", "O2"):
             raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
                              f"{amp_level!r}")
@@ -96,11 +112,15 @@ class TrainStep:
             if getattr(p, "_asp_mask", None) is not None:
                 raise NotImplementedError(
                     f"{n} carries an ASP sparsity mask; ASP is not ported "
-                    f"yet (ROADMAP queue 1 item 11: the compiled step's "
-                    f"features)")
+                    f"yet (ROADMAP queue 1 item 5d)")
         optimizer._bind(self._named)
         self._params = [p for _, p in self._named]
         self._n_inputs = None
+        # xstats memo: (tag, batch shapes) -> ExecEntry
+        self._xstats_memo = {}
+        # numerics tripwires: armed state pinned at construction
+        self._numerics_armed = (numerics.train_tripwire_armed()
+                                and bool(self._params))
 
     @property
     def _device(self) -> torch.device:
@@ -184,6 +204,13 @@ class TrainStep:
                 torch._amp_foreach_non_finite_check_and_unscale_(
                     grads, found, torch.ones((), device=self._device))
                 found_inf = found > 0
+        num_stats = None
+        if self._numerics_armed and numerics.sample_decision(
+                numerics.tripwire_rate()):
+            # the gradients' health after the unscale, before the clip
+            with torch.no_grad():
+                num_stats = numerics.grad_stats(
+                    [g for _, g in params_grads], loss)
         t0 = time.perf_counter() if opt_mod._step_observers else None
         clip = self.optimizer._grad_clip
         if clip is not None:
@@ -192,7 +219,30 @@ class TrainStep:
         opt_mod.notify_step_observers(self.optimizer, t0, len(params_grads))
         if st is not None:
             self._schedule(st, found_inf)
+        if num_stats is not None:
+            try:
+                numerics.note_train_step(
+                    num_stats, loss_scale=(self._scaler_state["scale"]
+                                           if st is not None else None))
+            except Exception:  # noqa: BLE001 - observability is garnish
+                pass           # on the hot path, never a step failure
         return loss.detach()
+
+    def _dispatch(self, batch, lr: float, t: int):
+        """One step as a dispatch of the ``train_step`` site: the first
+        of each batch signature is measured and registered by xstats
+        (the entry's signature: the reference's tag, the batch, the
+        parameters)."""
+        key = ("single", tuple((tuple(getattr(b, "shape", ())),
+                                str(getattr(b, "dtype", "")))
+                               for b in batch))
+        return xstats.observed_call(
+            self._xstats_memo, key, "train_step",
+            lambda: self._step(batch, lr, t),
+            signature_fn=lambda: ((((0,), "tag:single"),)
+                                  + xstats.signature_of(list(batch))
+                                  + xstats.signature_of(self._params)),
+            kind="train", device=self._device)
 
     def _set_inputs(self, batch, n_inputs):
         if n_inputs is not None:
@@ -211,8 +261,8 @@ class TrainStep:
         try:
             self._set_inputs(batch, n_inputs)
             self.optimizer._step_count += 1
-            out = self._step(batch, self.optimizer.get_lr(),
-                             self.optimizer._step_count)
+            out = self._dispatch(batch, self.optimizer.get_lr(),
+                                 self.optimizer._step_count)
         finally:
             wall_s = ledger.end()
             try:
@@ -232,7 +282,7 @@ class TrainStep:
         loss = None
         for _ in range(n_steps):
             self.optimizer._step_count += 1
-            loss = self._step(batch, lr, self.optimizer._step_count)
+            loss = self._dispatch(batch, lr, self.optimizer._step_count)
         if loss is not None and loss.is_cuda:
             torch.cuda.synchronize(loss.device)
         return loss

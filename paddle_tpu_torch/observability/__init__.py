@@ -28,19 +28,25 @@
 - ``training``: ``TrainingTelemetryCallback`` (the ``paddle_training_*``
   families, goodput step frames and step envelopes from ``Model.fit``)
   and ``instrument_optimizers`` (the ``paddle_optimizer_*`` families from
-  the optimizers' step observers).
+  the optimizers' step observers);
+- ``runtime``: the collectors a telemetry endpoint installs (the kernel
+  library's compile event, the caching allocator's device memory, profiler
+  span mirroring, build info);
+- ``xstats``: the signature registry measured at each signature's first
+  dispatch (``/execz``, ``paddle_mfu{kind=}``) and the ``torch.profiler``
+  capture ring (``/profilez``);
+- ``numerics``: NaN/Inf tripwires, shadow checks of the paged kernels
+  against their plain versions, int8 scale drift and the SDC canary
+  (``/numericsz``).
 
-Not ported yet, each name raising ``NotImplementedError`` that names its
-ROADMAP queue 1 item: ``runtime``, ``xstats`` and ``numerics`` (item
-11).
+Every name of the reference's surface is offered (87 of 87).
 ``framework.monitor``'s stat_add/stat_get are a Counter view onto the
 default registry; ``serving.ServingMetrics`` is backed by these types.
 """
 from __future__ import annotations
 
-from . import (exposition, goodput, httpd, registry, slo,  # noqa: F401
-               stepprof, tracing, training)
-from ._unported import not_ported
+from . import (exposition, goodput, httpd, numerics,  # noqa: F401
+               registry, runtime, slo, stepprof, tracing, training, xstats)
 from .exposition import (  # noqa: F401
     PROMETHEUS_CONTENT_TYPE, json_snapshot, json_text, prometheus_text,
 )
@@ -53,9 +59,17 @@ from .httpd import (  # noqa: F401
     get_telemetry_server, healthz, readyz, remove_health_check,
     remove_readiness_check, start_telemetry_server, stop_telemetry_server,
 )
+from .numerics import (  # noqa: F401
+    CanaryRunner, note_serving_logits, note_shadow_divergence,
+    numericsz_payload, run_device_canary,
+)
 from .registry import (  # noqa: F401
     DEFAULT_MS_BUCKETS, Counter, Gauge, Histogram, MetricRegistry,
     PercentileWindow, default_registry, sanitize_metric_name,
+)
+from .runtime import (  # noqa: F401
+    install_build_info, install_device_memory_collector,
+    install_jax_monitoring, mirror_profiler_spans,
 )
 from .slo import (  # noqa: F401
     BurnRule, LatencySLO, SLOMonitor, add_alert_sink, default_monitor,
@@ -73,19 +87,11 @@ from .tracing import (  # noqa: F401
     record_span, request_context, start_span, tracez_payload, use_context,
 )
 
-_RUNTIME = "item 11 (runtime.py, xstats.py, numerics.py)"
-_UNPORTED = {
-    **{n: _RUNTIME for n in (
-        "runtime", "install_jax_monitoring",
-        "install_device_memory_collector", "mirror_profiler_spans",
-        "install_build_info", "xstats", "ExecEntry", "ExecRegistry",
-        "ProfileRing", "default_exec_registry", "default_profile_ring",
-        "register_executable", "device_peaks", "execz_payload",
-        "profilez_payload", "capture_profile", "numerics", "CanaryRunner",
-        "note_serving_logits", "note_shadow_divergence",
-        "numericsz_payload", "run_device_canary")},
-}
-globals().update({n: not_ported(n, item) for n, item in _UNPORTED.items()})
+from .xstats import (  # noqa: F401
+    ExecEntry, ExecRegistry, ProfileRing, capture_profile,
+    default_exec_registry, default_profile_ring, device_peaks,
+    execz_payload, profilez_payload, register_executable,
+)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricRegistry",
@@ -109,7 +115,14 @@ __all__ = [
     "GoodputLedger", "default_ledger", "set_default_ledger",
     "goodput_report", "goodputz_payload", "TrainingTelemetryCallback",
     "instrument_optimizers", "uninstrument_optimizers",
+    "install_jax_monitoring", "install_device_memory_collector",
+    "mirror_profiler_spans", "install_build_info",
+    "ExecEntry", "ExecRegistry", "ProfileRing",
+    "default_exec_registry", "default_profile_ring",
+    "register_executable", "device_peaks", "execz_payload",
+    "profilez_payload", "capture_profile",
+    "CanaryRunner", "note_serving_logits", "note_shadow_divergence",
+    "numericsz_payload", "run_device_canary",
     "registry", "exposition", "httpd", "tracing", "stepprof", "slo",
-    "goodput", "training",
-    *_UNPORTED,
+    "goodput", "training", "runtime", "xstats", "numerics",
 ]

@@ -123,6 +123,12 @@ class GoodputLedger:
         with self._lock:
             return self._t0 is not None
 
+    @property
+    def started_at(self) -> Optional[float]:
+        """The ledger clock's reading at the run start (None before)."""
+        with self._lock:
+            return self._t0
+
     # ------------------------------------------------------- recording
     def record(self, category: str, seconds: float):
         """Attribute ``seconds`` to ``category``. Inside an open frame

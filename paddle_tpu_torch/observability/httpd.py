@@ -21,10 +21,19 @@ Serves off a daemon thread:
 - ``/schedz``: multi-tenant admission state (per-tenant token buckets and
   event counts);
 - ``/goodputz``: the goodput ledger's accounting report and the step
-  profiler's summary (``goodput.goodputz_payload``).
-
-``/execz``, ``/profilez`` and ``/numericsz`` answer 501 with a body naming
-the ROADMAP item that ports them.
+  profiler's summary (``goodput.goodputz_payload``);
+- ``/execz``: the signature registry (``xstats.execz_payload``): every
+  site's signatures with the FLOPs, bytes and allocator memory measured at
+  their first dispatch (provenance tier ``eager``; the byte count is an
+  upper bound), per-site rollups and the live per-kind MFU and bandwidth
+  utilization;
+- ``/profilez``: the profile-capture ring; ``?duration_ms=`` runs one
+  bounded, rate-limited ``torch.profiler`` capture and returns the chrome
+  trace (429 when the rate limit or an in-flight capture refuses it, 409
+  while another profiler session is active);
+- ``/numericsz``: the numerics plane (``numerics.numericsz_payload``):
+  tripwire health, shadow divergences, int8 scale drift, the canary and the
+  anomaly ledger.
 
 ``InferenceServer`` and ``GenerationServer`` attach through
 ``telemetry_port=`` or ``FLAGS_serving_telemetry_port`` (-1 disabled, 0
@@ -50,21 +59,11 @@ __all__ = [
     "TelemetryServer", "start_telemetry_server", "get_telemetry_server",
     "stop_telemetry_server", "add_health_check", "remove_health_check",
     "healthz", "add_readiness_check", "remove_readiness_check",
-    "readyz", "tracez_text",
+    "readyz", "tracez_text", "execz_text", "profilez_response",
+    "numericsz_text",
 ]
 
 _start_time = time.time()
-
-# the reference's endpoints that wait for later work, with the ROADMAP
-# item that ports each
-UNPORTED_ENDPOINTS = {
-    "/execz": "the executable cost registry waits for ROADMAP queue 1 "
-              "item 11 (runtime.py, xstats.py, numerics.py)",
-    "/profilez": "the device-profile capture ring waits for ROADMAP queue "
-                 "1 item 11 (runtime.py, xstats.py, numerics.py)",
-    "/numericsz": "the numerics plane waits for ROADMAP queue 1 item 11 "
-                  "(runtime.py, xstats.py, numerics.py)",
-}
 
 # ---------------------------------------------------------------- health
 _health_lock = threading.Lock()
@@ -170,6 +169,13 @@ def _statusz() -> dict:
                                              if cuda else 0)}
     except Exception:  # noqa: BLE001
         pass
+    try:  # numerics health (lazy: absent until the numerics layer is
+        # imported)
+        num = sys.modules.get("paddle_tpu_torch.observability.numerics")
+        if num is not None:
+            out["numerics"] = num.numericsz_payload()
+    except Exception:  # noqa: BLE001
+        pass
     return out
 
 
@@ -193,6 +199,57 @@ def tracez_text(query: str) -> str:
         return json.dumps(
             {"traceEvents": tracing.chrome_trace_events(spans)})
     return json.dumps(payload, indent=1, sort_keys=True)
+
+
+def execz_text(query: str = "") -> str:
+    """The ``/execz`` body: the signature registry with per-site rollups
+    and the per-kind MFU / roofline join state. ``?compute=0`` is taken
+    for the reference's surface (nothing is computed at scrape time).
+    Shared by the telemetry endpoint and replica workers; the router
+    aggregates replica payloads."""
+    from . import xstats
+    compute = "compute=0" not in (query or "")
+    return json.dumps(xstats.execz_payload(compute=compute),
+                      indent=1, sort_keys=True, default=str)
+
+
+def numericsz_text(query: str = "") -> str:
+    """The ``/numericsz`` body (``numerics.numericsz_payload``). Shared by
+    the telemetry endpoint and replica workers; the router merges replica
+    payloads into a fleet view."""
+    del query  # no parameters yet; the signature matches its siblings
+    from . import numerics
+    return json.dumps(numerics.numericsz_payload(), indent=1,
+                      sort_keys=True, default=str)
+
+
+def profilez_response(query: str = "") -> Tuple[int, str]:
+    """The ``/profilez`` behaviour of every HTTP surface: without
+    ``duration_ms``, the capture ring; with it, one bounded, rate-limited
+    capture and its chrome-trace document (429 when the rate limit or an
+    in-flight capture refuses it; 409, typed, while another profiler
+    session is active). Returns ``(status, body)``; JSON either way."""
+    from urllib.parse import parse_qs
+
+    from . import xstats
+    q = {k: v[-1] for k, v in parse_qs(query or "").items()}
+    if not q.get("duration_ms"):
+        return 200, json.dumps(xstats.profilez_payload(), indent=1,
+                               sort_keys=True)
+    try:
+        got = xstats.capture_profile(float(q["duration_ms"]),
+                                     reason=q.get("reason", "manual"))
+    except xstats.ProfilerBusyError as e:
+        return 409, json.dumps(
+            {"error": str(e), "type": "ProfilerBusyError",
+             "ring": xstats.profilez_payload()}, indent=1, sort_keys=True)
+    if got is None:
+        return 429, json.dumps(
+            {"error": "capture rate-limited or already in flight",
+             "ring": xstats.profilez_payload()}, indent=1,
+            sort_keys=True)
+    _meta, doc = got
+    return 200, json.dumps(doc)
 
 
 # ---------------------------------------------------------------- server
@@ -243,14 +300,18 @@ class _Handler(BaseHTTPRequestHandler):
             elif path == "/goodputz":
                 from .goodput import goodputz_payload
                 self._json(200, goodputz_payload())
-            elif path in UNPORTED_ENDPOINTS:
-                self._json(501, {"error": "not implemented",
-                                 "endpoint": path,
-                                 "detail": UNPORTED_ENDPOINTS[path]})
+            elif path == "/execz":
+                self._send(200, execz_text(query), "application/json")
+            elif path == "/profilez":
+                code, body = profilez_response(query)
+                self._send(code, body, "application/json")
+            elif path == "/numericsz":
+                self._send(200, numericsz_text(query), "application/json")
             elif path == "/":
                 self._send(200, "paddle-tpu telemetry\n"
                                 "/metrics  /healthz  /readyz  /statusz  "
-                                "/tracez  /sloz  /schedz  /goodputz\n",
+                                "/tracez  /sloz  /schedz  /goodputz  "
+                                "/execz  /profilez  /numericsz\n",
                            "text/plain; charset=utf-8")
             else:
                 self._send(404, "not found\n", "text/plain; charset=utf-8")
@@ -329,12 +390,12 @@ def start_telemetry_server(port: Optional[int] = None,
                            registry: Optional[MetricRegistry] = None,
                            install_collectors: bool = True
                            ) -> TelemetryServer:
-    """Start (or return) the shared process-wide telemetry endpoint.
-    ``install_collectors`` is accepted for the reference's surface: its
-    runtime collectors (device memory, compile events) wait for ROADMAP
-    queue 1 item 11, so none is installed. A bind failure raises
-    ``OSError``."""
-    del install_collectors
+    """Start (or return) the shared process-wide telemetry endpoint. With
+    ``install_collectors`` (the default) the runtime collectors are
+    installed on first start (``runtime.install_all``: device memory, the
+    kernel library's compile event, build info, and span mirroring when
+    ``FLAGS_profiler_span_metrics`` is on), so a bare scrape already
+    carries them. A bind failure raises ``OSError``."""
     global _singleton
     with _singleton_lock:
         if _singleton is not None and _singleton.running:
@@ -343,6 +404,12 @@ def start_telemetry_server(port: Optional[int] = None,
                               host=host, registry=registry)
         srv.start()
         _singleton = srv
+    if install_collectors:
+        try:
+            from . import runtime
+            runtime.install_all(registry)
+        except Exception:  # noqa: BLE001 - collectors are best-effort;
+            pass           # the endpoint itself must come up regardless
     return _singleton
 
 

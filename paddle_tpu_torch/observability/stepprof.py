@@ -22,6 +22,11 @@ straggler is recorded as an error-status span (``stepprof::straggler``)
 through the tracing layer, which tail-promotes it into the flight
 recorder, so a slow step is a retrievable event in ``/tracez``.
 
+Every envelope goes to ``xstats.on_step_envelope`` (the
+``paddle_mfu{kind=}`` join with the step kind's registered cost), and a
+straggler to ``xstats.on_anomaly`` (the ``/profilez`` capture armed by
+``FLAGS_profile_on_anomaly``).
+
 Deterministic under test: ``now``/``wall_ns`` are injected.
 """
 from __future__ import annotations
@@ -171,9 +176,24 @@ class StepProfiler:
             if child is None:
                 child = st.hist_child = self._h_wall.labels(kind=kind)
         child.observe(wall_ms)
+        try:
+            # xstats join: the envelope's kind meets the live entry's
+            # cost numbers (paddle_mfu{kind=} and the bandwidth gauge;
+            # dict lookups and gauge sets, nothing is measured here)
+            from . import xstats
+            xstats.on_step_envelope(env)
+        except Exception:  # noqa: BLE001 - garnish on the hot path
+            pass
         if anomaly is not None:
             self._c_anomalies.labels(kind=kind).inc()
-            self._emit_anomaly_span(env, anomaly)
+            trace_id = self._emit_anomaly_span(env, anomaly)
+            try:
+                # armed by FLAGS_profile_on_anomaly: one rate-limited
+                # background capture linked to the straggler's trace
+                from . import xstats
+                xstats.on_anomaly(env, trace_id)
+            except Exception:  # noqa: BLE001 - never break a step
+                pass
         return env
 
     _PEAK_PROBE_EVERY = 64

@@ -29,7 +29,7 @@ import time
 from pathlib import Path
 
 __all__ = ["load_library", "build_seconds", "build_log", "check",
-           "DTYPE_CODES"]
+           "library_hash", "add_build_listener", "DTYPE_CODES"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -48,7 +48,9 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.int8": 2,
 _LOCK = threading.Lock()
 _LIB = None
 _BUILD_SECONDS = 0.0
+_BUILD_STARTED = None       # time.monotonic() when this process's build began
 _BUILD_LOG = ""
+_LISTENERS = []
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,7 +94,9 @@ def _nvcc() -> str:
         "use and need the CUDA toolkit")
 
 
-def _digest() -> str:
+def library_hash() -> str:
+    """The hash of the sources, headers and flags that names the library
+    (``libpaddle_tpu_torch_<hash>.so``); needs no ``nvcc``."""
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
@@ -141,14 +145,16 @@ def _build(target: Path) -> str:
 def load_library():
     """Build (once per source hash) and load the kernel library; returns
     the ``ctypes.CDLL`` with every entry point's ``argtypes`` set."""
-    global _LIB, _BUILD_SECONDS, _BUILD_LOG
+    global _LIB, _BUILD_SECONDS, _BUILD_STARTED, _BUILD_LOG
     if _LIB is not None:
         return _LIB
     with _LOCK:
         if _LIB is None:
-            target = BUILD_DIR / f"libpaddle_tpu_torch_{_digest()}.so"
-            if not target.exists():
+            target = BUILD_DIR / f"libpaddle_tpu_torch_{library_hash()}.so"
+            built = not target.exists()
+            if built:
                 t0 = time.perf_counter()
+                _BUILD_STARTED = time.monotonic()
                 _BUILD_LOG = _build(target)
                 _BUILD_SECONDS = time.perf_counter() - t0
             lib = ctypes.CDLL(str(target))
@@ -162,7 +168,30 @@ def load_library():
             lib.pt_error_string.argtypes = [ctypes.c_int]
             lib.pt_error_string.restype = ctypes.c_char_p
             _LIB = lib
+            if built:
+                for fn in list(_LISTENERS):
+                    _notify(fn, _BUILD_SECONDS, _BUILD_STARTED)
     return _LIB
+
+
+def _notify(fn, seconds: float, started: float) -> None:
+    try:
+        fn(seconds, started)
+    except Exception:  # noqa: BLE001 - a listener never fails the build
+        pass
+
+
+def add_build_listener(fn) -> None:
+    """Call ``fn(seconds, started)`` after this process compiles the
+    library (``started``: ``time.monotonic()`` when the build began), and
+    at once when it already did (the observability plane counts the build
+    as the port's run-time compile)."""
+    with _LOCK:
+        _LISTENERS.append(fn)
+        past, started = _BUILD_SECONDS, _BUILD_STARTED
+    if past > 0:
+        _notify(fn, past, started)
+
 
 
 def build_seconds() -> float:

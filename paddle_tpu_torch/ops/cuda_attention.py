@@ -45,7 +45,9 @@ exactly), and ``flops`` the operations
 of the launched kernels' two matrix products, ``4·B·H·Sq·Sk·D`` a launch
 over the whole score matrix (a causal launch skips the tiles its mask
 empties): a FLOP counter over torch's ops (``bench.py``'s cost check)
-cannot see a kernel called through ``ctypes``.
+cannot see a kernel called through ``ctypes``; ``bytes_moved`` the bytes of
+the launched kernels' operands and results (q, k, v, out, lse), which the
+observability plane's byte count adds for the same reason.
 """
 from __future__ import annotations
 
@@ -69,6 +71,7 @@ REPLACES = "paddle_tpu/ops/pallas_attention.py:135"
 launches = 0
 plain_calls = 0
 flops = 0.0
+bytes_moved = 0.0
 COUNT_LOCK = threading.Lock()
 
 
@@ -198,7 +201,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
     lse [B*H, Sq] float32)``. CUDA tensors launch ``csrc/flash_fwd.cu`` on
     the current stream (no synchronisation); CPU tensors take
     :func:`mha_fwd_reference`."""
-    global launches, flops
+    global launches, flops, bytes_moved
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -230,4 +233,6 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
     with COUNT_LOCK:
         launches += 1
         flops += 4.0 * b * h * sq * sk * d
+        bytes_moved += float(sum(t.numel() * t.element_size()
+                                 for t in (q, k, v, out, lse)))
     return out, lse

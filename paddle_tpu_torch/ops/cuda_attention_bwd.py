@@ -51,7 +51,8 @@ module's ``COUNT_LOCK``, so threads of one process count exactly), and
 ``flops`` the operations of the launched kernels' matrix products over the
 whole score matrix (dq three products, ``6·B·H·Sq·Sk·D``; dk/dv four,
 ``8·B·H·Sq·Sk·D``; a causal launch skips the tiles its mask empties),
-which a FLOP counter over torch's ops cannot see.
+which a FLOP counter over torch's ops cannot see, and ``bytes_moved`` the
+bytes of both kernels' operands and results.
 """
 from __future__ import annotations
 
@@ -75,6 +76,7 @@ REPLACES = {"flash_bwd_dq": "paddle_tpu/ops/pallas_attention.py:288",
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)
 flops = dict.fromkeys(KERNELS, 0.0)
+bytes_moved = 0.0
 COUNT_LOCK = threading.Lock()
 # the products of each kernel (s, dp, dq; s, dp, dv, dk)
 _PRODUCTS = {"flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -230,9 +232,13 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None,
                 scale)
         if ck is not None and lse_ct is not None:
             _lse_ct_term(dq, lse_ct, ck, scale)
+    moved = float(sum(t.numel() * t.element_size()
+                      for t in (q, k, v, do, lse, delta, dq, dk, dv)))
+    global bytes_moved
     with COUNT_LOCK:
         for name, n in _PRODUCTS.items():
             flops[name] += 2.0 * n * b * h * sq * sk * d
+        bytes_moved += moved
     return dq, dk, dv
 
 

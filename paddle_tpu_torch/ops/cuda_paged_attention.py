@@ -48,7 +48,12 @@ what it refuses (a head_dim outside ``HEAD_DIMS``) to the plain version.
 pool type, e.g. ``("chunked", "int8")``; ``launches_by_kernel`` by the entry
 of ``KERNELS`` that ran), ``plain_calls`` calls of the plain version;
 all are updated under the module's ``COUNT_LOCK``, so replicas serving from
-threads of one process count exactly.
+threads of one process count exactly. ``flops`` and ``bytes_moved`` tally
+what the launched kernels compute and read over every slot their tables
+address (``4*D`` operations per query row, slot and head; the K/V bytes of
+those slots, q and out), the count the plain version's products and reads
+give: the observability plane adds them to what its counters see of torch's
+ops, which a ``ctypes`` launch is not.
 """
 from __future__ import annotations
 
@@ -78,6 +83,8 @@ launches = 0
 launches_by = {}
 launches_by_kernel = {}
 plain_calls = 0
+flops = 0.0
+bytes_moved = 0.0
 COUNT_LOCK = threading.Lock()
 
 
@@ -279,7 +286,15 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_len, valid,
     _build.check(err, "paged_attention")
     key = (kind, str(k_vals.dtype).replace("torch.", ""))
     name = kernel_for(kind, q.dtype, s)
+    slots = b * n_tab * page_size
+    slot_bytes = h * (d * k_vals.element_size()
+                      + (4 if k_sc is not None else 0))
+    moved = float(2 * slots * slot_bytes
+                  + 2 * q.numel() * q.element_size())
+    global flops, bytes_moved
     with COUNT_LOCK:
+        flops += 4.0 * s * h * d * slots
+        bytes_moved += moved
         launches += 1
         launches_by[key] = launches_by.get(key, 0) + 1
         launches_by_kernel[name] = launches_by_kernel.get(name, 0) + 1

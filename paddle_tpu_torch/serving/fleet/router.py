@@ -36,8 +36,8 @@ The merged views (``/metrics?merged=1``, ``/tracez``, ``/sloz``,
 ``/schedz``) fan out to every live replica and stitch the answers with
 the operations plane's helpers; ``/goodputz`` answers the router
 process's own goodput ledger, as the reference's; ``/execz``,
-``/profilez`` and ``/numericsz`` answer 501 naming their ROADMAP items,
-as the port's telemetry endpoint does.
+``/numericsz`` and ``/profilez`` merge the live replicas' answers
+(``merged_execz``, ``merged_numericsz``, ``merged_profilez``).
 
 Resilience layer (resilience.py):
 
@@ -78,7 +78,6 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 
 from ...observability import tracing
-from ...observability.httpd import UNPORTED_ENDPOINTS
 from ..generation.engine import StreamingFuture
 from ..request import (DeadlineExceededError, QueueFullError,
                        ServerClosedError)
@@ -1167,6 +1166,106 @@ class FleetRouter:
                 pass           # drops out of the merged view
         return schedz_mod.merge_schedz_payloads(own, remotes)
 
+    def merged_execz(self) -> dict:
+        """Fleet-wide ``/execz``: this process's executable registry
+        plus every live replica's, keyed by replica id, with a
+        fleet-level per-site rollup — which replica is running which
+        executables at what cost, one page."""
+        from ...observability import xstats
+        own = xstats.execz_payload()
+        replicas: Dict[str, dict] = {}
+        with self._lock:
+            reps = [(str(r.replica_id), r.url)
+                    for r in self._replicas.values() if r.alive]
+        for rid, url in reps:
+            try:
+                with self._http(url + "/execz", timeout=10.0) as resp:
+                    replicas[rid] = json.loads(resp.read())
+            except Exception:  # noqa: BLE001 - a scrape-dead replica
+                pass           # drops out of the merged view
+        fleet_sites: Dict[str, dict] = {}
+        for payload in replicas.values():
+            for site, s in (payload.get("sites") or {}).items():
+                agg = fleet_sites.setdefault(
+                    site, {"entries": 0, "dispatches": 0, "flops": 0.0})
+                agg["entries"] += s.get("entries", 0)
+                agg["dispatches"] += s.get("dispatches", 0)
+                agg["flops"] = max(agg["flops"], s.get("flops", 0.0))
+        return {"router": own, "replicas": replicas,
+                "fleet": {"sites": fleet_sites,
+                          "replicas_merged": len(replicas)}}
+
+    def merged_numericsz(self) -> dict:
+        """Fleet-wide ``/numericsz``: this process's numerics plane
+        plus every live replica's, keyed by replica id, with a fleet
+        rollup — total anomalies, canary failures, the corrupted
+        replica set, and the worst (lowest) finite fraction seen —
+        so one page answers "is anything on this fleet corrupting"."""
+        from ...observability import numerics
+        own = numerics.numericsz_payload()
+        replicas: Dict[str, dict] = {}
+        with self._lock:
+            reps = [(str(r.replica_id), r.url)
+                    for r in self._replicas.values() if r.alive]
+        for rid, url in reps:
+            try:
+                with self._http(url + "/numericsz",
+                                timeout=10.0) as resp:
+                    replicas[rid] = json.loads(resp.read())
+            except Exception:  # noqa: BLE001 - a scrape-dead replica
+                pass           # drops out of the merged view
+        anomalies = 0
+        canary_failures = 0
+        corrupt: List[str] = []
+        min_frac = 1.0
+        for rid, payload in replicas.items():
+            an = payload.get("anomalies") or {}
+            anomalies += int(an.get("total") or 0)
+            cn = payload.get("canary") or {}
+            canary_failures += int(cn.get("failures") or 0)
+            if cn.get("corrupt"):
+                corrupt.append(rid)
+            for s in (payload.get("serving") or {}).values():
+                f = s.get("finite_fraction")
+                if f is not None:
+                    min_frac = min(min_frac, float(f))
+        return {"router": own, "replicas": replicas,
+                "fleet": {"replicas_merged": len(replicas),
+                          "anomalies_total": anomalies,
+                          "canary_failures_total": canary_failures,
+                          "corrupt_replicas": sorted(corrupt),
+                          "min_finite_fraction": min_frac}}
+
+    def merged_profilez(self, duration_ms: Optional[float] = None
+                        ) -> dict:
+        """Fleet-wide ``/profilez``: without a duration, every live
+        replica's capture ring; with one, fan a bounded capture out to
+        ALL live replicas concurrently and return the stitched bundle
+        of chrome-trace documents keyed by replica id."""
+        with self._lock:
+            reps = [(str(r.replica_id), r.url)
+                    for r in self._replicas.values() if r.alive]
+        q = f"?duration_ms={float(duration_ms)}" if duration_ms else ""
+
+        def one(url):
+            timeout = 10.0 + (float(duration_ms) / 1e3
+                              if duration_ms else 0.0)
+            with self._http(url + "/profilez" + q,
+                            timeout=timeout) as resp:
+                return json.loads(resp.read())
+
+        replicas: Dict[str, dict] = {}
+        futs = {rid: self._pool.submit(one, url) for rid, url in reps}
+        for rid, fut in futs.items():
+            try:
+                replicas[rid] = fut.result()
+            except Exception as e:  # noqa: BLE001 - a refused or dead
+                replicas[rid] = {"error": repr(e)}  # replica is still
+                # part of the bundle: the operator sees who failed
+        return {"replicas": replicas,
+                "captured": duration_ms is not None,
+                "replicas_merged": len(replicas)}
+
     def statusz(self) -> dict:
         """Fleet status page: per-replica id/readiness/outstanding/
         version (+ restart counts when a supervisor is attached) and
@@ -1294,11 +1393,22 @@ class _RouterHandler(BaseHTTPRequestHandler):
                 from ...observability.goodput import goodputz_payload
                 self._send(200, json.dumps(
                     goodputz_payload(), sort_keys=True).encode())
-            elif path in UNPORTED_ENDPOINTS:
-                self._send(501, json.dumps(
-                    {"error": "not implemented", "endpoint": path,
-                     "detail": UNPORTED_ENDPOINTS[path]},
-                    sort_keys=True).encode())
+            elif path == "/execz":
+                self._send(200, json.dumps(
+                    self._router.merged_execz(), sort_keys=True,
+                    default=str).encode())
+            elif path == "/numericsz":
+                self._send(200, json.dumps(
+                    self._router.merged_numericsz(), sort_keys=True,
+                    default=str).encode())
+            elif path == "/profilez":
+                from urllib.parse import parse_qs
+                q = {k: v[-1] for k, v in parse_qs(query).items()}
+                doc = self._router.merged_profilez(
+                    duration_ms=float(q["duration_ms"])
+                    if q.get("duration_ms") else None)
+                self._send(200, json.dumps(doc, sort_keys=True,
+                                           default=str).encode())
             else:
                 self._send(404, b"not found\n", "text/plain")
         except Exception as e:  # noqa: BLE001 - handler fault barrier

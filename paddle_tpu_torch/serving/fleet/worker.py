@@ -29,9 +29,11 @@ Control plane (JSON):
   recorder; the router's merged ``/tracez`` fans out to it) / ``GET /sloz``
   / ``GET /schedz`` (this process's admission and autoscaler state; the
   router's merged views sum them fleet-wide) / ``GET /goodputz`` (this
-  process's goodput ledger and step profiler). ``/execz``, ``/profilez``
-  and ``/numericsz`` answer 501 naming their ROADMAP items, as the port's
-  telemetry endpoint does.
+  process's goodput ledger and step profiler) / ``GET /execz`` (this
+  process's signature registry; the router's ``/execz`` aggregates) /
+  ``GET /profilez`` (the capture ring, or ``?duration_ms=`` one bounded
+  capture on this replica) / ``GET /numericsz`` (this process's numerics
+  plane with THIS replica's canary overlaid).
 - ``POST /reload`` — hot weight swap: load the version-stamped artifact
   named in the body, warm the replacement server, swap it in, drain the
   old one and release it. The router drains this replica first, so
@@ -51,11 +53,17 @@ requests shutdown so the supervisor's respawn replaces the process.
 current process — the test double and the single-process deployment mode;
 the wire protocol and routing logic are identical.
 
+The numerics SDC canary (``arm_canary``) sweeps a deterministic checksum
+every ``FLAGS_numerics_canary_period_s`` (``--canary-period-s``) and on
+readiness transitions: the backend's ``canary_probe`` where it has one
+(the stub), the device canary otherwise (``PredictorBackend``, on its
+device). A failed sweep quarantines the replica: ``/readyz`` answers 503
+with ``corrupt``, so the router's poller opens its breaker.
+
 Left out, each raising ``NotImplementedError`` that names its ROADMAP queue
 1 item: the warmup manifest (``--warmup manifest``, item 5a; ``auto`` takes
-the lattice), the serving mesh (``FLAGS_serving_mesh_mp`` above 1, item 5c)
-and the numerics canary's runner (``arm_canary`` with a period above 0,
-item 11).
+the lattice) and the serving mesh (``FLAGS_serving_mesh_mp`` above 1, item
+5c).
 """
 from __future__ import annotations
 
@@ -69,7 +77,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ...observability import tracing
-from ...observability.httpd import UNPORTED_ENDPOINTS
 from ..request import (DeadlineExceededError, QueueFullError,
                        QuotaExceededError, ServerClosedError)
 from . import codec
@@ -220,18 +227,36 @@ def arm_canary(backend, app: "ReplicaApp", *,
                period_s: Optional[float] = None,
                name: Optional[str] = None,
                restart: bool = False):
-    """The numerics SDC canary of the reference: with the default period
-    (``FLAGS_numerics_canary_period_s`` = 0) it is off and this returns
-    None; a period above 0 needs the canary's runner, which waits for the
-    numerics plane (ROADMAP queue 1 item 11)."""
+    """Attach the numerics SDC canary to this replica: a deterministic
+    checksum sweep every ``period_s`` (default
+    ``FLAGS_numerics_canary_period_s``) and on not-ready→ready
+    transitions. A backend's ``canary_probe`` (the stub's corruption
+    self-check) replaces the device sweep; otherwise the sweep runs on the
+    backend's device. On a corruption episode the replica quarantines
+    itself: readiness flips red (``/readyz`` reports ``corrupt``), so the
+    router's poller opens the replica's breaker and drains it, and the
+    backend's ``mark_corrupt`` runs where it has one; with ``restart`` the
+    worker also exits for a supervisor respawn. Returns the started
+    runner, or None when the period disables it."""
+    from ...observability.numerics import CanaryRunner
     if period_s is None:
         period_s = float(
             _flag("FLAGS_numerics_canary_period_s", 0.0) or 0.0)
-    if float(period_s) <= 0:
-        return None
-    raise NotImplementedError(
-        "the numerics canary (CanaryRunner) waits for ROADMAP queue 1 "
-        "item 11")
+    probe = getattr(backend, "canary_probe", None)
+
+    def _on_corrupt():
+        mark = getattr(backend, "mark_corrupt", None)
+        if mark is not None:
+            mark()
+        if restart:
+            app._request_shutdown()
+
+    runner = CanaryRunner(
+        name=name or tracing.process_name(), period_s=period_s,
+        probe=probe, ready_fn=backend.ready, on_corrupt=_on_corrupt,
+        canary_device=getattr(backend, "device", None))
+    app.canary = runner
+    return runner.start()
 
 
 # ---------------------------------------------------------------- backends
@@ -318,6 +343,12 @@ class PredictorBackend:
     @property
     def generation_server(self):
         return self._gen
+
+    @property
+    def device(self):
+        """The device the predictor runs on (None: the card), where the
+        numerics canary sweeps."""
+        return self._device
 
     # ---- service surface ----
     def submit_many(self, feeds_list, timeout_ms=None,
@@ -806,10 +837,32 @@ class _ReplicaHandler(BaseHTTPRequestHandler):
                 self._send(200, json.dumps(
                     goodputz_payload(), sort_keys=True).encode(),
                     "application/json")
-            elif path in UNPORTED_ENDPOINTS:
-                self._send_json(501, {"error": "not implemented",
-                                      "endpoint": path,
-                                      "detail": UNPORTED_ENDPOINTS[path]})
+            elif path == "/execz":
+                # this replica's signature registry; the router's /execz
+                # aggregates across replicas
+                from ...observability.httpd import execz_text
+                self._send(200, execz_text(query).encode(),
+                           "application/json")
+            elif path == "/profilez":
+                # the capture ring, or (?duration_ms=) one bounded
+                # capture on THIS replica
+                from ...observability.httpd import profilez_response
+                code, body = profilez_response(query)
+                self._send(code, body.encode(), "application/json")
+            elif path == "/numericsz":
+                # this process's numerics plane with THIS replica's canary
+                # overlaid on the process-wide canary section: with
+                # several in-process replicas the shared state reports the
+                # last sweep of any of them
+                from ...observability.httpd import numericsz_text
+                doc = json.loads(numericsz_text(query))
+                cn = getattr(self.server.app, "canary", None)
+                if cn is not None:
+                    doc["canary"] = dict(doc.get("canary") or {},
+                                         corrupt=cn.corrupt, last=cn.last)
+                self._send(200, json.dumps(doc, sort_keys=True,
+                                           default=str).encode(),
+                           "application/json")
             elif path == "/healthz":
                 ok, info = self._backend.health()
                 self._send_json(200 if ok else 503,
@@ -817,11 +870,18 @@ class _ReplicaHandler(BaseHTTPRequestHandler):
             elif path == "/readyz":
                 wd = getattr(self.server.app, "watchdog", None)
                 wedged = wd is not None and wd.wedged
-                ready = self._backend.ready() and not wedged
+                cn = getattr(self.server.app, "canary", None)
+                corrupt = cn is not None and cn.corrupt
+                ready = (self._backend.ready() and not wedged
+                         and not corrupt)
                 body = {"ready": ready,
                         "version": self._backend.info().get("version")}
                 if wedged:
                     body["wedged"] = True
+                if corrupt:
+                    # the router's poller opens this replica's breaker on
+                    # the flag: SDC quarantine, not just not-ready
+                    body["corrupt"] = True
                 self._send_json(200 if ready else 503, body)
             elif path == "/metrics":
                 from ...observability import (default_registry,
@@ -1080,6 +1140,7 @@ class ReplicaApp:
         self._thread: Optional[threading.Thread] = None
         self._shutdown_requested = threading.Event()
         self.watchdog: Optional[WedgeWatchdog] = None
+        self.canary = None      # CanaryRunner via arm_canary
 
     @property
     def port(self) -> Optional[int]:
@@ -1110,6 +1171,9 @@ class ReplicaApp:
         return self._shutdown_requested.wait(timeout)
 
     def stop(self):
+        cn, self.canary = self.canary, None
+        if cn is not None:
+            cn.stop()
         httpd, self._httpd = self._httpd, None
         if httpd is not None:
             httpd.shutdown()
@@ -1270,7 +1334,8 @@ def main(argv=None) -> int:
     # readiness, fail device waiters, exit — the supervisor respawns
     wd = arm_wedge_watchdog(backend, app,
                             timeout_ms=args.wedge_timeout_ms)
-    # off at the default period; above 0 it raises (ROADMAP item 11)
+    # the canary turns silent data corruption into a quarantine (off at
+    # the default period)
     arm_canary(backend, app, period_s=args.canary_period_s)
     if args.announce:
         write_announce_file(args.announce, app.port)

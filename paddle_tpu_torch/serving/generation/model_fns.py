@@ -25,6 +25,23 @@ updated in place (the returned ``k, v`` are the same objects). Every entry
 point runs under ``torch.inference_mode()``. Except in ``verify``, the lm
 head runs on the selected last positions only, so the full ``[B, S,
 vocab]`` logits never exist. ``calls`` counts each entry point's calls.
+
+Each entry point is one dispatch of an observability site
+(``generate_prefill``, ``generate_decode``, ``generate_chunked``,
+``generate_verify``), as the reference's (``model_fns.py:365-479``):
+
+- xstats: the first dispatch of each signature registers and measures its
+  entry (``observability/xstats.py``); later ones bump its counters;
+- numerics tripwires (``FLAGS_check_nan_inf`` or
+  ``FLAGS_numerics_sample_rate``): the logits' health stats, and over int8
+  pools the scale planes' magnitude, are noted without a sync;
+- shadow checks (``FLAGS_numerics_shadow_rate``, the decode, chunked and
+  verify sites): BEFORE the real call, the same forward runs through the
+  kernels' plain versions on a compact copy of only the pages the batch's
+  block tables name (tables remapped onto the copy), so the live pools,
+  tables and everything the engine holds come out bit for bit as without
+  the shadow; the max-abs logit divergence is noted. Its plain calls count
+  in the wrappers' ``plain_calls``.
 """
 from __future__ import annotations
 
@@ -36,6 +53,7 @@ import torch
 
 from ...framework.device import resolve_device, same_device
 from ...models.gpt import GPTKVCache, is_stacked_pool, layer_pool
+from ...observability import numerics, xstats
 from ...ops.paged_attention import is_quantized_pool, resolve_kv_dtype
 
 __all__ = ["CachedDecoder", "supports_cached_decode"]
@@ -94,6 +112,11 @@ class CachedDecoder:
         self._stacked = bool(spec["stacked"])
         self.max_positions = int(max_positions if max_positions is not None
                                  else spec["max_seq_len"])
+        # xstats memo: (site, shapes) -> ExecEntry
+        self._xstats_entries = {}
+        self._dtype_label = self.kv_dtype or (
+            "f32" if self._pool_dtype == torch.float32
+            else str(self._pool_dtype).replace("torch.", ""))
 
     def _t(self, a, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
@@ -116,17 +139,77 @@ class CachedDecoder:
                              f"pools (kv_dtype={self.kv_dtype!r}), got "
                              f"{got} pools")
 
-    def _run(self, kind, ids, positions, valid, ctx, tables, k, v, last_idx):
+    def _run(self, kind, ids, positions, valid, ctx, tables, k, v, last_idx,
+             use_kernels=None):
         """One cached forward; the logits of each row's ``last_idx``
         position [B, vocab], or of every position [B, S, vocab] when
         ``last_idx`` is None."""
-        self._check_pools(k)
         cache = GPTKVCache(kind, self.page_size, k, v, tables, ctx, valid,
-                           positions, use_kernels=self.use_kernels)
+                           positions,
+                           use_kernels=(self.use_kernels if use_kernels is None
+                                        else use_kernels))
         h, (k2, v2) = self.model.gpt(ids, cache=cache)
         if last_idx is not None:
             h = h[torch.arange(h.shape[0], device=h.device), last_idx]
         return self.model.logits(h), k2, v2
+
+    def _dispatch(self, site, kind, ids, positions, valid, ctx, tables_np,
+                  k, v, last_idx):
+        """One dispatch of ``site``: the shadow check first (sampled), then
+        the real forward (measured by xstats at a signature's first
+        dispatch), then the numerics notes."""
+        self._check_pools(k)
+        tables = self._t(tables_np, np.int32)
+        args = (kind, ids, positions, valid, ctx)
+        shadow = None
+        if site in numerics.SHADOW_SITES and numerics.sample_decision(
+                numerics.shadow_rate()):
+            shadow = self._shadow(args, tables_np, k, v, last_idx)
+        key = (site, tuple(ids.shape), tuple(tables.shape))
+        out = xstats.observed_call(
+            self._xstats_entries, key, site,
+            lambda: self._run(*args, tables, k, v, last_idx),
+            signature_fn=lambda: xstats.signature_of(
+                [ids, positions, valid, ctx, tables, layer_pool(k, 0)]),
+            device=self.device)
+        try:
+            kname = site[len("generate_"):]
+            if shadow is not None:
+                numerics.note_shadow_divergence(
+                    kname, self._dtype_label,
+                    (out[0].float() - shadow.float()).abs().max())
+            if numerics.sample_decision(numerics.tripwire_rate()):
+                numerics.note_serving_logits(kname, out[0])
+                if self.kv_dtype == "int8":
+                    numerics.note_int8_scales(kname, k, v)
+        except Exception:  # noqa: BLE001 - never break a decode step
+            pass
+        return out
+
+    def _shadow(self, args, tables_np, k, v, last_idx):
+        """The forward through the kernels' plain versions on a compact
+        copy of the pages ``tables_np`` names (page 0, the trash page,
+        always among them), with the tables remapped onto the copy. Returns
+        its logits, or None when it fails (a shadow never fails the
+        dispatch)."""
+        try:
+            pages = np.union1d(np.asarray(tables_np, np.int64).reshape(-1),
+                               [0])
+            remap = np.searchsorted(pages, tables_np).astype(np.int32)
+            idx = torch.from_numpy(pages).to(self.device)
+            dim = 1 if self._stacked else 0
+
+            def take(pool):
+                if isinstance(pool, list):
+                    return [take(p) for p in pool]
+                if isinstance(pool, tuple):
+                    return tuple(t.index_select(dim, idx) for t in pool)
+                return pool.index_select(dim, idx)
+
+            return self._run(*args, self._t(remap, np.int32), take(k),
+                             take(v), last_idx, use_kernels=False)[0]
+        except Exception:  # noqa: BLE001 - observability is garnish
+            return None
 
     @torch.inference_mode()
     def prefill(self, ids: np.ndarray, prompt_lens: np.ndarray,
@@ -142,10 +225,11 @@ class CachedDecoder:
                                  device=self.device).expand(b, s)
         valid = positions < lens[:, None]
         last = (lens.long() - 1).clamp(0, s - 1)
-        return self._run("prefill", ids_t, positions, valid, lens,
-                         self._t(tables, np.int32), k, v, last)
+        return self._dispatch("generate_prefill", "prefill", ids_t,
+                              positions, valid, lens, tables, k, v, last)
 
-    def _chunked(self, ids, start, seg_lens, tables, k, v, last: bool):
+    def _chunked(self, site, ids, start, seg_lens, tables, k, v,
+                 last: bool):
         ids_t = self._t(ids, np.int64)
         start_t = self._t(start, np.int32)
         seg = self._t(seg_lens, np.int32)
@@ -158,8 +242,8 @@ class CachedDecoder:
         valid = (offs < seg[:, None]) & (positions < self.max_positions)
         ctx = start_t + seg
         last_idx = (seg.long() - 1).clamp(0, s - 1) if last else None
-        return self._run("chunked", ids_t, positions, valid, ctx,
-                         self._t(tables, np.int32), k, v, last_idx)
+        return self._dispatch(site, "chunked", ids_t, positions, valid, ctx,
+                              tables, k, v, last_idx)
 
     @torch.inference_mode()
     def prefill_chunked(self, ids: np.ndarray, start: np.ndarray,
@@ -170,7 +254,8 @@ class CachedDecoder:
         tables [B, P] (prefix pages first, then the row's own). Returns
         ``(last_logits [B, vocab], k, v)``."""
         self.calls["chunked"] += 1
-        return self._chunked(ids, start, seg_lens, tables, k, v, last=True)
+        return self._chunked("generate_chunked", ids, start, seg_lens,
+                             tables, k, v, last=True)
 
     @torch.inference_mode()
     def verify(self, tokens: np.ndarray, start: np.ndarray,
@@ -182,8 +267,8 @@ class CachedDecoder:
         reserved pages and are rolled back by truncating the context
         length, never by touching the pool. Returns ``(logits, k, v)``."""
         self.calls["verify"] += 1
-        return self._chunked(tokens, start, seg_lens, tables, k, v,
-                             last=False)
+        return self._chunked("generate_verify", tokens, start, seg_lens,
+                             tables, k, v, last=False)
 
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
@@ -196,7 +281,7 @@ class CachedDecoder:
         ids_t = self._t(tokens, np.int64)[:, None]
         zero = torch.zeros(ids_t.shape[0], dtype=torch.long,
                            device=self.device)
-        return self._run("decode", ids_t, self._t(positions, np.int32)[:, None],
-                         self._t(active, bool)[:, None],
-                         self._t(ctx, np.int32), self._t(tables, np.int32),
-                         k, v, zero)
+        return self._dispatch("generate_decode", "decode", ids_t,
+                              self._t(positions, np.int32)[:, None],
+                              self._t(active, bool)[:, None],
+                              self._t(ctx, np.int32), tables, k, v, zero)

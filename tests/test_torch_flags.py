@@ -104,3 +104,30 @@ def test_elastic_flag_defaults_equal_reference(name):
     import paddle_tpu.elastic  # noqa: F401
     assert tflags.flag_value(name) == jflags.flag_value(name)
     assert type(tflags.flag_value(name)) is type(jflags.flag_value(name))
+
+
+# the runtime and numerics plane (observability/{runtime,xstats,numerics})
+PLANE_FLAGS = (
+    "FLAGS_profiler_span_metrics", "FLAGS_xstats_enable",
+    "FLAGS_xstats_max_entries", "FLAGS_device_peak_flops",
+    "FLAGS_device_peak_bytes_per_s", "FLAGS_profile_dir",
+    "FLAGS_profile_ring", "FLAGS_profile_max_ms",
+    "FLAGS_profile_min_interval_s", "FLAGS_profile_on_anomaly",
+    "FLAGS_profile_anomaly_ms", "FLAGS_numerics_sample_rate",
+    "FLAGS_numerics_shadow_rate", "FLAGS_numerics_canary_period_s",
+    "FLAGS_check_nan_inf")
+
+
+@pytest.mark.parametrize("name", PLANE_FLAGS)
+def test_plane_flags_match_the_reference(name):
+    """The plane's flags carry the reference's names and defaults: the
+    numerics rates are off, xstats is on."""
+    assert tflags._REGISTRY[name].default == jflags._REGISTRY[name].default
+    assert type(tflags._REGISTRY[name].default) is \
+        type(jflags._REGISTRY[name].default)
+
+
+def test_flags_generation_moves_with_every_set():
+    gen = tflags.flags_generation()
+    tflags.set_flags({"FLAGS_xstats_enable": True})
+    assert tflags.flags_generation() == gen + 1

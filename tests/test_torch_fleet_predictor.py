@@ -19,6 +19,7 @@ CPU.
   bit ``Predictor.run``'s.
 """
 import contextlib
+import time
 
 import ml_dtypes
 import numpy as np
@@ -223,8 +224,17 @@ def test_left_out_paths_raise_naming_their_items(tmp_path):
     be = pfleet.StubBackend()
     app = pfleet.ReplicaApp(be)
     assert pfleet.arm_canary(be, app) is None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pfleet.arm_canary(be, app, period_s=1.0)
+    # the canary is ported (tests/test_torch_fleet_canary.py): a period
+    # above 0 starts its runner, which sweeps the stub's probe at once
+    runner = pfleet.arm_canary(be, app, period_s=1.0)
+    try:
+        assert runner is app.canary and runner.period_s == 1.0
+        deadline = time.monotonic() + 10
+        while runner.last is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert runner.last["ok"] and runner.last["probe"]["ok"]
+    finally:
+        runner.stop()
     from paddle_tpu_torch.serving.fleet import worker
     with pytest.raises(SystemExit) as ei:
         worker._parse_args(["--stub", "--warmup", "manifest"])

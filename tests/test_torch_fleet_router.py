@@ -483,12 +483,24 @@ def test_router_app_serves_the_port_views_and_501s():
             for path in ("/metrics?merged=1", "/statusz", "/tracez",
                          "/sloz", "/schedz", "/readyz", "/healthz"):
                 assert _http_get(app.url(path))[0] == 200, path
-            for path in ("/execz", "/profilez", "/numericsz"):
+            # the runtime and numerics plane (501 before it was ported):
+            # the router merges the replicas' answers, the worker answers
+            # its own, with the reference's keys
+            for path, keys in (
+                    ("/execz", {"router", "replicas", "fleet"}),
+                    ("/numericsz", {"router", "replicas", "fleet"}),
+                    ("/profilez", {"replicas", "captured",
+                                   "replicas_merged"})):
                 code, text = _http_get(app.url(path))
-                assert code == 501 and "item 11" in text.decode(), path
-            for path in ("/execz", "/numericsz"):
+                assert code == 200 and set(json.loads(text)) == keys, path
+            for path, keys in (
+                    ("/execz", {"peaks", "entries", "sites", "kinds",
+                                "n_entries"}),
+                    ("/numericsz", {"serving", "train", "shadow", "int8",
+                                    "canary", "anomalies", "pending",
+                                    "enabled", "rates"})):
                 code, text = _http_get(f.apps[0].url + path)
-                assert code == 501 and b"ROADMAP" in text, path
+                assert code == 200 and set(json.loads(text)) == keys, path
             # the goodput ledger is ported: the router and the worker
             # answer their process's ledger
             for url in (app.url("/goodputz"), f.apps[0].url + "/goodputz"):

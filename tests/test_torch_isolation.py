@@ -58,7 +58,7 @@ def test_package_has_modules_to_scan():
                 # the operations plane and the tenant scheduler
                 "observability/__init__.py", "observability/exposition.py",
                 "observability/httpd.py", "observability/slo.py",
-                "observability/stepprof.py", "observability/_unported.py",
+                "observability/stepprof.py",
                 "serving/scheduling/__init__.py",
                 "serving/scheduling/admission.py",
                 "serving/scheduling/policy.py",
@@ -75,7 +75,10 @@ def test_package_has_modules_to_scan():
                 "elastic/manager.py", "elastic/preemption.py",
                 "observability/goodput.py", "observability/training.py",
                 "tools/__init__.py", "tools/faultinject.py",
-                "tools/elastic_ckpt_worker.py"):
+                "tools/elastic_ckpt_worker.py",
+                # the runtime and numerics plane
+                "observability/runtime.py", "observability/xstats.py",
+                "observability/numerics.py"):
         assert f"paddle_tpu_torch/{mod}" in scanned
 
 

@@ -6,9 +6,10 @@ operations; every endpoint must answer with the reference's status code
 and JSON keys, ``/metrics`` byte for byte, and health and readiness checks
 (passing, failing, raising, removed) the same way. ``/goodputz`` answers
 each package's goodput ledger, driven by the same calls under one clock,
-with the same document; the three endpoints the port leaves to later work
-answer 501 naming their ROADMAP item, and a port that cannot be bound
-raises ``OSError``. Checks registered here are
+with the same document; ``/execz``, ``/profilez`` and ``/numericsz`` (the
+runtime and numerics plane, once left to later work and answering 501)
+answer 200 with the reference's top-level keys, and a port that cannot be
+bound raises ``OSError``. Checks registered here are
 removed before each test ends (the check tables are process-wide).
 """
 import json
@@ -99,10 +100,12 @@ def test_json_by_accept_header(servers):
 
 @pytest.mark.parametrize("path", UNPORTED)
 def test_unported_endpoints_answer_501(servers, path):
-    code, ctype, body = _get(servers[0], path)
-    assert code == 501 and ctype == "application/json"
-    doc = json.loads(body)
-    assert doc["endpoint"] == path and "ROADMAP" in doc["detail"]
+    """The three endpoints that answered 501 before the runtime and
+    numerics plane was ported now answer 200 with the reference's JSON
+    keys (the test keeps its name)."""
+    (pc, pt, pb), (jc, jt, jb) = (_get(s, path) for s in servers)
+    assert pc == jc == 200 and pt == jt == "application/json"
+    assert set(json.loads(pb)) == set(json.loads(jb))
 
 
 def test_goodputz_answers_the_ledger(servers):
