@@ -256,7 +256,13 @@ Phases, each failing loudly (exit code 1, no result line):
               TTFT of the rt streams against the bulk wave's; the decode
               step's ms with telemetry and sampling on against off (fresh
               engines in turns off, on, on, off) and a profiled window of
-              decode steps (device ms, busy share). Then InferenceServer
+              decode steps (device ms, busy share): since the compile-cache
+              slice the profiled run is one torch.profiler session opened
+              while its engine is idle, whose prefills must name
+              flash_fwd_wgmma_kernel and whose window (a span on the
+              calling thread) the paged decode and combine kernels; one
+              try, a blind profile fails. Then
+              InferenceServer
               over ERNIE-base saved by jit.save in float32 under two
               tenants (64 requests of 16-512 tokens each, telemetry on):
               typed quota refusals, 12 flash launches a batch and no plain
@@ -286,20 +292,30 @@ Phases, each failing loudly (exit code 1, no result line):
               /execz, /numericsz, /profilez 200 with the merged bodies'
               keys; leak checks
               clean. Leg B: worker processes (ProcessReplicaFactory, the
-              port's worker, --warmup lattice) under FleetAutoscaler (1-2
-              replicas): a burst of 256 requests scales out and the second
-              worker takes traffic; swap_weights to a second version under
+              port's worker) under FleetAutoscaler (1-2 replicas), sharing
+              one FLAGS_compile_cache_dir and one --name (so one manifest
+              for each program): the first worker warms the whole
+              lattice (--warmup lattice; every signature a compile-cache
+              miss) and its traffic writes the fleet's manifest, every
+              later spawn starts with --warmup manifest and reports ready
+              only after its replay: its /readyz startup shows 0 misses and
+              one hit a manifest signature; a burst of 256 requests scales
+              out and the second worker takes traffic; swap_weights to a second version under
               traffic (0 failures, every response its version's
               Predictor.run within 1e-4 x std); a SIGKILL mid-batch (only
               in-flight requests fail, typed; respawned, 2 ready again);
               quiet scales in (the decision log and /schedz); each worker
               that exits cleanly dumps its counters (a sitecustomize.py on
               its PYTHONPATH): 12 flash launches a batch of its /metrics, 0
-              plain calls; the wedge drill on a --stub worker (/readyz
-              reads wedged, the request behind the poison a typed 503,
-              respawned). Printed with no limit: QPS and p50/p99 through
-              the router against one in-process InferenceServer, spawn to
-              ready, the swap, kill to ready, the streams' TTFT.
+              plain calls; at the end the first worker's compile-cache
+              misses are its lattice's (the swap's replacement replayed the
+              manifest) and the relaunch's 0; the wedge drill on a --stub
+              worker (/readyz reads wedged, the request behind the poison a
+              typed 503, respawned). Printed with no limit: QPS and p50/p99
+              through the router against one in-process InferenceServer,
+              spawn to ready, the swap, kill to ready, the streams' TTFT,
+              each worker's start-up split (imports, CUDA context, kernel
+              library, model, warmup).
 18. elastic — elastic training (paddle_tpu_torch.elastic, the goodput
               ledger, the training telemetry). Leg A: gpt3_1p3b (stacked,
               recompute "full", full width, 6 of its 24 layers since
@@ -324,7 +340,12 @@ Phases, each failing loudly (exit code 1, no result line):
               uninterrupted run's, the final digests equal, steps lost
               within 2x the interval, the SIGTERM's final save committed at
               the next step boundary, 8/4/4 launches a step in each
-              completed worker and 0 plain calls. Leg C: the hapi phase's
+              completed worker and 0 plain calls; the workers share one
+              compile cache (FLAGS_compile_cache_dir in the drill's
+              environment, which every worker inherits): each
+              relaunch's TrainStep hits for its batch signature (0 misses)
+              and each worker's start-up split to its first step is
+              printed. Leg C: the hapi phase's
               float32 encoder under LAMB through Model.fit with
               ElasticCheckpoint (every 4 steps) and
               TrainingTelemetryCallback, the optimizers instrumented:
@@ -358,7 +379,18 @@ Phases, each failing loudly (exit code 1, no result line):
               calls 24 x the shadowed calls, every tripwire finite, no
               anomaly, /numericsz with the decode, chunked and verify
               sections (the int8 scale drift over int8 pools), clean leak
-              checks. The fault: the shadow off, FLAGS_profile_on_anomaly
+              checks. Over bf16 pools the compile cache is on (an empty
+              directory): every record stored is one miss and the warmup
+              manifest holds exactly the traffic's signatures; a second
+              engine on the same model replays the manifest
+              (warmup_from_manifest) and serves the same requests: no
+              miss, no xstats entry created after the replay, the streams
+              bit for bit the first engine's, paddle_compile_cache_*_total
+              on /metrics equal to compile_cache.stats(), the stored
+              decode record's FLOPs equal to the phase's own measurement
+              of that signature; printed: both engines' first-token
+              seconds, the replay's seconds, the host ms of the skipped
+              measurements. The fault: the shadow off, FLAGS_profile_on_anomaly
               on, NaN written into one page of one live request's K pool:
               the first decode that reads it records one non-finite anomaly
               of kind decode, promoted into /tracez; exactly one capture in
@@ -386,6 +418,13 @@ Phases, each failing loudly (exit code 1, no result line):
               its breaker opens, 32 requests all go to the other with 0
               failures, and the merged /execz, /numericsz and /profilez
               answer 200 with both replicas.
+
+Outside the default run, ``--phases card,build,opsprobe`` probes the
+profiler: for each setting of the engine's telemetry (head sampling rate
+0 or 1, the telemetry endpoint off or on), fresh processes each open one
+torch.profiler session while a gpt3_1p3b engine is idle and then several
+while its worker thread decodes, and report the sessions that named none
+of the paged kernels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -2272,16 +2311,20 @@ PROFILE_GROUPS = (
 )
 
 
+def _cuda_profile():
+    """A torch.profiler session over the CPU and the card."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
 def _profile_rows(fn, steps: int):
     """torch.profiler over ``steps`` calls of ``fn``: ``[(kernel name,
     device ms per call, launches per call)]``, costliest first, and the
     wall ms per call."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _cuda_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -6643,15 +6686,91 @@ def _ops_engine(state, model) -> dict:
     return rec
 
 
+# the profiled run's kernels, by name: its session must see them
+OPS_PREFILL_KERNELS = ("flash_fwd_wgmma_kernel",)
+OPS_DECODE_KERNELS = ("paged_attention_decode_kernel",
+                      "paged_attention_combine_kernel")
+OPS_WINDOW = "chip_smoke::decode_window"   # the window's span on this thread
+
+
+def _device_kernels(prof) -> dict:
+    """Device ms by kernel name over a finished session."""
+    from torch.autograd import DeviceType
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        out[ev.key] = out.get(ev.key, 0.0) + ms
+    return out
+
+
+def _window_kernels(prof, mark: str) -> tuple:
+    """Device ms by kernel name over a finished session, of the kernels
+    that started before the host span ``mark`` and of those that started
+    inside it."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    spans = [e for e in events
+             if e.name == mark and e.device_type == DeviceType.CPU]
+    require(len(spans) == 1,
+            f"ops: the profiled session holds {len(spans)} {mark} spans")
+    a, b = spans[0].time_range.start, spans[0].time_range.end
+    before, inside = {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = e.time_range.start
+        into = inside if a <= t <= b else before if t < a else None
+        if into is not None:
+            into[e.name] = into.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    return before, inside
+
+
+def _require_seen(kernels: dict, want, what: str):
+    """Every name of ``want`` among the kernels a session saw: a blind
+    profile fails."""
+    missing = [k for k in want if not any(k in n for n in kernels)]
+    require(not missing, f"ops: the profiled {what} saw none of {missing} "
+            f"(kernels seen: {sorted(kernels)[:8]})")
+
+
+def _ops_profiled_run(srv, prompts, new) -> tuple:
+    """``prompts`` submitted inside one torch.profiler session, opened
+    while the engine is idle (a session opened while the engine's worker
+    thread decodes can keep none of its kernels: ROADMAP queue 3); after
+    the first tokens, a window of OPS_PROFILE_STEPS decode steps marked by
+    a span on this thread. Returns the futures, device ms by kernel name
+    before the window (the prefills) and inside it, and the window's
+    steps and wall ms."""
+    import torch
+    with _cuda_profile() as prof:
+        futs = [srv.submit_generate(p, max_new_tokens=new) for p in prompts]
+        _wait_for(lambda: all(len(f.tokens()) >= 2 for f in futs), 300,
+                  "the profiled run's first tokens")
+        with torch.profiler.record_function(OPS_WINDOW):
+            s0 = srv.metrics_snapshot()["decode_steps"]
+            t0 = time.perf_counter()
+            _wait_for(lambda: srv.metrics_snapshot()["decode_steps"]
+                      >= s0 + OPS_PROFILE_STEPS, 300, "profiled steps")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            s1 = srv.metrics_snapshot()["decode_steps"]
+    before, inside = _window_kernels(prof, OPS_WINDOW)
+    return futs, before, inside, {"steps": s1 - s0, "wall_ms": wall_ms}
+
+
 def _ops_compare(state, model) -> dict:
     """The decode step with telemetry and head sampling at 1.0 against
     without, in turns off, on, on, off, fresh engines of the same shape;
-    then one more "on" run profiles a window of its decode steps (device
-    ms a step, busy share), apart from the compared runs."""
+    then one more "on" run is profiled in one session opened while its
+    engine is idle: its prefills (the flash forward must be seen by name)
+    and a window of its decode steps (device ms a step, busy share; the
+    paged decode and combine kernels must be seen by name), apart from
+    the compared runs. One try: a blind profile fails."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.serving.generation import GenerationServer
     rng = np.random.RandomState(state["seed"] + 29)
@@ -6668,33 +6787,27 @@ def _ops_compare(state, model) -> dict:
             prefix_cache=False, device="cuda",
             telemetry_port=0 if on else -1, name=f"ops_cmp_{turn}")
         new = OPS_PROFILE_NEW if turn == "profiled" else OPS_CMP_NEW
-        futs = [srv.submit_generate(p, max_new_tokens=new)
-                for p in prompts]
-        if turn == "profiled":
-            _wait_for(lambda: all(len(f.tokens()) >= 2 for f in futs), 300,
-                      "the compared run's first tokens")
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                # the window opens once the profiler runs
-                s0 = srv.metrics_snapshot()["decode_steps"]
-                t0 = time.perf_counter()
-                _wait_for(lambda: srv.metrics_snapshot()["decode_steps"]
-                          >= s0 + OPS_PROFILE_STEPS, 300, "profiled steps")
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-                s1 = srv.metrics_snapshot()["decode_steps"]
-            busy = 0.0
-            for ev in prof.key_averages():
-                if ev.device_type != DeviceType.CUDA:
-                    continue
-                busy += getattr(ev, "self_device_time_total",
-                                getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        if turn != "profiled":
+            futs = [srv.submit_generate(p, max_new_tokens=new)
+                    for p in prompts]
+        else:
+            futs, prefill, kernels, win = _ops_profiled_run(srv, prompts,
+                                                            new)
+            _require_seen(prefill, OPS_PREFILL_KERNELS, "prefills")
+            _require_seen(kernels, OPS_DECODE_KERNELS, "decode window")
+            busy = sum(kernels.values())
             require(all(not f.done() for f in futs),
                     "ops: the profiled streams ended inside the window")
-            window = {"steps": s1 - s0, "wall_ms": wall_ms,
-                      "device_ms_per_step": busy / max(1, s1 - s0),
-                      "wall_ms_per_step": wall_ms / max(1, s1 - s0),
-                      "busy_share": busy / wall_ms if wall_ms else None}
+            steps, wall_ms = win["steps"], win["wall_ms"]
+            window = {"steps": steps, "wall_ms": wall_ms,
+                      "device_ms_per_step": busy / max(1, steps),
+                      "wall_ms_per_step": wall_ms / max(1, steps),
+                      "busy_share": busy / wall_ms if wall_ms else None,
+                      "kernels_seen": sorted(
+                          k for k in OPS_PREFILL_KERNELS + OPS_DECODE_KERNELS
+                          if any(k in n for n in list(prefill)
+                                 + list(kernels))),
+                      "prefill_device_ms": sum(prefill.values())}
             for f in futs:
                 f.cancel()
         for f in futs:
@@ -6713,6 +6826,100 @@ def _ops_compare(state, model) -> dict:
             "on_over_off": (statistics.mean(runs["on"])
                             / statistics.mean(runs["off"])),
             "profiled_window": window}
+
+
+# The profiler probe (--phases card,build,opsprobe; not in the default
+# run): for each configuration of the engine's telemetry (head sampling
+# rate, telemetry port; -1 is off), OPS_PROBE_PROCS fresh processes, each
+# a gpt3_1p3b bf16 engine decoding 8 streams: one session opened while
+# the engine is idle (as _ops_compare opens it), then OPS_PROBE_MID
+# sessions opened while its worker thread decodes. Each session is blind
+# when it names none of the paged decode and combine kernels.
+OPS_PROBE_CONFIGS = {"off": (0.0, -1), "telemetry_only": (0.0, 0),
+                     "sampling_only": (1.0, -1), "on": (1.0, 0)}
+OPS_PROBE_PROCS = 2
+OPS_PROBE_MID = 4
+
+
+def _ops_probe_child(seed: int, config: str) -> dict:
+    """One probe process (``--ops-probe-child CONFIG``): the idle-opened
+    session's and each mid-decode session's device ms a step and whether
+    it named the paged kernels."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.observability import stop_telemetry_server
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    rate, port = OPS_PROBE_CONFIGS[config]
+    model = _model({"seed": seed})
+    rng = np.random.RandomState(seed + 29)
+    prompts = [rng.randint(0, model.config.vocab_size, OPS_CMP_PROMPT)
+               for _ in range(OPS_CMP_STREAMS)]
+    pages = 1 + OPS_CMP_STREAMS * -(-(OPS_CMP_PROMPT + OPS_PROFILE_NEW)
+                                    // PAGE_SIZE)
+    set_flags({"FLAGS_trace_sample_rate": rate})
+    srv = GenerationServer(
+        model, max_batch=MAX_BATCH, page_size=PAGE_SIZE, num_pages=pages,
+        prefix_cache=False, device="cuda", telemetry_port=port,
+        name=f"ops_probe_{config}")
+
+    def row(kernels, steps):
+        return {"seen": all(any(k in n for n in kernels)
+                            for k in OPS_DECODE_KERNELS),
+                "device_ms_per_step": sum(kernels.values()) / max(1, steps)}
+
+    futs, _, inside, win = _ops_profiled_run(srv, prompts, OPS_PROFILE_NEW)
+    out = {"config": config, "pid": os.getpid(),
+           "idle": row(inside, win["steps"]), "mid": []}
+    for _ in range(OPS_PROBE_MID):
+        with _cuda_profile() as prof:
+            s0 = srv.metrics_snapshot()["decode_steps"]
+            _wait_for(lambda: srv.metrics_snapshot()["decode_steps"]
+                      >= s0 + OPS_PROFILE_STEPS, 300, "probe steps")
+            torch.cuda.synchronize()
+            s1 = srv.metrics_snapshot()["decode_steps"]
+        out["mid"].append(row(_device_kernels(prof), s1 - s0))
+    require(all(not f.done() for f in futs),
+            "opsprobe: the streams ended inside the windows")
+    for f in futs:
+        f.cancel()
+    for f in futs:
+        f.result(timeout=600)
+    srv.shutdown()
+    stop_telemetry_server()
+    return out
+
+
+def phase_opsprobe(state):
+    """The profiler probe (see OPS_PROBE_CONFIGS): its processes in turns
+    over the configurations; logs each process's sessions and, for each
+    configuration, the blind sessions of each kind over all."""
+    rows = []
+    for _ in range(OPS_PROBE_PROCS):
+        for config in OPS_PROBE_CONFIGS:
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--ops-probe-child", config, "--seed", str(state["seed"])],
+                cwd=str(REPO), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, timeout=600)
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("OPSPROBE ")]
+            require(proc.returncode == 0 and lines,
+                    f"opsprobe: the {config} process exited "
+                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+            rows.append(json.loads(lines[-1][len("OPSPROBE "):]))
+            log("opsprobe: " + json.dumps(rows[-1]))
+    summary = {}
+    for config in OPS_PROBE_CONFIGS:
+        mine = [r for r in rows if r["config"] == config]
+        summary[config] = {
+            "idle_blind": sum(not r["idle"]["seen"] for r in mine),
+            "idle": len(mine),
+            "mid_blind": sum(not m["seen"] for r in mine for m in r["mid"]),
+            "mid": sum(len(r["mid"]) for r in mine)}
+    state["opsprobe"] = {"card": state.get("smi"), "summary": summary,
+                         "processes": rows}
+    log("opsprobe summary: " + json.dumps(summary))
 
 
 def _ops_inference(state, engine_port) -> dict:
@@ -7373,7 +7580,16 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
             f"fleet B: the local server failed {failed_local[:1]}")
     del srv, preds
     _release()
-    args = ["--model-prefix", prefixes["v1"], "--warmup", "lattice",
+    # the workers share one compile cache (the supervisor hands them the
+    # live FLAGS_compile_cache_dir) and one name (after the supervisor's
+    # --name, so it wins), so one manifest a program: the first warms the
+    # whole lattice cold and its traffic writes the fleet's manifest;
+    # every later spawn replays that manifest (--warmup manifest)
+    from paddle_tpu_torch import compile_cache
+    _rt_flags(compile_cache_dir=str(work / "cc"))
+    compile_cache.reset_default_cache()
+    args = ["--name", "fleet_b",
+            "--model-prefix", prefixes["v1"], "--warmup", "lattice",
             "--max-batch-size", str(SERVER_MAX_BATCH), "--seq-buckets",
             ",".join(str(b) for b in SERVER_BUCKETS)]
     fac = fleet.ProcessReplicaFactory(extra_args=args, env=env,
@@ -7408,6 +7624,12 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
                 f"fleet B: the first worker is not ready:\n{log_tail()}")
         rec["spawn_to_ready_s"] = time.perf_counter() - t_spawn
         first_pid = sup._managed[0].proc.pid
+        starts = {"first": _fleet_startup(sup, 0, "the first worker")}
+        cold = starts["first"]["compile_cache"]
+        require(cold["misses"] > 0 and cold["hits"] == 0,
+                f"fleet B: the first worker's warmup ran {cold} (cold: "
+                f"misses only)")
+        fac.extra_args[fac.extra_args.index("--warmup") + 1] = "manifest"
         code, body = _http_get(int(sup.endpoints()[0].rsplit(":", 1)[1]),
                                "/statusz")
         info = json.loads(body)
@@ -7433,6 +7655,7 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
         require(router.wait_ready(2, timeout=FLEET_SPAWN_S),
                 f"fleet B: the second worker is not ready:\n{log_tail()}")
         rec["scale_out_to_ready_s"] = time.perf_counter() - t_out
+        starts["scale_out"] = _fleet_warm_startup(sup, 1, "scale-out")
         port_1 = int(sup.endpoints()[1].rsplit(":", 1)[1])
 
         def completed_on_second():
@@ -7482,6 +7705,7 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
         require(router.wait_ready(2, timeout=FLEET_SPAWN_S),
                 f"fleet B: the respawned worker is not ready:\n{log_tail()}")
         rec["kill_to_ready_s"] = time.perf_counter() - t_kill
+        starts["relaunch"] = _fleet_warm_startup(sup, 1, "relaunch")
         n_ready = len(load.records)
         _wait_for(lambda: len(load.records) > n_ready + 64, 60,
                   "traffic after the respawn", tag="fleet B")
@@ -7489,12 +7713,19 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
         t_quiet = time.perf_counter()
         # every live worker's dispatches from its own /metrics (no more
         # traffic reaches them after this)
-        dispatches = {}
+        dispatches, caches = {}, {}
         for rid, m in sorted(sup._managed.items()):
             code, body = _http_get(int(m.proc.url().rsplit(":", 1)[1]),
                                    "/metrics")
             require(code == 200, f"fleet B: worker {rid} /metrics {code}")
             dispatches[m.proc.pid] = _fleet_dispatches(body)
+            caches[rid] = _fleet_cache_counts(body)
+        # the swap's replacement servers replayed the manifest: the first
+        # worker measured nothing after its lattice, the relaunch nothing
+        require(caches[0]["misses"] == cold["misses"]
+                and caches[1]["misses"] == 0,
+                f"fleet B: compile-cache counts at the end {caches} (the "
+                f"first worker's lattice: {cold['misses']} misses)")
         worst, failed = _fleet_versions_check(
             load.records, outs,
             lambda a, b: ("v1",) if b < t_swap0 else
@@ -7537,12 +7768,18 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
             responses=len(load.records), failed=len(failed),
             failed_types=sorted({type(f[2]).__name__ for f in failed}),
             vs_predictor_alone=max(worst, worst_local),
-            dispatches_by_pid=dispatches, decisions=snap["decisions"])
+            dispatches_by_pid=dispatches, decisions=snap["decisions"],
+            startup=starts, compile_cache_end=caches)
+        for tag, st in starts.items():
+            log(f"fleet B: {tag} worker start-up split (s): "
+                + json.dumps(st))
     finally:
         load.stop()
         asc.stop()
         router.shutdown()
         sup.stop()
+        _rt_flags(compile_cache_dir="")
+        compile_cache.reset_default_cache()
     # the workers that exited cleanly dumped their counters
     dumps = [json.loads(p.read_text()) for p in counts_dir.glob("*.json")]
     by_pid = {d["pid"]: d for d in dumps}
@@ -7560,6 +7797,38 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
     logf.close()
     rec["seconds"] = time.perf_counter() - t0
     return rec
+
+
+def _fleet_startup(sup, rid, what) -> dict:
+    """A ready worker's start-up split and warmup report (its /readyz
+    ``startup``: seconds from the process's start to main, the CUDA
+    context, the kernel library, the model, the warmup; the compile
+    cache's counts and the manifest's signatures when the warmup ended)."""
+    port = int(sup._managed[rid].proc.url().rsplit(":", 1)[1])
+    code, body = _http_get(port, "/readyz")
+    doc = json.loads(body)
+    require(code == 200 and doc.get("startup"),
+            f"fleet B: {what}'s /readyz {code}: {body[:300]}")
+    return doc["startup"]
+
+
+def _fleet_warm_startup(sup, rid, what) -> dict:
+    """A worker started with --warmup manifest: ready only after its
+    replay, which hit the cache once a manifest signature and never
+    missed."""
+    st = _fleet_startup(sup, rid, what)
+    cc, n = st["compile_cache"], st["manifest_signatures"]
+    require(n and cc == {"hits": n, "misses": 0},
+            f"fleet B: the {what} worker's replay: {cc} over {n} manifest "
+            f"signatures")
+    return st
+
+
+def _fleet_cache_counts(text: str) -> dict:
+    samples = _parse_prometheus(text)
+    return {k: int(sum(v for (name, _), v in samples.items()
+                       if name == f"paddle_compile_cache_{k}_total"))
+            for k in ("hits", "misses")}
 
 
 def _fleet_wedge(work, env, logf) -> dict:
@@ -7947,6 +8216,7 @@ def _elastic_drills(state) -> dict:
     per_step = (PARITY_LAYERS * STACKED_FWD_PER_LAYER["full"],
                 PARITY_LAYERS, PARITY_LAYERS)
     torch.cuda.empty_cache()
+    cache_dir = root / "compile_cache"
     try:
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -7960,7 +8230,8 @@ def _elastic_drills(state) -> dict:
              "--dir", str(root), "--timeout-s",
              str(ELASTIC_WORKER_TIMEOUT_S), "--out", str(out_json)],
             cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, timeout=12 * ELASTIC_WORKER_TIMEOUT_S)
+            text=True, timeout=12 * ELASTIC_WORKER_TIMEOUT_S,
+            env=dict(os.environ, FLAGS_compile_cache_dir=str(cache_dir)))
         seconds = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -7972,6 +8243,20 @@ def _elastic_drills(state) -> dict:
     require(rec["trajectory_bitwise_equal"] and rec["final_digest_equal"]
             and rec["kills_survived"] == 3 and rec["sigterm"] is not None,
             f"elastic B: {rec}")
+    # the workers share one compile cache: the two fresh processes (the
+    # reference and the fault run's first) measure their first step, and
+    # every relaunch's TrainStep loads that record (0 misses)
+    starts = [st for st in rec["startup"] if st.get("compile_cache")]
+    relaunched = [st for st in starts if st["resumed"]]
+    require(len(starts) == len(rec["startup"]) and relaunched and all(
+        st["compile_cache"]["misses"] == 0 and st["compile_cache"]["hits"]
+        >= 1 for st in relaunched) and all(
+        st["compile_cache"]["misses"] >= 1 for st in starts
+        if not st["resumed"]),
+        f"elastic B: the workers' compile-cache counts "
+        f"{[(st['attempt'], st['compile_cache']) for st in rec['startup']]}")
+    for st in rec["startup"]:
+        log("elastic B: worker start-up split (s): " + json.dumps(st))
     rec.update({"where": where, "seconds": seconds,
                 "card": state.get("smi")})
     log("elastic B: " + json.dumps(rec))
@@ -8367,26 +8652,58 @@ def _rt_prompts(cfg, seed, n, system=True):
     return [p.tolist() for p in prompts]
 
 
-def _rt_engine_run(model, kv_dtype, seed, port) -> dict:
+def _rt_engine(model, kv_dtype):
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    old_kv = _set_kv_dtype(kv_dtype)
+    try:
+        return GenerationServer(model, max_batch=MAX_BATCH,
+                                page_size=PAGE_SIZE, draft_model=model,
+                                spec_k=RT_SPEC_K, device="cuda",
+                                name=f"rt-{kv_dtype or 'bf16'}", start=False)
+    finally:
+        _set_kv_dtype(old_kv)
+
+
+def _rt_serve(srv, prompts, seed) -> tuple:
+    """Leg A's traffic: every request but the last, queued before the
+    engine starts (so the first admission takes them all: the same
+    dispatch signatures in every run), then, once the first ended, the
+    last (it shares the first's system prompt: a prefix hit). Returns the
+    streams and the first request's time to its first token."""
+    futs = [srv.submit_generate(p, max_new_tokens=RT_NEW, temperature=0.0,
+                                seed=seed + i)
+            for i, p in enumerate(prompts[:-1])]
+    t0 = time.perf_counter()
+    srv.start()
+    _wait_for(lambda: len(futs[0].tokens()) >= 1, 900,
+              "the first request's first token", tag="runtime A")
+    ttft = time.perf_counter() - t0
+    first = futs[0].result(timeout=900)
+    futs.append(srv.submit_generate(prompts[-1], max_new_tokens=RT_NEW,
+                                    temperature=0.0))
+    return [first] + [f.result(timeout=900) for f in futs[1:]], ttft
+
+
+def _rt_engine_run(model, kv_dtype, seed, port, cache_dir=None) -> dict:
     """The engine (prefix cache, self-speculation at spec_k=4) with every
     call tripwired and shadow-checked: launches by kind 24 x the decoders'
     calls, plain calls 24 x the shadowed calls, every tripwire finite, no
     anomaly, /numericsz with the decode, chunked and verify sections (and
-    the int8 scale drift over int8 pools), a clean leak check."""
+    the int8 scale drift over int8 pools), a clean leak check. With
+    ``cache_dir``, the compile cache is on (an empty directory): every
+    record it stores is one miss, and the warmup manifest holds exactly
+    the traffic's signatures."""
+    from paddle_tpu_torch import compile_cache
     from paddle_tpu_torch.ops import cuda_attention as ca
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
-    from paddle_tpu_torch.serving.generation import GenerationServer
     cfg = model.config
     layers = cfg.num_layers
     prompts = _rt_prompts(cfg, seed + 62, RT_REQUESTS)
-    old_kv = _set_kv_dtype(kv_dtype)
-    try:
-        srv = GenerationServer(model, max_batch=MAX_BATCH,
-                               page_size=PAGE_SIZE, draft_model=model,
-                               spec_k=RT_SPEC_K, device="cuda",
-                               name=f"rt-{kv_dtype or 'bf16'}", start=False)
-    finally:
-        _set_kv_dtype(old_kv)
+    if cache_dir is not None:
+        _rt_flags(compile_cache_dir=str(cache_dir))
+        compile_cache.reset_default_cache()
+        st0 = compile_cache.stats()
+    srv = _rt_engine(model, kv_dtype)
     pool = "int8" if kv_dtype == "int8" else "bfloat16"
     require(srv.prefix is not None and srv.kv.kv_dtype == kv_dtype,
             "runtime A: engine not configured")
@@ -8399,15 +8716,7 @@ def _rt_engine_run(model, kv_dtype, seed, port) -> dict:
     try:
         t0 = time.perf_counter()
         with srv:
-            srv.start()
-            futs = [srv.submit_generate(p, max_new_tokens=RT_NEW,
-                                        temperature=0.0, seed=seed + i)
-                    for i, p in enumerate(prompts[:-1])]
-            first = futs[0].result(timeout=900)
-            futs.append(srv.submit_generate(prompts[-1],
-                                            max_new_tokens=RT_NEW,
-                                            temperature=0.0))
-            outs = [first] + [f.result(timeout=900) for f in futs[1:]]
+            outs, ttft = _rt_serve(srv, prompts, seed)
         wall = time.perf_counter() - t0
     finally:
         _rt_flags(**{k[len("FLAGS_"):]: v for k, v in old.items()})
@@ -8477,9 +8786,127 @@ def _rt_engine_run(model, kv_dtype, seed, port) -> dict:
            "finite_fraction": {k: kinds[k]["finite_fraction"]
                                for k in kinds},
            "int8_scale_drift": {k: r["drift"]
-                                for k, r in doc["int8"].items()}}
-    log(f"runtime A: engine {pool}: " + json.dumps(out))
+                                for k, r in doc["int8"].items()},
+           "first_token_s": ttft}
+    if cache_dir is not None:
+        st1 = compile_cache.stats()
+        d = {k: st1[k] - st0[k] for k in ("hits", "misses", "stored")}
+        stored = compile_cache.CacheStore(str(cache_dir)).entries()
+        traffic = sorted(json.dumps([site, [list(sh) for sh, _ in feeds]])
+                         for site, feeds in srv.dispatch_signatures
+                         if not site.startswith("draft_"))
+        manifest = sorted(json.dumps([m["site"], [list(sh) for sh, _ in
+                                                  m["feeds"]]])
+                          for m in srv.warmup_manifest.specs())
+        # every key stored is one miss; the draft (the model itself)
+        # finds the target's records: the hits
+        require(d["misses"] > 0 and d["stored"] == d["misses"]
+                == len(stored),
+                f"runtime A: cache: {d} with {len(stored)} records")
+        require(manifest == traffic,
+                f"runtime A: the manifest {manifest} is not the traffic's "
+                f"signatures {traffic}")
+        out["cache"] = dict(d, records=len(stored),
+                            manifest_signatures=len(manifest))
+        out["outs"] = outs
+    log(f"runtime A: engine {pool}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "outs"}))
     del srv
+    return out
+
+
+def _rt_cache_replay(model, seed, port, cache_dir, first) -> dict:
+    """A second engine on the same model and the warm directory: its
+    manifest replayed before traffic (every first dispatch a hit, none a
+    miss, no xstats entry created after), the same requests with the same
+    seeds (streams bit for bit the first engine's), /metrics against
+    ``compile_cache.stats()``, and a stored record's FLOPs against the
+    phase's own measurement of that signature."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import compile_cache
+    from paddle_tpu_torch.observability import xstats
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving.generation.model_fns import CachedDecoder
+    prompts = _rt_prompts(model.config, seed + 62, RT_REQUESTS)
+    _rt_flags(compile_cache_dir=str(cache_dir))
+    try:
+        reg = xstats.default_exec_registry()
+        st0 = compile_cache.stats()
+        n0 = (ca.launches, cpa.launches, ca.plain_calls, cpa.plain_calls)
+        srv = _rt_engine(model, "")
+        t0 = time.perf_counter()
+        fresh = srv.warmup_from_manifest()
+        replay_s = time.perf_counter() - t0
+        st1 = compile_cache.stats()
+        n_entries = len(reg.entries())
+        with srv:
+            outs, ttft = _rt_serve(srv, prompts, seed)
+        st2 = compile_cache.stats()
+        launches = {"flash_fwd": ca.launches - n0[0],
+                    "paged_attention": cpa.launches - n0[1]}
+        require(ca.plain_calls == n0[2] and cpa.plain_calls == n0[3]
+                and all(launches.values()),
+                f"runtime A: the warm engine launched {launches} and ran "
+                f"{ca.plain_calls - n0[2]}, {cpa.plain_calls - n0[3]} plain "
+                f"calls")
+        hits = st1["hits"] - st0["hits"]
+        # the replay's hits, then the traffic's first dispatches the
+        # manifest does not name (the draft's decode step): hits too
+        require(st2["misses"] == st0["misses"] and hits > 0,
+                f"runtime A: replay: {st0} -> {st1} -> {st2}")
+        require(len(reg.entries()) == n_entries,
+                f"runtime A: {len(reg.entries()) - n_entries} xstats "
+                f"entries created after the replay")
+        require(outs == first["outs"],
+                "runtime A: the warm engine's streams differ from the cold "
+                "engine's")
+        samples = _parse_prometheus(_http_get(port, "/metrics")[1])
+        scraped = {k: int(sum(v for (n, _), v in samples.items()
+                              if n == f"paddle_compile_cache_{k}_total"))
+                   for k in ("hits", "misses")}
+        require(scraped == {k: st2[k] for k in ("hits", "misses")},
+                f"runtime A: /metrics {scraped} against stats() {st2}")
+        skipped_ms = sum((e.analysis or {}).get("measure_host_ms", 0.0)
+                         for e in reg.entries()
+                         if e.provenance.get("cache") == "hit")
+        # a stored decode record against the phase's own measurement of
+        # the same signature (the cache off: the registered entry only
+        # notes the dispatch, the outer counter sees all of it)
+        store = compile_cache.CacheStore(str(cache_dir))
+        recs = [store.get(k) for k, _, _ in store.entries()]
+        rec = next(r["payload"] for r in recs
+                   if r["meta"]["extra"]["site"] == "generate_decode")
+        _rt_flags(compile_cache_dir="")
+        dec = CachedDecoder(model, max_batch=srv.max_batch,
+                            page_size=srv.page_size,
+                            pages_per_seq=srv.pages_per_seq,
+                            max_positions=srv.max_seq_len, device="cuda")
+        b = srv.max_batch
+        with torch.inference_mode():
+            _, ana = xstats.measure(lambda: dec.decode(
+                np.zeros(b, np.int64), np.zeros(b, np.int32),
+                np.zeros(b, bool), np.zeros(b, np.int32),
+                np.zeros_like(srv._tables), srv.kv.k, srv.kv.v),
+                torch.device("cuda"))
+        require(ana["flops"] == rec["flops"]
+                and ana["kernel_flops"] == rec["kernel_flops"],
+                f"runtime A: the stored decode record's FLOPs "
+                f"{rec['flops']} against the phase's {ana['flops']}")
+        out = {"replayed_fresh": fresh, "replay_s": replay_s,
+               "replay_hits": hits,
+               "traffic_hits": st2["hits"] - st1["hits"], "misses": 0,
+               "first_token_s": {"cold": first["first_token_s"],
+                                 "warm": ttft},
+               "skipped_measurement_host_ms": skipped_ms,
+               "decode_record_flops": rec["flops"],
+               "scraped": scraped, "launches": launches}
+        del srv, dec
+    finally:
+        _rt_flags(compile_cache_dir="")
+        compile_cache.reset_default_cache()
+    log("runtime A: cache: " + json.dumps(out))
     return out
 
 
@@ -8587,15 +9014,28 @@ def _rt_fault(model, seed, port) -> dict:
 
 
 def _rt_leg_a(state, port) -> dict:
+    import shutil
+    import tempfile
     model = _model(state)
     out = {"direct": {}, "engine": {}}
-    for kv in ("", "int8"):
-        out["direct"][kv or "bf16"] = _rt_direct_gate(model, kv,
-                                                      state["seed"])
-        _release()
-        out["engine"][kv or "bf16"] = _rt_engine_run(model, kv,
-                                                     state["seed"], port)
-        _release()
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cc_")
+    try:
+        for kv in ("", "int8"):
+            out["direct"][kv or "bf16"] = _rt_direct_gate(model, kv,
+                                                          state["seed"])
+            _release()
+            eng = _rt_engine_run(model, kv, state["seed"], port,
+                                 cache_dir=None if kv else cache_dir)
+            _release()
+            if not kv:
+                eng["cache"].update(_rt_cache_replay(
+                    model, state["seed"], port, cache_dir, eng))
+                eng.pop("outs")
+                _release()
+            out["engine"][kv or "bf16"] = eng
+    finally:
+        _rt_flags(compile_cache_dir="")
+        shutil.rmtree(cache_dir, ignore_errors=True)
     state.pop("model", None)
     del model
     _release()
@@ -9040,12 +9480,14 @@ def phase_runtime(state):
             f"runtime C: /execz sites {sorted(sites)}")
     torch.cuda.synchronize()
     a = out["leg_a"]["engine"]
+    warm = a["bf16"]["cache"]["launches"]     # leg A's warm engine
     out["launches"] = {
         "flash_fwd": sum(r["launches"]["flash_fwd"] for r in a.values())
-        + out["leg_b"]["launches"]["flash_fwd"],
+        + out["leg_b"]["launches"]["flash_fwd"] + warm["flash_fwd"],
         "flash_bwd_dq": out["leg_b"]["launches"]["flash_bwd_dq"],
         "flash_bwd_dkv": out["leg_b"]["launches"]["flash_bwd_dkv"],
-        "paged_attention": a["bf16"]["launches"]["paged_attention"],
+        "paged_attention": a["bf16"]["launches"]["paged_attention"]
+        + warm["paged_attention"],
         "paged_attention_int8": a["int8"]["launches"]["paged_attention"],
         "flash_fwd_f32": out["leg_d"]["launches"]["flash_fwd_f32"],
         "f16": out["fp16"]["launches"]}
@@ -9451,10 +9893,13 @@ def main(argv=None) -> int:
                          "backward pair (the training and BERT shapes) are "
                          "timed in turns with this tree's in the kernels "
                          "phase")
+    ap.add_argument("--ops-probe-child", default=None,
+                    choices=sorted(OPS_PROBE_CONFIGS),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     faulthandler.enable(file=sys.stderr, all_threads=True)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(ALL_PHASES)
+    unknown = set(phases) - set(ALL_PHASES) - {"opsprobe"}
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",
               file=sys.stderr)
@@ -9479,6 +9924,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if args.ops_probe_child:
+        print("OPSPROBE " + json.dumps(
+            _ops_probe_child(args.seed, args.ops_probe_child)), flush=True)
+        return 0
     state = {"seed": args.seed, "parent": args.parent}
     fns = {"card": phase_card, "build": phase_build,
            "kernels": phase_kernels, "tiny": phase_tiny,
@@ -9488,7 +9937,8 @@ def main(argv=None) -> int:
            "recipe": phase_recipe, "families": phase_families,
            "inference": phase_inference, "api": phase_api, "nn": phase_nn,
            "hapi": phase_hapi, "ops": phase_ops, "fleet": phase_fleet,
-           "elastic": phase_elastic, "runtime": phase_runtime}
+           "elastic": phase_elastic, "runtime": phase_runtime,
+           "opsprobe": phase_opsprobe}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -9501,15 +9951,20 @@ def main(argv=None) -> int:
             print(f"chip_smoke: FAIL in phase {name}: "
                   f"{type(e).__name__}: {e}", file=sys.stderr)
             return 1
-        log(f"== phase {name} done in {time.perf_counter() - t0:.1f} s")
+        secs = time.perf_counter() - t0
+        state.setdefault("phase_s", {})[name] = round(secs, 2)
+        log(f"== phase {name} done in {secs:.1f} s")
     state["total_s"] = time.perf_counter() - t_start
-    log(f"total {state['total_s']:.1f} s")
+    log(f"total {state['total_s']:.1f} s; phases (s) "
+        + json.dumps(state["phase_s"]))
     summary = {k: state[k] for k in ("smi", "build_s", "tiny", "model_check",
                                      "decode_profile", "engine", "serving",
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
                                      "api", "nn", "hapi", "ops", "fleet",
-                                     "elastic", "runtime", "total_s")
+                                     "elastic", "runtime", "opsprobe",
+                                     "total_s",
+                                     "phase_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",

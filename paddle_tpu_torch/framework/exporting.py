@@ -28,7 +28,6 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import torch
-from torch.fx.experimental.symbolic_shapes import is_concrete_int
 
 __all__ = ["FORMAT", "SUFFIX", "export_artifact", "load_artifact",
            "LoadedArtifact"]
@@ -36,6 +35,13 @@ __all__ = ["FORMAT", "SUFFIX", "export_artifact", "load_artifact",
 FORMAT = "paddle_tpu_torch.export.v1"
 SUFFIX = ".pt2"
 _META = "paddle_tpu_torch.json"
+
+
+def _is_concrete_int(x) -> bool:
+    # imported here: symbolic_shapes pulls in sympy (about a second of
+    # start-up), which a process that never exports should not pay
+    from torch.fx.experimental.symbolic_shapes import is_concrete_int
+    return is_concrete_int(x)
 
 
 def _to_device(program, device: torch.device):
@@ -63,7 +69,7 @@ def export_artifact(path_prefix: str, module: torch.nn.Module,
                                 feeds):
         for ax, want in enumerate(spec["shape"]):
             got = node.meta["val"].shape[ax]
-            if want is None and is_concrete_int(got):
+            if want is None and _is_concrete_int(got):
                 raise ValueError(
                     f"jit.save: feed {name!r} declares axis {ax} of any "
                     f"extent, but the forward fixes it to {got}")

@@ -192,10 +192,28 @@ define_flag("FLAGS_serving_donate_inputs", True,
 define_flag("FLAGS_serving_mesh_mp", 1,
             "tensor-parallel degree of one serving replica; above 1 "
             "waits for ROADMAP queue 1 item 5c")
+# The persistent compile cache (compile_cache/), with the reference's names
+# and defaults (paddle_tpu/framework/flags.py:255-275).
+define_flag("FLAGS_compile_cache_dir", "",
+            "directory for the persistent compile cache (each signature's "
+            "first-dispatch record, keyed by function/shape/flag/version "
+            "fingerprints, and the warmup manifests); empty = disabled. A "
+            "warm cache lets a restarted process skip the first-dispatch "
+            "measurement at every wired site (TrainStep, the Predictor, "
+            "the decoder) and replay its traffic's signatures before "
+            "traffic. TRUSTED PATH ONLY: entries are unpickled on load, so "
+            "a writer to this directory can execute code in every reader "
+            "— it is created 0o700 and must never be shared or "
+            "group-writable")
+define_flag("FLAGS_compile_cache_max_bytes", 1 << 30,
+            "size bound for FLAGS_compile_cache_dir: least-recently-"
+            "used entries are evicted past this many bytes (0 = "
+            "unbounded)")
 define_flag("FLAGS_serving_warmup_from_manifest", False,
-            "pre-warm a constructed InferenceServer from a persisted "
-            "warmup manifest; the manifest waits for ROADMAP queue 1 "
-            "item 5a's compile cache, so True raises")
+            "pre-warm a constructed InferenceServer from its persisted "
+            "warmup manifest (the batch signatures a previous process's "
+            "traffic dispatched) when one exists under "
+            "FLAGS_compile_cache_dir — the restart-storm fast path")
 define_flag("FLAGS_serving_ready_requires_warmup", False,
             "gate InferenceServer.ready on warmup: the server reports "
             "not-ready until warmup() completes (or mark_ready())")

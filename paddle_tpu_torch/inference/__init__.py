@@ -24,9 +24,14 @@ Left out, each raising ``NotImplementedError`` that names its ROADMAP
 queue 1 item: ``Config.set_precision(Half | Bfloat16)``, which the
 reference re-lowers from its ``.pdmodel`` program (item 5d; serve a model
 saved after ``amp.decorate`` instead); the reference's ``.pdmodel`` /
-``.pdiparams`` pair and StableHLO ``.pdexec`` (item 5d); the persistent
-compile cache (item 5a; ``artifact_fingerprint``, which a fleet worker
-stamps its version with, is ported); the serving mesh (item 5c).
+``.pdiparams`` pair and StableHLO ``.pdexec`` (item 5d); the serving mesh
+(item 5c).
+
+The persistent compile cache (``compile_cache/``, on when
+``FLAGS_compile_cache_dir`` is set) serves the dispatch site ``serving``,
+keyed on ``artifact_fingerprint`` plus the assembled batch's shapes and
+dtypes (reference ``:541-590``): a fresh Predictor on a warm directory
+loads each signature's first-dispatch record instead of measuring it.
 """
 from __future__ import annotations
 
@@ -299,6 +304,9 @@ class Predictor:
         self._fingerprint: Optional[str] = None
         # xstats memo: assembled-batch shapes -> ExecEntry
         self._xstats_memo: Dict[tuple, object] = {}
+        # the last dispatch's compile-cache result ("hit", "miss", or None
+        # when it did not ask the cache), by site
+        self.cache_outcomes: Dict[str, Optional[str]] = {}
 
     @property
     def device(self) -> torch.device:
@@ -330,9 +338,9 @@ class Predictor:
         """One dispatch of the program (site ``serving``): the first of
         each assembled-batch signature is measured and registered by
         xstats (``observability/xstats.py``), as the reference registers
-        it (``inference/__init__.py:594-640``). The signature leads with
-        the reference's donation tag, always 0 here: torch donates
-        nothing."""
+        it (``inference/__init__.py:594-640``), or loaded from the compile
+        cache when one is set. The signature leads with the reference's
+        donation tag, always 0 here: torch donates nothing."""
         from ..observability import xstats
         key = tuple((tuple(a.shape), str(a.dtype)) for a in xs)
         return xstats.observed_call(
@@ -341,7 +349,8 @@ class Predictor:
             signature_fn=lambda: ((((0,), "donate"),)
                                   + xstats.signature_of(list(xs))),
             kind="serving", fingerprint=self.artifact_fingerprint,
-            device=self._device)
+            device=self._device, identity=self.artifact_fingerprint,
+            outcome=self.cache_outcomes)
 
     # ---- reference Predictor API ----
     def get_input_names(self) -> List[str]:

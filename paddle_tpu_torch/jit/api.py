@@ -11,7 +11,8 @@ is what the forward allows, e.g. a sequence no longer than the position
 table), so one artifact takes every batch and sequence length. ``to_static``
 and dy2static wait for ROADMAP queue 1 item 5d, as does the reference's
 ``.pdmodel``/``.pdiparams`` pair that its ``save`` writes beside its own
-artifact.
+artifact; ``to_static``'s compile-cache site (reference
+``jit/api.py:180-200``) comes with it.
 """
 from __future__ import annotations
 

@@ -44,6 +44,14 @@ hand-written flash kernels forward and backward.
   ``train_step`` entry (FLOPs per step, bytes, allocator memory); later
   steps only bump its counters. The ``kind="train"`` envelope then joins
   it into ``paddle_mfu{kind="train"}``.
+- The compile cache (``compile_cache/``, on when ``FLAGS_compile_cache_dir``
+  is set): the site ``train_step``, keyed as the reference keys it
+  (``:205-300``): the model's, the loss function's and the optimizer's
+  identity (its class, update rule, accumulators, decay and learning-rate
+  multipliers, grad clip), the AMP level and the scaler's schedule, the
+  batch signature and the compile-relevant flags. A fresh step on a warm
+  directory loads the first step's record and skips its measurement; the
+  step itself runs as without the cache.
 - Numerics tripwires (``observability/numerics.py``), armed when the step
   is built by ``FLAGS_check_nan_inf`` (every step) or
   ``FLAGS_numerics_sample_rate`` (a sampled share), as the reference's
@@ -54,9 +62,9 @@ hand-written flash kernels forward and backward.
   publishes them one note later (grad-norm EWMA drift, anomalies), so no
   step waits for them.
 
-Not in this slice: meshes, the compile cache, DGC/LocalSGD (ROADMAP queue
-1 item 5c) and ASP masks (item 5d). Asking for any of them raises
-``NotImplementedError`` naming its ROADMAP item.
+Not in this slice: meshes, DGC/LocalSGD (ROADMAP queue 1 item 5c) and ASP
+masks (item 5d). Asking for any of them raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -118,6 +126,7 @@ class TrainStep:
         self._n_inputs = None
         # xstats memo: (tag, batch shapes) -> ExecEntry
         self._xstats_memo = {}
+        self._step_fp: Optional[str] = None
         # numerics tripwires: armed state pinned at construction
         self._numerics_armed = (numerics.train_tripwire_armed()
                                 and bool(self._params))
@@ -228,6 +237,42 @@ class TrainStep:
                 pass           # on the hot path, never a step failure
         return loss.detach()
 
+    def _step_fingerprint(self) -> str:
+        """The step's identity for compile-cache keys (reference
+        ``:195-250``): everything that changes what a step computes,
+        besides the batch signature and the flags the key adds."""
+        if self._step_fp is not None:
+            return self._step_fp
+        from ..compile_cache import fingerprint as fpmod
+        opt = self.optimizer
+        parts = [
+            fpmod.layer_fingerprint(self.model),
+            fpmod.function_fingerprint(self.loss_fn),
+            f"{type(opt).__module__}.{type(opt).__qualname__}",
+            fpmod.function_fingerprint(opt._update_rule),
+            repr(sorted(opt._accum_names)),
+            repr((self._amp_level, self._amp_dtype)),
+            repr(getattr(opt, "_l2_coeff", None)),
+            repr(("numerics", self._numerics_armed)),
+        ]
+        gc = getattr(opt, "_grad_clip", None)
+        parts.append(repr((type(gc).__qualname__ if gc is not None
+                           else None,
+                           getattr(gc, "clip_norm", None),
+                           getattr(gc, "min", None),
+                           getattr(gc, "max", None))))
+        sc = self._scaler
+        if sc is not None:
+            parts.append(repr((float(sc._incr_ratio), float(sc._decr_ratio),
+                               int(sc._incr_every), int(sc._decr_every),
+                               bool(sc._dynamic))))
+        for n, p in sorted(self._named, key=lambda np_: np_[0]):
+            mult = getattr(p, "optimize_attr",
+                           {"learning_rate": 1.0}).get("learning_rate", 1.0)
+            parts.append(f"{n}:{opt._wd_for(p)}:{mult}")
+        self._step_fp = fpmod.bytes_fingerprint("\n".join(parts).encode())
+        return self._step_fp
+
     def _dispatch(self, batch, lr: float, t: int):
         """One step as a dispatch of the ``train_step`` site: the first
         of each batch signature is measured and registered by xstats
@@ -242,7 +287,8 @@ class TrainStep:
             signature_fn=lambda: ((((0,), "tag:single"),)
                                   + xstats.signature_of(list(batch))
                                   + xstats.signature_of(self._params)),
-            kind="train", device=self._device)
+            kind="train", device=self._device,
+            identity=self._step_fingerprint)
 
     def _set_inputs(self, batch, n_inputs):
         if n_inputs is not None:

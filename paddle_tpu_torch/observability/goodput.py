@@ -8,10 +8,11 @@ and the categories sum to elapsed time. This module is that accountant for
 one process, as the reference's:
 
 - **Categories** (``CATEGORIES``): ``step`` (productive step time, fed by
-  ``jit.TrainStep`` and ``TrainingTelemetryCallback``), ``compile`` (kept
-  as a category; nothing in the port feeds it yet: the reference feeds it
-  from its JAX compile listeners and its compile cache, ROADMAP queue 1
-  items 11 and 5a), ``ckpt_save`` / ``ckpt_restore`` (the synchronous part
+  ``jit.TrainStep`` and ``TrainingTelemetryCallback``), ``compile`` (the
+  kernel library's build, ``observability/runtime.py``, and each compile-
+  cache miss's measured first dispatch, ``compile_cache/cache.py``, where
+  the reference feeds its JAX compiles), ``ckpt_save`` / ``ckpt_restore``
+  (the synchronous part
   of ``CheckpointManager`` saves, and restores; the async writer is off the
   critical path and is not badput), ``data_stall`` (the fit loop's gap
   between batches), ``recovery`` (steps re-run after a preemption restore,

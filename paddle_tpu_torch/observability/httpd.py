@@ -169,6 +169,18 @@ def _statusz() -> dict:
                                              if cuda else 0)}
     except Exception:  # noqa: BLE001
         pass
+    try:  # the compile cache's health (hits/misses/fallbacks/entries/
+        # bytes) without scraping /metrics, as the reference's section;
+        # absent until the cache package is imported
+        cc = sys.modules.get("paddle_tpu_torch.compile_cache")
+        if cc is not None:
+            section = dict(cc.stats())
+            from ..framework.flags import flag_value
+            section["dir"] = str(flag_value("FLAGS_compile_cache_dir") or "")
+            section["enabled"] = bool(section["dir"])
+            out["compile_cache"] = section
+    except Exception:  # noqa: BLE001
+        pass
     try:  # numerics health (lazy: absent until the numerics layer is
         # imported)
         num = sys.modules.get("paddle_tpu_torch.observability.numerics")

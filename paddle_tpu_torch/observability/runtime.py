@@ -87,6 +87,48 @@ def install_jax_monitoring(registry: Optional[MetricRegistry] = None
     return True
 
 
+def process_start_unix() -> Optional[float]:
+    """This process's start on the wall clock, from Linux's ``/proc`` (10
+    ms resolution): the origin of a start-up split (the fleet worker's
+    ``/readyz`` ``startup``, the elastic worker's ``STARTUP`` line).
+    None where it cannot be read."""
+    import os
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = float(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/stat") as f:
+            btime = next(float(line.split()[1]) for line in f
+                         if line.startswith("btime"))
+        return btime + ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError, StopIteration):
+        return None
+
+
+def startup_split(on_card: bool, start: Optional[float] = None) -> dict:
+    """The first parts of a process's start-up split, in seconds:
+    ``imports`` (from ``start``, by default the process's start, to this
+    call: the interpreter and the imports), ``cuda_context`` (the CUDA
+    context on the card) and ``kernel_library`` (loading, or building,
+    the hand-written kernels' library). Without ``on_card`` the last two
+    do nothing. The caller adds what follows (model, warmup, ...)."""
+    import time
+    t0 = process_start_unix() if start is None else start
+    t = time.time()
+    split = {"imports": round(t - t0, 4) if t0 is not None else None}
+    if on_card:
+        import torch
+        torch.cuda.init()
+        torch.empty(0, device="cuda")
+        torch.cuda.synchronize()
+    t1 = time.time()
+    split["cuda_context"] = round(t1 - t, 4)
+    if on_card:
+        from ..ops import _build
+        _build.load_library()
+    split["kernel_library"] = round(time.time() - t1, 4)
+    return split
+
+
 def _device_label(index: int) -> str:
     return f"cuda:{index}"
 

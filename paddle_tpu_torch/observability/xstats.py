@@ -22,13 +22,25 @@ under :func:`measure`:
   (views excluded) plus the kernels' tallied operand bytes: an upper bound
   without fusion, which ``/execz`` says (``bytes_accessed_bound``);
 - memory: the caching allocator's allocated bytes before and after the
-  dispatch, and its peak where it can be read without resetting the
+  dispatch and the dispatch's own allocation (``alloc_delta_bytes``, after
+  less before), and its peak where it can be read without resetting the
   process's peak statistics (only when the dispatch raised the process's
-  peak; otherwise ``peak_bytes`` is None).
+  peak; otherwise ``peak_bytes`` and ``temp_bytes``, the peak above the
+  start, are None).
 
-Every entry's provenance tier reads ``eager``; the compile cache's hit and
-miss tiers wait for ROADMAP queue 1 item 5a. Later dispatches only bump
-the entry's counters.
+With no compile cache (``FLAGS_compile_cache_dir`` empty, the default) an
+entry's provenance reads ``{"tier": "eager"}``. With one, a site that
+names its identity (``identity=``) asks the cache at a signature's first
+dispatch in each object: a hit registers the stored record with
+``{"cache": "hit", "tier": "record"}`` and skips the measurement, a miss
+measures, stores the record and registers ``{"cache": "miss", "tier":
+"record"}`` (``compile_cache/cache.py``). A record holds only what the key
+determines: FLOPs, bytes, the host ms the measurement took, the dispatch's
+own allocation and its temporary peak above the start — never the
+allocator's absolute readings, which depend on what the process held
+before, so a hit's entry has no ``alloc_before_bytes``,
+``alloc_after_bytes`` or ``peak_bytes``. Later dispatches only bump the
+entry's counters.
 
 **MFU / roofline join.** Each step-profiler envelope's kind (train,
 prefill, decode, verify, serving) meets the most recently dispatched entry
@@ -297,6 +309,7 @@ def measure(call: Callable, device=None):
         peak1 = torch.cuda.max_memory_allocated(dev)
         ana.update({"alloc_before_bytes": int(mem0),
                     "alloc_after_bytes": int(mem1),
+                    "alloc_delta_bytes": int(mem1 - mem0),
                     "peak_bytes": int(peak1) if peak1 > peak0 else None,
                     "temp_bytes": int(peak1 - mem0) if peak1 > peak0
                     else None})
@@ -849,21 +862,60 @@ def note_dispatch(entry: Optional[ExecEntry]):
         pass
 
 
+_MEMO_GEN = "__flags_generation__"
+_NO_CACHE = object()
+
+
+def _site_cache():
+    """The configured compile cache, or None (the flag read first: the
+    cache package is imported only when a directory is set)."""
+    if not str(_flag("FLAGS_compile_cache_dir", "") or ""):
+        return None
+    from ..compile_cache import default_cache
+    return default_cache()
+
+
 def observed_call(memo: dict, key, site: str, call: Callable, *,
                   signature_fn: Callable[[], tuple],
                   kind: Optional[str] = None,
                   fingerprint: Optional[Callable[[], str]] = None,
-                  device=None):
-    """Run ``call()`` as one dispatch of ``site``: the first dispatch of a
-    signature (``signature_fn()``) in the process runs under
-    :func:`measure` and registers its entry (provenance tier ``eager``);
-    a caller's later dispatches of ``key`` (memoized in ``memo``) and other
+                  device=None,
+                  identity: Optional[Callable[[], Optional[str]]] = None,
+                  outcome: Optional[dict] = None):
+    """Run ``call()`` as one dispatch of ``site``. A caller's dispatches
+    of ``key`` after its first are only noted (``memo``, cleared when
+    ``set_flags`` moves ``flags_generation()``). At the first, with a
+    compile cache configured and ``identity()`` (the site's model
+    identity) not None, the cache answers: a hit registers the stored
+    record and ``call()`` runs unmeasured; a miss runs ``call()`` under
+    :func:`measure` and stores the record. Without a cache, the first
+    dispatch of a signature (``signature_fn()``) in the process is
+    measured and registered (provenance tier ``eager``), and other
     callers' of a registered signature are only noted. With xstats off,
-    just ``call()``."""
+    just ``call()``. ``outcome`` (a dict) receives ``outcome[site]``:
+    "hit" or "miss" when this dispatch asked the cache, else None."""
+    if outcome is not None:
+        outcome[site] = None
     if not enabled():
         return call()
+    from ..framework.flags import flags_generation
+    gen = flags_generation()
+    if memo.get(_MEMO_GEN) != gen:
+        memo.clear()
+        memo[_MEMO_GEN] = gen
     ent = memo.get(key)
     if ent is None:
+        try:
+            cache = _site_cache() if identity is not None else None
+        except Exception:  # noqa: BLE001 - a broken cache never fails
+            cache = None   # the dispatch
+        if cache is not None:
+            out = _cached_call(cache, memo, key, site, call,
+                               signature_fn=signature_fn, kind=kind,
+                               fingerprint=fingerprint, device=device,
+                               identity=identity, outcome=outcome)
+            if out is not _NO_CACHE:
+                return out
         try:
             sig = signature_fn()
             ent = default_exec_registry().lookup(site, sig)
@@ -885,6 +937,56 @@ def observed_call(memo: dict, key, site: str, call: Callable, *,
             provenance={"tier": "eager"}, analysis=ana)
     except Exception:  # noqa: BLE001 - observability is garnish
         ent = None
+    if ent is not None:
+        memo[key] = ent
+        note_dispatch(ent)
+    return out
+
+
+def _cached_call(cache, memo, key, site, call, *, signature_fn, kind,
+                 fingerprint, device, identity, outcome):
+    """The first dispatch of ``key`` in this object, through the compile
+    cache (``observed_call``). ``call()`` runs exactly once: measured on
+    a miss, plainly on a hit; an error it raises propagates. Returns
+    ``_NO_CACHE`` without running it when no key can be formed."""
+    import torch
+    try:
+        ident = identity()
+        if ident is None:
+            return _NO_CACHE
+        sig = signature_fn()
+        from ..compile_cache import cache_key
+        from ..compile_cache.cache import record_of
+        ckey, parts = cache_key(ident, None, mesh=None, extra={
+            "site": site,
+            "device": (torch.device(device).type if device is not None
+                       else "cpu"),
+            "signature": [[list(s), d] for s, d in sig]})
+        meta = {"kind": kind, "signature": sig,
+                "fingerprint": fingerprint() if fingerprint else None}
+    except Exception:  # noqa: BLE001 - no key: the uncached path
+        return _NO_CACHE
+    box = {}
+
+    def build():
+        try:
+            box["out"], meta["analysis"] = measure(call, device)
+        except BaseException as e:
+            box["error"] = e
+            raise
+        return record_of(meta["analysis"])
+
+    try:
+        _, hit = cache.get_or_compile(ckey, build, site=site, meta=parts,
+                                      xstats_meta=meta)
+        if outcome is not None:
+            outcome[site] = "hit" if hit else "miss"
+    except BaseException:
+        if "error" in box:
+            raise box["error"]
+        # a cache fault outside the dispatch: it still runs, once
+    out = box["out"] if "out" in box else call()
+    ent = meta.get("entry")
     if ent is not None:
         memo[key] = ent
         note_dispatch(ent)

@@ -84,7 +84,11 @@ class ProcessReplicaFactory:
     """Builds worker subprocesses. ``extra_args`` go to the worker
     CLI verbatim (e.g. ``["--stub", "--stub-device-ms", "8"]`` or
     ``["--model-prefix", "/models/m_v3"]``; ``["--cpu"]`` serves on the
-    CPU); ``env`` overlays the parent environment."""
+    CPU); ``env`` overlays the parent environment. The spawner's live
+    ``FLAGS_compile_cache_dir`` (and ``FLAGS_compile_cache_max_bytes``)
+    go to every worker unless ``env`` names them, so each replica warms
+    from the shared compile cache and warmup manifests (reference
+    ``supervisor.py:86``)."""
 
     def __init__(self, *, extra_args: Optional[List[str]] = None,
                  env: Optional[Dict[str, str]] = None,
@@ -112,6 +116,12 @@ class ProcessReplicaFactory:
                "--announce", announce,
                "--name", f"replica-{replica_id}"] + self.extra_args
         env = dict(os.environ)
+        from ...framework.flags import flag_value
+        cache_dir = str(flag_value("FLAGS_compile_cache_dir") or "")
+        if cache_dir:
+            env["FLAGS_compile_cache_dir"] = cache_dir
+            env["FLAGS_compile_cache_max_bytes"] = str(
+                int(flag_value("FLAGS_compile_cache_max_bytes")))
         env.update(self.env)
         proc = subprocess.Popen(
             cmd, env=env,

@@ -60,10 +60,17 @@ readiness transitions: the backend's ``canary_probe`` where it has one
 device). A failed sweep quarantines the replica: ``/readyz`` answers 503
 with ``corrupt``, so the router's poller opens its breaker.
 
-Left out, each raising ``NotImplementedError`` that names its ROADMAP queue
-1 item: the warmup manifest (``--warmup manifest``, item 5a; ``auto`` takes
-the lattice) and the serving mesh (``FLAGS_serving_mesh_mp`` above 1, item
-5c).
+Warmup (``--warmup``): ``manifest`` replays the signatures the fleet's
+traffic dispatched before (the servers' warmup manifests under the shared
+``FLAGS_compile_cache_dir``, each one a compile-cache hit), ``lattice`` the
+full bucket lattice, ``auto`` the manifest when it has entries, else the
+lattice, ``none`` flips ready without running anything. A worker started
+by ``main`` reports its start-up split in its ``/readyz`` body
+(``startup``: seconds from the process's start to ``main``, CUDA context,
+kernel library, model, warmup).
+
+Left out, raising ``NotImplementedError`` that names its ROADMAP queue 1
+item: the serving mesh (``FLAGS_serving_mesh_mp`` above 1, item 5c).
 """
 from __future__ import annotations
 
@@ -284,10 +291,6 @@ class PredictorBackend:
                  generation_model=None,
                  generation_kwargs: Optional[dict] = None,
                  device=None):
-        if warmup_mode == "manifest":
-            raise NotImplementedError(
-                "warmup manifests wait for the compile cache, ROADMAP "
-                "queue 1 item 5a")
         self._name = name
         self._max_batch_size = max_batch_size
         self._seq_buckets = list(seq_buckets) if seq_buckets else None
@@ -327,6 +330,9 @@ class PredictorBackend:
         # one metrics slice per served version: the replacement server of
         # a swap does not reset the drained one's counts, so the process's
         # /metrics keeps every batch it ran
+        # (and one warmup manifest per name and program: the workers of
+        # a fleet that share a name replay the signatures any of them
+        # served)
         srv = InferenceServer(
             pred, max_batch_size=self._max_batch_size,
             seq_buckets=self._seq_buckets, seq_axis=self._seq_axis,
@@ -386,17 +392,29 @@ class PredictorBackend:
             deadline_ms=deadline_ms, tenant=tenant)
 
     def warmup(self) -> int:
-        """Warm per ``warmup_mode``: "lattice" (and "auto", since the port
-        has no warmup manifest) runs the full bucket lattice, "none" flips
-        ready without running anything."""
+        """Warm per ``warmup_mode``: "manifest" replays the persisted
+        traffic signatures (the warm scale-out path), "lattice" the full
+        bucket lattice, "auto" manifest-when-present else lattice, "none"
+        flips ready without running anything; a generation engine that is
+        not ready runs its lattice, as the reference's."""
         return self._warm_server(self._server)
 
     def _warm_server(self, srv) -> int:
+        mode = self._warmup_mode
         n = 0
-        if self._warmup_mode == "none":
+        if mode == "none":
             srv.mark_ready()
-        else:   # lattice, or auto without a manifest
+        elif mode == "manifest":
+            n = srv.warmup_from_manifest()
+            srv.mark_ready()   # empty/absent manifest: nothing to warm
+        elif mode == "lattice":
             n = srv.warmup()
+        else:   # auto
+            manifest = srv.warmup_manifest
+            if manifest is not None and len(manifest):
+                n = srv.warmup_from_manifest()
+            else:
+                n = srv.warmup()
         if self._gen is not None and not self._gen.ready:
             n += self._gen.warmup()
         return n
@@ -876,6 +894,9 @@ class _ReplicaHandler(BaseHTTPRequestHandler):
                          and not corrupt)
                 body = {"ready": ready,
                         "version": self._backend.info().get("version")}
+                startup = getattr(self.server.app, "startup", None)
+                if ready and startup is not None:
+                    body["startup"] = startup
                 if wedged:
                     body["wedged"] = True
                 if corrupt:
@@ -1141,6 +1162,8 @@ class ReplicaApp:
         self._shutdown_requested = threading.Event()
         self.watchdog: Optional[WedgeWatchdog] = None
         self.canary = None      # CanaryRunner via arm_canary
+        # a worker's start-up split (main), served in /readyz once ready
+        self.startup: Optional[dict] = None
 
     @property
     def port(self) -> Optional[int]:
@@ -1247,8 +1270,10 @@ def _parse_args(argv):
     ap.add_argument("--model-prefix", default=None)
     ap.add_argument("--warmup", default="auto",
                     choices=("auto", "manifest", "lattice", "none"),
-                    help="auto and lattice run the bucket lattice; "
-                         "manifest waits for ROADMAP queue 1 item 5a")
+                    help="manifest replays the warmup manifests under "
+                         "FLAGS_compile_cache_dir, lattice the bucket "
+                         "lattice, auto the manifest when it has "
+                         "entries, none nothing")
     ap.add_argument("--cpu", action="store_true",
                     help="serve on the CPU (Config.disable_gpu()); the "
                          "default is the card")
@@ -1281,13 +1306,7 @@ def _parse_args(argv):
     ap.add_argument("--canary-period-s", type=float, default=None,
                     help="numerics SDC canary sweep period (default: "
                          "FLAGS_numerics_canary_period_s; <= 0 off)")
-    args = ap.parse_args(argv)
-    if args.warmup == "manifest":
-        # refused here, not in the warmup: a worker that died there would
-        # be respawned by its supervisor forever
-        ap.error("--warmup manifest: warmup manifests wait for the compile "
-                 "cache, ROADMAP queue 1 item 5a")
-    return args
+    return ap.parse_args(argv)
 
 
 def _build_backend(args):
@@ -1322,12 +1341,46 @@ def _build_backend(args):
         generation_model=gen_model, device=device)
 
 
+def _startup_split(args) -> tuple:
+    """Build the backend the way ``main`` does, timing each part of a
+    worker's start-up in seconds: ``imports`` (the process's start to
+    here: the interpreter and the imports), ``cuda_context`` (the CUDA
+    context on the card), ``kernel_library`` (loading, or building, the
+    hand-written kernels' library), ``model`` (the backend: the artifact
+    and any generation model). Returns ``(backend, split)``; the caller
+    adds ``warmup``."""
+    import torch
+    from ...observability.runtime import startup_split
+    # without a card the backend's build raises the device error itself
+    split = startup_split(not args.stub and not args.cpu
+                          and torch.cuda.is_available())
+    t = time.time()
+    backend = _build_backend(args)
+    split["model"] = round(time.time() - t, 4)
+    return backend, split
+
+
+def _warm_report(backend) -> dict:
+    """What the warmup left, read before any traffic: the compile cache's
+    hits and misses in this process (None without a cache) and the
+    signatures the server's warmup manifest held."""
+    import sys
+    cc = sys.modules.get("paddle_tpu_torch.compile_cache")
+    st = cc.stats() if cc is not None else None
+    srv = getattr(backend, "server", None)
+    manifest = getattr(srv, "warmup_manifest", None)
+    return {"compile_cache": ({"hits": st["hits"], "misses": st["misses"]}
+                              if st is not None else None),
+            "manifest_signatures": (len(manifest.specs(site="predict"))
+                                    if manifest is not None else None)}
+
+
 def main(argv=None) -> int:
     import signal
 
     args = _parse_args(argv)
     tracing.set_process_name(args.name or f"replica-{os.getpid()}")
-    backend = _build_backend(args)
+    backend, split = _startup_split(args)
     app = ReplicaApp(backend, host=args.host,
                      port=args.port).start()
     # the watchdog turns a wedged device into a bounded failure: flip
@@ -1350,7 +1403,11 @@ def main(argv=None) -> int:
         pass    # not the main thread (embedded use)
     # liveness is up (the app answers /healthz) but readiness stays
     # false until this warmup pass — the whole point of the split
+    t0 = time.time()
     backend.warmup()
+    split["warmup"] = round(time.time() - t0, 4)
+    split.update(_warm_report(backend))
+    app.startup = split
     app.wait_shutdown()
     backend.shutdown(drain=True)
     if wd is not None and wd.wedged:

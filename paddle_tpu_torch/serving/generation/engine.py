@@ -57,12 +57,24 @@ or fails with ``QuotaExceededError`` when it cannot.
 
 Readiness, for a fleet replica: with ``FLAGS_serving_ready_requires_warmup``
 on, ``ready`` stays false until ``warmup()`` (the decode, verify, prefill
-and chunked lattice, each signature run once on the device) or
-``mark_ready()``; ``dispatch_signatures`` lists every signature the engine
-ran, as the reference's ``_note_dispatch`` records them.
+and chunked lattice, each signature run once on the device),
+``warmup_from_manifest()`` or ``mark_ready()``; ``dispatch_signatures``
+lists every signature the engine ran, as the reference's
+``_note_dispatch`` records them.
 
-Not in this slice (ROADMAP): tensor-parallel meshes (item 5c), warmup
-manifests and the compile cache (item 5a).
+Warmup manifests and the compile cache (reference ``:675-692,
+1044-1090``): with ``FLAGS_compile_cache_dir`` set, the engine keeps a
+``WarmupManifest`` (``decode-<name>`` and the decoder's ``fingerprint()``)
+under the cache directory; the first TRAFFIC dispatch of each signature
+(never a warmup's or a replay's) is written through to it, and
+``warmup_from_manifest()`` replays the prefill, chunked, decode and verify
+sites within ``max_batch`` and ``max_seq_len`` before traffic. The
+snapshot's ``compile_cache`` section (``paddle_decode_compile_total``)
+counts every target dispatch: without a cache the first run of a
+signature in this engine is a miss and every later one a hit; with one, a
+first run whose first-dispatch record the cache supplied is a hit too.
+
+Not in this slice (ROADMAP): tensor-parallel meshes (item 5c).
 """
 from __future__ import annotations
 
@@ -381,11 +393,15 @@ class DecodeMetrics:
         self._f_spec_acc = reg.counter(
             "paddle_decode_spec_accepted_tokens_total",
             "proposed tokens the target model accepted", ("server",))
+        self._f_compile = reg.counter(
+            "paddle_decode_compile_total",
+            "decode-engine dispatch signatures by compile-cache result",
+            ("server", "result"))
         for fam in (self._f_events, self._f_tokens, self._f_inter,
                     self._f_step, self._f_occ, self._f_pages,
                     self._f_pool_bytes, self._f_evict, self._f_ttft,
                     self._f_pfx_hits, self._f_pfx_reused,
-                    self._f_spec_prop, self._f_spec_acc):
+                    self._f_spec_prop, self._f_spec_acc, self._f_compile):
             fam.clear(server=name)
         self._events = {e: self._f_events.labels(server=name, event=e)
                         for e in _EVENTS}
@@ -402,6 +418,8 @@ class DecodeMetrics:
         self._c_pfx_reused = self._f_pfx_reused.labels(server=name)
         self._c_spec_prop = self._f_spec_prop.labels(server=name)
         self._c_spec_acc = self._f_spec_acc.labels(server=name)
+        self._c_hit = self._f_compile.labels(server=name, result="hit")
+        self._c_miss = self._f_compile.labels(server=name, result="miss")
         self._ttft = deque(maxlen=window)
         self._inter = deque(maxlen=window)
         self._step = {s: deque(maxlen=window) for s in ("prefill", "decode")}
@@ -456,6 +474,9 @@ class DecodeMetrics:
         self._f_pool_bytes.labels(server=self.name,
                                   dtype=self._pool_dtype).set(int(nbytes))
 
+    def observe_compile(self, hit: bool):
+        (self._c_hit if hit else self._c_miss).inc()
+
     def observe_prefix_hit(self, tokens_reused: int):
         self._c_pfx_hits.inc()
         self._c_pfx_reused.inc(int(tokens_reused))
@@ -493,6 +514,8 @@ class DecodeMetrics:
                              "evicted_total": int(self._c_evict.value),
                              "pool_bytes": self._pool_bytes,
                              "pool_dtype": self._pool_dtype},
+                "compile_cache": {"hits": int(self._c_hit.value),
+                                  "misses": int(self._c_miss.value)},
                 "prefix": {"hits": int(self._c_pfx_hits.value),
                            "tokens_reused": int(self._c_pfx_reused.value)},
                 "spec": {"proposed": proposed,
@@ -664,6 +687,8 @@ class GenerationServer:
         # records); warmup counts the ones new to this engine
         self.dispatch_signatures: List[tuple] = []
         self._signature_set = set()
+        self._manifest = self._init_manifest(name)
+        self._manifest_recorded = set()
         self.telemetry = self._attach_telemetry(telemetry_port, name)
         with _ENGINES_LOCK:
             _ENGINES.add(self)
@@ -682,6 +707,27 @@ class GenerationServer:
         observability.add_readiness_check(f"decode:{name}",
                                           self._readiness)
         return srv
+
+    def _init_manifest(self, name):
+        if not str(flag_value("FLAGS_compile_cache_dir") or ""):
+            return None
+        try:
+            from ...compile_cache import WarmupManifest, default_cache
+            cache = default_cache()
+            if cache is None:
+                return None
+            return WarmupManifest(WarmupManifest.default_path(
+                cache.directory, f"decode-{name}",
+                self.decoder.fingerprint()))
+        except Exception:  # noqa: BLE001 - optimization artifact only
+            return None
+
+    @property
+    def warmup_manifest(self):
+        """The live WarmupManifest (or None without a compile cache):
+        the decode, prefill, chunked and verify signatures traffic
+        dispatched, written through as they first appear."""
+        return self._manifest
 
     def _health(self):
         if self._closed:
@@ -909,16 +955,36 @@ class GenerationServer:
                                     timeout_ms, seed).result()
 
     # ------------------------------------------------------ warmup
-    @property
-    def warmup_manifest(self):
-        """The reference's persisted warmup manifest; the port has none
-        (the compile cache waits for ROADMAP queue 1 item 5a)."""
-        return None
-
     def warmup_from_manifest(self, path: Optional[str] = None) -> int:
-        raise NotImplementedError(
-            "warmup manifests wait for the compile cache, ROADMAP queue 1 "
-            "item 5a")
+        """Replay the persisted decode, prefill, chunked and verify
+        signatures a previous process's traffic dispatched (each one a
+        compile-cache hit on a warm directory), within this engine's
+        ``max_batch`` and ``max_seq_len``. Returns the count run for the
+        first time, as ``warmup``; 0 when no manifest exists."""
+        if path is not None:
+            from ...compile_cache import WarmupManifest
+            manifest = WarmupManifest(path)
+        else:
+            manifest = self._manifest
+        if manifest is None:
+            return 0
+        fresh = 0
+        for site, warm in (("generate_prefill", self._warm_prefill),
+                           ("generate_chunked", self._warm_chunked)):
+            for spec in manifest.specs(site=site):
+                (rows, seq) = spec["feeds"][0][0]
+                if rows > self.max_batch or seq > self.max_seq_len:
+                    continue
+                fresh += warm(int(rows), int(seq))
+        if manifest.specs(site="generate_decode"):
+            fresh += self._warm_decode()
+        if self.spec_k and any(
+                tuple(spec["feeds"][0][0]) == (self.max_batch,
+                                               self.spec_k + 1)
+                for spec in manifest.specs(site="generate_verify")):
+            fresh += self._warm_verify()
+        self._warmed.set()
+        return fresh
 
     def warmup(self, seq_buckets: Optional[Sequence[int]] = None,
                batch_buckets: Optional[Sequence[int]] = None) -> int:
@@ -957,11 +1023,12 @@ class GenerationServer:
         page. Returns the signatures new to this engine."""
         out, self.kv.k, self.kv.v = getattr(self.decoder, fn)(
             *args, self.kv.k, self.kv.v)
-        fresh = int(self._note_dispatch(site, feeds))
+        fresh = int(self._note_dispatch(site, feeds, record=False))
         if self.draft is not None and site != "generate_verify":
             _, self._draft_k, self._draft_v = getattr(self.draft, fn)(
                 *args, self._draft_k, self._draft_v)
-            fresh += int(self._note_dispatch("draft_" + site, feeds))
+            fresh += int(self._note_dispatch("draft_" + site, feeds,
+                                             record=False))
         out.float().cpu()       # surface a failed warmup here, loudly
         return fresh
 
@@ -1000,17 +1067,30 @@ class GenerationServer:
         return self._warm_window("generate_verify", "verify",
                                  self.max_batch, self.spec_k + 1)
 
-    def _note_dispatch(self, site: str, feeds) -> bool:
-        """Record a dispatch signature; True when it is new to this
-        engine."""
+    def _note_dispatch(self, site: str, feeds, record: bool = True
+                       ) -> bool:
+        """Record a dispatch signature and count it in the snapshot's
+        ``compile_cache`` section (target sites); True when it is new to
+        this engine. TRAFFIC dispatches (``record``; not warmup replays)
+        persist their signature in the warmup manifest, so a restarted
+        engine warms exactly the observed lattice."""
         key = (site, tuple((tuple(int(d) for d in shape), str(dt))
                            for shape, dt in feeds))
+        draft = site.startswith("draft_")
         with self._lock:
-            if key in self._signature_set:
-                return False
-            self._signature_set.add(key)
-            self.dispatch_signatures.append(key)
-            return True
+            new = key not in self._signature_set
+            if new:
+                self._signature_set.add(key)
+                self.dispatch_signatures.append(key)
+        if not draft:
+            hit = not new or \
+                self.decoder.cache_outcomes.get(site) == "hit"
+            self.metrics.observe_compile(hit=hit)
+        if record and not draft and self._manifest is not None \
+                and key not in self._manifest_recorded:
+            self._manifest_recorded.add(key)
+            self._manifest.record(feeds, site=site)
+        return new
 
     # ------------------------------------------------------ worker
     def _loop(self):

@@ -31,7 +31,12 @@ Each entry point is one dispatch of an observability site
 ``generate_verify``), as the reference's (``model_fns.py:365-479``):
 
 - xstats: the first dispatch of each signature registers and measures its
-  entry (``observability/xstats.py``); later ones bump its counters;
+  entry (``observability/xstats.py``); later ones bump its counters. With
+  ``FLAGS_compile_cache_dir`` set, the first dispatch of each (site,
+  signature) in a decoder asks the compile cache, keyed on
+  ``fingerprint()`` (the model's ``layer_fingerprint`` and the decode
+  geometry), as the reference's ``_aot_exec`` (``:325-360``): a hit loads
+  the stored record and skips the measurement;
 - numerics tripwires (``FLAGS_check_nan_inf`` or
   ``FLAGS_numerics_sample_rate``): the logits' health stats, and over int8
   pools the scale planes' magnitude, are noted without a sync;
@@ -114,9 +119,33 @@ class CachedDecoder:
                                  else spec["max_seq_len"])
         # xstats memo: (site, shapes) -> ExecEntry
         self._xstats_entries = {}
+        self._fp: Optional[str] = None
+        # each site's last compile-cache result ("hit", "miss", or None
+        # when the dispatch did not ask the cache)
+        self.cache_outcomes = {}
         self._dtype_label = self.kv_dtype or (
             "f32" if self._pool_dtype == torch.float32
             else str(self._pool_dtype).replace("torch.", ""))
+
+    def fingerprint(self) -> str:
+        """Stable identity of (the model's code, configuration and
+        parameter layout, the decode geometry) for compile-cache keys and
+        the warmup manifest (reference ``model_fns.py:293``)."""
+        if self._fp is None:
+            import hashlib
+            import json
+
+            from ...compile_cache import layer_fingerprint
+            geom = {"max_batch": self.max_batch,
+                    "page_size": self.page_size,
+                    "pages_per_seq": self.pages_per_seq,
+                    "max_positions": self.max_positions,
+                    "use_kernels": self.use_kernels,
+                    "kv_dtype": self.kv_dtype, "v": 1}
+            h = hashlib.sha256(layer_fingerprint(self.model).encode())
+            h.update(json.dumps(geom, sort_keys=True).encode())
+            self._fp = h.hexdigest()
+        return self._fp
 
     def _t(self, a, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
@@ -171,7 +200,8 @@ class CachedDecoder:
             lambda: self._run(*args, tables, k, v, last_idx),
             signature_fn=lambda: xstats.signature_of(
                 [ids, positions, valid, ctx, tables, layer_pool(k, 0)]),
-            device=self.device)
+            device=self.device, identity=self.fingerprint,
+            outcome=self.cache_outcomes)
         try:
             kname = site[len("generate_"):]
             if shadow is not None:

@@ -32,9 +32,14 @@ which also covers the device-to-host copy enqueued behind the program) and
 ``fetch`` (slicing the host outputs per request). ``host`` =
 assembly + dispatch + fetch, ``device`` = device_wait, and ``host_fraction``
 is sum(host) / sum(host + device) over the window. ``compile_cache`` counts
-the first run of each (signature, padded rows) as a miss, as the reference
-counts its XLA compiles: on the card a first run pays the kernels' first
-launches, the allocator's growth and cuBLAS's choices.
+every dispatch: without a compile cache (``FLAGS_compile_cache_dir``
+empty), the first run of each (signature, padded rows) in this server is a
+miss and every later one a hit, as the reference counts its XLA compiles
+(on the card a first run pays the kernels' first launches, the allocator's
+growth and cuBLAS's choices). With a cache set, a first run whose
+first-dispatch record the cache supplied counts as a hit, so a server
+warmed from a warm directory reads 0 misses; ``signatures`` counts the
+distinct (signature, padded rows) either way.
 
 Percentiles come from ``observability.registry.PercentileWindow`` (the
 ``window`` most recent samples, nearest rank).
@@ -215,12 +220,11 @@ class ServingMetrics:
             self._h_stages[k].observe(v)
 
     def observe_compile(self, hit: bool, signature=None):
-        if hit:
-            self._c_hits.inc()
-            return
-        self._c_misses.inc()
+        (self._c_hits if hit else self._c_misses).inc()
         if signature is not None:
             with self._lock:
+                if signature in self._signatures:
+                    return
                 self._signatures.add(signature)
                 n = len(self._signatures)
             self._f_signatures.labels(server=self.name).set(n)

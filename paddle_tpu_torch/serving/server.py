@@ -37,11 +37,20 @@ attaches the process-wide telemetry endpoint and registers this server's
 ``serving:<name>`` health and readiness checks; a traced request's latency
 is also its latency bucket's exemplar.
 
+The warmup manifest (reference ``:192-254, 524-560``): with
+``FLAGS_compile_cache_dir`` set, the server keeps a ``WarmupManifest``
+for its (name, ``Predictor.artifact_fingerprint``) pair under the cache
+directory, and each padded batch signature that TRAFFIC first dispatches
+(not a warmup's) is written through to it. ``warmup_from_manifest()``
+replays the recorded signatures before traffic (each one a compile-cache
+hit on a warm directory) and returns the count run for the first time;
+with ``FLAGS_serving_warmup_from_manifest`` on, the constructor replays a
+non-empty manifest itself. Servers of one name and program share a
+manifest, as the workers of a fleet given one ``--name`` do.
+
 Left out, each raising ``NotImplementedError`` that names its ROADMAP
-queue 1 item: the persistent warmup manifest (``warmup_from_manifest``,
-``FLAGS_serving_warmup_from_manifest``) (item 5a); a tensor-parallel
-replica (``FLAGS_serving_mesh_mp`` above 1) (item 5c); C-ABI batching
-(``FLAGS_serving_capi_batching``) (item 5d).
+queue 1 item: a tensor-parallel replica (``FLAGS_serving_mesh_mp`` above
+1) (item 5c); C-ABI batching (``FLAGS_serving_capi_batching``) (item 5d).
 """
 from __future__ import annotations
 
@@ -172,10 +181,6 @@ class InferenceServer:
                  telemetry_port: Optional[int] = None,
                  ready_requires_warmup: Optional[bool] = None,
                  scheduler=None, start: bool = True):
-        if _flag("FLAGS_serving_warmup_from_manifest"):
-            raise NotImplementedError(
-                "warmup manifests (FLAGS_serving_warmup_from_manifest) wait "
-                "for the compile cache, ROADMAP queue 1 item 5a")
         if int(_flag("FLAGS_serving_mesh_mp")) != 1:
             raise NotImplementedError(
                 "a tensor-parallel serving replica (FLAGS_serving_mesh_mp "
@@ -226,6 +231,7 @@ class InferenceServer:
         self._worker: Optional[threading.Thread] = None
         self._loop_running = False      # a thread is inside _loop
         self._compiled = set()          # signatures already executed
+        self._manifest_recorded = set()  # signatures already persisted
         self._lock = threading.Lock()
         # readiness (distinct from liveness): with the gate on, the
         # server reports not-ready until a warmup pass completes, so a
@@ -236,8 +242,32 @@ class InferenceServer:
             else _flag("FLAGS_serving_ready_requires_warmup"))
         self._warmed = threading.Event()
         self.telemetry = self._attach_telemetry(telemetry_port)
+        self._manifest = self._init_manifest(self.metrics.name)
+        if self._manifest is not None and len(self._manifest) and \
+                bool(_flag("FLAGS_serving_warmup_from_manifest")):
+            # restart fast path: replay exactly the signatures the
+            # previous process's traffic dispatched
+            self.warmup_from_manifest()
         if start:
             self.start()
+
+    def _init_manifest(self, name: str):
+        """Warmup manifest for this (``name``, model) pair under the
+        compile-cache directory; None when the cache is disabled or the
+        predictor has no stable artifact identity."""
+        if not str(_flag("FLAGS_compile_cache_dir") or ""):
+            return None
+        try:
+            from ..compile_cache import WarmupManifest, default_cache
+            cache = default_cache()
+            fp_fn = getattr(self.predictor, "artifact_fingerprint", None)
+            fp = fp_fn() if callable(fp_fn) else None
+            if cache is None or fp is None:
+                return None
+            return WarmupManifest(WarmupManifest.default_path(
+                cache.directory, name, fp))
+        except Exception:  # noqa: BLE001 - the manifest is an
+            return None    # optimization artifact, never a hard dep
 
     def _attach_telemetry(self, telemetry_port: Optional[int]):
         """Attach the shared telemetry endpoint. Port -1 = off (the flag
@@ -274,9 +304,9 @@ class InferenceServer:
 
     @property
     def warmup_manifest(self):
-        """The reference's persisted warmup manifest; the port has none
-        (the compile cache waits for ROADMAP queue 1 item 5a)."""
-        return None
+        """The live WarmupManifest (or None): traffic-dispatched batch
+        signatures, written through to disk as they first appear."""
+        return self._manifest
 
     # ------------------------------------------------------ readiness
     @property
@@ -529,9 +559,34 @@ class InferenceServer:
         return fresh
 
     def warmup_from_manifest(self, path: Optional[str] = None) -> int:
-        raise NotImplementedError(
-            "warmup manifests wait for the compile cache, ROADMAP queue 1 "
-            "item 5a")
+        """Replay the persisted warmup manifest: run exactly the padded
+        batch signatures a previous process's traffic dispatched (each
+        one a compile-cache hit on a warm directory) instead of the full
+        lattice. Returns the count run for the first time, as
+        ``warmup``; 0 when no manifest exists. Signatures recorded under
+        a larger ``max_batch_size`` than this server's are skipped."""
+        if path is not None:
+            from ..compile_cache import WarmupManifest
+            manifest = WarmupManifest(path)
+        else:
+            manifest = self._manifest
+        if manifest is None:
+            return 0
+        fresh = 0
+        # only the batch-predict signatures: decode-engine entries
+        # ("generate_*" sites) are replayed by GenerationServer
+        for spec in manifest.specs(site="predict"):
+            arrs = [np.zeros(tuple(shape), dtype)
+                    for shape, dtype in spec["feeds"]]
+            rows = int(arrs[0].shape[0]) if arrs[0].ndim else 1
+            if rows > self.max_batch_size:
+                continue
+            req = Request(arrs, rows, self.policy.signature(arrs))
+            fresh += self._execute([req], record_latency=False,
+                                   record_traffic=False)
+            req.future.result()    # surface replay failures loudly
+        self._warmed.set()
+        return fresh
 
     # ------------------------------------------------------ execution
     def _loop(self):
@@ -597,10 +652,15 @@ class InferenceServer:
         cache_key = (sig, padded_rows)
         miss = cache_key not in self._compiled
         self._compiled.add(cache_key)
-        # counted on EVERY dispatch (runtime included), not just during
-        # warmup — steady-state traffic shows up as a stream of hits,
-        # so a dashboard can tell "compile-free" from "no data"
-        self.metrics.observe_compile(hit=not miss, signature=cache_key)
+        if record_traffic and self._manifest is not None and \
+                cache_key not in self._manifest_recorded:
+            # first TRAFFIC dispatch of this signature (whether or not
+            # warmup ran it): persist it so a restarted server warms
+            # exactly the lattice real traffic lands on
+            self._manifest_recorded.add(cache_key)
+            self._manifest.record(
+                [((padded_rows,) + tuple(shape), str(np.dtype(dtype)))
+                 for dtype, shape in sig])
 
         rows_list = [r.rows for r in batch]
         n_pad = padded_rows - rows
@@ -628,6 +688,7 @@ class InferenceServer:
         except Exception as e:  # noqa: BLE001 - fault barrier: the
             # worker thread must survive any model error and fail only
             # the requests of THIS batch
+            self.metrics.observe_compile(hit=not miss, signature=cache_key)
             for r in batch:
                 if r.future.set_running_or_notify_cancel():
                     r.future.set_exception(e)
@@ -635,6 +696,14 @@ class InferenceServer:
             self._trace_failed(traced, "dispatch", e)
             return None, int(miss)
         t2 = time.perf_counter()
+        # counted on EVERY dispatch (runtime included), not just during
+        # warmup — steady-state traffic shows up as a stream of hits,
+        # so a dashboard can tell "compile-free" from "no data". A first
+        # run whose record the compile cache supplied is a hit too.
+        outcomes = getattr(self.predictor, "cache_outcomes", None) or {}
+        self.metrics.observe_compile(
+            hit=not miss or outcomes.get("serving") == "hit",
+            signature=cache_key)
         assembly_ms = (t1 - t0) * 1e3
         dispatch_ms = (t2 - t1) * 1e3
         for r in traced:

@@ -34,6 +34,12 @@ Protocol (stdout, one line each, read unbuffered by the parent)::
   SAVED <k>                 the checkpoint of step k committed
   CKPT_WRITE/CKPT_COMMIT    printed by the checkpoint layer when
                             PADDLE_CKPT_TEST_SLEEP_S is set (kill windows)
+  STARTUP {json}            after the first step of this process: its
+                            start-up split in seconds (imports: the
+                            process's start to main; cuda_context;
+                            kernel_library; model; restore; first_step)
+                            and the compile cache's hits and misses
+                            (None without FLAGS_compile_cache_dir)
   PREEMPTED step=<s> boundary_wait_s=<s> final_save_s=<s> committed=<0|1>
                             a SIGTERM's final save of step s ended, run at
                             the boundary after the step the signal landed
@@ -64,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import json
 import os
 import signal
 import sys
@@ -190,6 +197,16 @@ def kernel_counts() -> tuple:
             (ca.plain_calls, *(cab.plain_calls[k] for k in cab.KERNELS)))
 
 
+def _cache_stats():
+    """The compile cache's hits and misses in this process (None when no
+    cache is configured)."""
+    cc = sys.modules.get("paddle_tpu_torch.compile_cache")
+    if cc is None or cc.default_cache() is None:
+        return None
+    st = cc.stats()
+    return {"hits": st["hits"], "misses": st["misses"]}
+
+
 def _install_preempt_report(handlers, mgr):
     """A SIGTERM handler for the manager's to chain to: report the final
     save of ``handlers[0]`` (the PreemptionHandler, once installed), then
@@ -233,10 +250,13 @@ def main(argv=None) -> int:
     import torch
     from paddle_tpu_torch.elastic import CheckpointManager
     from paddle_tpu_torch.framework.device import default_device
+    from paddle_tpu_torch.observability.runtime import startup_split
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cpu") if args.cpu else default_device()
+    split = startup_split(device.type == "cuda")
+    t = time.time()
     block = os.environ.get("ELASTIC_WORKER_BLOCK", "0") == "1"
     pause = float(os.environ.get("ELASTIC_WORKER_MIDSTEP_SLEEP", "0"))
 
@@ -249,11 +269,14 @@ def main(argv=None) -> int:
         pt_random.seed(SEED)     # the batches' stream; numpy's first, as
         np.random.seed(SEED)     # making the generator draws from it
         model, opt, sched, train_step = build_gpt(args.layers, device)
+    split["model"] = round(time.time() - t, 4)
+    t = time.time()
     mgr = CheckpointManager(args.ckpt_dir, model=model, optimizer=opt,
                             save_interval_steps=args.interval,
                             keep=args.keep, async_save=not block,
                             health_check=False)
     res = mgr.restore_latest()
+    split["restore"] = round(time.time() - t, 4)
     if res is None:
         start = 0
         print("FRESH", flush=True)
@@ -268,6 +291,7 @@ def main(argv=None) -> int:
 
     log = open(os.path.join(args.ckpt_dir, "loss_log.txt"), "a")
     for step in range(start, args.steps):
+        t = time.time()
         if train_step is None:
             loss32 = mlp_step(model, opt, sched, step, device, pause)
         else:
@@ -283,6 +307,10 @@ def main(argv=None) -> int:
             _report_saved(step + 1)
         # one write: the async writer thread also prints markers
         sys.stdout.write(f"STEP {step + 1}\n")
+        if step == start:
+            split["first_step"] = round(time.time() - t, 4)
+            sys.stdout.write("STARTUP " + json.dumps(
+                dict(split, compile_cache=_cache_stats())) + "\n")
         sys.stdout.flush()
     mgr.save(args.steps, block=True, reason="final")
     mgr.close()

@@ -37,8 +37,11 @@ until the run completes. The drill then checks:
      step of its own, and ran their plain versions 0 times.
 
 It prints a JSON record (kills survived, steps lost per kill, median
-restore ms, spawn-to-first-step seconds, the SIGTERM's final save) to
-stdout and ``--out``. The reference run goes beside the fault run, in a process of its own.
+restore ms, spawn-to-first-step seconds, each process's start-up split
+and compile-cache counts, the SIGTERM's final save) to stdout and
+``--out``. Every worker inherits the environment, so a
+``FLAGS_compile_cache_dir`` set there gives them one compile cache and a
+relaunch's first step loads its record. The reference run goes beside the fault run, in a process of its own.
 The workers run on the GPU unless ``--cpu`` is given; without a GPU every
 worker fails and so does the drill.
 
@@ -147,7 +150,7 @@ def run_attempt(ckpt_dir, cfg, phase, rng, timeout_s, live=None):
             "resumed_from": None, "restore_ms": None, "steps_lost": None,
             "last_step_seen": 0, "done": False, "digest": None,
             "first_step_s": None, "returncode": None, "preempted": None,
-            "signal_in_step": None,
+            "signal_in_step": None, "startup": None,
             "saved": []}
     steps, interval = cfg["steps"], cfg["interval"]
     # arm points stay clear of the run's end, so a later interruption
@@ -180,6 +183,11 @@ def run_attempt(ckpt_dir, cfg, phase, rng, timeout_s, live=None):
                     arm_at = rng.randint(lo, max(lo, arm_hi))
             elif line.startswith("SAVED "):
                 info["saved"].append(int(line.split()[1]))
+            elif line.startswith("STARTUP "):
+                try:
+                    info["startup"] = json.loads(line[len("STARTUP "):])
+                except ValueError:
+                    pass    # torn by a kill landing mid-write
             elif line.startswith("STEP "):
                 try:
                     info["last_step_seen"] = int(line.split()[1])
@@ -396,6 +404,11 @@ def run(steps=30, interval=2, kills=3, mode="async", seed=0, sleep_s=0.15,
             "spawn_to_first_step_s": first,
             "median_spawn_to_first_step_s": statistics.median(first)
             if first else None,
+            # each process's start-up split and compile-cache counts:
+            # the reference, then the fault run's attempts in order
+            "startup": [dict(a["startup"] or {}, attempt=i,
+                             resumed=a["resumed_from"] is not None)
+                        for i, a in enumerate([ref] + attempts)],
             "sigterm": term,
             "worker_launches": {"reference": ref["launches"],
                                 "final": final["launches"],

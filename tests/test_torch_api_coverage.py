@@ -38,7 +38,7 @@ TOP = {"Tensor", "Parameter", "to_tensor", "grad", "no_grad", "enable_grad",
        "enable_static", "finfo", "iinfo", "flags_snapshot", "flops",
        "summary", "hapi", "metric", "get_cuda_rng_state",
        "set_cuda_rng_state", "set_printoptions", "incubate", "linalg",
-       "elastic"}
+       "elastic", "compile_cache", "observability", "serving"}
 # every name of the reference's paddle.amp and paddle.optimizer
 AMP = {"AmpScaler", "GradScaler", "amp_guard", "auto_cast", "decorate",
        "grad_scaler"}
@@ -174,6 +174,14 @@ ELASTIC = {"AsyncCheckpointHandle", "CheckpointCorruptError",
            "CheckpointManager", "DEFAULT_PREEMPT_SIGNALS", "PreemptionHandler",
            "RestoreResult", "latest_checkpoint", "list_checkpoints",
            "load_sharded", "prune_checkpoints", "save_sharded"}
+# every name of the reference's compile_cache (ROADMAP item 5a)
+COMPILE_CACHE = {"CacheStore", "CompileCache", "WarmupManifest",
+                 "avals_signature", "bytes_fingerprint", "cache_key",
+                 "compile_relevant_flags", "default_cache",
+                 "environment_fingerprint", "fingerprint",
+                 "function_fingerprint", "layer_fingerprint",
+                 "mark_compile_relevant", "mesh_fingerprint",
+                 "reset_default_cache", "stats"}
 GENERATION = {"CachedDecoder", "DecodeMetrics", "GenerationServer",
               "PagedKVCache", "PrefixCache", "StreamingFuture",
               "accept_tokens", "engines_statusz", "sample_next_tokens",
@@ -183,7 +191,8 @@ PLANE = {"paddle_tpu.observability": OBS,
          "paddle_tpu.serving.scheduling": SCHED,
          "paddle_tpu.serving.generation": GENERATION,
          "paddle_tpu.serving.fleet": FLEET,
-         "paddle_tpu.elastic": ELASTIC}
+         "paddle_tpu.elastic": ELASTIC,
+         "paddle_tpu.compile_cache": COMPILE_CACHE}
 PORTS = {"paddle_tpu": "paddle_tpu_torch",
          "paddle_tpu.tensor": "paddle_tpu_torch.tensor",
          "paddle_tpu.nn": "paddle_tpu_torch.nn",
@@ -229,11 +238,13 @@ def test_surface_coverage(ref_name):
         # the whole surface: every name of the reference's module
         assert set(names) == WHOLE[ref_name]
     if ref_name == "paddle_tpu":
-        assert len(have) >= 418
+        assert len(have) >= 421
     if ref_name == "paddle_tpu.observability":
         assert (len(have), len(names)) == (87, 87)
     if ref_name == "paddle_tpu.elastic":
         assert (len(have), len(names)) == (11, 11)
+    if ref_name == "paddle_tpu.compile_cache":
+        assert (len(have), len(names)) == (16, 16)
     if ref_name == "paddle_tpu.tensor":
         # every op of paddle.tensor, also at the top level, as there
         assert len(have) >= 300

@@ -8,6 +8,7 @@ import numpy as np
 
 from test_torch_api_hapi import (CFG, TRAIN_BATCHES, _arrays, _setup,
                                  make_model, samples)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 def test_o2_within_the_rounding_floor():

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from torch_nn_parity import assert_fn_parity, rand
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 X4 = rand(2, 4, 5, 6, seed=1)          # NCHW
 X3 = rand(2, 3, 7, seed=2)             # NCL

@@ -10,6 +10,7 @@ import pytest
 from test_torch_api_nn_losses import (A, B_, BIN, D, F, LAB, LABELS, LOGITS,
                                       PM1, PROBS, SOFT, W, _logp)
 from torch_nn_parity import assert_fn_parity, assert_layer_parity, rand
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("kind", ["default", "bias", "custom"])

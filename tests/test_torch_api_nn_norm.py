@@ -12,6 +12,7 @@ import pytest
 
 from torch_nn_parity import (assert_fn_parity, assert_layer_parity, both,
                              carry_state, rand)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 X2 = rand(8, 4, seed=1)
 X3 = rand(4, 3, 7, seed=2)

@@ -12,6 +12,7 @@ import pytest
 from test_torch_api_nn_pool import F, X3, X4, X4_NHWC, X5
 from torch_nn_parity import (assert_fn_parity, assert_layer_parity, both,
                              rand)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("n,x,kw", [

@@ -8,6 +8,7 @@ import pytest
 
 from test_torch_api_nn_rnn import ATOL, B, H, IN, _x
 from torch_nn_parity import assert_layer_parity, both, rand
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 CELLS = [("SimpleRNNCell", 1), ("LSTMCell", 2), ("GRUCell", 1)]

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from torch_nn_parity import (assert_layer_parity, both, carry_state, rand)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 B, S, E, NH = 2, 6, 16, 4

@@ -12,6 +12,7 @@ import pytest
 from test_torch_api_nn_transformer import (ATOL, B, BOOL, E, KV, NH, Q, S,
                                            _tensor_like)
 from torch_nn_parity import (assert_layer_parity, both, carry_state, rand)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 def _dec_layer(P, pre):

@@ -41,6 +41,7 @@ from paddle_tpu_torch.optimizer import AdamW
 from test_torch_dropout import MaskFeed
 from test_torch_gpt import ATOL as LOGIT_ATOL
 from test_torch_train import O2_FACTOR, _assert_matches, _l2
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 B, S = 2, 32
 P = 0.1

@@ -23,6 +23,7 @@ from paddle_tpu_torch.native import shm_ring
 from paddle_tpu_torch.optimizer import AdamW
 from test_torch_train import (_arrays, _assert_matches, _jax_grads, _jax_model,
                               _port_model)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 N, F = 22, 5
 # every loader with workers gives up after this long without a batch, so a

@@ -35,6 +35,7 @@ from paddle_tpu_torch.nn.functional import dropout, sdpa_dense
 from paddle_tpu_torch.ops import cuda_attention as ca
 from test_torch_gpt import ATOL as LOGIT_ATOL
 from test_torch_train import _assert_matches
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-4, 2e-5
 P = 0.1

@@ -31,6 +31,15 @@ def test_kills_in_every_phase_and_a_sigterm_resume_bitwise(tmp_path):
     assert term["saved_step"] == term["signal_in_step"]
     assert term["final_save_s"] >= 0 and term["boundary_wait_s"] >= 0
     assert rec["attempts"] == 5 and rec["device"] == "cpu"
+    # each process's start-up split, from its STARTUP line (every attempt
+    # ran a first step before its interruption); no compile cache here
+    starts = rec["startup"]
+    assert [s["resumed"] for s in starts] == [False, False] + [True] * 4
+    for s in starts:
+        assert {"imports", "cuda_context", "kernel_library", "model",
+                "restore", "first_step"} <= set(s)
+        assert s["compile_cache"] is None and s["imports"] > 0
+        assert s["cuda_context"] == s["kernel_library"] == 0.0
     assert os.listdir(str(tmp_path)) == []    # the drill cleans up
 
 

@@ -19,6 +19,7 @@ from paddle_tpu_torch.convert import load_jax_state
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.serving.generation import GenerationServer
 from test_torch_flags import kv_dtype_flag, pin_kv_dtype  # noqa: F401
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 SUFFIX_LENS = [3, 7, 12, 5, 20, 9]
 MAX_NEW = [6, 10, 4, 8, 5, 7]

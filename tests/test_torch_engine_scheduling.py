@@ -37,6 +37,7 @@ from paddle_tpu_torch.serving import scheduling as psch
 from paddle_tpu_torch.serving.generation import GenerationServer
 from paddle_tpu_torch.serving.generation.engine import engines_statusz
 from test_torch_flags import pin_kv_dtype  # noqa: F401
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 PAGE, BATCH = 8, 4
 

@@ -24,6 +24,7 @@ from paddle_tpu_torch.optimizer import AdamW
 from test_torch_bert import LR, _padding_mask
 from test_torch_gpt import ATOL as LOGIT_ATOL
 from test_torch_train import _assert_matches
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 B, S = 2, 32
 

@@ -4,6 +4,7 @@ in interpret mode, and the control that one TF32 product (hi hi) fails the
 float32 limit where three pass. A file of its own, so that the test runner
 spreads the TF32 cases over its workers."""
 import test_torch_flash_attention_bwd as fb
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 def test_tf32_bwd_arithmetic_with_lse_cotangent():

@@ -6,6 +6,7 @@ spreads them over its workers."""
 import pytest
 
 import test_torch_flash_attention as fa
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 D = 64
 

@@ -20,6 +20,7 @@ from paddle_tpu_torch.framework import flags as pflags
 from paddle_tpu_torch.serving.generation import GenerationServer
 from test_torch_flags import pin_kv_dtype  # noqa: F401
 from test_torch_generation import make_pair
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 def _record_reference(srv):

@@ -37,6 +37,7 @@ from test_torch_flags import pin_kv_dtype  # noqa: F401
 from test_torch_generation import make_pair
 from test_torch_inference import (MLP_ATOL, MLP_RTOL, _arrays, ernie_pair,
                                   jax_predictor, port_predictor)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 WAIT_S = 60.0
 
@@ -212,9 +213,15 @@ def test_gpt_tiny_streams_match_reference_engine(tmp_path):
 def test_left_out_paths_raise_naming_their_items(tmp_path):
     _, pm = _mlp(0)
     port_predictor(pm, str(tmp_path / "m"), [None, 8], "float32", "x")
-    with pytest.raises(NotImplementedError, match="5a"):
-        pfleet.PredictorBackend(str(tmp_path / "m"), device="cpu",
-                                warmup_mode="manifest")
+    # the manifest warmup is ported (tests/test_torch_warmup_manifest.py):
+    # without a compile-cache directory it replays nothing and flips ready
+    be = pfleet.PredictorBackend(str(tmp_path / "m"), device="cpu",
+                                 warmup_mode="manifest")
+    try:
+        assert not be.ready() and be.server.warmup_manifest is None
+        assert be.warmup() == 0 and be.ready()
+    finally:
+        be.shutdown()
     pflags.set_flags({"FLAGS_serving_mesh_mp": 2})
     try:
         with pytest.raises(NotImplementedError, match="5c"):
@@ -236,16 +243,17 @@ def test_left_out_paths_raise_naming_their_items(tmp_path):
     finally:
         runner.stop()
     from paddle_tpu_torch.serving.fleet import worker
-    with pytest.raises(SystemExit) as ei:
-        worker._parse_args(["--stub", "--warmup", "manifest"])
-    assert ei.value.code == 2
+    assert worker._parse_args(["--stub", "--warmup",
+                               "manifest"]).warmup == "manifest"
     args = worker._parse_args(["--model-prefix", "x", "--cpu"])
     assert args.cpu and args.warmup == "auto"
     engine = GenerationServer(make_pair()[1], max_batch=2, page_size=8,
                               name="t_pleft", device="cpu", start=False)
     try:
         assert engine.warmup_manifest is None
-        with pytest.raises(NotImplementedError, match="5a"):
-            engine.warmup_from_manifest()
+        assert not engine._warmed.is_set()
+        # as the reference's: nothing to replay warms nothing
+        assert engine.warmup_from_manifest() == 0
+        assert not engine._warmed.is_set()
     finally:
         engine.shutdown()

@@ -19,6 +19,7 @@ from paddle_tpu_torch.convert import load_jax_state, load_paddle_state
 from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b, gpt_tiny
 from paddle_tpu_torch.serving.generation.model_fns import (
     CachedDecoder, supports_cached_decode)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 

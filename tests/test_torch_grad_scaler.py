@@ -28,6 +28,7 @@ from paddle_tpu_torch.models import GPTPretrainingCriterion
 from paddle_tpu_torch.optimizer import SGD, Adam, AdamW
 from test_torch_train import (O2_FACTOR, _arrays, _ids, _jax_model, _l2,
                               _port_model)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-4, 2e-5
 B, D = 8, 16

@@ -332,10 +332,18 @@ class TestRobustness:
                     serving.InferenceServer(pp, start=False)
             finally:
                 pflags.set_flags({flag: pflags._REGISTRY[flag].default})
-        srv = serving.InferenceServer(pp, name="tp_left", start=False)
-        assert srv.warmup_manifest is None
-        with pytest.raises(NotImplementedError, match="5a"):
-            srv.warmup_from_manifest()
+        # the warmup manifest is ported (tests/test_torch_warmup_manifest.
+        # py): without a compile-cache directory there is none, a replay
+        # runs nothing and the flag no longer refuses the server
+        pflags.set_flags({"FLAGS_serving_warmup_from_manifest": True})
+        try:
+            srv = serving.InferenceServer(pp, name="tp_left", start=False,
+                                          ready_requires_warmup=True)
+        finally:
+            pflags.set_flags({"FLAGS_serving_warmup_from_manifest": False})
+        assert srv.warmup_manifest is None and not srv.ready
+        # as the reference's: nothing to replay warms nothing
+        assert srv.warmup_from_manifest() == 0 and not srv.ready
         srv.shutdown()
 
 

@@ -22,6 +22,7 @@ from paddle_tpu_torch.ops import cuda_paged_attention as cpa
 from test_torch_engine_parity import _prompts, _serve, make_pair
 from test_torch_flags import kv_dtype_flag, pin_kv_dtype  # noqa: F401
 from test_torch_obs_numerics import _set_both, fresh_numerics  # noqa: F401
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 def _decoder_state(kv_dtype):

@@ -6,6 +6,7 @@ import numpy as np
 
 from test_torch_paddle_encoder_script import (SMALL, _packages, batches_for,
                                               eval_logits, train_script)
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 
 def test_save_files_read_across_both_ways(tmp_path):

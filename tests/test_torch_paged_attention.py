@@ -19,6 +19,7 @@ from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu.ops import pallas_paged_attention as jppa
 from paddle_tpu_torch.ops import cuda_paged_attention as cpa
 from paddle_tpu_torch.ops import paged_attention as tpa
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 H, D, PS = 4, 16, 8
 ATOL = 1e-5

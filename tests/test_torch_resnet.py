@@ -50,6 +50,7 @@ from paddle_tpu_torch.optimizer import Momentum
 from paddle_tpu_torch.vision.models import resnet18, resnet50
 from paddle_tpu_torch.vision.models.resnet import BasicBlock, BottleneckBlock
 from test_torch_train import O2_FACTOR
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-4, 2e-5
 LOGIT_ATOL = 1e-4

@@ -36,6 +36,7 @@ from paddle_tpu_torch.serving.generation import (CachedDecoder,
                                                  GenerationServer)
 from test_torch_flags import kv_dtype_flag, pin_kv_dtype  # noqa: F401
 from test_torch_train import ATOL, O2_FACTOR, RTOL, _ids, _l2
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 POLICIES = ("none", "full", "dots", "attn")
 LOGITS_ATOL = 1e-4

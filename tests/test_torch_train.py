@@ -36,6 +36,7 @@ from paddle_tpu_torch.nn.functional import cross_entropy
 from paddle_tpu_torch.ops import cuda_attention_bwd as cab
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as plr
+from torch_threads import two_intra_op_threads  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-4, 2e-5
 O2_FACTOR = 1.5
