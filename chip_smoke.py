@@ -418,6 +418,39 @@ Phases, each failing loudly (exit code 1, no result line):
               its breaker opens, 32 requests all go to the other with 0
               failures, and the merged /execz, /numericsz and /profilez
               answer 200 with both replicas.
+  mesh        multi-device, part 1, on one card. Leg A: gpt3_1p3b bf16 at
+              full depth served tensor-parallel over 2 and 4 slots of the
+              card (distributed.mesh_utils.build_mesh with repeated
+              devices): the model phase's plan (prefill, 8 decodes over
+              bf16 pools; 4 decodes, a 40-token chunk, a 5-token verify
+              and 2 decodes over int8 pools) through CachedDecoder(mesh=),
+              the tokens forced from the unsharded run: each step's logits
+              within 1.5x the bf16 plain path's distance from float32,
+              every pool shard its own contiguous [pages, 16, heads/mp,
+              128], flash launches layers x mp a prefill, paged launches
+              at least layers x mp a decode step, 0 plain calls; a float32
+              copy (full width, 4 layers) at mp=2: the unsharded decoder's
+              greedy tokens over 32 steps, logits within 1e-4 x std;
+              GenerationServer(mesh=) at mp=2 with self-speculation over 8
+              requests sharing a prefix, twice: equal streams, clean leak
+              checks, a prefix hit, /statusz bytes a slot, another mesh
+              fingerprint than the unsharded engine's. Printed: decode
+              step and prefill ms at mp 1/2/4, first token. Leg B: two
+              ranks by python -m paddle_tpu_torch.distributed.launch
+              (tools/dp_worker.py; gloo, both on the card): every
+              collective once on CUDA tensors against numpy, gpt3_1p3b's
+              width at 2 layers (a cut of this new path for the smoke's
+              time), bf16 O2, AdamW, 3 steps of DataParallel on halves of
+              a b=4 s=2048 batch: parameters bit for bit equal across the
+              ranks after each step, the averaged gradient at the initial
+              weights within 1.5x the bf16 plain path's distance from
+              float32, the flash kernels launched in each rank, 0 plain
+              calls, launcher exit 0 and no child left.
+
+The fleet phase's worker processes and the elastic drill's workers are
+forked from a server that imported torch (and the parts of it the workers
+import) once (``framework/forkserver.py``); every spawn, kill and relaunch
+of those drills is as before.
 
 Outside the default run, ``--phases card,build,opsprobe`` probes the
 profiler: for each setting of the engine's telemetry (head sampling rate
@@ -471,7 +504,7 @@ FMA_FLOPS_F32 = 67e12
 ALL_PHASES = ("card", "build", "kernels", "tiny", "model", "engine",
               "serving", "train", "stacked", "recipe", "families",
               "inference", "api", "nn", "hapi", "ops", "fleet", "elastic",
-              "runtime")
+              "runtime", "mesh")
 
 # bf16 kernels against their plain versions: max |kernel - plain| over a
 # row / rms(plain row) (row_err), set from the readings of the sound
@@ -2013,6 +2046,33 @@ def _model(state):
 
 CHUNK_LEN = 40          # the model phase's chunked suffix
 SPEC_K = 4              # the serving phase's proposals a step
+# the model phase's plan over int8 pools (the mesh phase's too)
+MESH_PLAN8 = ["decode"] * 4 + ["chunked", "verify"] + ["decode"] * 2
+
+
+def _model_inputs(cfg, seed):
+    """The model phase's batch: 8 rows of 64-1536 tokens in the 2048
+    window, their block tables, and the chunked and verify tokens."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b, pps = MAX_BATCH, cfg.max_seq_len // PAGE_SIZE
+    lens = rng.permutation(np.linspace(64, 1536, b).astype(np.int32))
+    window = 2048
+    ids = np.zeros((b, window), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.randint(0, cfg.vocab_size, n)
+    tables = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+    extra = {"chunk": rng.randint(0, cfg.vocab_size, (b, CHUNK_LEN)),
+             "verify": rng.randint(0, cfg.vocab_size, (b, SPEC_K))}
+    return ids, lens, tables, extra
+
+
+def _mesh_ref(runs, feed):
+    """A comparison's logits kept on the host for the mesh phase: the
+    unsharded kernel run's, the bf16 and float32 plain runs', and the
+    forced tokens."""
+    return {"feed": feed, **{label: [t.cpu() for t in runs[label]]
+                             for label in ("kernels", "plain", "plain_f32")}}
 
 
 def _model_step(dec, what, tok, ctx, tables, k, v, extra):
@@ -2252,16 +2312,7 @@ def phase_model(state):
     from paddle_tpu_torch.ops import cuda_paged_attention as cpa
     model = _model(state)
     cfg = model.config
-    rng = np.random.RandomState(state["seed"])
-    b, pps = MAX_BATCH, cfg.max_seq_len // PAGE_SIZE
-    lens = rng.permutation(np.linspace(64, 1536, b).astype(np.int32))
-    window = 2048
-    ids = np.zeros((b, window), np.int64)
-    for i, n in enumerate(lens):
-        ids[i, :n] = rng.randint(0, cfg.vocab_size, n)
-    tables = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
-    extra = {"chunk": rng.randint(0, cfg.vocab_size, (b, CHUNK_LEN)),
-             "verify": rng.randint(0, cfg.vocab_size, (b, SPEC_K))}
+    ids, lens, tables, extra = _model_inputs(cfg, state["seed"])
     # the same weights in float32, through the plain versions: the
     # reference that measures the bf16 rounding floor itself
     m32 = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
@@ -2271,13 +2322,16 @@ def phase_model(state):
                                     ["decode"] * 8, extra)
     check = _model_check(runs, inner, cfg.vocab_size, "bf16/f32 pools",
                          F32_MODEL_LIMIT)
+    # the mesh phase holds its sharded decoders against these runs
+    state.setdefault("mesh_refs", {})[""] = _mesh_ref(runs, feed)
     del runs
-    plan8 = ["decode"] * 4 + ["chunked", "verify"] + ["decode"] * 2
+    plan8 = MESH_PLAN8
     runs8, feed8, inner8 = _model_runs(model, m32, ids, lens, tables, "int8",
                                        plan8, extra)
     check["int8"] = dict(_model_check(runs8, inner8, cfg.vocab_size,
                                       "int8 pools", F32_INT8_MODEL_LIMIT),
                          plan=plan8)
+    state["mesh_refs"]["int8"] = _mesh_ref(runs8, feed8)
     del runs8
     before = dict(cpa.launches_by_kernel)
     lock = _lockstep_f32(m32, ids, lens, tables, plan8, extra, feed8)
@@ -7594,7 +7648,8 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
             ",".join(str(b) for b in SERVER_BUCKETS)]
     fac = fleet.ProcessReplicaFactory(extra_args=args, env=env,
                                       announce_dir=str(work / "announce"),
-                                      stdout=logf, stderr=logf)
+                                      stdout=logf, stderr=logf,
+                                      forkserver=state.get("forkserver"))
     sup = fleet.ReplicaSupervisor(fac, 1, name="fleet_b")
     router = fleet.FleetRouter(supervisor=sup, name="fleet_b",
                                health_interval_ms=100)
@@ -7793,7 +7848,7 @@ def _fleet_process_leg(state, work, prefixes, ernie_vocab) -> dict:
                 f"{dispatches[pid]} batches (12 a batch, no plain call)")
     rec["worker_launches"] = {str(p): d["flash_fwd"]
                               for p, d in by_pid.items()}
-    rec["wedge"] = _fleet_wedge(work, env, logf)
+    rec["wedge"] = _fleet_wedge(work, env, logf, state.get("forkserver"))
     logf.close()
     rec["seconds"] = time.perf_counter() - t0
     return rec
@@ -7831,7 +7886,7 @@ def _fleet_cache_counts(text: str) -> dict:
             for k in ("hits", "misses")}
 
 
-def _fleet_wedge(work, env, logf) -> dict:
+def _fleet_wedge(work, env, logf, forkserver=None) -> dict:
     """The wedge drill on a ``--stub`` worker process: the hang poison's
     dispatch wedges the stub's device, the watchdog (500 ms) flips
     /readyz, the request queued behind it gets the typed 503 "wedged",
@@ -7847,7 +7902,7 @@ def _fleet_wedge(work, env, logf) -> dict:
                     str(FLEET_HANG), "--wedge-timeout-ms",
                     str(FLEET_WEDGE_MS)],
         env=env, announce_dir=str(work / "announce_wedge"), stdout=logf,
-        stderr=logf)
+        stderr=logf, forkserver=forkserver)
     sup = fleet.ReplicaSupervisor(fac, 1, restart_backoff_ms=50,
                                   name="fleet_wedge").start()
     router = fleet.FleetRouter(supervisor=sup, name="fleet_wedge",
@@ -7941,10 +7996,14 @@ def phase_fleet(state):
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.static import InputSpec
     t0 = time.perf_counter()
+    from paddle_tpu_torch.framework.forkserver import ForkServer
     _build.load_library()       # once here: the workers load it as built
     seed = state["seed"]
     state.pop("model", None)    # the bf16 model of earlier phases
     _release()
+    # leg B's workers fork from a server that imported torch and the
+    # artifact loader's modules once (it starts importing them now)
+    state["forkserver"] = ForkServer().start()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
     try:
         cfg = ernie_base(hidden_dropout_prob=0.0,
@@ -7965,6 +8024,7 @@ def phase_fleet(state):
         log("fleet B: " + json.dumps(process))
         torch.cuda.synchronize()
     finally:
+        state.pop("forkserver").stop()
         shutil.rmtree(work, ignore_errors=True)
     out = {"card": state.get("smi"), "thread": thread, "process": process,
            "seconds": time.perf_counter() - t0}
@@ -8228,7 +8288,8 @@ def _elastic_drills(state) -> dict:
              "--seed", str(state["seed"]),
              "--expect-launches", ",".join(map(str, per_step)),
              "--dir", str(root), "--timeout-s",
-             str(ELASTIC_WORKER_TIMEOUT_S), "--out", str(out_json)],
+             str(ELASTIC_WORKER_TIMEOUT_S), "--out", str(out_json),
+             "--forkserver"],
             cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True, timeout=12 * ELASTIC_WORKER_TIMEOUT_S,
             env=dict(os.environ, FLAGS_compile_cache_dir=str(cache_dir)))
@@ -9498,6 +9559,451 @@ def phase_runtime(state):
     log(f"runtime: {out['seconds']:.1f} s ({state.get('smi')})")
 
 
+
+# ---------------------------------------------------------------- mesh
+MESH_MPS = (2, 4)            # leg A's tensor-parallel degrees
+MESH_F32_LAYERS = 4          # the float32 copy's depth (full width)
+MESH_F32_STEPS = 32          # its greedy decode steps
+MESH_REQUESTS = 8            # the served requests a run
+MESH_NEW = 32                # their new tokens
+MESH_DP_LAYERS = 2           # leg B: gpt3_1p3b's width at this depth
+MESH_DP_STEPS = 3
+MESH_DP_BATCH = 4
+MESH_DP_SEQ = 2048
+MESH_DP_TIMEOUT_S = 300.0
+
+
+def _slots(mp):
+    """``mp`` slots on the one card."""
+    import torch
+    from paddle_tpu_torch.distributed.mesh_utils import build_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return build_mesh({"mp": mp}, devices=[dev] * mp)
+
+
+def _mesh_pool_check(k, v, mp, heads, head_dim, tag):
+    """Every pool shard is its own contiguous ``[pages, page, heads/mp,
+    head_dim]`` tensor (int8 scales ``[pages, page, heads/mp]``)."""
+    from paddle_tpu_torch.distributed.mesh_utils import MeshTensor
+    leaves = []
+
+    def walk(p):
+        if isinstance(p, (list, tuple)):
+            for x in p:
+                walk(x)
+        else:
+            leaves.append(p)
+    walk((k, v))
+    for leaf in leaves:
+        require(isinstance(leaf, MeshTensor) and len(leaf.shards) == mp,
+                f"{tag}: a pool leaf is not placed on {mp} slots")
+        for t in leaf.shards:
+            want = (leaf.shape[0], PAGE_SIZE, heads // mp)
+            ok = tuple(t.shape[:3]) == want and t.is_contiguous()
+            if t.ndim == 4:
+                ok = ok and t.shape[3] == head_dim
+            require(ok, f"{tag}: pool shard {tuple(t.shape)} "
+                        f"(contiguous {t.is_contiguous()}), want "
+                        f"{want} + [{head_dim}]")
+    return len(leaves)
+
+
+def _mesh_run(model, mp, kv, ids, lens, tables, extra, plan, feed):
+    """The unsharded model's comparison, re-run through a decoder over
+    ``mp`` slots with the same forced tokens: (logits per step, stats)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import cuda_attention as ca
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving.generation import CachedDecoder
+    from paddle_tpu_torch.serving.mesh import ServingMesh
+    b, pps = tables.shape
+    cfg = model.config
+    tag = f"mesh A mp={mp} {kv or 'bf16'}"
+    mesh = _slots(mp) if mp > 1 else None
+    dec = CachedDecoder(model, max_batch=b, page_size=PAGE_SIZE,
+                        pages_per_seq=pps, kv_dtype=kv, device="cuda",
+                        mesh=mesh)
+    k, v = ServingMesh(mesh).place_pools(
+        *model.init_kv_pools(1 + b * pps, PAGE_SIZE, kv or None))
+    stats = {"pool_leaves": (_mesh_pool_check(
+        k, v, mp, cfg.num_heads, cfg.hidden_size // cfg.num_heads, tag)
+        if mp > 1 else 0)}
+    plain0, f0 = cpa.plain_calls, ca.plain_calls
+    paged0 = dict(cpa.launches_by_kernel)
+    torch.cuda.synchronize()
+    flash0 = ca.launches
+    t0 = time.perf_counter()
+    last, k, v = dec.prefill(ids, lens, tables, k, v)
+    torch.cuda.synchronize()
+    stats["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    stats["prefill_flash_launches"] = ca.launches - flash0
+    outs = [last.float().cpu()]
+    ctx = lens.copy()
+    decode_ms, decode_paged = [], []
+    for step, what in enumerate(plan):
+        before = sum(cpa.launches_by_kernel.values())
+        t0 = time.perf_counter()
+        logits, k, v, ctx = _model_step(dec, what, feed[step], ctx, tables,
+                                        k, v, extra)
+        torch.cuda.synchronize()
+        if what == "decode":
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            decode_paged.append(sum(cpa.launches_by_kernel.values())
+                                - before)
+        outs.append(logits.float().cpu())
+    stats.update(
+        decode_ms=float(np.median(decode_ms)),
+        decode_paged_launches=decode_paged,
+        paged_launches_by_kernel=_launch_delta(cpa.launches_by_kernel,
+                                               paged0),
+        plain_calls=cpa.plain_calls - plain0 + ca.plain_calls - f0)
+    del k, v, dec
+    torch.cuda.empty_cache()
+    return outs, stats
+
+
+def _mesh_refs(state, model):
+    """The model phase's references, or (in a run without that phase)
+    the same runs made here."""
+    import torch
+    refs = state.get("mesh_refs", {})
+    if set(refs) >= {"", "int8"}:
+        return refs
+    from paddle_tpu_torch.models import GPTForCausalLM
+    cfg = model.config
+    ids, lens, tables, extra = _model_inputs(cfg, state["seed"])
+    m32 = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32)
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    m32.eval()
+    for kv, plan in (("", ["decode"] * 8), ("int8", MESH_PLAN8)):
+        runs, feed, _ = _model_runs(model, m32, ids, lens, tables, kv, plan,
+                                    extra, tag="mesh refs")
+        refs[kv] = _mesh_ref(runs, feed)
+        del runs
+    del m32
+    torch.cuda.empty_cache()
+    state["mesh_refs"] = refs
+    return refs
+
+
+def _mesh_steps(state, model) -> dict:
+    """Leg A's step comparisons: the model phase's plan through decoders
+    over 2 and 4 slots, bf16 and int8 pools, against the unsharded
+    decoder by the rounding-floor rule."""
+    ids, lens, tables, extra = _model_inputs(model.config, state["seed"])
+    refs = _mesh_refs(state, model)
+    layers = model.config.num_layers
+
+    def dist(a, ref):
+        return max_abs_err(a, ref) / float(ref.float().std())
+
+    out = {}
+    for kv, plan in (("", ["decode"] * 8), ("int8", MESH_PLAN8)):
+        ref = refs[kv]
+        floors = [dist(p, r) for p, r in zip(ref["plain"], ref["plain_f32"])]
+        limit = BF16_FLOOR_FACTOR * max(floors)
+        rows = {}
+        for mp in (1,) + MESH_MPS:
+            outs, stats = _mesh_run(model, mp, kv, ids, lens, tables, extra,
+                                    plan, ref["feed"])
+            to_f32 = [dist(a, r) for a, r in zip(outs, ref["plain_f32"])]
+            to_one = [dist(a, r) for a, r in zip(outs, ref["kernels"])]
+            tag = f"mesh A mp={mp} {kv or 'bf16'} pools"
+            log(f"{tag}: prefill {stats['prefill_ms']:.1f} ms, decode step "
+                f"{stats['decode_ms']:.2f} ms; max |mesh - plain f32| / std "
+                + " ".join(f"{x:.4f}" for x in to_f32)
+                + f" (limit {limit:.4f}); max |mesh - unsharded| / std "
+                + " ".join(f"{x:.4f}" for x in to_one))
+            require(all(bool(a.isfinite().all()) for a in outs),
+                    f"{tag}: non-finite logits")
+            require(max(to_f32) <= limit,
+                    f"{tag}: {max(to_f32):.4f} x std from float32, beyond "
+                    f"{BF16_FLOOR_FACTOR} x the plain path's "
+                    f"{max(floors):.4f}")
+            require(stats["plain_calls"] == 0,
+                    f"{tag}: {stats['plain_calls']} plain calls")
+            if mp > 1:
+                require(stats["prefill_flash_launches"] == layers * mp,
+                        f"{tag}: {stats['prefill_flash_launches']} flash "
+                        f"launches in the prefill, not {layers * mp}")
+                require(min(stats["decode_paged_launches"]) >= layers * mp,
+                        f"{tag}: paged launches per decode step "
+                        f"{stats['decode_paged_launches']} < layers x mp = "
+                        f"{layers * mp}")
+            rows[mp] = dict(stats, max_to_f32_over_std=max(to_f32),
+                            max_to_unsharded_over_std=max(to_one),
+                            floor_over_std=max(floors))
+        out[kv or "bf16"] = rows
+    return out
+
+
+def _mesh_f32(state) -> dict:
+    """A float32 copy at full width and MESH_F32_LAYERS layers, greedy
+    over MESH_F32_STEPS decode steps unsharded and over 2 slots: the same
+    tokens, logits within F32_MODEL_LIMIT x std."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.serving.generation import CachedDecoder
+    from paddle_tpu_torch.serving.mesh import ServingMesh
+    m4 = GPTForCausalLM(gpt3_1p3b(num_layers=MESH_F32_LAYERS), device="cuda",
+                        dtype=torch.float32, seed=state["seed"]).eval()
+    ids, lens, tables, _ = _model_inputs(m4.config, state["seed"])
+    b, pps = tables.shape
+    runs = {}
+    for mp in (1, 2):
+        mesh = _slots(mp) if mp > 1 else None
+        dec = CachedDecoder(m4, max_batch=b, page_size=PAGE_SIZE,
+                            pages_per_seq=pps, device="cuda", mesh=mesh)
+        k, v = ServingMesh(mesh).place_pools(
+            *m4.init_kv_pools(1 + b * pps, PAGE_SIZE))
+        logits, k, v = dec.prefill(ids, lens, tables, k, v)
+        toks, outs, ctx = [], [logits.cpu()], lens.copy()
+        for _ in range(MESH_F32_STEPS):
+            tok = logits.argmax(-1).cpu().numpy()
+            toks.append(tok)
+            logits, k, v = dec.decode(tok, ctx, np.ones(b, bool), ctx + 1,
+                                      tables, k, v)
+            ctx = ctx + 1
+            outs.append(logits.cpu())
+        runs[mp] = (np.stack(toks), outs)
+        del k, v, dec
+    dist = max(max_abs_err(a, r) / float(r.std())
+               for a, r in zip(runs[2][1], runs[1][1]))
+    same = bool((runs[1][0] == runs[2][0]).all())
+    log(f"mesh A float32 {MESH_F32_LAYERS} layers mp=2: greedy tokens over "
+        f"{MESH_F32_STEPS} steps equal {same}; max |mesh - unsharded| / std "
+        f"{dist:.2e} (limit {F32_MODEL_LIMIT})")
+    require(same, "mesh A float32: greedy tokens differ from the unsharded "
+                  "decoder's")
+    require(dist <= F32_MODEL_LIMIT,
+            f"mesh A float32: logits {dist:.2e} x std from the unsharded "
+            f"decoder's")
+    del m4
+    torch.cuda.empty_cache()
+    return {"tokens_equal": same, "max_err_over_std": dist,
+            "steps": MESH_F32_STEPS, "layers": MESH_F32_LAYERS}
+
+
+def _mesh_serve(model, mesh, prompts, seed, name):
+    """One engine over ``mesh``: the runtime phase's traffic (self-
+    speculation on), its streams, time to first token, and the engine's
+    state at the end."""
+    from paddle_tpu_torch.ops import cuda_paged_attention as cpa
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    plain0 = cpa.plain_calls
+    srv = GenerationServer(model, max_batch=MAX_BATCH, page_size=PAGE_SIZE,
+                           draft_model=model, spec_k=RT_SPEC_K,
+                           device="cuda", mesh=mesh, name=name, start=False)
+    try:
+        futs = [srv.submit_generate(p, max_new_tokens=MESH_NEW,
+                                    temperature=0.0, seed=seed + i)
+                for i, p in enumerate(prompts[:-1])]
+        t0 = time.perf_counter()
+        srv.start()
+        _wait_for(lambda: len(futs[0].tokens()) >= 1, 900,
+                  "the first request's first token", tag="mesh A")
+        ttft = time.perf_counter() - t0
+        first = futs[0].result(timeout=900)
+        futs.append(srv.submit_generate(prompts[-1], max_new_tokens=MESH_NEW,
+                                        temperature=0.0))
+        streams = [first] + [f.result(timeout=900) for f in futs[1:]]
+        snap = srv.metrics_snapshot()
+        sz = srv.statusz()
+        leak = srv.kv.leak_check()
+        fp = srv.decoder.fingerprint()
+    finally:
+        srv.shutdown(drain=True)
+    return {"streams": streams, "ttft_s": ttft, "prefix": snap["prefix"],
+            "leak": leak, "statusz": sz, "fingerprint": fp,
+            "plain_calls": cpa.plain_calls - plain0}
+
+
+def _mesh_serving(state, model) -> dict:
+    """``GenerationServer(mesh=)`` at mp=2, twice with the same seeds."""
+    from paddle_tpu_torch.compile_cache import mesh_fingerprint
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    prompts = _rt_prompts(model.config, state["seed"], MESH_REQUESTS)
+    mesh = _slots(2)
+    runs = [_mesh_serve(model, mesh, prompts, state["seed"], f"mesh-{i}")
+            for i in range(2)]
+    a, b = runs
+    require(a["streams"] == b["streams"],
+            "mesh A serving: the mp=2 engine's tokens differ on a rerun")
+    for r in runs:
+        require(r["leak"]["ok"], f"mesh A serving: leak check {r['leak']}")
+        require(r["prefix"]["hits"] >= 1,
+                f"mesh A serving: no prefix hit {r['prefix']}")
+        require(r["plain_calls"] == 0,
+                f"mesh A serving: {r['plain_calls']} plain paged calls")
+        sec = r["statusz"].get("serving_mesh", {})
+        per = sec.get("per_slot_kv_pool_bytes", [])
+        require(sec.get("live") and len(per) == 2 and min(per) > 0,
+                f"mesh A serving: /statusz mesh section {sec}")
+    one = GenerationServer(model, max_batch=MAX_BATCH, page_size=PAGE_SIZE,
+                           device="cuda", name="mesh-one", start=False)
+    try:
+        fp_one = one.decoder.fingerprint()
+        mfp_one = mesh_fingerprint(one.decoder.serving_mesh
+                                   .mesh_for_cache_key())
+    finally:
+        one.shutdown(drain=False)
+    mfp = mesh_fingerprint(mesh)
+    require(mfp != mfp_one and a["fingerprint"] != fp_one,
+            "mesh A serving: the mesh's fingerprints equal the unsharded "
+            "engine's")
+    log(f"mesh A serving mp=2: {MESH_REQUESTS} requests x {MESH_NEW} new "
+        f"tokens twice, equal; first token {a['ttft_s'] * 1e3:.1f} / "
+        f"{b['ttft_s'] * 1e3:.1f} ms; prefix {a['prefix']}; statusz "
+        f"{a['statusz']['serving_mesh']}; mesh fingerprint {mfp}")
+    return {"equal_on_rerun": True, "ttft_ms": [r["ttft_s"] * 1e3
+                                                for r in runs],
+            "prefix": a["prefix"], "statusz": a["statusz"]["serving_mesh"],
+            "mesh_fingerprint": mfp, "unsharded_mesh_fingerprint": mfp_one}
+
+
+def _grad_dist(a: dict, ref: dict) -> float:
+    """||a - ref|| / ||ref|| over every parameter's gradient."""
+    import torch
+    num = den = 0.0
+    for name, r in ref.items():
+        d = a[name].float() - r.float()
+        num += float(torch.sum(d * d))
+        den += float(torch.sum(r.float() * r.float()))
+    return math.sqrt(num / den)
+
+
+def _mesh_dp(state) -> dict:
+    """Leg B: two ranks launched by the port's launcher train
+    gpt3_1p3b's width at MESH_DP_LAYERS layers data-parallel on one card;
+    the same steps are taken here on the whole batch."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+    from paddle_tpu_torch.tools import dp_worker
+    out_dir = tempfile.mkdtemp(prefix="mesh-dp-")
+    argv = ["--out", out_dir, "--model", "1p3b", "--layers",
+            str(MESH_DP_LAYERS), "--steps", str(MESH_DP_STEPS), "--batch",
+            str(MESH_DP_BATCH), "--seq", str(MESH_DP_SEQ), "--amp", "O2",
+            "--collectives"]
+    t0 = time.perf_counter()
+    before = set(_children())
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir",
+         os.path.join(out_dir, "logs"),
+         str(REPO / "paddle_tpu_torch" / "tools" / "dp_worker.py"), *argv],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=MESH_DP_TIMEOUT_S,
+        # the ranks' first step unmeasured: xstats' first-dispatch
+        # measurement is the runtime phase's business
+        env={**os.environ, "FLAGS_xstats_enable": "0"})
+    launch_s = time.perf_counter() - t0
+    logs = ""
+    for r in range(2):
+        with contextlib.suppress(OSError):
+            logs += Path(out_dir, "logs", f"workerlog.{r}").read_text()[-3000:]
+    require(proc.returncode == 0,
+            f"mesh B: the launcher exited {proc.returncode}: "
+            f"{proc.stdout[-2000:]} {logs}")
+    left = sorted(set(_children()) - before)
+    require(not left, f"mesh B: child processes outlive the job: {left}")
+    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+             for r in range(2)]
+    for r in ranks:
+        tag = f"mesh B rank {r['rank']}"
+        require(r["backend"] == "gloo", f"{tag}: backend {r['backend']}")
+        bad = [k for k, ok in r["collectives"].items() if not ok]
+        require(not bad, f"{tag}: collectives differ from numpy: {bad}")
+        require(all(r["equal_after_each_step"])
+                and len(r["equal_after_each_step"]) == MESH_DP_STEPS,
+                f"{tag}: parameters differ across ranks after the steps "
+                f"{r['equal_after_each_step']}")
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            require(r["launches"][k] > 0 and r["plain_calls"][k] == 0,
+                    f"{tag}: {k} launched {r['launches'][k]}, plain "
+                    f"{r['plain_calls'][k]}")
+    args = SimpleNamespace(model="1p3b", layers=MESH_DP_LAYERS,
+                           steps=MESH_DP_STEPS, batch=MESH_DP_BATCH,
+                           seq=MESH_DP_SEQ, amp="O2")
+    grad_dp = torch.load(os.path.join(out_dir, "grad0.pt"))
+    _, g_one, losses_one = dp_worker.single_process(args, "cuda")
+    args.steps = 0
+    _, g_plain, _ = dp_worker.single_process(args, "cuda", use_kernels=False)
+    args.amp = "none"
+    _, g_f32, _ = dp_worker.single_process(args, "cuda", use_kernels=False)
+    torch.cuda.empty_cache()
+    floor = _grad_dist(g_plain, g_f32)
+    d_dp, d_one = _grad_dist(grad_dp, g_f32), _grad_dist(g_one, g_f32)
+    log(f"mesh B: launcher {launch_s:.1f} s, backend "
+        f"{ranks[0]['backend']}; step s rank 0 "
+        + " ".join(f"{x:.3f}" for x in ranks[0]["step_s"])
+        + f"; losses {ranks[0]['losses']} (one process "
+        f"{[round(x, 5) for x in losses_one]}); gradient at the initial "
+        f"weights ||. - f32|| / ||f32||: averaged {d_dp:.5f}, one process "
+        f"{d_one:.5f}, bf16 plain floor {floor:.5f} (limit "
+        f"{BF16_FLOOR_FACTOR} x); launches a rank {ranks[0]['launches']}")
+    require(d_dp <= BF16_FLOOR_FACTOR * floor,
+            f"mesh B: the averaged gradient is {d_dp:.5f} from float32, "
+            f"beyond {BF16_FLOOR_FACTOR} x the floor {floor:.5f}")
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    return {"backend": ranks[0]["backend"], "launcher_s": launch_s,
+            "step_s": [r["step_s"] for r in ranks],
+            "losses": ranks[0]["losses"], "losses_one_process": losses_one,
+            "grad_to_f32": d_dp, "one_process_grad_to_f32": d_one,
+            "grad_floor": floor, "launches": launches,
+            "collectives": ranks[0]["collectives"]}
+
+
+def phase_mesh(state):
+    """Multi-device, part 1 on one card: leg A, ``gpt3_1p3b`` bf16 served
+    tensor-parallel over 2 and 4 slots of the card (step comparisons
+    against the unsharded decoder, a float32 copy's greedy tokens, the
+    engine with self-speculation); leg B, two launched data-parallel
+    ranks."""
+    import torch
+    t0 = time.perf_counter()
+    model = _model(state)
+    out = {"steps": _mesh_steps(state, model)}
+    out["f32"] = _mesh_f32(state)
+    out["serving"] = _mesh_serving(state, model)
+    state.pop("model", None)
+    state.pop("mesh_refs", None)
+    _release()
+    out["leg_a_s"] = time.perf_counter() - t0
+    out["dp"] = _mesh_dp(state)
+    torch.cuda.synchronize()
+    steps = out["steps"]
+    # the main path's launches: the sharded decoders' (bf16 and int8
+    # pools), leg B's ranks'
+    out["launches"] = {
+        "flash_fwd": sum(steps[kv][mp]["prefill_flash_launches"]
+                         for kv in steps for mp in MESH_MPS)
+        + out["dp"]["launches"]["flash_fwd"],
+        "flash_bwd_dq": out["dp"]["launches"]["flash_bwd_dq"],
+        "flash_bwd_dkv": out["dp"]["launches"]["flash_bwd_dkv"],
+        "paged_attention": sum(sum(steps["bf16"][mp][
+            "paged_launches_by_kernel"].values()) for mp in MESH_MPS),
+        "paged_attention_int8": sum(sum(steps["int8"][mp][
+            "paged_launches_by_kernel"].values()) for mp in MESH_MPS)}
+    times = {mp: steps["bf16"][mp]["decode_ms"] for mp in (1,) + MESH_MPS}
+    log("mesh A: decode step ms by mp (bf16 pools) "
+        + json.dumps(times) + "; prefill (first token of 8 rows) ms "
+        + json.dumps({mp: round(steps["bf16"][mp]["prefill_ms"], 1)
+                      for mp in (1,) + MESH_MPS})
+        + f"; served first token ms {out['serving']['ttft_ms']}")
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = state.get("smi")
+    state["mesh"] = out
+    log(f"mesh: {out['seconds']:.1f} s (leg A {out['leg_a_s']:.1f} s) "
+        f"({state.get('smi')})")
+
+
 def kernels_line(state) -> dict:
     """One row per kernel. Launches are the main paths' own counts: the
     forward's over the engine's run, the serving run, the training window
@@ -9576,6 +10082,7 @@ def kernels_line(state) -> dict:
                          el["drills"]["launches"])
     el_f = el["fit"]["launches_f32"]
     rt = state["runtime"]["launches"]
+    mesh = state["mesh"]["launches"]
 
     def api_row(dtype, part, kname=None, phase=api):
         """The flash kernel at a Paddle script's shape (the api phase's, or
@@ -9599,17 +10106,19 @@ def kernels_line(state) -> dict:
              + sum(t["flash_fwd"] for t in st_train) + fam_fwd
              + infer["bfloat16"]["launches"] + api_o2["flash_fwd"]
              + nn_o2["flash_fwd"] + hapi_b["flash_fwd"]
-             + ops_eng["flash_fwd"] + el_b["flash_fwd"] + rt["flash_fwd"],
+             + ops_eng["flash_fwd"] + el_b["flash_fwd"] + rt["flash_fwd"]
+             + mesh["flash_fwd"],
              None),
             ("paged_attention", cpa, state["paged_main"],
              eng["paged_attention"]
              + st_serve["bfloat16"]["launches"]["paged_attention"]
-             + ops_eng["paged_attention"] + rt["paged_attention"],
+             + ops_eng["paged_attention"] + rt["paged_attention"]
+             + mesh["paged_attention"],
              state["engine"]["paged_launches_by"]),
             ("paged_attention_int8", cpa, state["paged_int8_main"],
              serving["launches"]["paged_attention"]
              + st_serve["int8"]["launches"]["paged_attention"]
-             + rt["paged_attention_int8"],
+             + rt["paged_attention_int8"] + mesh["paged_attention_int8"],
              serving["paged_launches_by"])):
         entry = {"name": name, "route": "cuda", "source": mod.SOURCE,
                  "replaces": mod.REPLACES, "launches": launches,
@@ -9618,6 +10127,7 @@ def kernels_line(state) -> dict:
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": row["case"]}
         entry["runtime_launches"] = rt[name]
+        entry["mesh_launches"] = mesh[name]
         if name in ("flash_fwd", "paged_attention"):
             entry["ops_launches"] = ops_eng[name]
         if name == "flash_fwd":
@@ -9798,11 +10308,12 @@ def kernels_line(state) -> dict:
                         ("flash_bwd_dkv", ("dk", "dv"))):
         launches = train[name] + sum(t[name] for t in st_train) + \
             sum(t[name] for t in fam_train) + api_o2[name] + nn_o2[name] \
-            + hapi_b[name] + el_b[name] + rt[name]
+            + hapi_b[name] + el_b[name] + rt[name] + mesh[name]
         out.append({"name": name, "route": "cuda", "source": cab.SOURCE,
                     "replaces": cab.REPLACES[name], "launches": launches,
                     "elastic_launches": el_b[name],
                     "runtime_launches": rt[name],
+                    "mesh_launches": mesh[name],
                     "max_abs_err": max(row[f"{g}_max_abs_err"]
                                        for g in grads),
                     "ms": row[f"{name}_ms"],
@@ -9938,7 +10449,7 @@ def main(argv=None) -> int:
            "inference": phase_inference, "api": phase_api, "nn": phase_nn,
            "hapi": phase_hapi, "ops": phase_ops, "fleet": phase_fleet,
            "elastic": phase_elastic, "runtime": phase_runtime,
-           "opsprobe": phase_opsprobe}
+           "mesh": phase_mesh, "opsprobe": phase_opsprobe}
     t_start = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
@@ -9962,14 +10473,15 @@ def main(argv=None) -> int:
                                      "spec_profile", "train", "stacked",
                                      "recipe", "families", "inference",
                                      "api", "nn", "hapi", "ops", "fleet",
-                                     "elastic", "runtime", "opsprobe",
+                                     "elastic", "runtime", "mesh",
+                                     "opsprobe",
                                      "total_s",
                                      "phase_s")
                if k in state}
     if all(k in state for k in ("flash_main", "engine", "serving", "train",
                                 "stacked", "recipe", "families",
                                 "inference", "api", "nn", "hapi", "ops",
-                                "fleet", "elastic", "runtime")):
+                                "fleet", "elastic", "runtime", "mesh")):
         summary.update(kernels_line(state))
         print(json.dumps({"kernels": summary["kernels"]}), flush=True)
     OUT_DIR.mkdir(exist_ok=True)

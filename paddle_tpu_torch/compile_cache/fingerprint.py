@@ -295,13 +295,19 @@ _GLOBAL_MESH = "__global__"
 
 def mesh_fingerprint(mesh) -> str:
     """Canonical description of the device mesh a dispatch ran over:
-    ``"none"`` for one device, the reference's token. A real mesh waits
-    for the port's multi-device slice (ROADMAP queue 1 item 5c)."""
+    ``"none"`` for no mesh (the reference's token); for a
+    ``distributed.mesh_utils.Mesh`` its axes and degrees, its slots'
+    devices and their count (two meshes of the same axes over other slots
+    never share a key)."""
     if mesh is None:
         return "none"
-    raise NotImplementedError(
-        "compile-cache keys over a device mesh wait for multi-device "
-        "serving and training, ROADMAP queue 1 item 5c")
+    try:
+        return json.dumps({"axes": {str(k): int(v)
+                                    for k, v in dict(mesh.shape).items()},
+                           "slots": [str(d) for d in mesh.slots],
+                           "n": int(mesh.size)}, sort_keys=True)
+    except Exception:  # noqa: BLE001 - an exotic mesh still needs A key
+        return repr(mesh)
 
 
 _static_env: Optional[Dict[str, Any]] = None
@@ -356,11 +362,12 @@ def cache_key(fn_fingerprint: str, args=None, *, mesh=_GLOBAL_MESH,
               extra: Optional[dict] = None) -> Tuple[str, dict]:
     """The full persistent-cache key: sha256 hex digest plus the parts
     dict it was computed from (stored alongside the entry for
-    debugging). ``mesh`` defaults to the process's global mesh, which the
-    port does not have yet (one device: ``"none"``); pass ``None``
-    explicitly for a dispatch known to be meshless."""
-    if mesh == _GLOBAL_MESH:
-        mesh = None
+    debugging). ``mesh`` defaults to the process's global mesh
+    (``distributed.mesh_utils``); pass ``None`` explicitly for a dispatch
+    known to be meshless."""
+    if isinstance(mesh, str) and mesh == _GLOBAL_MESH:
+        from ..distributed.mesh_utils import get_global_mesh
+        mesh = get_global_mesh()
     parts = {
         "v": 1,
         "fn": fn_fingerprint,

@@ -264,6 +264,8 @@ class CheckpointManager:
 
     @torch.no_grad()
     def _apply(self, loaded: Dict[str, torch.Tensor], extra: dict):
+        loaded = {k: (v.full("cpu") if hasattr(v, "shards") else v)
+                  for k, v in loaded.items()}
         if self._model is not None:
             model_sd = {k[len(_MODEL_PREFIX):]: v for k, v in loaded.items()
                         if k.startswith(_MODEL_PREFIX)}
@@ -508,8 +510,10 @@ class CheckpointManager:
         optimizer and RNG and return its metadata. Corrupt or partial
         directories are quarantined (``<dir>.corrupt-*``) and skipped:
         after any kill, some checkpoint loads or None is returned (the
-        caller starts fresh). ``mesh`` waits for the port's meshes
-        (ROADMAP queue 1, item 5c)."""
+        caller starts fresh). ``mesh`` places each entry with a recorded
+        spec on it (``load_sharded(mesh=)``); the attached model's
+        parameters are torch tensors, so the placed entries are gathered
+        into them."""
         from ..observability.goodput import default_ledger
         ledger = default_ledger()
         self.wait()

@@ -10,8 +10,13 @@ The on-disk format is the reference's, so either package's
   extra.json   optional JSON sidecar (training state, RNG scalars)
   <file>.npy   one full array per entry
 
-``spec`` is always ``null`` here: the port has no mesh yet (ROADMAP queue
-1, item 5c), and ``load_sharded(mesh=...)`` raises naming that item.
+``spec`` is the entry's sharding spec: a ``distributed.mesh_utils.
+MeshTensor``'s own, or a tensor's ``dist_spec`` attribute, else ``null``.
+A placed tensor is gathered to one full array on save, as the reference's
+arrays are. ``load_sharded(mesh=...)`` (default: the global mesh) places
+each entry whose spec is recorded by it, a ``MeshTensor``; entries without
+a spec, or without a mesh, load as CPU tensors carrying their recorded
+spec as ``dist_spec``.
 
 The crash-safety protocol is the reference's:
 
@@ -266,11 +271,24 @@ class _PinnedBuffer:
 
 
 def _torch_of(v):
-    """The torch tensor behind a Paddle tensor or parameter, or None."""
+    """The torch tensor behind a Paddle tensor or parameter (a placed
+    tensor gathered), or None."""
+    if hasattr(v, "full") and hasattr(v, "spec") and hasattr(v, "shards"):
+        return v.full()
     data = getattr(v, "_data", None)
     if isinstance(data, torch.Tensor):
         return data
     return v if isinstance(v, torch.Tensor) else None
+
+
+def _spec_of(v):
+    """The entry's recorded spec: a placed tensor's, or a ``dist_spec``
+    attribute (the reference's ``_spec_of``), as a list; else None."""
+    spec = getattr(v, "spec", None) if hasattr(v, "shards") else \
+        getattr(v, "dist_spec", None)
+    if spec is None:
+        return None
+    return [list(s) if isinstance(s, tuple) else s for s in spec]
 
 
 def _as_numpy(host: torch.Tensor):
@@ -292,10 +310,12 @@ def _snapshot(state_dict: Dict[str, object],
     ``host_buffer``, or into a pageable buffer of this call's own. Returns
     (entries, [(name, array)])."""
     values = []
+    specs = {}
     for name, v in state_dict.items():
         if not isinstance(name, str) or not name:
             raise ValueError(f"checkpoint entry names must be non-empty "
                              f"strings, got {name!r}")
+        specs[name] = _spec_of(v)
         t = _torch_of(v)
         values.append((name, v if t is None else t.detach()))
     offsets, nbytes = {}, 0
@@ -336,7 +356,7 @@ def _snapshot(state_dict: Dict[str, object],
                     arr = arr.view(stored)
                     stored_as = str(stored)
             ent = {"shape": [int(d) for d in arr.shape],
-                   "dtype": dtype_name, "spec": None,
+                   "dtype": dtype_name, "spec": specs[name],
                    "file": _fname_for(name)}
             if stored_as is not None:
                 ent["stored_as"] = stored_as
@@ -510,14 +530,16 @@ def _load_entry(path: str, name: str, ent, verify: bool) -> torch.Tensor:
 
 def load_sharded(path: str, mesh=None, verify: bool = True
                  ) -> Dict[str, torch.Tensor]:
-    """Read a checkpoint directory (this package's or the reference's)
-    into CPU torch tensors, verifying each entry's sha256 when ``verify``.
-    Raises :class:`CheckpointCorruptError` on a missing, truncated or
-    corrupt directory. ``mesh`` placement waits for the port's meshes."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_sharded(mesh=...): placement by PartitionSpec waits for "
-            "the port's meshes (ROADMAP queue 1, item 5c)")
+    """Read a checkpoint directory (this package's or the reference's),
+    verifying each entry's sha256 when ``verify``. With ``mesh`` (default:
+    the global mesh) an entry with a recorded spec is placed by it (a
+    ``MeshTensor``, axes the mesh lacks replicated, as the reference's);
+    every other entry is a CPU tensor, carrying its recorded spec as
+    ``dist_spec``. Raises :class:`CheckpointCorruptError` on a missing,
+    truncated or corrupt directory."""
+    if mesh is None:
+        from ..distributed.mesh_utils import get_global_mesh
+        mesh = get_global_mesh()
     t0 = time.perf_counter()
     path = os.path.abspath(path)
     entries = _read_meta(path)
@@ -525,7 +547,18 @@ def load_sharded(path: str, mesh=None, verify: bool = True
     with ThreadPoolExecutor(_IO_THREADS) as ex:
         tensors = list(ex.map(
             lambda kv: _load_entry(path, kv[0], kv[1], verify), items))
-    out = {name: t for (name, _), t in zip(items, tensors)}
+    out = {}
+    for (name, ent), t in zip(items, tensors):
+        spec = ent.get("spec")
+        if spec is not None:
+            spec = tuple(tuple(a) if isinstance(a, list) else a
+                         for a in spec)
+            if mesh is not None:
+                from ..distributed.mesh_utils import MeshTensor
+                t = MeshTensor.place(t, mesh, spec)
+            else:
+                t.dist_spec = spec
+        out[name] = t
     try:
         _, restore_ms, _ = _metrics()
         restore_ms.observe((time.perf_counter() - t0) * 1e3)

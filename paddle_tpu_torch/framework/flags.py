@@ -189,9 +189,15 @@ define_flag("FLAGS_serving_donate_inputs", True,
             "torch has no buffer donation, so the port always behaves as "
             "the reference does on its CPU backend, which does not "
             "donate (paddle_tpu/inference/__init__.py:683)")
+define_flag("FLAGS_training_telemetry", False,
+            "auto-inject the TrainingTelemetryCallback into Model.fit "
+            "(step time, examples/sec, loss into the metric registry)")
 define_flag("FLAGS_serving_mesh_mp", 1,
-            "tensor-parallel degree of one serving replica; above 1 "
-            "waits for ROADMAP queue 1 item 5c")
+            "tensor-parallel degree of one serving replica: above 1 the "
+            "replica spans an {'mp': N} mesh of device slots "
+            "(serving/mesh.py): weights shard by the distributed.shard "
+            "rule tables, the paged KV pools along the heads axis, and the "
+            "decode engine runs each layer per slot; <=1 = single-shard")
 # The persistent compile cache (compile_cache/), with the reference's names
 # and defaults (paddle_tpu/framework/flags.py:255-275).
 define_flag("FLAGS_compile_cache_dir", "",

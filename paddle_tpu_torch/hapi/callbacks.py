@@ -291,7 +291,9 @@ def config_callbacks(callbacks=None, model=None, epochs=None, steps=None,
                      metrics=None, mode="train"):
     """The callback list of a ``fit``: ``callbacks`` plus a
     ``ProgBarLogger`` (with ``verbose``), a ``ModelCheckpoint`` (with
-    ``save_dir``) and an ``LRScheduler`` where they lack one."""
+    ``save_dir``) and an ``LRScheduler`` where they lack one, and in
+    training a ``TrainingTelemetryCallback`` when
+    ``FLAGS_training_telemetry`` is on."""
     cbs = list(callbacks or [])
     if not any(isinstance(c, ProgBarLogger) for c in cbs) and verbose:
         cbs.append(ProgBarLogger(log_freq, verbose=verbose))
@@ -299,6 +301,13 @@ def config_callbacks(callbacks=None, model=None, epochs=None, steps=None,
         cbs.append(ModelCheckpoint(save_freq, save_dir))
     if not any(isinstance(c, LRScheduler) for c in cbs) and model is not None:
         cbs.append(LRScheduler())
+    if mode == "train":
+        from ..framework.flags import flag_value
+        if flag_value("FLAGS_training_telemetry"):
+            from ..observability.training import TrainingTelemetryCallback
+            if not any(isinstance(c, TrainingTelemetryCallback)
+                       for c in cbs):
+                cbs.append(TrainingTelemetryCallback())
     clist = CallbackList(cbs)
     clist.set_model(model)
     clist.set_params({"epochs": epochs, "steps": steps, "verbose": verbose,

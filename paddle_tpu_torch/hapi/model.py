@@ -11,8 +11,12 @@ reference's does, and the metrics update on the host from what their
 ``compute`` made on the device. AMP covers the training forward only;
 evaluation and prediction run in the network's own precision, as the
 reference's do. ``save(training=False)`` exports through
-``jit.save``. The port's ``distributed`` is one device (ROADMAP queue 1,
-item 5c), so ``fit`` never shards its data.
+``jit.save``. In a world above one (the launcher's ranks,
+``distributed.init_parallel_env``), ``fit`` reads each rank's shard of the
+data through a ``DistributedBatchSampler``, as the reference's
+(``hapi/model.py:50-56``). With ``FLAGS_training_telemetry`` set, ``fit``
+adds a ``TrainingTelemetryCallback`` to its callbacks (reference
+``hapi/callbacks.py:297-302``).
 """
 from __future__ import annotations
 

@@ -24,8 +24,17 @@ Left out, each raising ``NotImplementedError`` that names its ROADMAP
 queue 1 item: ``Config.set_precision(Half | Bfloat16)``, which the
 reference re-lowers from its ``.pdmodel`` program (item 5d; serve a model
 saved after ``amp.decorate`` instead); the reference's ``.pdmodel`` /
-``.pdiparams`` pair and StableHLO ``.pdexec`` (item 5d); the serving mesh
-(item 5c).
+``.pdiparams`` pair and StableHLO ``.pdexec`` (item 5d).
+
+``attach_serving_mesh`` takes a ``serving.mesh.ServingMesh`` (the fleet
+worker attaches ``FLAGS_serving_mesh_mp``'s): a live mesh's axes, slots and
+the weights' spec-tree hash join the artifact's identity and every
+compile-cache key, and the replica reports the mesh. The exported program
+is one graph, and this slice does not partition it: it runs on the
+predictor's device (the mesh's first slot) with its full weights. Splitting
+an exported program over the slots waits for ROADMAP queue 1 item 5c, part
+2; the decode engine's tensor-parallel path (``CachedDecoder(mesh=)``) is
+the one that runs per slot.
 
 The persistent compile cache (``compile_cache/``, on when
 ``FLAGS_compile_cache_dir`` is set) serves the dispatch site ``serving``,
@@ -307,6 +316,10 @@ class Predictor:
         # the last dispatch's compile-cache result ("hit", "miss", or None
         # when it did not ask the cache), by site
         self.cache_outcomes: Dict[str, Optional[str]] = {}
+        # the attached serving mesh (None: single-shard) and the weights'
+        # spec-tree hash under it
+        self._serving_mesh = None
+        self._weight_spec_hash: Optional[str] = None
 
     @property
     def device(self) -> torch.device:
@@ -349,8 +362,17 @@ class Predictor:
             signature_fn=lambda: ((((0,), "donate"),)
                                   + xstats.signature_of(list(xs))),
             kind="serving", fingerprint=self.artifact_fingerprint,
-            device=self._device, identity=self.artifact_fingerprint,
-            outcome=self.cache_outcomes)
+            device=self._device, identity=self._cache_identity,
+            outcome=self.cache_outcomes,
+            mesh=(self._serving_mesh.mesh_for_cache_key()
+                  if self._serving_mesh is not None else None))
+
+    def _cache_identity(self) -> str:
+        """The compile-cache identity: the artifact's fingerprint, and
+        under a live mesh its weights' spec-tree hash."""
+        if self._weight_spec_hash is None:
+            return self.artifact_fingerprint()
+        return self.artifact_fingerprint() + ":" + self._weight_spec_hash
 
     # ---- reference Predictor API ----
     def get_input_names(self) -> List[str]:
@@ -505,9 +527,36 @@ class Predictor:
         return self._fingerprint
 
     def attach_serving_mesh(self, mesh):
-        raise NotImplementedError(
-            "tensor-parallel serving meshes wait for ROADMAP queue 1 item "
-            "5c")
+        """Attach a serving mesh (reference ``inference/__init__.py:
+        363-409``): the weights' spec tree through the ``distributed.
+        shard`` rule tables over the program's weight names, its hash and
+        the mesh joining the compile-cache key, every memo dropped. An
+        inert mesh (None, one slot) restores the single-shard identity
+        exactly. The program itself runs on this predictor's device (see
+        the module's docstring). Returns self."""
+        from ..distributed.shard import (default_rules, normalize_spec,
+                                         spec_tree_hash)
+        from ..serving.mesh import ServingMesh
+        smesh = mesh if isinstance(mesh, ServingMesh) else ServingMesh(mesh)
+        self._serving_mesh = smesh
+        self._weight_spec_hash = None
+        self._xstats_memo = {}
+        self._feed_cache = {}
+        if not smesh.live:
+            return self
+        rules = default_rules()
+        program = self._artifact.program
+        specs = {}
+        for n in sorted(program.state_dict):
+            w = program.state_dict[n]
+            specs[n] = normalize_spec(rules.spec_for(n, tuple(w.shape)),
+                                      smesh.mesh, tuple(w.shape))
+        self._weight_spec_hash = spec_tree_hash(specs)
+        return self
+
+    @property
+    def serving_mesh(self):
+        return self._serving_mesh
 
 
 def create_predictor(config: Config) -> Predictor:

@@ -62,9 +62,11 @@ hand-written flash kernels forward and backward.
   publishes them one note later (grad-norm EWMA drift, anomalies), so no
   step waits for them.
 
-Not in this slice: meshes, DGC/LocalSGD (ROADMAP queue 1 item 5c) and ASP
-masks (item 5d). Asking for any of them raises ``NotImplementedError``
-naming its ROADMAP item.
+Not in this slice: a step under a dp/mp/sep mesh and DGC/LocalSGD (ROADMAP
+queue 1 item 5c, part 2) and ASP masks (item 5d). Asking for any of them
+raises ``NotImplementedError`` naming its ROADMAP item. Data parallelism
+over processes rides the model: a ``distributed.DataParallel`` model
+averages its gradients at the end of the step's backward.
 """
 from __future__ import annotations
 
@@ -101,7 +103,7 @@ class TrainStep:
             if getattr(optimizer, attr, None) is not None:
                 raise NotImplementedError(
                     "DGC/LocalSGD optimizers are not ported yet (ROADMAP "
-                    "queue 1 item 5c)")
+                    "queue 1 item 5c, part 2)")
         if amp_level not in (None, "O1", "O2"):
             raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
                              f"{amp_level!r}")

@@ -38,6 +38,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..distributed.fleet.meta_parallel.mp_layers import mark_megatron
 from ..distributed.fleet.utils import recompute
 from ..framework.device import resolve_device
 from ..nn.functional.attention import scaled_dot_product_attention
@@ -128,6 +129,8 @@ class BertEmbeddings(nn.Module):
                                        eps=cfg.layer_norm_eps,
                                        device=device, dtype=dtype)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
+        # the reference's word table is a VocabParallelEmbedding
+        mark_megatron(self)
 
     def forward(self, input_ids, token_type_ids=None):
         seq = input_ids.shape[-1]
@@ -182,6 +185,8 @@ class BertLayer(nn.Module):
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=eps, device=device,
                                 dtype=dtype)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
+        # the reference's projections are its tensor-parallel layers
+        mark_megatron(self)
 
     def forward(self, x, attn_mask=None):
         x = self.ln1(x + self.dropout(self.attn(x, attn_mask)))

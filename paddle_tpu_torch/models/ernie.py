@@ -4,7 +4,7 @@ after the embeddings' layer norm and dropout, as the reference adds them.
 ``ernie_3_0_10b`` is the BASELINE config-5 scale (48 layers, hidden 4096,
 32 heads of 128); on one card it runs its forward (about 20 GB of bf16
 weights, built on the device in bf16), while training it needs its weights
-sharded over cards (ROADMAP queue 1 item 5c)."""
+sharded over cards (ROADMAP queue 1 item 5c, part 2)."""
 from __future__ import annotations
 
 from typing import Optional

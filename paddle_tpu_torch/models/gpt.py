@@ -57,6 +57,9 @@ from torch.overrides import handle_torch_function, has_torch_function
 from torch.utils.checkpoint import checkpoint
 
 from ..amp.auto_cast import auto_cast
+from ..distributed.fleet.meta_parallel.mp_layers import mark_megatron
+from ..distributed.mesh_utils import reduce_in_slot_order
+from ..distributed.shard import mark_param
 from ..framework.device import resolve_device
 from ..nn.functional.attention import scaled_dot_product_attention
 from ..nn.functional.loss import cross_entropy
@@ -72,7 +75,8 @@ __all__ = ["GPTConfig", "GPTKVCache", "GPTEmbeddings", "GPTAttention",
            "GPTMLP", "GPTDecoderLayer", "GPTStackedTransformer",
            "gpt_stacked_decoder", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt2_small", "gpt2_medium",
-           "gpt2_large", "gpt3_1p3b"]
+           "gpt2_large", "gpt3_1p3b", "STACKED_SPECS", "mesh_forward",
+           "mesh_logits"]
 
 
 @dataclass
@@ -324,6 +328,15 @@ class GPTDecoderLayer(nn.Module):
 # paddle_tpu/models/gpt.py:427-434)
 STACKED_PARAMS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
                   "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+# their dist_spec (dim 0 = layers over 'pp'; reference SPECS)
+STACKED_SPECS = {
+    "ln1_w": ("pp", None), "ln1_b": ("pp", None),
+    "qkv_w": ("pp", None, "mp"), "qkv_b": ("pp", "mp"),
+    "out_w": ("pp", "mp", None), "out_b": ("pp", None),
+    "ln2_w": ("pp", None), "ln2_b": ("pp", None),
+    "fc1_w": ("pp", None, "mp"), "fc1_b": ("pp", "mp"),
+    "fc2_w": ("pp", "mp", None), "fc2_b": ("pp", None),
+}
 
 
 def _ln32(h, w, b, eps):
@@ -557,6 +570,7 @@ class GPTStackedTransformer(nn.Module):
         for name in STACKED_PARAMS:
             setattr(self, name, nn.Parameter(torch.empty(
                 shapes[name], device=device, dtype=dtype)))
+            mark_param(getattr(self, name), STACKED_SPECS[name])
 
     @torch.no_grad()
     def reset_parameters(self, generator, std: float) -> None:
@@ -604,6 +618,9 @@ class GPTModel(nn.Module):
         self.ln_f = nn.LayerNorm(config.hidden_size,
                                  eps=config.layer_norm_eps, device=device,
                                  dtype=dtype)
+        # the reference builds these from its tensor-parallel layers,
+        # which mark their parameters' specs at construction
+        mark_megatron(self)
 
     def forward(self, input_ids, cache: Optional[GPTKVCache] = None):
         """Uncached: the final hidden states [B, S, hidden].
@@ -760,3 +777,172 @@ class GPTPretrainingCriterion(nn.Module):
         b, s, v = lg.shape
         return cross_entropy(lg.reshape(b * s, v), lb.reshape(b * s),
                              ignore_index=self.ignore_index)
+
+
+# ---- the tensor-parallel serving path (serving/mesh.py) ----
+def pools_of_slot(pools, slot: int):
+    """Slot ``slot``'s view of a pool structure whose leaves are
+    ``MeshTensor``s (per-layer lists, int8 tuples, stacked pools)."""
+    if isinstance(pools, list):
+        return [pools_of_slot(p, slot) for p in pools]
+    if isinstance(pools, tuple):
+        return tuple(pools_of_slot(p, slot) for p in pools)
+    return pools.shard(slot)
+
+
+def _is_split(mt, dim: int) -> bool:
+    return dim < len(mt.spec) and mt.spec[dim] is not None
+
+
+def _slot_caches(cache: GPTKVCache, slots):
+    """One cache view per slot over its own pool shards, with the batch's
+    tensors on the slot's device (copied once a device)."""
+    moved = {}
+    out = []
+    for s, dev in enumerate(slots):
+        key = str(dev)
+        if key not in moved:
+            moved[key] = [t.to(dev) for t in (
+                cache.block_tables, cache.ctx_len, cache.valid,
+                cache.positions, cache.slots)]
+        bt, ctx, valid, pos, flat = moved[key]
+        out.append(GPTKVCache(cache.kind, cache.page_size,
+                              pools_of_slot(cache.k, s),
+                              pools_of_slot(cache.v, s), bt, ctx, valid, pos,
+                              cache.use_kernels, flat))
+    return out
+
+
+def _row_reduce(parts, bias, dtype, home):
+    """The row-parallel close: partial products summed in slot order in
+    float32, the bias added, rounded once to ``dtype``."""
+    acc = reduce_in_slot_order(parts, torch.float32, home)
+    if bias is not None:
+        acc = acc + bias.to(home, torch.float32)
+    return acc.to(dtype)
+
+
+def _mesh_attention(i, h_ln, caches, slots, qkv_of, out_of, hd):
+    """Each slot's column shard of qkv, its pool write and attention over
+    its heads, and its partial out-projection (a list, slot order)."""
+    b, s = h_ln.shape[:2]
+    parts = []
+    for j, dev in enumerate(slots):
+        qkv = qkv_of(h_ln.to(dev), j)
+        nh = qkv.shape[-1] // (3 * hd)
+        q, k, v = qkv.view(b, s, nh, 3, hd).unbind(3)
+        c = caches[j].layer(i)
+        attn, _, _ = paged_attention_update(
+            q, k, v, c.k, c.v, c.block_tables, c.ctx_len, c.valid,
+            c.positions, page_size=c.page_size, kind=c.kind,
+            use_kernels=c.use_kernels, slots=c.slots)
+        parts.append(out_of(attn.reshape(b, s, nh * hd), j))
+    return parts
+
+
+def _mesh_module_layer(placed, i, x, caches, slots, cfg):
+    pre = f"gpt.layers.{i}."
+    P = {n: placed[pre + n] for n in (
+        "ln_1.weight", "ln_1.bias", "attn.qkv_proj.weight",
+        "attn.qkv_proj.bias", "attn.out_proj.weight", "attn.out_proj.bias",
+        "ln_2.weight", "ln_2.bias", "mlp.fc_in.weight", "mlp.fc_in.bias",
+        "mlp.fc_out.weight", "mlp.fc_out.bias")}
+    home, eps, hd = slots[0], cfg.layer_norm_eps, cfg.hidden_size // \
+        cfg.num_heads
+    h = F.layer_norm(x, (cfg.hidden_size,), P["ln_1.weight"].shard(0),
+                     P["ln_1.bias"].shard(0), eps)
+    parts = _mesh_attention(
+        i, h, caches, slots,
+        lambda t, j: F.linear(t, P["attn.qkv_proj.weight"].shard(j),
+                              P["attn.qkv_proj.bias"].shard(j)),
+        lambda t, j: F.linear(t, P["attn.out_proj.weight"].shard(j)), hd)
+    x = x + _row_reduce(parts, P["attn.out_proj.bias"].shard(0), x.dtype,
+                        home)
+    h2 = F.layer_norm(x, (cfg.hidden_size,), P["ln_2.weight"].shard(0),
+                      P["ln_2.bias"].shard(0), eps)
+    w_in, b_in = P["mlp.fc_in.weight"], P["mlp.fc_in.bias"]
+    w_out = P["mlp.fc_out.weight"]
+    n = len(slots) if _is_split(w_in, 0) else 1
+    parts = [F.linear(F.gelu(F.linear(h2.to(slots[j]), w_in.shard(j),
+                                      b_in.shard(j)), approximate="tanh"),
+                      w_out.shard(j)) for j in range(n)]
+    return x + _row_reduce(parts, P["mlp.fc_out.bias"].shard(0), x.dtype,
+                           home)
+
+
+def _mesh_stacked_layer(placed, i, x, caches, slots, cfg):
+    P = {n: placed[f"gpt.decoder.{n}"] for n in STACKED_PARAMS}
+
+    def w(name, j):
+        return P[name].shard(j)[i]
+
+    home, eps = slots[0], cfg.layer_norm_eps
+    hd = cfg.hidden_size // cfg.num_heads
+    h = _ln32(x, w("ln1_w", 0), w("ln1_b", 0), eps)
+    parts = _mesh_attention(
+        i, h, caches, slots,
+        lambda t, j: torch.matmul(t, w("qkv_w", j)) + w("qkv_b", j),
+        lambda t, j: torch.matmul(t, w("out_w", j)), hd)
+    x = x + _row_reduce(parts, None, x.dtype, home) + w("out_b", 0)
+    h2 = _ln32(x, w("ln2_w", 0), w("ln2_b", 0), eps)
+    n = len(slots) if _is_split(P["fc1_w"], 2) else 1
+    parts = [torch.matmul(F.gelu(torch.matmul(h2.to(slots[j]),
+                                              w("fc1_w", j)) + w("fc1_b", j),
+                                 approximate="tanh"), w("fc2_w", j))
+             for j in range(n)]
+    return x + _row_reduce(parts, None, x.dtype, home) + w("fc2_b", 0)
+
+
+def mesh_forward(model: "GPTForCausalLM", placed: dict, input_ids,
+                 cache: GPTKVCache):
+    """The cached forward of ``model.gpt`` over a live serving mesh
+    (``serving/mesh.py``): ``placed`` maps each parameter path to its
+    ``MeshTensor`` (``ServingMesh.place_state``), the cache's pools are
+    ``MeshTensor`` leaves sharded over their heads axis. Per layer, each
+    slot runs the column shard of the QKV projection, its pool write and
+    the attention kernel over its heads/mp, and its partial
+    out-projection; the partials are reduced in slot order (float32,
+    rounded once, the bias added there) on slot 0's device, which holds
+    the residual stream. The MLP does the same with fc_in in columns and
+    fc_out in rows. The word embedding is looked up per vocab shard (one
+    shard hits each id). Returns the final hidden states on slot 0's
+    device; the pools are written in place."""
+    cfg = model.config
+    emb = placed["gpt.embeddings.word_embeddings.weight"]
+    slots = emb.mesh.slots
+    home = slots[0]
+    caches = _slot_caches(cache, slots)
+    if _is_split(emb, 0):
+        rows = emb.shards[0].shape[0]
+        parts = []
+        for j, dev in enumerate(slots):
+            local = input_ids.to(dev) - j * rows
+            hit = (local >= 0) & (local < rows)
+            e = F.embedding(local.clamp(0, rows - 1), emb.shard(j))
+            parts.append(e * hit.unsqueeze(-1).to(e.dtype))
+        h = reduce_in_slot_order(parts, emb.dtype, home)
+    else:
+        h = F.embedding(input_ids, emb.shard(0))
+    pos = cache.positions.long().clamp(0, cfg.max_seq_len - 1)
+    h = h + F.embedding(pos, placed[
+        "gpt.embeddings.position_embeddings"].shard(0))
+    layer = _mesh_stacked_layer if cfg.stacked else _mesh_module_layer
+    for i in range(cfg.num_layers):
+        h = layer(placed, i, h, caches, slots, cfg)
+    return F.layer_norm(h, (cfg.hidden_size,),
+                        placed["gpt.ln_f.weight"].shard(0),
+                        placed["gpt.ln_f.bias"].shard(0), cfg.layer_norm_eps)
+
+
+def mesh_logits(model: "GPTForCausalLM", placed: dict, h):
+    """The lm head over a live serving mesh: each vocab shard's logits,
+    concatenated in slot order on slot 0's device (replicated on the way
+    out)."""
+    name = ("gpt.embeddings.word_embeddings.weight"
+            if model.config.tie_word_embeddings else "lm_head.weight")
+    w = placed[name]
+    if not _is_split(w, 0):
+        return F.linear(h, w.shard(0))
+    home = w.mesh.slots[0]
+    return torch.cat([F.linear(h.to(dev), w.shard(j)).to(home)
+                      for j, dev in enumerate(w.mesh.slots)], dim=-1)

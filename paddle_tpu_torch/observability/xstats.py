@@ -881,7 +881,7 @@ def observed_call(memo: dict, key, site: str, call: Callable, *,
                   fingerprint: Optional[Callable[[], str]] = None,
                   device=None,
                   identity: Optional[Callable[[], Optional[str]]] = None,
-                  outcome: Optional[dict] = None):
+                  outcome: Optional[dict] = None, mesh=None):
     """Run ``call()`` as one dispatch of ``site``. A caller's dispatches
     of ``key`` after its first are only noted (``memo``, cleared when
     ``set_flags`` moves ``flags_generation()``). At the first, with a
@@ -893,7 +893,8 @@ def observed_call(memo: dict, key, site: str, call: Callable, *,
     measured and registered (provenance tier ``eager``), and other
     callers' of a registered signature are only noted. With xstats off,
     just ``call()``. ``outcome`` (a dict) receives ``outcome[site]``:
-    "hit" or "miss" when this dispatch asked the cache, else None."""
+    "hit" or "miss" when this dispatch asked the cache, else None.
+    ``mesh`` (a live serving mesh, or None) joins the cache key."""
     if outcome is not None:
         outcome[site] = None
     if not enabled():
@@ -913,7 +914,8 @@ def observed_call(memo: dict, key, site: str, call: Callable, *,
             out = _cached_call(cache, memo, key, site, call,
                                signature_fn=signature_fn, kind=kind,
                                fingerprint=fingerprint, device=device,
-                               identity=identity, outcome=outcome)
+                               identity=identity, outcome=outcome,
+                               mesh=mesh)
             if out is not _NO_CACHE:
                 return out
         try:
@@ -944,7 +946,7 @@ def observed_call(memo: dict, key, site: str, call: Callable, *,
 
 
 def _cached_call(cache, memo, key, site, call, *, signature_fn, kind,
-                 fingerprint, device, identity, outcome):
+                 fingerprint, device, identity, outcome, mesh=None):
     """The first dispatch of ``key`` in this object, through the compile
     cache (``observed_call``). ``call()`` runs exactly once: measured on
     a miss, plainly on a hit; an error it raises propagates. Returns
@@ -957,7 +959,7 @@ def _cached_call(cache, memo, key, site, call, *, signature_fn, kind,
         sig = signature_fn()
         from ..compile_cache import cache_key
         from ..compile_cache.cache import record_of
-        ckey, parts = cache_key(ident, None, mesh=None, extra={
+        ckey, parts = cache_key(ident, None, mesh=mesh, extra={
             "site": site,
             "device": (torch.device(device).type if device is not None
                        else "cpu"),

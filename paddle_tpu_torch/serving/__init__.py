@@ -22,8 +22,11 @@
   the resilience layer.
 
 Knobs: ``FLAGS_serving_*``, ``FLAGS_sched_*``, ``FLAGS_fleet_*`` and
-``FLAGS_autoscale_*`` in ``framework/flags.py``. ``wrap_capi`` waits for
-ROADMAP queue 1 item 5d, the serving mesh for item 5c.
+``FLAGS_autoscale_*`` in ``framework/flags.py``.
+- ``ServingMesh`` / ``serving_mesh_from_flags`` (``mesh.py``): one replica
+  over the slots of an ``{"mp": N}`` mesh (tensor-parallel decode).
+
+``wrap_capi`` waits for ROADMAP queue 1 item 5d.
 """
 from . import metrics  # noqa: F401  (the registry sub-namespace)
 from .batcher import DynamicBatcher
@@ -32,9 +35,10 @@ from .metrics import ServingMetrics
 from .request import (DeadlineExceededError, QueueFullError,
                       QuotaExceededError, Request, ServerClosedError)
 from .server import InferenceServer
+from .mesh import ServingMesh, serving_mesh_from_flags
 from . import fleet, generation, scheduling  # noqa: F401,E402
 
-__all__ = ["InferenceServer", "DynamicBatcher", "ShapeBucketPolicy",
+__all__ = ["ServingMesh", "serving_mesh_from_flags", "InferenceServer", "DynamicBatcher", "ShapeBucketPolicy",
            "BucketSpec", "ServingMetrics", "Request", "QueueFullError",
            "QuotaExceededError", "DeadlineExceededError",
            "ServerClosedError", "next_pow2", "metrics", "generation",

@@ -88,14 +88,17 @@ class ProcessReplicaFactory:
     ``FLAGS_compile_cache_dir`` (and ``FLAGS_compile_cache_max_bytes``)
     go to every worker unless ``env`` names them, so each replica warms
     from the shared compile cache and warmup manifests (reference
-    ``supervisor.py:86``)."""
+    ``supervisor.py:86``). With ``forkserver`` (a
+    ``framework.forkserver.ForkServer``) each worker is forked from that
+    server, which imported torch once, instead of started as a fresh
+    interpreter."""
 
     def __init__(self, *, extra_args: Optional[List[str]] = None,
                  env: Optional[Dict[str, str]] = None,
                  host: str = "127.0.0.1",
                  python: Optional[str] = None,
                  announce_dir: Optional[str] = None,
-                 stdout=None, stderr=None):
+                 stdout=None, stderr=None, forkserver=None):
         self.extra_args = list(extra_args or [])
         self.env = dict(env or {})
         self.host = host
@@ -104,6 +107,7 @@ class ProcessReplicaFactory:
             prefix="paddle-fleet-")
         self.stdout = stdout
         self.stderr = stderr
+        self.forkserver = forkserver
         self._spawn_seq = 0
 
     def __call__(self, replica_id: int) -> SubprocessReplica:
@@ -123,7 +127,9 @@ class ProcessReplicaFactory:
             env["FLAGS_compile_cache_max_bytes"] = str(
                 int(flag_value("FLAGS_compile_cache_max_bytes")))
         env.update(self.env)
-        proc = subprocess.Popen(
+        popen = self.forkserver.popen if self.forkserver is not None \
+            else subprocess.Popen
+        proc = popen(
             cmd, env=env,
             stdout=self.stdout if self.stdout is not None
             else subprocess.DEVNULL,

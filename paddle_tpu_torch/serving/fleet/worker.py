@@ -69,8 +69,11 @@ by ``main`` reports its start-up split in its ``/readyz`` body
 (``startup``: seconds from the process's start to ``main``, CUDA context,
 kernel library, model, warmup).
 
-Left out, raising ``NotImplementedError`` that names its ROADMAP queue 1
-item: the serving mesh (``FLAGS_serving_mesh_mp`` above 1, item 5c).
+The serving mesh (reference ``worker.py:279-303``): one replica spans the
+``FLAGS_serving_mesh_mp`` mesh, built once per backend, so the predictor
+(``attach_serving_mesh``), the generation engine and every reload share one
+set of slots; ``info`` (``/statusz``) carries its section. The slots are the
+visible devices; a CPU replica's are ``cpu`` slots.
 """
 from __future__ import annotations
 
@@ -301,6 +304,14 @@ class PredictorBackend:
         self._reloading = False
         self._gen = None
         self.wedge_monitor = WedgeMonitor()
+        # the replica's tensor-parallel mesh, built once: the predictor,
+        # the generation engine and every reload share its slots
+        from ...framework.flags import flag_value
+        from ..mesh import serving_mesh_from_flags
+        mp = int(flag_value("FLAGS_serving_mesh_mp") or 1)
+        cpu = device is not None and str(device).startswith("cpu")
+        self.serving_mesh = serving_mesh_from_flags(
+            devices=["cpu"] * mp if cpu else None)
         self._server, self._version = self._build(model_prefix)
         if generation_model is not None:
             from ..generation import GenerationServer
@@ -310,6 +321,7 @@ class PredictorBackend:
                                          name=f"{name}-gen",
                                          scheduler=_worker_scheduler(),
                                          device=generation_model.device,
+                                         mesh=self.serving_mesh,
                                          **(generation_kwargs or {}))
 
     def _build(self, model_prefix: str):
@@ -324,6 +336,8 @@ class PredictorBackend:
             else:
                 cfg.enable_use_gpu(100, device.index or 0)
         pred = inference.create_predictor(cfg)
+        if self.serving_mesh.live:
+            pred.attach_serving_mesh(self.serving_mesh)
         fp = pred.artifact_fingerprint()
         version = os.path.basename(str(model_prefix)) + \
             (f"@{fp[:8]}" if fp else "")
@@ -459,9 +473,12 @@ class PredictorBackend:
     def info(self) -> dict:
         with self._lock:
             version = self._version
-        return {"backend": "predictor", "version": version,
-                "name": self._name,
-                "generation": self._gen is not None}
+        out = {"backend": "predictor", "version": version,
+               "name": self._name,
+               "generation": self._gen is not None}
+        if self.serving_mesh.live:
+            out["serving_mesh"] = self.serving_mesh.statusz()
+        return out
 
     def shutdown(self, drain: bool = True):
         self.server.shutdown(drain=drain)

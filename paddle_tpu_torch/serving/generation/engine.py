@@ -74,7 +74,13 @@ counts every target dispatch: without a cache the first run of a
 signature in this engine is a miss and every later one a hit; with one, a
 first run whose first-dispatch record the cache supplied is a hit too.
 
-Not in this slice (ROADMAP): tensor-parallel meshes (item 5c).
+Tensor-parallel serving (reference ``:510-620``): ``mesh=`` (a
+``serving.mesh.ServingMesh`` or a ``Mesh``; None reads
+``FLAGS_serving_mesh_mp`` once, here) places the target's and the draft's
+pools heads-sharded over the mesh's slots and hands the mesh to both
+decoders; the page allocator, the prefix index, copy-on-write and the
+refcounts are host-side and run unchanged. ``statusz`` gains the mesh's
+section with each slot's pool bytes.
 """
 from __future__ import annotations
 
@@ -568,11 +574,21 @@ class GenerationServer:
                  spec_k: Optional[int] = None,
                  scheduler=None,
                  device=None,
+                 mesh=None,
                  start: bool = True):
+        from ..mesh import ServingMesh, serving_mesh_from_flags
         self.device = resolve_device(device)
         model.eval()
         self.model = model
         spec = model.kv_cache_spec()
+        # the replica's tensor-parallel mesh, threaded explicitly (the
+        # worker thread never sees the caller's global mesh)
+        if mesh is None:
+            self.serving_mesh = serving_mesh_from_flags()
+        else:
+            self.serving_mesh = mesh if isinstance(mesh, ServingMesh) \
+                else ServingMesh(mesh)
+        self.serving_mesh.validate_heads(int(spec["num_heads"]))
         self.max_batch = int(max_batch if max_batch is not None
                              else flag_value("FLAGS_decode_max_batch"))
         self.page_size = int(page_size if page_size is not None
@@ -615,9 +631,11 @@ class GenerationServer:
             model, max_batch=self.max_batch, page_size=self.page_size,
             pages_per_seq=self.pages_per_seq,
             max_positions=self.max_seq_len, kv_dtype=self.kv_dtype,
-            device=self.device, donate=donate)
+            device=self.device, donate=donate, mesh=self.serving_mesh)
         self.kv = PagedKVCache(model, num_pages=int(num_pages),
                                page_size=self.page_size, dtype=pool_dtype)
+        self.kv.k, self.kv.v = self.serving_mesh.place_pools(self.kv.k,
+                                                             self.kv.v)
         # ---- shared-prefix KV reuse (radix index over full pages)
         if prefix_cache is None:
             prefix_cache = bool(flag_value("FLAGS_decode_prefix_cache"))
@@ -651,9 +669,10 @@ class GenerationServer:
                 draft_model, max_batch=self.max_batch,
                 page_size=self.page_size, pages_per_seq=self.pages_per_seq,
                 max_positions=self.max_seq_len, kv_dtype=self.kv_dtype,
-                device=self.device, donate=donate)
-            self._draft_k, self._draft_v = draft_model.init_kv_pools(
-                self.kv.num_pages, self.page_size, pool_dtype)
+                device=self.device, donate=donate, mesh=self.serving_mesh)
+            self._draft_k, self._draft_v = self.serving_mesh.place_pools(
+                *draft_model.init_kv_pools(self.kv.num_pages, self.page_size,
+                                           pool_dtype))
         self.metrics = DecodeMetrics(name, self.max_batch, self.kv.capacity)
         self.metrics.set_kv_pages(0, self.kv.capacity)
         self.metrics.set_kv_pool_bytes(self.kv.pool_bytes(), self.kv_dtype)
@@ -767,6 +786,11 @@ class GenerationServer:
                 "kv_leak_check": self.kv.leak_check(),
                 "spec_k": self.spec_k,
             }
+            if self.serving_mesh.live:
+                out["serving_mesh"] = self.serving_mesh.statusz(
+                    self.kv.pool_bytes(),
+                    int(self.model.kv_cache_spec()["num_heads"]),
+                    pools=(self.kv.k, self.kv.v))
             if self.prefix is not None:
                 out["prefix_cache"] = self.prefix.stats()
             if self.scheduler is not None:
@@ -778,9 +802,13 @@ class GenerationServer:
 
     def refresh_params(self):
         """After the model's weights changed: the decoders read live
-        parameters, so only the prefix index must go (its pages hold K/V
-        computed with the old weights; serving them would be silent
-        staleness). In-flight sequences keep streaming."""
+        parameters (under a live mesh they re-place them), so the prefix
+        index must go (its pages hold K/V computed with the old weights;
+        serving them would be silent staleness). In-flight sequences keep
+        streaming."""
+        self.decoder.refresh_weights()
+        if self.draft is not None:
+            self.draft.refresh_weights()
         self.clear_prefix_cache()
 
     def clear_prefix_cache(self) -> int:

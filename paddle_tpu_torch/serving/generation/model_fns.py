@@ -47,6 +47,16 @@ Each entry point is one dispatch of an observability site
   tables and everything the engine holds come out bit for bit as without
   the shadow; the max-abs logit divergence is noted. Its plain calls count
   in the wrappers' ``plain_calls``.
+
+``mesh=`` (a ``serving.mesh.ServingMesh``, a ``distributed.mesh_utils.Mesh``
+or None) makes the decoder tensor-parallel, as the reference's
+(``model_fns.py:73-238``): a live mesh places the weights by their spec tree
+once (``ServingMesh.place_state``), every entry point takes pools placed by
+``ServingMesh.place_pools`` (``MeshTensor`` leaves, heads-sharded) and runs
+``models.gpt.mesh_forward``: per layer each slot runs its heads through the
+same kernels, partial sums reduced in slot order. The mesh joins the
+fingerprint and each compile-cache key. An inert mesh (None, one slot)
+changes nothing.
 """
 from __future__ import annotations
 
@@ -57,7 +67,8 @@ import numpy as np
 import torch
 
 from ...framework.device import resolve_device, same_device
-from ...models.gpt import GPTKVCache, is_stacked_pool, layer_pool
+from ...models.gpt import (GPTKVCache, is_stacked_pool, layer_pool,
+                           mesh_forward, mesh_logits, pools_of_slot)
 from ...observability import numerics, xstats
 from ...ops.paged_attention import is_quantized_pool, resolve_kv_dtype
 
@@ -94,7 +105,8 @@ class CachedDecoder:
     def __init__(self, model, *, max_batch: int, page_size: int,
                  pages_per_seq: int, max_positions: Optional[int] = None,
                  use_kernels: bool = True, kv_dtype: str = "",
-                 device=None, donate: Optional[bool] = None):
+                 device=None, donate: Optional[bool] = None, mesh=None):
+        from ..mesh import ServingMesh
         if not supports_cached_decode(model):
             raise TypeError(
                 f"{type(model).__name__} does not support KV-cached decode "
@@ -126,6 +138,23 @@ class CachedDecoder:
         self._dtype_label = self.kv_dtype or (
             "f32" if self._pool_dtype == torch.float32
             else str(self._pool_dtype).replace("torch.", ""))
+        smesh = mesh if isinstance(mesh, ServingMesh) else ServingMesh(mesh)
+        smesh.validate_heads(int(spec["num_heads"]))
+        self.serving_mesh = smesh
+        # the weights placed once by their spec tree (live mesh only)
+        self._placed = None
+        if smesh.live:
+            if not same_device(smesh.slots[0], self.device):
+                raise ValueError(f"the serving mesh's first slot is "
+                                 f"{smesh.slots[0]}, the decoder on "
+                                 f"{self.device}")
+            self._placed, _ = smesh.place_state(model=model)
+
+    def refresh_weights(self) -> None:
+        """Re-place the model's current weights on the live mesh (after a
+        weight load; the placement is a copy). A no-op when inert."""
+        if self.serving_mesh.live:
+            self._placed, _ = self.serving_mesh.place_state(model=self.model)
 
     def fingerprint(self) -> str:
         """Stable identity of (the model's code, configuration and
@@ -142,6 +171,11 @@ class CachedDecoder:
                     "max_positions": self.max_positions,
                     "use_kernels": self.use_kernels,
                     "kv_dtype": self.kv_dtype, "v": 1}
+            # only a live mesh joins: an inert one keeps today's
+            # fingerprint byte for byte
+            mesh_parts = self.serving_mesh.fingerprint_parts(self.model)
+            if mesh_parts is not None:
+                geom["serving_mesh"] = mesh_parts
             h = hashlib.sha256(layer_fingerprint(self.model).encode())
             h.update(json.dumps(geom, sort_keys=True).encode())
             self._fp = h.hexdigest()
@@ -161,12 +195,18 @@ class CachedDecoder:
                     else "a list of per-layer pools")
             raise ValueError(f"the model takes {want} per side, got a "
                              f"{type(k).__name__}")
-        pool = layer_pool(k, 0)
+        pool = layer_pool(self._slot0(k), 0)
         got = "int8" if is_quantized_pool(pool) else pool.dtype
         if got != self._pool_dtype:
             raise ValueError(f"the decoder was built for {self._pool_dtype} "
                              f"pools (kv_dtype={self.kv_dtype!r}), got "
                              f"{got} pools")
+
+    def _slot0(self, pools):
+        """Slot 0's view of placed pools (the pools themselves when the
+        mesh is inert)."""
+        return pools_of_slot(pools, 0) if self._placed is not None \
+            else pools
 
     def _run(self, kind, ids, positions, valid, ctx, tables, k, v, last_idx,
              use_kernels=None):
@@ -177,9 +217,15 @@ class CachedDecoder:
                            positions,
                            use_kernels=(self.use_kernels if use_kernels is None
                                         else use_kernels))
-        h, (k2, v2) = self.model.gpt(ids, cache=cache)
+        if self._placed is not None:
+            h = mesh_forward(self.model, self._placed, ids, cache)
+            k2, v2 = k, v
+        else:
+            h, (k2, v2) = self.model.gpt(ids, cache=cache)
         if last_idx is not None:
             h = h[torch.arange(h.shape[0], device=h.device), last_idx]
+        if self._placed is not None:
+            return mesh_logits(self.model, self._placed, h), k2, v2
         return self.model.logits(h), k2, v2
 
     def _dispatch(self, site, kind, ids, positions, valid, ctx, tables_np,
@@ -199,9 +245,11 @@ class CachedDecoder:
             self._xstats_entries, key, site,
             lambda: self._run(*args, tables, k, v, last_idx),
             signature_fn=lambda: xstats.signature_of(
-                [ids, positions, valid, ctx, tables, layer_pool(k, 0)]),
+                [ids, positions, valid, ctx, tables,
+                 layer_pool(self._slot0(k), 0)]),
             device=self.device, identity=self.fingerprint,
-            outcome=self.cache_outcomes)
+            outcome=self.cache_outcomes,
+            mesh=self.serving_mesh.mesh_for_cache_key())
         try:
             kname = site[len("generate_"):]
             if shadow is not None:
@@ -233,7 +281,10 @@ class CachedDecoder:
                 if isinstance(pool, list):
                     return [take(p) for p in pool]
                 if isinstance(pool, tuple):
-                    return tuple(t.index_select(dim, idx) for t in pool)
+                    return tuple(take(t) for t in pool)
+                if hasattr(pool, "map"):    # a placed pool's shards
+                    return pool.map(lambda t: t.index_select(
+                        dim, idx.to(t.device)))
                 return pool.index_select(dim, idx)
 
             return self._run(*args, self._t(remap, np.int32), take(k),

@@ -48,9 +48,12 @@ with ``FLAGS_serving_warmup_from_manifest`` on, the constructor replays a
 non-empty manifest itself. Servers of one name and program share a
 manifest, as the workers of a fleet given one ``--name`` do.
 
-Left out, each raising ``NotImplementedError`` that names its ROADMAP
-queue 1 item: a tensor-parallel replica (``FLAGS_serving_mesh_mp`` above
-1) (item 5c); C-ABI batching (``FLAGS_serving_capi_batching``) (item 5d).
+A tensor-parallel replica is its predictor's business, as the reference's:
+``Predictor.attach_serving_mesh`` (the fleet worker attaches
+``FLAGS_serving_mesh_mp``'s mesh); the server reads no mesh flag.
+
+Left out, raising ``NotImplementedError`` that names its ROADMAP queue 1
+item: C-ABI batching (``FLAGS_serving_capi_batching``) (item 5d).
 """
 from __future__ import annotations
 
@@ -181,10 +184,6 @@ class InferenceServer:
                  telemetry_port: Optional[int] = None,
                  ready_requires_warmup: Optional[bool] = None,
                  scheduler=None, start: bool = True):
-        if int(_flag("FLAGS_serving_mesh_mp")) != 1:
-            raise NotImplementedError(
-                "a tensor-parallel serving replica (FLAGS_serving_mesh_mp "
-                "above 1) waits for ROADMAP queue 1 item 5c")
         if _flag("FLAGS_serving_capi_batching"):
             raise NotImplementedError(
                 "batching C-ABI predictors (FLAGS_serving_capi_batching) "

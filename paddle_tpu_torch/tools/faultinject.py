@@ -43,7 +43,10 @@ and compile-cache counts, the SIGTERM's final save) to stdout and
 ``FLAGS_compile_cache_dir`` set there gives them one compile cache and a
 relaunch's first step loads its record. The reference run goes beside the fault run, in a process of its own.
 The workers run on the GPU unless ``--cpu`` is given; without a GPU every
-worker fails and so does the drill.
+worker fails and so does the drill. With ``--forkserver`` the workers are
+forked from a server that imported torch once
+(``framework/forkserver.py``) instead of started as fresh interpreters:
+every kill, signal and relaunch is the same, each start is shorter.
 
 Usage::
 
@@ -137,7 +140,9 @@ def run_attempt(ckpt_dir, cfg, phase, rng, timeout_s, live=None):
         cmd.append("--cpu")
     t_spawn = time.perf_counter()
     err = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen(
+    popen = cfg["forkserver"].popen if cfg.get("forkserver") else \
+        subprocess.Popen
+    proc = popen(
         cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=err, text=True,
         env=_worker_env(phase, cfg["mode"], cfg["sleep_s"],
                         cfg["midstep_sleep"]))
@@ -275,13 +280,16 @@ def _check_counts(info, expect):
 def run(steps=30, interval=2, kills=3, mode="async", seed=0, sleep_s=0.15,
         midstep_sleep=0.5, model="mlp", layers=4, keep=3,
         cpu=False, expect_launches=None, root=None, timeout_s=600.0,
-        out=None, verbose=True):
+        out=None, verbose=True, forkserver=False):
     rng = random.Random(seed)
     t_start = time.time()
     cfg = {"steps": steps, "interval": interval, "mode": mode,
            "sleep_s": sleep_s, "midstep_sleep": midstep_sleep,
            "model": model,
            "layers": layers, "keep": keep, "cpu": cpu}
+    if forkserver:
+        from ..framework.forkserver import ForkServer
+        cfg["forkserver"] = ForkServer().start()
     root = tempfile.mkdtemp(prefix="faultinject-", dir=root)
     live, ref_thread = [], None
     try:
@@ -460,6 +468,9 @@ def main(argv=None):
     ap.add_argument("--timeout-s", type=float, default=600.0,
                     help="bound on one worker launch")
     ap.add_argument("--out", default=None, help="write the JSON record here")
+    ap.add_argument("--forkserver", action="store_true",
+                    help="fork the workers from a server that imported "
+                         "torch once")
     args = ap.parse_args(argv)
     expect = [int(x) for x in args.expect_launches.split(",")] \
         if args.expect_launches else None
@@ -468,7 +479,8 @@ def main(argv=None):
                  midstep_sleep=args.midstep_sleep,
                  model=args.model, layers=args.layers, keep=args.keep,
                  cpu=args.cpu, expect_launches=expect, root=args.dir,
-                 timeout_s=args.timeout_s, out=args.out)
+                 timeout_s=args.timeout_s, out=args.out,
+                 forkserver=args.forkserver)
     print(json.dumps(record, sort_keys=True), flush=True)
     return 0
 

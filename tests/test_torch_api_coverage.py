@@ -193,6 +193,38 @@ PLANE = {"paddle_tpu.observability": OBS,
          "paddle_tpu.serving.fleet": FLEET,
          "paddle_tpu.elastic": ELASTIC,
          "paddle_tpu.compile_cache": COMPILE_CACHE}
+# the multi-device surfaces (ROADMAP queue 1 item 5c, part 1): the names the
+# port offers; what waits for part 2 raises naming it
+DIST = {"DataParallel", "Group", "ParallelEnv", "ParallelMode", "ReduceOp",
+        "all_gather", "all_gather_object", "all_reduce", "all_to_all",
+        "all_to_all_single", "alltoall", "alltoall_single", "apply_sharding",
+        "barrier", "broadcast", "broadcast_object_list", "build_mesh",
+        "collective", "communication", "constrain", "constrain_batch",
+        "constrain_seq", "destroy_process_group", "env", "fleet", "gather",
+        "get_backend", "get_global_mesh", "get_group", "get_rank",
+        "get_world_size", "gloo_barrier", "gloo_init_parallel_env",
+        "gloo_release", "group", "init_parallel_env", "io", "irecv",
+        "is_available", "is_initialized", "isend", "launch", "mesh_utils",
+        "new_group", "parallel", "recv", "reduce", "reduce_scatter",
+        "scatter", "scatter_object_list", "send", "set_global_mesh",
+        "shard", "shard_params", "shard_tensor_data", "spawn", "spec_tree",
+        "spec_tree_hash", "split", "stream", "wait", "with_constraint"}
+DIST_FLEET = {"CommunicateTopology", "DistributedStrategy", "Fleet",
+              "HybridCommunicateGroup", "PaddleCloudRoleMaker",
+              "UserDefinedRoleMaker", "barrier_worker", "distributed_model",
+              "distributed_optimizer", "distributed_strategy", "fleet_api",
+              "get_hybrid_communicate_group", "init", "is_first_worker",
+              "is_initialized", "meta_parallel", "save_inference_model",
+              "save_persistables", "topology", "utils", "worker_index",
+              "worker_num"}
+SERVING = {"BucketSpec", "DeadlineExceededError", "DynamicBatcher",
+           "InferenceServer", "QueueFullError", "QuotaExceededError",
+           "Request", "ServerClosedError", "ServingMesh", "ServingMetrics",
+           "ShapeBucketPolicy", "fleet", "generation", "metrics",
+           "next_pow2", "scheduling", "serving_mesh_from_flags"}
+MULTI = {"paddle_tpu.distributed": DIST,
+         "paddle_tpu.distributed.fleet": DIST_FLEET,
+         "paddle_tpu.serving": SERVING}
 PORTS = {"paddle_tpu": "paddle_tpu_torch",
          "paddle_tpu.tensor": "paddle_tpu_torch.tensor",
          "paddle_tpu.nn": "paddle_tpu_torch.nn",
@@ -201,7 +233,10 @@ PORTS = {"paddle_tpu": "paddle_tpu_torch",
          "paddle_tpu.optimizer": "paddle_tpu_torch.optimizer",
          "paddle_tpu.linalg": "paddle_tpu_torch.linalg",
          **{name: name.replace("paddle_tpu", "paddle_tpu_torch", 1)
-            for name in PLANE}}
+            for name in PLANE},
+         "paddle_tpu.distributed": "paddle_tpu_torch.distributed",
+         "paddle_tpu.distributed.fleet": "paddle_tpu_torch.distributed.fleet",
+         "paddle_tpu.serving": "paddle_tpu_torch.serving"}
 # the modules the port offers whole
 WHOLE = {"paddle_tpu.nn": NN, "paddle_tpu.nn.functional": NN_F,
          "paddle_tpu.amp": AMP, "paddle_tpu.optimizer": OPTIMIZER,
@@ -245,6 +280,12 @@ def test_surface_coverage(ref_name):
         assert (len(have), len(names)) == (11, 11)
     if ref_name == "paddle_tpu.compile_cache":
         assert (len(have), len(names)) == (16, 16)
+    if ref_name == "paddle_tpu.distributed":
+        assert (len(have), len(names)) == (62, 76)
+    if ref_name == "paddle_tpu.distributed.fleet":
+        assert (len(have), len(names)) == (22, 29)
+    if ref_name == "paddle_tpu.serving":
+        assert (len(have), len(names)) == (17, 18)
     if ref_name == "paddle_tpu.tensor":
         # every op of paddle.tensor, also at the top level, as there
         assert len(have) >= 300
@@ -252,7 +293,7 @@ def test_surface_coverage(ref_name):
         assert all(_offered(paddle_tpu_torch, n) for n in have)
         covered = set(have)
     else:
-        covered = {"paddle_tpu": TOP, **WHOLE, **PLANE}[ref_name]
+        covered = {"paddle_tpu": TOP, **WHOLE, **PLANE, **MULTI}[ref_name]
     lost = sorted(n for n in covered if not _offered(port, n))
     assert not lost, f"{ref_name}: covered names went missing: {lost}"
 

@@ -222,6 +222,17 @@ def test_bfloat16_tensor_round_trips_without_ml_dtypes(tmp_path,
 
 
 def test_mesh_placement_waits_for_item_5c(saved):
+    """Item 5c, part 1 ported mesh placement: ``load_sharded(mesh=)``
+    places an entry with a recorded spec on the mesh (a MeshTensor) and
+    loads the rest as they are; without a spec nothing is split."""
+    from paddle_tpu_torch.distributed.mesh_utils import MeshTensor, build_mesh
     _, paths = saved
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        pck.load_sharded(paths["port"], mesh=object())
+    mesh = build_mesh({"mp": 2}, devices=["cpu"] * 2)
+    plain = pck.load_sharded(paths["port"])
+    placed = pck.load_sharded(paths["port"], mesh=mesh)
+    assert set(placed) == set(plain)
+    for name, t in placed.items():
+        if isinstance(t, MeshTensor):
+            assert torch.equal(t.full("cpu"), plain[name])
+        else:
+            assert torch.equal(t, plain[name])

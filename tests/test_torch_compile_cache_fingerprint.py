@@ -34,8 +34,12 @@ def test_plain_functions_key_as_the_reference():
         jfp.function_fingerprint(_plain)
     assert pfp.bytes_fingerprint(b"abc") == jfp.bytes_fingerprint(b"abc")
     assert pfp.mesh_fingerprint(None) == jfp.mesh_fingerprint(None) == "none"
-    with pytest.raises(NotImplementedError, match="5c"):
-        pfp.mesh_fingerprint(object())
+    # a real mesh keys by its axes, degrees and slots (item 5c, part 1)
+    from paddle_tpu_torch.distributed.mesh_utils import build_mesh
+    two = pfp.mesh_fingerprint(build_mesh({"mp": 2}, devices=["cpu"] * 2))
+    assert two != "none" and '"mp": 2' in two
+    assert two != pfp.mesh_fingerprint(build_mesh({"dp": 2},
+                                                  devices=["cpu"] * 2))
 
 
 def test_function_source_and_closure_change_the_key():

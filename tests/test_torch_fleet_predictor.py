@@ -222,10 +222,17 @@ def test_left_out_paths_raise_naming_their_items(tmp_path):
         assert be.warmup() == 0 and be.ready()
     finally:
         be.shutdown()
+    # the serving mesh is ported (item 5c, part 1): a CPU replica spans
+    # cpu slots, its predictor carries the mesh, /statusz shows it
     pflags.set_flags({"FLAGS_serving_mesh_mp": 2})
     try:
-        with pytest.raises(NotImplementedError, match="5c"):
-            pfleet.PredictorBackend(str(tmp_path / "m"), device="cpu")
+        be = pfleet.PredictorBackend(str(tmp_path / "m"), device="cpu")
+        try:
+            assert be.serving_mesh.live and be.serving_mesh.mp == 2
+            assert be.server.predictor.serving_mesh is be.serving_mesh
+            assert be.info()["serving_mesh"]["axes"] == {"mp": 2}
+        finally:
+            be.shutdown()
     finally:
         pflags.set_flags({"FLAGS_serving_mesh_mp": 1})
     be = pfleet.StubBackend()

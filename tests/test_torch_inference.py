@@ -351,8 +351,16 @@ class TestPrecisionAndRefusals:
         fp = pred.artifact_fingerprint()
         assert len(fp) == 64 and int(fp, 16) >= 0
         assert pred.artifact_fingerprint() == fp
-        with pytest.raises(NotImplementedError, match="5c"):
-            pred.attach_serving_mesh(None)
+        # the serving mesh is ported (item 5c, part 1): an inert mesh
+        # keeps the key, a live one changes it; the fingerprint stays
+        from paddle_tpu_torch.distributed.mesh_utils import build_mesh
+        assert pred.attach_serving_mesh(None) is pred
+        inert = pred._cache_identity()
+        pred.attach_serving_mesh(build_mesh({"mp": 2}, devices=["cpu"] * 2))
+        assert pred._cache_identity() != inert
+        assert pred.artifact_fingerprint() == fp
+        pred.attach_serving_mesh(None)
+        assert pred._cache_identity() == inert
         (tmp_path / "empty").mkdir()
         with pytest.raises(ValueError, match="no .pt2"):
             inference.Config(str(tmp_path / "empty"))

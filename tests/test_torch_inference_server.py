@@ -323,15 +323,22 @@ class TestRobustness:
         assert srv.telemetry is not None and srv.telemetry.port > 0
         srv.shutdown()
         stop_telemetry_server()
-        for flag, value, item in (("FLAGS_serving_mesh_mp", 2, "5c"),
-                                  ("FLAGS_serving_capi_batching", True,
-                                   "5d")):
+        for flag, value, item in (("FLAGS_serving_capi_batching", True,
+                                   "5d"),):
             pflags.set_flags({flag: value})
             try:
                 with pytest.raises(NotImplementedError, match=item):
                     serving.InferenceServer(pp, start=False)
             finally:
                 pflags.set_flags({flag: pflags._REGISTRY[flag].default})
+        # a tensor-parallel replica is its predictor's business (item 5c,
+        # part 1), as the reference's: the server reads no mesh flag
+        pflags.set_flags({"FLAGS_serving_mesh_mp": 2})
+        try:
+            serving.InferenceServer(pp, name="tp_left_mesh",
+                                    start=False).shutdown()
+        finally:
+            pflags.set_flags({"FLAGS_serving_mesh_mp": 1})
         # the warmup manifest is ported (tests/test_torch_warmup_manifest.
         # py): without a compile-cache directory there is none, a replay
         # runs nothing and the flag no longer refuses the server
